@@ -3,18 +3,21 @@
 
     python3 chip_profile.py [--nx 216] [--out chiprun_out/profile.txt]
 
-Runs the solves of ``chip_smoke.py``'s phases 4 and 5 through the same
-entry points (CG and fused CG on Laplacian + I; plain CG and GMG-CG with
-the Jacobi and the Chebyshev smoother on pure Poisson), each five times
-warm and untraced and once under ``torch.profiler``, and prints one JSON
-line per solve:
+Runs the solves of ``chip_smoke.py``'s two paths through the same entry
+points (CG and fused CG on Laplacian + I; plain CG and GMG-CG with the
+Jacobi and the Chebyshev smoother on pure Poisson; block CG with 8
+right-hand sides in the ``auto`` (interleaved) layout on Laplacian + I;
+f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson), each five times warm
+and untraced and once under ``torch.profiler``, and prints one JSON line
+per solve:
 
 - ``device_busy_ms``: the union of the kernel and copy intervals in the
   trace;
 - ``wall_ms``: the median of five untraced warm solves, host clock;
 - ``idle_share``: 1 - device_busy_ms / wall_ms;
 - ``device_ops``: the number of kernels and copies the solve ran;
-- ``dia_kernels_ms``: the device time of the port's DIA SpMV kernels;
+- ``dia_kernels_ms``: the device time of the port's DIA SpMV and SpMM
+  kernels;
 - ``top``: the kernels that take the most device time, as
   [name, ms, launches].
 
@@ -35,13 +38,14 @@ from chip_smoke import emit, phase_device
 
 
 def _solves(device, nx):
-    """(label, solve) pairs: chip_smoke.py's phase 4 and 5 solves."""
+    """(label, solve) pairs: chip_smoke.py's solves.  Each solve returns a
+    pair whose second item has ``iterations``."""
     import numpy as np
     import torch
 
     from sigma_tpu_torch import (
-        SymmetricDIAMatrix, cg_fused_solve, cg_solve, laplacian_3d_dia,
-        structured_pair_amg,
+        SymmetricDIAMatrix, block_cg_solve, cg_fused_solve, cg_solve,
+        laplacian_3d_dia, lobpcg, structured_pair_amg,
     )
 
     A = laplacian_3d_dia(nx, torch.float32, device)
@@ -62,6 +66,21 @@ def _solves(device, nx):
             S, (nx, nx, nx), pairs_per_level=3, level_dtype=torch.bfloat16, **kw
         )
         yield label, lambda M=M: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=M)
+    del S, bs, M
+
+    A = laplacian_3d_dia(nx, torch.float32, device)
+    i = torch.arange(A.shape[0], dtype=torch.float32, device=device)
+    B = A.matmat(torch.stack([torch.sin(i * (0.001 * (j + 1))) for j in range(8)], dim=1))
+    yield "block_cg_auto", lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=100)
+    del A, B, i
+
+    host = laplacian_3d_dia(nx, torch.float32, "cpu", diag=6.0)
+    P = host.to(device)
+    M = structured_pair_amg(P, (nx, nx, nx), pairs_per_level=3, host_data=host.data.numpy())
+    X0 = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((P.shape[0], 4)).astype(np.float32)
+    ).to(device)
+    yield "lobpcg_f32_gmg", lambda: (None, lobpcg(P, X0, M=M, tol=1e-4, maxiter=120))
 
 
 def _device_events(prof):

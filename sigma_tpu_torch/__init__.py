@@ -1,10 +1,11 @@
 """sigma_tpu_torch — the PyTorch + CUDA port of sigma_tpu.
 
-A second package beside the JAX one, held against it by the tests.  This
-first slice is the stencil main path: DIA storage (full and symmetric),
-the two hand-written DIA SpMV kernels for Hopper that every matvec runs on
-a CUDA device, the operator algebra, CG and fused CG, and the structured
-pair-aggregation multigrid preconditioner.
+A second package beside the JAX one, held against it by the tests.  It
+holds the stencil main path: DIA storage (full and symmetric), the
+hand-written DIA SpMV and SpMM kernels for Hopper that every matvec and
+multi-RHS product runs on a CUDA device, the operator algebra, CG, fused
+CG and block CG, the structured pair-aggregation multigrid
+preconditioner, and the LOBPCG eigensolver.
 
 The package imports torch and numpy only (never JAX) and is importable on
 a machine with no GPU; the kernels are compiled by nvcc at first use on a
@@ -12,6 +13,7 @@ CUDA tensor.  There is no global default device: every tensor is made on
 the device of the operand it derives from.
 """
 
+from sigma_tpu_torch.eigen import LOBPCGResult, lobpcg
 from sigma_tpu_torch.graph import DIAGraph, Graph
 from sigma_tpu_torch.matrix import DIAMatrix, SparseMatrix, SymmetricDIAMatrix
 from sigma_tpu_torch.operators import (
@@ -31,6 +33,7 @@ from sigma_tpu_torch.problems import laplacian_3d_dia
 from sigma_tpu_torch.solvers import (
     SolveInfo,
     StructuredAMGPreconditioner,
+    block_cg_solve,
     cg_fused_solve,
     cg_solve,
     structured_pair_amg,

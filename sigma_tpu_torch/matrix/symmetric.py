@@ -8,10 +8,11 @@ diagonals with offset >= 0 are stored; the lower triangle is the mirror
         + sum_{o>0}  win(data[o] * x, -o)      (mirror)
 
 Every matvec goes through
-:func:`sigma_tpu_torch.ops.spmv_dia.dia_sym_spmv` (the CUDA kernel for a
-CUDA operand, the plain PyTorch version for a CPU one).  This is a
-:class:`LinearOperator`, not a SparseMatrix: convert with
-:meth:`from_dia` / :meth:`to_dia` for structural edits.
+:func:`sigma_tpu_torch.ops.spmv_dia.dia_sym_spmv` and every multi-RHS
+product through :func:`sigma_tpu_torch.ops.spmm_dia.dia_sym_spmm` (the
+CUDA kernel for a CUDA operand, the plain PyTorch version for a CPU
+one).  This is a :class:`LinearOperator`, not a SparseMatrix: convert
+with :meth:`from_dia` / :meth:`to_dia` for structural edits.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import numpy as np
 import torch
 
 from sigma_tpu_torch.graph.graph import DIAGraph
-from sigma_tpu_torch.matrix.formats import DIAMatrix
+from sigma_tpu_torch.matrix.formats import DIAMatrix, interleaved_apply, panel_apply
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
+from sigma_tpu_torch.ops.spmm_dia import MAX_PANELS, dia_sym_spmm
 from sigma_tpu_torch.ops.spmv_dia import dia_sym_spmv
 from sigma_tpu_torch.utils.dtypes import index_dtype, round_up
 
@@ -119,6 +121,30 @@ class SymmetricDIAMatrix(LinearOperator):
         return dia_sym_spmv(self.data, x, self.offsets_dev, self.n)
 
     rmatvec = matvec  # symmetric
+
+    # -- multi-RHS products (layouts as DIAMatrix's) ----------------------
+    def _spmm(self, X, layout):
+        return dia_sym_spmm(self.data, X, self.offsets_dev, self.n, layout)
+
+    def matmat(self, X):
+        """A @ X for X (n, k): one SpMM launch per 16 columns, each stored
+        value read once (twice with the mirror term, from L2) for all."""
+        return panel_apply(X, self._spmm, self.n)
+
+    rmatmat = matmat  # symmetric
+
+    def matmat_rhs_major(self, XT):
+        """RHS-major product XT (k, n) -> (k, n), no transposes."""
+        return self.matmat(XT.T).T
+
+    def matmat_interleaved(self, XI):
+        """Product of interleaved panels (k * ceil(n/128), 128), returned in
+        the same layout (see :meth:`DIAMatrix.matmat_interleaved`)."""
+        return interleaved_apply(XI, self._spmm, self.matmat_rhs_major, self.n, self.n)
+
+    def interleaved_profitable(self, k) -> bool:
+        """See :meth:`DIAMatrix.interleaved_profitable`."""
+        return self.data.device.type == "cuda" and 1 <= k <= MAX_PANELS
 
     def diagonal(self) -> torch.Tensor:
         if 0 in self.offsets:

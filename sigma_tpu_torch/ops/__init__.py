@@ -1,14 +1,29 @@
-"""Hand-written GPU kernels for the hot SpMV paths.
+"""Hand-written GPU kernels for the hot SpMV and SpMM paths.
 
 * :mod:`sigma_tpu_torch.ops.spmv_dia` — the DIA (stencil) SpMV kernels,
   full storage and symmetric storage, with their plain PyTorch versions;
   :class:`~sigma_tpu_torch.matrix.formats.DIAMatrix` and
   :class:`~sigma_tpu_torch.matrix.symmetric.SymmetricDIAMatrix` call them
   for every matvec.
+* :mod:`sigma_tpu_torch.ops.spmm_dia` — the DIA SpMM kernels (Y = A X for
+  up to 16 panels, in the RHS-major, interleaved or column layout) with
+  their plain versions and the panel (de-)interleaving; the same classes
+  call them for every ``matmat``, ``matmat_rhs_major`` and
+  ``matmat_interleaved``.
 """
 
 import torch
 
+from sigma_tpu_torch.ops.spmm_dia import (
+    LAYOUTS,
+    MAX_PANELS,
+    deinterleave_panels,
+    dia_spmm,
+    dia_spmm_reference,
+    dia_sym_spmm,
+    dia_sym_spmm_reference,
+    interleave_panels,
+)
 from sigma_tpu_torch.ops.spmv_dia import (
     KERNEL_DTYPES,
     dia_spmv,
@@ -28,9 +43,17 @@ def cuda_available() -> bool:
 
 __all__ = [
     "KERNEL_DTYPES",
+    "LAYOUTS",
+    "MAX_PANELS",
     "cuda_available",
+    "deinterleave_panels",
+    "dia_spmm",
+    "dia_spmm_reference",
     "dia_spmv",
     "dia_spmv_reference",
+    "dia_sym_spmm",
+    "dia_sym_spmm_reference",
     "dia_sym_spmv",
     "dia_sym_spmv_reference",
+    "interleave_panels",
 ]

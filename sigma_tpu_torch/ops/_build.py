@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``sigma_tpu_torch/csrc/`` are compiled by ``nvcc`` into a
-shared library with a plain C interface at first use, and loaded with
+Every source ``sigma_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` (one
+process per source, all started together) and the objects are linked into
+one shared library with a plain C interface at first use, loaded with
 ``ctypes``.  The library lands in ``build/sigma_tpu_torch/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing here runs at
-import time: the CPU-only machines that run the tests have no ``nvcc``.
+the checkout, named by a hash of every source and header and the flags, so
+an edited source is rebuilt and an unchanged one is reused.  Nothing here
+runs at import time: the CPU-only machines that run the tests have no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,11 @@ from pathlib import Path
 __all__ = ["Build", "build", "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dia_spmv.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sigma_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
 class Build:
     path: Path
     seconds: float  # compile time of this call; 0.0 when reused
-    log: str  # nvcc's output (ptxas register/shared-memory report)
+    log: str  # nvcc's output (ptxas register, shared-memory and spill report)
 
 
 def _nvcc() -> str:
@@ -46,7 +47,7 @@ def _nvcc() -> str:
     if CUDA_HOME is None:
         raise RuntimeError(
             "nvcc not found: set CUDA_HOME or put nvcc on PATH to build "
-            f"{SOURCE.name}"
+            f"the kernels in {CSRC}"
         )
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
     if not os.path.exists(nvcc):
@@ -54,27 +55,52 @@ def _nvcc() -> str:
     return nvcc
 
 
+def sources() -> list[Path]:
+    """The kernel sources compiled into the library, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; return their joined output, or raise
+    with the output of the first that failed."""
+    cmds = list(cmds)
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> Build:
-    """Compile the kernels unless a library of this source and these flags
-    is already built; raise with the compiler's output on failure."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libdia_spmv-{key}.so"
+    """Compile the kernels unless a library of these sources and these
+    flags is already built; raise with the compiler's output on failure."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):  # sources and headers
+        h.update(f.name.encode() + f.read_bytes())
+    key = h.hexdigest()[:16]
+    out = BUILD_DIR / f"libsigma_kernels-{key}.so"
     log_path = out.with_suffix(".log")
     if out.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return Build(out, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{key}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources()]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all(
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(s)]
+        for s, o in zip(sources(), objs)
+    )
+    log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+    for o in objs:
+        o.unlink()
     log_path.write_text(log)
     os.replace(tmp, out)  # atomic: another process never loads a partial file
     return Build(out, seconds, log)
@@ -95,4 +121,12 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, ptr,
     ]
     lib.sigma_dia_sym_spmv.restype = i32
+    lib.sigma_dia_spmm.argtypes = [
+        i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64, ptr,
+    ]
+    lib.sigma_dia_spmm.restype = i32
+    lib.sigma_dia_sym_spmm.argtypes = [
+        i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr,
+    ]
+    lib.sigma_dia_sym_spmm.restype = i32
     return lib

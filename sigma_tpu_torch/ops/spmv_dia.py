@@ -99,9 +99,9 @@ def _check(data, x, offsets, n, m):
         )
 
 
-def _launch(entry, data, x, offsets, n, *extra):
-    """Launch one kernel on the current stream; returns y (n,) in x's
-    dtype.  Raises on anything the kernel does not take."""
+def _launch(entry, data, x, offsets, y_shape, n, *extra):
+    """Launch one kernel on the current stream; returns y of ``y_shape``
+    in x's dtype.  Raises on anything the kernel does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"no DIA kernel for device {x.device}")
     if (data.dtype, x.dtype) not in KERNEL_DTYPES:
@@ -111,7 +111,7 @@ def _launch(entry, data, x, offsets, n, *extra):
     for name, t in (("data", data), ("x", x), ("offsets", offsets)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    y = torch.empty(y_shape, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(_build.library(), entry)(
         x.device.index, _CODES[data.dtype], _CODES[x.dtype],
@@ -133,7 +133,7 @@ def dia_spmv(data, x, offsets, n, m):
         return dia_spmv_reference(data, x, offsets, n, m)
     if n == 0:
         return torch.empty(0, dtype=x.dtype, device=x.device)
-    y = _launch("sigma_dia_spmv", data, x, offsets, n, m)
+    y = _launch("sigma_dia_spmv", data, x, offsets, (n,), n, m)
     dia_spmv.launches += 1
     return y
 
@@ -150,7 +150,7 @@ def dia_sym_spmv(data, x, offsets, n):
         return dia_sym_spmv_reference(data, x, offsets, n)
     if n == 0:
         return torch.empty(0, dtype=x.dtype, device=x.device)
-    y = _launch("sigma_dia_sym_spmv", data, x, offsets, n)
+    y = _launch("sigma_dia_sym_spmv", data, x, offsets, (n,), n)
     dia_sym_spmv.launches += 1
     return y
 

@@ -245,6 +245,15 @@ class StructuredAMGPreconditioner(LinearOperator):
 
     rmatvec = matvec  # symmetric cycle
 
+    def matmat(self, X):
+        """One V-cycle per column, as the JAX package's explicit per-column
+        loop: the level operators' SpMVs run once per column."""
+        return torch.stack(
+            [self._cycle(0, X[:, j].contiguous()) for j in range(X.shape[1])], dim=1
+        )
+
+    rmatmat = matmat
+
     def _restrict(self, lvl: _SLevel, r):
         """P^T r through this level's pairing axes, in order; returns
         ``(rc, stages)`` where ``stages`` are the per-stage grid extents

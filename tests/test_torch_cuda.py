@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version, and
-CG / GMG-CG on the card against the same solve on the CPU.
+CG / GMG-CG / block CG / LOBPCG on the card against the same solve on the
+CPU.
 
 Marked ``cuda``; every test skips without a CUDA device.  The test
 configuration imports JAX, which the GPU machine need not have, so run
@@ -15,6 +16,12 @@ import torch
 import sigma_tpu_torch as st
 from sigma_tpu_torch.ops import (
     KERNEL_DTYPES,
+    LAYOUTS,
+    dia_spmm,
+    dia_spmm_reference,
+    dia_sym_spmm,
+    dia_sym_spmm_reference,
+    interleave_panels,
     dia_spmv,
     dia_spmv_reference,
     dia_sym_spmv,
@@ -103,3 +110,107 @@ def test_gmg_cg_on_card_matches_cpu(cuda):
     x_gpu, i_gpu = st.cg_solve(A.to(cuda), b.to(cuda), tol=0.0, rtol=1e-10, M=M.to(cuda))
     assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations
     assert rel(x_gpu, x_cpu) <= 1e-9
+
+
+def _panels(XT, layout):
+    if layout == "cols":
+        return XT.T.contiguous()
+    if layout == "interleaved":
+        return interleave_panels(XT)
+    return XT
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+def test_dia_spmm_kernel(cuda, pair, layout, k):
+    vdt, xdt = pair
+    n, m, offsets = 45_001, 60_000, [-4, -1, 0, 300, 2500]  # wide, unaligned
+    g = torch.Generator(device=cuda).manual_seed(2)
+    data = torch.randn(len(offsets), -(-n // 128) * 128, generator=g, device=cuda).to(vdt)
+    X = _panels(torch.randn(k, m, generator=g, device=cuda).to(xdt), layout)
+    offs = torch.tensor(offsets, device=cuda)
+    before = dia_spmm.launches, dia_spmm.launches_by_layout[layout]
+    Y = dia_spmm(data, X, offs, n, m, layout)
+    torch.cuda.synchronize()
+    assert (dia_spmm.launches, dia_spmm.launches_by_layout[layout]) == (
+        before[0] + 1, before[1] + 1
+    )
+    ref = dia_spmm_reference(data, X, offs, n, m, layout)
+    assert Y.dtype == xdt and Y.shape == ref.shape
+    # covers the interleaved padding rows, which must come back zero
+    assert rel(Y, ref) <= _tol(xdt)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+def test_dia_sym_spmm_kernel(cuda, pair, layout, k):
+    vdt, xdt = pair
+    n, offsets = 33_333, [0, 1, 130, 2500]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    data = torch.randn(len(offsets), -(-n // 128) * 128, generator=g, device=cuda).to(vdt)
+    X = _panels(torch.randn(k, n, generator=g, device=cuda).to(xdt), layout)
+    offs = torch.tensor(offsets, device=cuda)
+    before = dia_sym_spmm.launches
+    Y = dia_sym_spmm(data, X, offs, n, layout)
+    torch.cuda.synchronize()
+    assert dia_sym_spmm.launches == before + 1
+    assert rel(Y, dia_sym_spmm_reference(data, X, offs, n, layout)) <= _tol(xdt)
+
+
+def test_spmm_kernel_rejects_what_it_does_not_take(cuda):
+    data = torch.zeros(1, 128, dtype=torch.float64, device=cuda)
+    offs = torch.zeros(1, dtype=torch.int64, device=cuda)
+    # f64 values with f32 panels: no such instantiation
+    with pytest.raises(TypeError, match="no DIA kernel"):
+        dia_spmm(data, torch.zeros(100, 2, device=cuda), offs, 100, 100, "cols")
+    with pytest.raises(TypeError, match="no DIA kernel"):
+        dia_sym_spmm(data, torch.zeros(2, 100, device=cuda), offs, 100, "rhs_major")
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_spmm(data.float(), torch.zeros(2, 200, device=cuda)[:, ::2], offs, 100, 100, "rhs_major")
+    with pytest.raises(ValueError, match="1 to 16"):
+        dia_spmm(data.float(), torch.zeros(100, 17, device=cuda), offs, 100, 100, "cols")
+
+
+def test_multi_rhs_methods_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(4)
+    n, m = 60_000, 45_001
+    offsets = (-2500, -300, 0, 4, 2500)
+    data = np.zeros((len(offsets), -(-n // 128) * 128))
+    for d, o in enumerate(offsets):
+        lo, hi = max(0, -o), min(n, m - o)
+        data[d, lo:hi] = rng.standard_normal(hi - lo)
+    nnz = int(np.count_nonzero(data))
+    A = st.DIAMatrix(graph=st.DIAGraph(offsets=offsets, shape=(n, m), nnz=nnz),
+                     data=torch.from_numpy(data))
+    Ag = A.to(cuda)
+    X = torch.from_numpy(rng.standard_normal((m, 20)))
+    assert rel(Ag.matmat(X.to(cuda)), A.matmat(X)) <= 1e-12  # two passes: 16 + 4
+    Xn = torch.from_numpy(rng.standard_normal((n, 5)))
+    assert rel(Ag.rmatmat(Xn.to(cuda)), A.rmatmat(Xn)) <= 1e-12
+    XI = interleave_panels(X[:, :8].T.contiguous(), m)
+    assert rel(Ag.matmat_interleaved(XI.to(cuda)), A.matmat_interleaved(XI)) <= 1e-12
+    assert Ag.interleaved_profitable(8) and not A.interleaved_profitable(8)
+
+
+def test_block_cg_and_lobpcg_on_card_match_cpu(cuda):
+    nx = 24
+    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0))
+    M = st.structured_pair_amg(A, (nx, nx, nx), pairs_per_level=3)
+    B = torch.from_numpy(np.random.default_rng(5).standard_normal((A.shape[0], 4)))
+    Ag, Mg = A.to(cuda), M.to(cuda)
+    X_cpu, i_cpu = st.block_cg_solve(A, B, tol=0.0, rtol=1e-10, M=M)
+    X_gpu, i_gpu = st.block_cg_solve(Ag, B.to(cuda), tol=0.0, rtol=1e-10, M=Mg)
+    assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations
+    assert rel(X_gpu, X_cpu) <= 1e-9
+    # the interleaved layout on the card takes the column layout's iterations
+    Af = st.laplacian_3d_dia(nx, torch.float64, cuda)
+    Xi, ii = st.block_cg_solve(Af, B.to(cuda), tol=0.0, rtol=1e-10, panels="auto")
+    Xc, ic = st.block_cg_solve(Af, B.to(cuda), tol=0.0, rtol=1e-10, panels="cols")
+    assert ii.iterations == ic.iterations and rel(Xi, Xc) <= 1e-9
+    X0 = np.random.default_rng(6).standard_normal((A.shape[0], 3))
+    r_cpu = st.lobpcg(A, X0, M=M, tol=1e-7, maxiter=200)
+    r_gpu = st.lobpcg(Ag, X0, M=Mg, tol=1e-7, maxiter=200)
+    assert r_gpu.converged
+    assert rel(r_gpu.eigenvalues, r_cpu.eigenvalues) <= 1e-10
