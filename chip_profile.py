@@ -3,21 +3,22 @@
 
     python3 chip_profile.py [--nx 216] [--out chiprun_out/profile.txt]
 
-Runs the solves of ``chip_smoke.py``'s two paths through the same entry
+Runs the solves of ``chip_smoke.py``'s paths through the same entry
 points (CG and fused CG on Laplacian + I; plain CG and GMG-CG with the
 Jacobi and the Chebyshev smoother on pure Poisson; block CG with 8
 right-hand sides in the ``auto`` (interleaved) layout on Laplacian + I;
-f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson), each five times warm
-and untraced and once under ``torch.profiler``, and prints one JSON line
-per solve:
+f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson; on the 10M-row
+irregular mesh, CG and pruned-multigrid CG on full and on symmetric
+pruned storage), each five times warm and untraced and once under
+``torch.profiler``, and prints one JSON line per solve:
 
 - ``device_busy_ms``: the union of the kernel and copy intervals in the
   trace;
 - ``wall_ms``: the median of five untraced warm solves, host clock;
 - ``idle_share``: 1 - device_busy_ms / wall_ms;
 - ``device_ops``: the number of kernels and copies the solve ran;
-- ``dia_kernels_ms``: the device time of the port's DIA SpMV and SpMM
-  kernels;
+- ``port_kernels_ms``: the device time of the port's DIA and pruned
+  SpMV and SpMM kernels;
 - ``top``: the kernels that take the most device time, as
   [name, ms, launches].
 
@@ -34,7 +35,7 @@ import statistics
 import sys
 import time
 
-from chip_smoke import emit, phase_device
+from chip_smoke import _manufactured, emit, phase_device, unstructured_setup
 
 
 def _solves(device, nx):
@@ -81,6 +82,14 @@ def _solves(device, nx):
         np.random.default_rng(0).standard_normal((P.shape[0], 4)).astype(np.float32)
     ).to(device)
     yield "lobpcg_f32_gmg", lambda: (None, lobpcg(P, X0, M=M, tol=1e-4, maxiter=120))
+    del host, P, M, X0
+
+    U = unstructured_setup(device)
+    b = _manufactured(U)[2]
+    for label, A, Mg in (("pruned_cg_full", U["P"], None), ("pruned_cg_sym", U["S"], None),
+                         ("pruned_gmg_cg_full", U["P"], U["Mf"]),
+                         ("pruned_gmg_cg_sym", U["S"], U["Ms"])):
+        yield label, lambda A=A, Mg=Mg: cg_solve(A, b, tol=0.0, rtol=1e-6, maxiter=300, M=Mg)
 
 
 def _device_events(prof):
@@ -149,7 +158,7 @@ def main():
                 "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
                 "idle_share": 1.0 - busy_ms / (wall * 1e3),
                 "device_ops": len(events),
-                "dia_kernels_ms": sum(v[0] for k, v in ranked if "dia_" in k),
+                "port_kernels_ms": sum(v[0] for k, v in ranked if "dia_" in k or "pruned_" in k),
                 "top": [[k[:70], v[0], v[1]] for k, v in ranked[:6]],
             })
             out.write(f"{label}: {info.iterations} iterations, device busy "

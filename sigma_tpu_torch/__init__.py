@@ -5,17 +5,30 @@ holds the stencil main path: DIA storage (full and symmetric), the
 hand-written DIA SpMV and SpMM kernels for Hopper that every matvec and
 multi-RHS product runs on a CUDA device, the operator algebra, CG, fused
 CG and block CG, the structured pair-aggregation multigrid
-preconditioner, and the LOBPCG eigensolver.
+preconditioner, and the LOBPCG eigensolver.  And the unstructured path:
+the irregular-mesh generator, RCM reordering and the pruned block-DIA
+pack (host C++ built by g++), pruned storage (full and symmetric) on its
+four hand-written SpMV/SpMM kernels, and the pruned pair multigrid.
 
 The package imports torch and numpy only (never JAX) and is importable on
 a machine with no GPU; the kernels are compiled by nvcc at first use on a
-CUDA tensor.  There is no global default device: every tensor is made on
-the device of the operand it derives from.
+CUDA tensor.  Constructors that build from host data (COO triples, numpy
+arrays, a grid size) build on CUDA unless given ``device=`` (the tests pass
+``device="cpu"``, which runs the kernels' plain versions); everything
+else makes its tensors on the device of the operand it derives from.
 """
 
+from sigma_tpu_torch.apps import irregular_mesh_laplacian_coo
 from sigma_tpu_torch.eigen import LOBPCGResult, lobpcg
-from sigma_tpu_torch.graph import DIAGraph, Graph
-from sigma_tpu_torch.matrix import DIAMatrix, SparseMatrix, SymmetricDIAMatrix
+from sigma_tpu_torch.graph import DIAGraph, Graph, reverse_cuthill_mckee
+from sigma_tpu_torch.matrix import (
+    DIAMatrix,
+    PrunedDIAMatrix,
+    SparseMatrix,
+    SymmetricDIAMatrix,
+    SymmetricPrunedDIAMatrix,
+    reorder_triples_rcm,
+)
 from sigma_tpu_torch.operators import (
     AdjointOperator,
     DenseOperator,
@@ -33,9 +46,12 @@ from sigma_tpu_torch.problems import laplacian_3d_dia
 from sigma_tpu_torch.solvers import (
     SolveInfo,
     StructuredAMGPreconditioner,
+    auto_pruned_preconditioner,
     block_cg_solve,
     cg_fused_solve,
     cg_solve,
+    pruned_pair_amg,
+    skew_dominance,
     structured_pair_amg,
 )
 

@@ -1,0 +1,3 @@
+from sigma_tpu_torch.apps.generators import irregular_mesh_laplacian_coo
+
+__all__ = ["irregular_mesh_laplacian_coo"]

@@ -1,10 +1,16 @@
 """Carry the JAX package's state across as port objects.
 
 Takes plain numpy arrays (for example ``np.asarray(A.data)`` of a
-``sigma_tpu`` matrix) and returns port objects on a given device; it
-imports nothing of JAX.  DIA values are accepted in the JAX package's
-``(D, S, 128)`` tile layout or as ``(D, stride)``: the flat element order
-is the same, so the conversion is a reshape.
+``sigma_tpu`` matrix) and returns port objects on a given device (CUDA
+when ``device`` is None); it imports nothing of JAX.  DIA values are
+accepted in the JAX package's ``(D, S, 128)`` tile layout or as
+``(D, stride)``: the flat element order is the same, so the conversion
+is a reshape.  A pruned plan arrives as the JAX package's arrays
+(``data`` (L, C, T, 128), ``tile``, ``first``, ``rowoff``, ``laneoff``)
+and is mapped to the port's layout: the values are a reshape to
+(L * C, T * 128), each slot's window position becomes its column offset
+``(rowoff - halo) * 128 + laneoff``, and the per-step tiles become
+per-tile slot ranges.
 """
 
 from __future__ import annotations
@@ -16,23 +22,32 @@ import torch
 
 from sigma_tpu_torch.graph.graph import DIAGraph
 from sigma_tpu_torch.matrix.formats import DIAMatrix
+from sigma_tpu_torch.matrix.pruned import PrunedDIAMatrix, SymmetricPrunedDIAMatrix
 from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
 from sigma_tpu_torch.solvers.gmg import StructuredAMGPreconditioner, _SLevel
+from sigma_tpu_torch.utils.device import resolve_device
 
-__all__ = ["dia_from_arrays", "sym_dia_from_arrays", "structured_amg_from_arrays"]
+__all__ = [
+    "dia_from_arrays",
+    "pruned_amg_from_arrays",
+    "pruned_from_arrays",
+    "structured_amg_from_arrays",
+    "sym_dia_from_arrays",
+]
 
 
 def _tensor(arr, device) -> torch.Tensor:
-    """A copy of a numpy array as a tensor on ``device``.  A bfloat16 array
-    (numpy's ml_dtypes extension; torch cannot read it) widens exactly to
-    float32 and narrows back."""
+    """A copy of a numpy array as a tensor on ``device`` (None: CUDA).  A
+    bfloat16 array (numpy's ml_dtypes extension; torch cannot read it)
+    widens exactly to float32 and narrows back."""
+    device = resolve_device(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.tensor(arr.astype(np.float32), device=device).to(torch.bfloat16)
     return torch.tensor(arr, device=device)
 
 
-def dia_from_arrays(offsets, data, shape, device="cpu") -> DIAMatrix:
+def dia_from_arrays(offsets, data, shape, device=None) -> DIAMatrix:
     """DIAMatrix from its offsets, values ``(D, S, 128)`` or ``(D, stride)``
     and shape (n, m)."""
     offsets = tuple(int(o) for o in offsets)
@@ -43,7 +58,7 @@ def dia_from_arrays(offsets, data, shape, device="cpu") -> DIAMatrix:
     return DIAMatrix(graph=graph, data=_tensor(values, device))
 
 
-def sym_dia_from_arrays(offsets, data, n, device="cpu") -> SymmetricDIAMatrix:
+def sym_dia_from_arrays(offsets, data, n, device=None) -> SymmetricDIAMatrix:
     """SymmetricDIAMatrix from its upper offsets, values ``(D_u, S, 128)``
     or ``(D_u, stride)`` and order n."""
     offsets = tuple(int(o) for o in offsets)
@@ -53,13 +68,14 @@ def sym_dia_from_arrays(offsets, data, n, device="cpu") -> SymmetricDIAMatrix:
 
 def structured_amg_from_arrays(
     levels: Sequence[Mapping], coarse_inv, n_smooth=1, smoother="jacobi",
-    device="cpu",
+    device=None,
 ) -> StructuredAMGPreconditioner:
     """StructuredAMGPreconditioner from per-level dicts with keys
     ``offsets``, ``data``, ``shape``, ``dinv``, ``dims``, ``axes``,
     ``omega`` and ``lmax`` (None for the Jacobi smoother), plus the dense
     ``coarse_inv``.  A level dict with ``symmetric=True`` holds
     upper-diagonal storage (a symmetric fine operator)."""
+    device = resolve_device(device)
     out = []
     for lv in levels:
         if lv.get("symmetric", False):
@@ -83,4 +99,56 @@ def structured_amg_from_arrays(
         coarse_inv=_tensor(coarse_inv, device),
         n_smooth=int(n_smooth),
         smoother=smoother,
+    )
+
+
+def pruned_from_arrays(data, tile, first, rowoff, laneoff, n, m, halo, nnz,
+                       symmetric=False, device=None) -> PrunedDIAMatrix:
+    """PrunedDIAMatrix (or SymmetricPrunedDIAMatrix) from the JAX package's
+    plan arrays: values (L, C, T, 128), per-step ``tile`` and ``first``
+    (L,), per-slot ``rowoff`` and ``laneoff`` (L * C,), and the matrix's
+    n, m, halo and nnz."""
+    data = np.asarray(data)
+    L, C, T, lanes = data.shape
+    tile = np.asarray(tile, dtype=np.int64)
+    G = -(-(-(-int(n) // lanes)) // T)  # tiles of T rows of 128
+    steps = np.bincount(tile, minlength=G)
+    # the JAX plan gives every tile, in order, a run of steps whose first
+    # is flagged: the runs become slot ranges
+    if (tile.size != L or steps.size != G or np.any(steps == 0) or np.any(np.diff(tile) < 0)
+            or not np.array_equal(np.asarray(first) == 1, np.r_[True, np.diff(tile) > 0])):
+        raise ValueError("want each tile's steps contiguous, in tile order, the first flagged")
+    offsets = (np.asarray(rowoff, np.int64) - int(halo)) * lanes + np.asarray(laneoff, np.int64)
+    tile_ptr = np.concatenate([[0], np.cumsum(steps * C)]).astype(np.int64)
+    device = resolve_device(device)
+    cls = SymmetricPrunedDIAMatrix if symmetric else PrunedDIAMatrix
+    return cls(
+        data=_tensor(data.reshape(L * C, T * lanes), device),
+        offsets=torch.from_numpy(offsets).to(device),
+        tile_ptr=torch.from_numpy(tile_ptr).to(device),
+        n=int(n), m=int(m), halo=int(halo), nnz=int(nnz), group=int(C),
+    )
+
+
+def pruned_amg_from_arrays(levels: Sequence[Mapping], coarse_inv, n_smooth=1,
+                           smoother="chebyshev", device=None) -> StructuredAMGPreconditioner:
+    """The pruned pair hierarchy of ``sigma_tpu.solvers.pruned_pair_amg``
+    from per-level dicts with the plan keys of :func:`pruned_from_arrays`
+    (``data``, ``tile``, ``first``, ``rowoff``, ``laneoff``, ``n``, ``m``,
+    ``halo``, ``nnz``, ``symmetric``) and ``dinv``, ``omega``, ``lmax``
+    (None for the Jacobi smoother), plus the dense ``coarse_inv``."""
+    device = resolve_device(device)
+    out = []
+    for lv in levels:
+        A = pruned_from_arrays(
+            lv["data"], lv["tile"], lv["first"], lv["rowoff"], lv["laneoff"], lv["n"],
+            lv["m"], lv["halo"], lv["nnz"], lv.get("symmetric", False), device,
+        )
+        lmax = lv.get("lmax")
+        out.append(_SLevel(A=A, dinv=_tensor(lv["dinv"], device), dims=(int(lv["n"]),),
+                           axes=(0,), omega=float(lv["omega"]),
+                           lmax=None if lmax is None else float(lmax)))
+    return StructuredAMGPreconditioner(
+        levels=tuple(out), coarse_inv=_tensor(coarse_inv, device),
+        n_smooth=int(n_smooth), smoother=smoother,
     )

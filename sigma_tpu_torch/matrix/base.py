@@ -4,7 +4,8 @@ Port of the core of :mod:`sigma_tpu.matrix.base`: constructors from a
 graph, COO triples or a dense array, whole-array entry export, the
 diagonal, the dense mirror, and dtype casts.  Matrices are immutable
 values; the value tensor lives on one device and every constructor
-takes the ``device`` to build it on.
+takes the ``device`` to build it on: CUDA when it is None (raising
+without a card), another device only when the caller passes it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from sigma_tpu_torch.graph.graph import Graph
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
+from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import default_real_dtype, to_numpy, torch_dtype
 
 __all__ = ["SparseMatrix"]
@@ -55,6 +57,7 @@ class SparseMatrix(LinearOperator):
     def from_graph(cls, graph: Graph, data=None, dtype=None, device=None):
         """Attach a value tensor (zeros by default) to an existing
         topology; many matrices may share one graph object."""
+        device = resolve_device(device)
         g = cls._coerce_graph(graph)
         if data is None:
             dt = torch_dtype(dtype) if dtype is not None else default_real_dtype()
@@ -72,6 +75,7 @@ class SparseMatrix(LinearOperator):
         cls, n, m, rows, cols, vals, dtype=None, sum_duplicates=True, device=None
     ):
         """Build from COO triples on the host and push the values once."""
+        device = resolve_device(device)
         rows = np.asarray(rows).ravel()
         cols = np.asarray(cols).ravel()
         vals = np.asarray(vals).ravel()

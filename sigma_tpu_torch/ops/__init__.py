@@ -10,6 +10,12 @@
   their plain versions and the panel (de-)interleaving; the same classes
   call them for every ``matmat``, ``matmat_rhs_major`` and
   ``matmat_interleaved``.
+* :mod:`sigma_tpu_torch.ops.spmv_pruned` — the pruned block-DIA plan and
+  its four kernels (SpMV and SpMM, full and symmetric storage, the
+  symmetric ones with the spill past the last row) with their plain
+  versions; :class:`~sigma_tpu_torch.matrix.pruned.PrunedDIAMatrix` and
+  :class:`~sigma_tpu_torch.matrix.pruned.SymmetricPrunedDIAMatrix` call
+  them for every product.
 """
 
 import torch
@@ -23,6 +29,20 @@ from sigma_tpu_torch.ops.spmm_dia import (
     dia_sym_spmm,
     dia_sym_spmm_reference,
     interleave_panels,
+)
+from sigma_tpu_torch.ops.spmv_pruned import (
+    PRUNED_LAYOUTS,
+    PrunedPlan,
+    build_pruned_plan,
+    build_pruned_plan_reference,
+    pruned_matvec_reference,
+    pruned_spmm,
+    pruned_spmm_reference,
+    pruned_spmv,
+    pruned_sym_matvec_reference,
+    pruned_sym_spmm,
+    pruned_sym_spmm_reference,
+    pruned_sym_spmv,
 )
 from sigma_tpu_torch.ops.spmv_dia import (
     KERNEL_DTYPES,
@@ -45,6 +65,10 @@ __all__ = [
     "KERNEL_DTYPES",
     "LAYOUTS",
     "MAX_PANELS",
+    "PRUNED_LAYOUTS",
+    "PrunedPlan",
+    "build_pruned_plan",
+    "build_pruned_plan_reference",
     "cuda_available",
     "deinterleave_panels",
     "dia_spmm",
@@ -56,4 +80,12 @@ __all__ = [
     "dia_sym_spmv",
     "dia_sym_spmv_reference",
     "interleave_panels",
+    "pruned_matvec_reference",
+    "pruned_spmm",
+    "pruned_spmm_reference",
+    "pruned_spmv",
+    "pruned_sym_matvec_reference",
+    "pruned_sym_spmm",
+    "pruned_sym_spmm_reference",
+    "pruned_sym_spmv",
 ]

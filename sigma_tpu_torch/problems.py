@@ -2,7 +2,8 @@
 
 Port of ``bench.laplacian_3d_dia``: the 7-point 3-D Laplacian with
 analytic boundary masks, no COO sort.  The values are made on the
-requested device (at nx=216 that spares a 282 MB host-to-device copy).
+requested device (at nx=216 that spares a 282 MB host-to-device copy):
+the card unless the caller passes another ``device``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 
 from sigma_tpu_torch.graph.graph import DIAGraph
 from sigma_tpu_torch.matrix.formats import DIAMatrix
+from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import round_up
 
 __all__ = ["laplacian_3d_dia"]
@@ -21,7 +23,9 @@ def laplacian_3d_dia(nx, dtype=torch.float32, device=None, diag=7.0) -> DIAMatri
     with ``diag`` on the main diagonal: 7 gives Laplacian + I (the CG
     north star of ``benchmarks/cg3d.py``), 6 the pure Dirichlet Poisson
     operator of ``benchmarks/gmg3d.py``.  Entry for entry the matrix of
-    ``bench.laplacian_3d_dia``."""
+    ``bench.laplacian_3d_dia``.  ``device=None`` builds on CUDA and raises
+    without a card."""
+    device = resolve_device(device)
     n = nx * nx * nx
     offsets = (-nx * nx, -nx, -1, 0, 1, nx, nx * nx)
     i = torch.arange(n, device=device)

@@ -1,5 +1,8 @@
 from sigma_tpu_torch.solvers.gmg import (
     StructuredAMGPreconditioner,
+    auto_pruned_preconditioner,
+    pruned_pair_amg,
+    skew_dominance,
     structured_pair_amg,
 )
 from sigma_tpu_torch.solvers.krylov import (
@@ -12,8 +15,11 @@ from sigma_tpu_torch.solvers.krylov import (
 __all__ = [
     "SolveInfo",
     "StructuredAMGPreconditioner",
+    "auto_pruned_preconditioner",
     "block_cg_solve",
     "cg_fused_solve",
     "cg_solve",
+    "pruned_pair_amg",
+    "skew_dominance",
     "structured_pair_amg",
 ]

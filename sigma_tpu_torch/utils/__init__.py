@@ -1,3 +1,4 @@
+from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import (
     default_real_dtype,
     index_dtype,
@@ -9,6 +10,7 @@ from sigma_tpu_torch.utils.dtypes import (
 __all__ = [
     "default_real_dtype",
     "index_dtype",
+    "resolve_device",
     "round_up",
     "to_numpy",
     "torch_dtype",

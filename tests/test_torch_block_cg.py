@@ -44,7 +44,7 @@ def poisson_pair(diag=6.0, symmetric=False):
             vals.append(np.full(mk.sum(), -1.0))
     r, c, v = (np.concatenate(a) for a in (rows, cols, vals))
     Aj = sigma_tpu.DIAMatrix.from_coo(n, n, r, c, v, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
     if symmetric:
         return JaxSym.from_dia(Aj), st.SymmetricDIAMatrix.from_dia(At)
     return Aj, At

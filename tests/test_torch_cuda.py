@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version, and
 CG / GMG-CG / block CG / LOBPCG on the card against the same solve on the
-CPU.
+CPU, on the stencil and on the unstructured pruned path; and the
+constructors' default device.
 
 Marked ``cuda``; every test skips without a CUDA device.  The test
 configuration imports JAX, which the GPU machine need not have, so run
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 import sigma_tpu_torch as st
+from sigma_tpu_torch.ops import spmv_pruned as sp
 from sigma_tpu_torch.ops import (
     KERNEL_DTYPES,
     LAYOUTS,
@@ -103,7 +105,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 def test_gmg_cg_on_card_matches_cpu(cuda):
     nx = 24
-    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0))
+    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0, device="cpu"))
     M = st.structured_pair_amg(A, (nx, nx, nx), pairs_per_level=3)
     b = torch.from_numpy(np.random.default_rng(0).standard_normal(A.shape[0]))
     x_cpu, i_cpu = st.cg_solve(A, b, tol=0.0, rtol=1e-10, M=M)
@@ -196,7 +198,7 @@ def test_multi_rhs_methods_on_card_match_cpu(cuda):
 
 def test_block_cg_and_lobpcg_on_card_match_cpu(cuda):
     nx = 24
-    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0))
+    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0, device="cpu"))
     M = st.structured_pair_amg(A, (nx, nx, nx), pairs_per_level=3)
     B = torch.from_numpy(np.random.default_rng(5).standard_normal((A.shape[0], 4)))
     Ag, Mg = A.to(cuda), M.to(cuda)
@@ -214,3 +216,100 @@ def test_block_cg_and_lobpcg_on_card_match_cpu(cuda):
     r_gpu = st.lobpcg(Ag, X0, M=Mg, tol=1e-7, maxiter=200)
     assert r_gpu.converged
     assert rel(r_gpu.eigenvalues, r_cpu.eigenvalues) <= 1e-10
+
+
+def test_constructors_default_to_the_card(cuda):
+    assert st.laplacian_3d_dia(4).data.device.type == "cuda"
+    n, r, c, v = st.irregular_mesh_laplacian_coo(8, 4, rng=np.random.default_rng(0))
+    assert st.DIAMatrix.from_coo(n, n, r, c, v).data.device.type == "cuda"
+    P = st.PrunedDIAMatrix.from_coo(n, n, r, c, v, tile_rows=1024)
+    assert P.data.device.type == P.offsets.device.type == P.tile_ptr.device.type == "cuda"
+
+
+def _random_plan(rng, n, m, band, lo=None, sym_shift=0):
+    rows = rng.integers(0, n, 4 * n)
+    cols = rows + rng.integers(-band if lo is None else lo, band + 1, rows.size)
+    ok = (cols >= 0) & (cols < m)
+    return sp.build_pruned_plan(n, m, rows[ok], cols[ok], rng.standard_normal(ok.sum()),
+                                tile_rows=1024, group=3, dtype=np.float64)
+
+
+def _on(cuda, P, vdt):
+    return (torch.from_numpy(P.data).to(cuda, vdt), torch.from_numpy(P.offsets).to(cuda),
+            torch.from_numpy(P.tile_ptr).to(cuda))
+
+
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("n,m", [(5000, 5000), (4096, 4500), (3000, 2900)])
+def test_pruned_spmv_and_spmm_kernels(cuda, pair, n, m):
+    vdt, xdt = pair
+    rng = np.random.default_rng(10)
+    P = _random_plan(rng, n, m, 900)
+    d, o, tp = _on(cuda, P, vdt)
+    x = torch.from_numpy(rng.standard_normal(m)).to(cuda, xdt)
+    before = sp.pruned_spmv.launches, sp.pruned_spmm.launches
+    assert rel(sp.pruned_spmv(d, x, o, tp, n, m), sp.pruned_matvec_reference(d, x, o, tp, n, m)) <= _tol(xdt)
+    for layout in sp.PRUNED_LAYOUTS:
+        for k in (1, 3, 8, 16):
+            XT = torch.from_numpy(rng.standard_normal((k, m))).to(cuda, xdt)
+            X = XT if layout == "rhs_major" else XT.T.contiguous()
+            Y = sp.pruned_spmm(d, X, o, tp, n, m, layout)
+            assert rel(Y, sp.pruned_spmm_reference(d, X, o, tp, n, m, layout)) <= _tol(xdt)
+    torch.cuda.synchronize()
+    assert (sp.pruned_spmv.launches, sp.pruned_spmm.launches) == (before[0] + 1, before[1] + 8)
+
+
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("n,m,shift", [(5000, 5000, 0), (3072, 3072, 0), (2048, 2560, 128)])
+def test_pruned_sym_kernels_with_spill(cuda, pair, n, m, shift):
+    vdt, xdt = pair
+    rng = np.random.default_rng(11)
+    P = _random_plan(rng, n, m, 300 + shift, lo=shift)
+    d, o, tp = _on(cuda, P, vdt)
+    kw = dict(halo=P.halo, sym_shift=shift, with_spill=True)
+    x = torch.from_numpy(rng.standard_normal(m)).to(cuda, xdt)
+    y, s = sp.pruned_sym_spmv(d, x, o, tp, n, m, **kw)
+    yr, sr = sp.pruned_sym_matvec_reference(d, x, o, tp, n, m, **kw)
+    assert rel(y, yr) <= _tol(xdt) and float((s - sr).abs().max()) <= _tol(xdt) * float(yr.abs().max())
+    assert (shift > 0) == bool(sr.abs().max() > 0)
+    for layout in sp.PRUNED_LAYOUTS:
+        for k in (1, 3, 8, 16):
+            XT = torch.from_numpy(rng.standard_normal((k, m))).to(cuda, xdt)
+            X = XT if layout == "rhs_major" else XT.T.contiguous()
+            Y, S = sp.pruned_sym_spmm(d, X, o, tp, n, m, layout, **kw)
+            Yr, Sr = sp.pruned_sym_spmm_reference(d, X, o, tp, n, m, layout, **kw)
+            assert rel(Y, Yr) <= _tol(xdt)
+            assert float((S - Sr).abs().max()) <= _tol(xdt) * float(Yr.abs().max())
+
+
+def test_pruned_kernels_reject_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(12)
+    P = _random_plan(rng, 2048, 2048, 100)
+    d, o, tp = _on(cuda, P, torch.float64)
+    with pytest.raises(TypeError, match="no pruned kernel"):
+        sp.pruned_spmv(d, torch.zeros(2048, device=cuda), o, tp, 2048, 2048)
+    with pytest.raises(ValueError, match="1 to 16"):
+        sp.pruned_spmm(d, torch.zeros(2048, 17, dtype=torch.float64, device=cuda), o, tp, 2048, 2048, "cols")
+    with pytest.raises(ValueError, match="different devices"):
+        sp.pruned_spmv(d, torch.zeros(2048, dtype=torch.float64), o, tp, 2048, 2048)
+
+
+def test_unstructured_path_on_card_matches_cpu(cuda):
+    n, r, c, v = st.irregular_mesh_laplacian_coo(512, 16, rng=np.random.default_rng(0),
+                                                 shift=1e-3, shuffle=True)
+    pr, pc, v, _ = st.reorder_triples_rcm(n, r, c, v)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n))
+    for sym in (False, True):
+        cls = st.SymmetricPrunedDIAMatrix if sym else st.PrunedDIAMatrix
+        A = cls.from_coo(n, n, pr, pc, v, tile_rows=1024, assume_unique=True, device="cpu")
+        M = st.pruned_pair_amg(n, pr, pc, v, coarse_size=128, tile_rows=1024, fine_A=A,
+                               symmetric=sym)
+        x_cpu, i_cpu = st.cg_solve(A, b, tol=0.0, rtol=1e-10, M=M)
+        x_gpu, i_gpu = st.cg_solve(A.to(cuda), b.to(cuda), tol=0.0, rtol=1e-10, M=M.to(cuda))
+        assert i_gpu.converged and abs(i_gpu.iterations - i_cpu.iterations) <= 1
+        assert rel(x_gpu, x_cpu) <= 1e-8
+        B = torch.from_numpy(np.random.default_rng(2).standard_normal((n, 4)))
+        X_gpu, ib = st.block_cg_solve(A.to(cuda), B.to(cuda), tol=0.0, rtol=1e-10, M=M.to(cuda))
+        X_cpu, ibc = st.block_cg_solve(A, B, tol=0.0, rtol=1e-10, M=M)
+        assert ib.converged and abs(ib.iterations - ibc.iterations) <= 1
+        assert rel(X_gpu, X_cpu) <= 1e-8

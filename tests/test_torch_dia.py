@@ -62,7 +62,7 @@ def test_dia_matches_jax_f64(case):
     rng = np.random.default_rng(len(case))
     r, c, v = random_dia_coo(rng, n, m, offsets)
     Aj = sigma_tpu.DIAMatrix.from_coo(n, m, r, c, v, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, m, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, m, r, c, v, dtype=torch.float64, device="cpu")
     assert At.graph.offsets == Aj.graph.offsets
     assert At.nnz == Aj.nnz
     np.testing.assert_array_equal(At.data.numpy(), np.asarray(Aj.data2d))
@@ -85,7 +85,7 @@ def test_astype_exact_matches_jax(case):
     rng = np.random.default_rng(11)
     r, c, v = random_dia_coo(rng, n, m, offsets, integer=True)
     Aj = sigma_tpu.DIAMatrix.from_coo(n, m, r, c, v, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, m, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, m, r, c, v, dtype=torch.float64, device="cpu")
     Bj = Aj.astype_exact(jnp.bfloat16)
     Bt = At.astype_exact(torch.bfloat16)
     assert Bt.dtype == torch.bfloat16
@@ -105,7 +105,7 @@ def test_astype_exact_matches_jax(case):
             jnp.float32
         )
     with pytest.raises(ValueError, match="exactly representable"):
-        st.DIAMatrix.from_coo(n, m, r2, c2, v2, dtype=torch.float64).astype_exact(
+        st.DIAMatrix.from_coo(n, m, r2, c2, v2, dtype=torch.float64, device="cpu").astype_exact(
             torch.float32
         )
 
@@ -152,7 +152,7 @@ def test_laplacian_matches_bench(nx, dtype):
     from bench import laplacian_3d_dia
 
     n, offsets, data, nnz = laplacian_3d_dia(nx, getattr(np, dtype))
-    A = st.laplacian_3d_dia(nx, getattr(torch, dtype))
+    A = st.laplacian_3d_dia(nx, getattr(torch, dtype), device="cpu")
     assert A.shape == (n, n)
     assert A.offsets == offsets
     assert A.nnz == nnz
@@ -161,7 +161,7 @@ def test_laplacian_matches_bench(nx, dtype):
     # the pure-Poisson variant of benchmarks/gmg3d.py
     data[3, :n] = 6.0
     np.testing.assert_array_equal(
-        st.laplacian_3d_dia(nx, getattr(torch, dtype), diag=6.0).data.numpy(), data
+        st.laplacian_3d_dia(nx, getattr(torch, dtype), diag=6.0, device="cpu").data.numpy(), data
     )
 
 

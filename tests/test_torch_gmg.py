@@ -49,7 +49,7 @@ def stencil_coo(dims, weights=None):
 def build_both(dims, symmetric=False, weights=None, **kw):
     n, r, c, v = stencil_coo(dims, weights)
     Aj = sigma_tpu.DIAMatrix.from_coo(n, n, r, c, v, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
     if symmetric:
         Aj, At = JaxSym.from_dia(Aj), st.SymmetricDIAMatrix.from_dia(At)
     kwj = dict(kw)
@@ -151,7 +151,7 @@ def test_rejects_non_stencil():
     rows = np.concatenate([i, i[:-1]])
     cols = np.concatenate([i, i[:-1] + 1])
     vals = np.concatenate([np.full(n, 2.0), np.full(n - 1, -1.0)])
-    A = st.DIAMatrix.from_coo(n, n, rows, cols, vals, dtype=torch.float64)
+    A = st.DIAMatrix.from_coo(n, n, rows, cols, vals, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="stencil"):
         st.structured_pair_amg(A, dims)
     with pytest.raises(ValueError, match="do not tile"):

@@ -39,12 +39,12 @@ def diffusion_1d(n):
 
 def both(coo, n):
     Aj = sigma_tpu.DIAMatrix.from_coo(n, n, *coo, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, n, *coo, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, n, *coo, dtype=torch.float64, device="cpu")
     return Aj, At
 
 
 def _lap3d(nx):
-    A = st.laplacian_3d_dia(nx, torch.float64)
+    A = st.laplacian_3d_dia(nx, torch.float64, device="cpu")
     r, c, v = A.entries()
     return (r, c, v), A.shape[0]
 

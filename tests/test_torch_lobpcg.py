@@ -49,7 +49,7 @@ def poisson_pair():
             vals.append(np.full(mk.sum(), -1.0))
     r, c, v = (np.concatenate(a) for a in (rows, cols, vals))
     Aj = sigma_tpu.DIAMatrix.from_coo(n, n, r, c, v, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
     return Aj, At
 
 
@@ -99,7 +99,7 @@ def test_lobpcg_default_block_from_generator():
 
 
 def test_lobpcg_block_size_validation():
-    A = st.DIAMatrix.from_dense(np.eye(10))
+    A = st.DIAMatrix.from_dense(np.eye(10), device="cpu")
     with pytest.raises(ValueError, match="3m < n"):
         st.lobpcg(A, m=4)
     with pytest.raises(ValueError, match="3m < n"):

@@ -3,6 +3,7 @@ pure 3-D Poisson at nx=12 in f64, GMG-preconditioned CG built natively in
 the port and built from the JAX hierarchy through ``convert.py``; plus the
 port's import boundary and its kernel routing."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -95,7 +96,7 @@ def test_gmg_cg_slice_matches_jax(config):
     assert bool(ij.converged)
 
     # the port, built natively
-    At = st.laplacian_3d_dia(nx, torch.float64, diag=6.0)
+    At = st.laplacian_3d_dia(nx, torch.float64, diag=6.0, device="cpu")
     if symmetric:
         At = st.SymmetricDIAMatrix.from_dia(At)
     Mt = st.structured_pair_amg(At, dims, **kw)
@@ -112,12 +113,23 @@ def test_gmg_cg_slice_matches_jax(config):
     assert rel(xc, xj) <= 1e-10
 
 
+def _foreign(name):
+    """True for a module of JAX or of the JAX package."""
+    return any(name == p or name.startswith(p + ".") for p in ("jax", "sigma_tpu"))
+
+
 def test_import_loads_no_jax(tmp_path):
     """A fresh process, run from an empty directory so that only the
-    checkout is on its path, imports the port without loading JAX."""
+    checkout is on its path, imports every submodule of the port and
+    loads neither JAX nor the JAX package."""
     code = (
-        "import sys; sys.path.insert(0, sys.argv[1]); import sigma_tpu_torch; "
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+        "import importlib, pkgutil, sys; sys.path.insert(0, sys.argv[1]); "
+        "import sigma_tpu_torch as p; "
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'sigma_tpu_torch.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'sigma_tpu') "
+        "or m.startswith(('jax.', 'sigma_tpu.'))); "
+        "assert len(names) >= 20 and 'sigma_tpu_torch.ops.spmv_pruned' in names, names; "
         "assert not bad, bad"
     )
     subprocess.run(
@@ -126,10 +138,38 @@ def test_import_loads_no_jax(tmp_path):
     )
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
+def test_chip_scripts_import_no_jax(script):
+    tree = ast.parse(open(os.path.join(REPO, script)).read())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.append(node.module)
+    assert "sigma_tpu_torch" in {m.split(".")[0] for m in imported}
+    assert not [m for m in imported if _foreign(m)]
+
+
+def test_constructors_without_a_device_need_a_card():
+    """With no device given, constructors build on CUDA; without a card
+    they raise and name the way to the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present (tests/test_torch_cuda.py covers it)")
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        st.laplacian_3d_dia(4)
+    n, r, c, v = st.irregular_mesh_laplacian_coo(8, 4, rng=np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        st.PrunedDIAMatrix.from_coo(n, n, r, c, v, tile_rows=1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        st.DIAMatrix.from_coo(n, n, r, c, v)
+    assert st.laplacian_3d_dia(4, device="cpu").device.type == "cpu"
+
+
 def test_cpu_path_launches_no_kernel():
     before = (spmv_dia.dia_spmv.launches, spmv_dia.dia_sym_spmv.launches)
     nx = 6
-    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0))
+    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0, device="cpu"))
     M = st.structured_pair_amg(A, (nx, nx, nx), level_dtype=torch.float32)
     b = torch.ones(A.shape[0], dtype=torch.float64)
     x, info = st.cg_solve(A, b, tol=0.0, rtol=1e-8, M=M)
@@ -158,7 +198,7 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
     before = (spmv_dia.dia_spmv.launches, spmv_dia.dia_sym_spmv.launches)
 
     nx = 6
-    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float32, diag=6.0))
+    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float32, diag=6.0, device="cpu"))
     M = st.structured_pair_amg(
         A, (nx, nx, nx), pairs_per_level=3, level_dtype=torch.bfloat16,
         smoother="chebyshev", n_smooth=2,

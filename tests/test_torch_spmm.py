@@ -217,7 +217,7 @@ def test_dia_matrix_multi_rhs_matches_jax_f64(case, k):
     rng = np.random.default_rng(len(case) + k)
     r, c, v = random_dia_coo(rng, n, m, offsets)
     Aj = sigma_tpu.DIAMatrix.from_coo(n, m, r, c, v, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, m, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, m, r, c, v, dtype=torch.float64, device="cpu")
     X = rng.standard_normal((m, k))
     Xn = rng.standard_normal((n, k))
     Xt = torch.from_numpy(X)
@@ -246,7 +246,7 @@ def test_symmetric_multi_rhs_matches_jax_f64(k):
         v = rng.standard_normal(n - o)
         dA += np.diag(v, o) + (np.diag(v, -o) if o else 0)
     Sj = JaxSym.from_dense(dA)
-    St = st.SymmetricDIAMatrix.from_dia(st.DIAMatrix.from_dense(dA))
+    St = st.SymmetricDIAMatrix.from_dia(st.DIAMatrix.from_dense(dA, device="cpu"))
     X = rng.standard_normal((n, k))
     Xj = jnp.asarray(X)
     assert rel(St.matmat(torch.from_numpy(X)), Sj.matmat(Xj)) <= 1e-12
@@ -265,7 +265,7 @@ def test_symmetric_multi_rhs_matches_jax_f64(k):
 
 
 def test_zero_diagonal_matrix_multi_rhs():
-    A = st.DIAMatrix.from_dense(np.zeros((200, 130)))
+    A = st.DIAMatrix.from_dense(np.zeros((200, 130)), device="cpu")
     assert not A.graph.offsets
     X = torch.ones(130, 3, dtype=torch.float64)
     assert A.matmat(X).shape == (200, 3) and not A.matmat(X).any()

@@ -75,7 +75,7 @@ def test_symmetric_matches_jax_f64(n, offsets):
     rng = np.random.default_rng(n)
     r, c, v = _sym_coo(rng, n, offsets)
     Aj = sigma_tpu.DIAMatrix.from_coo(n, n, r, c, v, dtype=jnp.float64)
-    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
     Sj = JaxSym.from_dia(Aj)
     St = st.SymmetricDIAMatrix.from_dia(At)
     assert St.offsets == Sj.offsets
@@ -98,11 +98,11 @@ def test_from_dia_rejects_nonsymmetric():
     r, c, v = _sym_coo(rng, n, (0, 3))
     v = v.copy()
     v[-1] += 0.5  # break the mirror of one entry of diagonal +-3
-    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64)
+    At = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="not symmetric"):
         st.SymmetricDIAMatrix.from_dia(At)
     i = np.arange(n - 1)
-    Au = st.DIAMatrix.from_coo(n, n, i, i + 1, np.ones(n - 1), dtype=torch.float64)
+    Au = st.DIAMatrix.from_coo(n, n, i, i + 1, np.ones(n - 1), dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="without mirror"):
         st.SymmetricDIAMatrix.from_dia(Au)
     with pytest.raises(ValueError, match="offsets >= 0"):
