@@ -87,7 +87,7 @@ def copy_gbs(device) -> float:
     return 2 * src.numel() * 4 / (ms * 1e-3) / 1e9
 
 
-# the H100 SXM's published peaks (on-chip-measurement guide): device
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet): device
 # memory rate and the float32 / float64 rates outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 34e12}
