@@ -32,7 +32,8 @@ and each path must have launched its kernels.
 
 Phases print one line each or more (JSON, or the card's name and power
 limit as nvidia-smi gives them); the line before the last is the kernels'
-summary, and the last line is ``{"ok": true, "device": {...}}``.  Any failed
+summary (each SpMM in the panel layout its paths launched most), and the
+last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits nonzero without that line.  It needs a
 CUDA device and exits nonzero without one.
 """
@@ -46,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 
 def emit(obj) -> None:
@@ -364,8 +366,7 @@ def phase_spmm_kernels(device):
 def phase_north_star_spmm(device, nx, k=8):
     """The SpMM kernels and their plain versions at the main path's shapes
     (nx=216, k=8: bench.py's and cg3d.py's width), timed with CUDA events
-    in each layout the TPU kernels they replace took; returns the kernels'
-    summary rows (the interleaved one of each, block CG's layout)."""
+    in every panel layout; returns the rows keyed "kernel/layout"."""
     import torch
 
     from sigma_tpu_torch import SymmetricDIAMatrix, laplacian_3d_dia
@@ -383,7 +384,12 @@ def phase_north_star_spmm(device, nx, k=8):
     layouts = {"rhs_major": XT, "interleaved": interleave_panels(XT, n),
                "cols": XT.T.contiguous()}
     csr = csr_from_dia(A)
-    library_ms = median_ms(lambda: csr @ layouts["cols"])
+    # cuSPARSE on the same panels: the (n, k) columns, and the RHS-major
+    # panels as the column-major (n, k) block XT.T; it has no interleaved
+    # layout, so that row is held to the columns
+    library = {"cols": (median_ms(lambda: csr @ layouts["cols"]), "X (n, k)"),
+               "rhs_major": (median_ms(lambda: csr @ XT.T), "XT.T (n, k) column-major")}
+    library["interleaved"] = library["cols"]
     del XT, csr
     variants = [
         ("dia_spmm", "full_f32_interleaved", "interleaved", A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
@@ -391,6 +397,7 @@ def phase_north_star_spmm(device, nx, k=8):
         ("dia_spmm", "full_f32_cols", "cols", A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
         ("dia_sym_spmm", "sym_f32_interleaved", "interleaved", S.data, S.offsets_dev, dia_sym_spmm, dia_sym_spmm_reference, (n,)),
         ("dia_sym_spmm", "sym_f32_rhs_major", "rhs_major", S.data, S.offsets_dev, dia_sym_spmm, dia_sym_spmm_reference, (n,)),
+        ("dia_sym_spmm", "sym_f32_cols", "cols", S.data, S.offsets_dev, dia_sym_spmm, dia_sym_spmm_reference, (n,)),
     ]
     rows = {}
     for kname, label, layout, data, offs, kern, plain, dims in variants:
@@ -417,7 +424,8 @@ def phase_north_star_spmm(device, nx, k=8):
             "phase": "north_star_spmm", "variant": label, "kernel": kname,
             "layout": layout, "k": k, "n": n, "nnz": nnz,
             "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library": "torch.sparse_csr @ X (n, k) (cuSPARSE), full storage",
+            "library_ms": library[layout][0],
+            "library": f"torch.sparse_csr @ {library[layout][1]} (cuSPARSE), full storage",
             "bound_ms": bound_ms, "bound_by": bound_by,
             "k_gnnz_s": k * nnz / (ms * 1e-3) / 1e9,
             "plain_k_gnnz_s": k * nnz / (plain_ms * 1e-3) / 1e9,
@@ -427,8 +435,7 @@ def phase_north_star_spmm(device, nx, k=8):
             "max_abs_err": err_abs, "rel_err": err_rel,
         }
         emit(row)
-        if kname not in rows:  # the summary takes the first row of each kernel
-            rows[kname] = row
+        rows[f"{kname}/{layout}"] = row
     return rows
 
 
@@ -881,14 +888,15 @@ def unstructured_setup(device, height=MESH_HEIGHT, width=MESH_WIDTH, seed=0, emi
 
 def phase_unstructured_timing(device, U, k=8):
     """The pruned kernels and their plain versions at the north star's
-    shapes, CUDA events (median of 30; plain of 5, SpMM plain of 3), beside
-    cuSPARSE (torch.sparse_csr) on the same permuted matrix; returns the
-    kernels' summary rows."""
+    shapes, the SpMMs in both panel layouts, CUDA events (median of 30;
+    plain of 5, SpMM plain of 3), beside cuSPARSE (torch.sparse_csr) on the
+    same permuted matrix and the same vector or panels; returns the
+    kernels' summary rows, the SpMMs' keyed "kernel/layout"."""
     import torch
 
     from sigma_tpu_torch.ops import (
-        pruned_matvec_reference, pruned_spmm, pruned_spmm_reference, pruned_spmv,
-        pruned_sym_matvec_reference, pruned_sym_spmm, pruned_sym_spmm_reference,
+        PRUNED_LAYOUTS, pruned_matvec_reference, pruned_spmm, pruned_spmm_reference,
+        pruned_spmv, pruned_sym_matvec_reference, pruned_sym_spmm, pruned_sym_spmm_reference,
         pruned_sym_spmv,
     )
 
@@ -897,32 +905,46 @@ def phase_unstructured_timing(device, U, k=8):
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(n, generator=g, device=device)
     XT = torch.rand((k, n), generator=g, device=device)
+    panels = {"rhs_major": XT, "cols": XT.T.contiguous()}
     csr = csr_from_coo(*(torch.from_numpy(a).to(device) for a in (U["pr"], U["pc"], U["vals"])), n, n)
-    X = XT.T.contiguous()
-    lib = {1: median_ms(lambda: csr @ x), k: median_ms(lambda: csr @ X)}
-    del csr, X
+    # cuSPARSE on the same operands: x, the (n, k) columns, and the
+    # RHS-major panels as the column-major (n, k) block XT.T
+    lib = {None: median_ms(lambda: csr @ x), "cols": median_ms(lambda: csr @ panels["cols"]),
+           "rhs_major": median_ms(lambda: csr @ XT.T)}
+    del csr
     Pb = P.astype(torch.bfloat16)
 
     sym = dict(halo=S.halo)
-    variants = [  # (kernel, label, kernel call, plain call, value array, k)
-        ("pruned_spmv", "full_f32", lambda: pruned_spmv(P.data, x, P.offsets, P.tile_ptr, n, n),
-         lambda: pruned_matvec_reference(P.data, x, P.offsets, P.tile_ptr, n, n, group=P.group), P.data, 1),
-        ("pruned_spmv", "full_bf16_values", lambda: pruned_spmv(Pb.data, x, Pb.offsets, Pb.tile_ptr, n, n),
-         lambda: pruned_matvec_reference(Pb.data, x, Pb.offsets, Pb.tile_ptr, n, n, group=P.group), Pb.data, 1),
-        ("pruned_sym_spmv", "sym_f32", lambda: pruned_sym_spmv(S.data, x, S.offsets, S.tile_ptr, n, n, **sym),
-         lambda: pruned_sym_matvec_reference(S.data, x, S.offsets, S.tile_ptr, n, n, group=S.group, **sym),
+    variants = [  # (kernel, label, layout, kernel call, plain call, value array, k)
+        ("pruned_spmv", "full_f32", None, partial(pruned_spmv, P.data, x, P.offsets, P.tile_ptr, n, n),
+         partial(pruned_matvec_reference, P.data, x, P.offsets, P.tile_ptr, n, n, group=P.group),
+         P.data, 1),
+        ("pruned_spmv", "full_bf16_values", None,
+         partial(pruned_spmv, Pb.data, x, Pb.offsets, Pb.tile_ptr, n, n),
+         partial(pruned_matvec_reference, Pb.data, x, Pb.offsets, Pb.tile_ptr, n, n, group=P.group),
+         Pb.data, 1),
+        ("pruned_sym_spmv", "sym_f32", None,
+         partial(pruned_sym_spmv, S.data, x, S.offsets, S.tile_ptr, n, n, **sym),
+         partial(pruned_sym_matvec_reference, S.data, x, S.offsets, S.tile_ptr, n, n,
+                 group=S.group, **sym),
          S.data, 1),
-        ("pruned_spmm", "full_f32_rhs_major", lambda: pruned_spmm(P.data, XT, P.offsets, P.tile_ptr, n, n, "rhs_major"),
-         lambda: pruned_spmm_reference(P.data, XT, P.offsets, P.tile_ptr, n, n, "rhs_major", group=P.group),
-         P.data, k),
-        ("pruned_sym_spmm", "sym_f32_rhs_major",
-         lambda: pruned_sym_spmm(S.data, XT, S.offsets, S.tile_ptr, n, n, "rhs_major", **sym),
-         lambda: pruned_sym_spmm_reference(S.data, XT, S.offsets, S.tile_ptr, n, n, "rhs_major",
-                                           group=S.group, **sym),
-         S.data, k),
     ]
+    for layout in PRUNED_LAYOUTS:
+        X = panels[layout]
+        variants += [
+            ("pruned_spmm", f"full_f32_{layout}", layout,
+             partial(pruned_spmm, P.data, X, P.offsets, P.tile_ptr, n, n, layout),
+             partial(pruned_spmm_reference, P.data, X, P.offsets, P.tile_ptr, n, n, layout,
+                     group=P.group),
+             P.data, k),
+            ("pruned_sym_spmm", f"sym_f32_{layout}", layout,
+             partial(pruned_sym_spmm, S.data, X, S.offsets, S.tile_ptr, n, n, layout, **sym),
+             partial(pruned_sym_spmm_reference, S.data, X, S.offsets, S.tile_ptr, n, n, layout,
+                     group=S.group, **sym),
+             S.data, k),
+        ]
     rows = {}
-    for kname, label, kern, plain, data, kk in variants:
+    for kname, label, layout, kern, plain, data, kk in variants:
         y, yr = kern(), plain()
         torch.cuda.synchronize()
         err_abs = float((y - yr).abs().max())
@@ -932,45 +954,66 @@ def phase_unstructured_timing(device, U, k=8):
             raise AssertionError(f"{kname} {label} at n={n}: rel err {err_rel:.3e}")
         ms = median_ms(kern)
         plain_ms = median_ms(plain, reps=5 if kk == 1 else 3, warmup=1)
-        # the byte floor: the packed value array once, the x panels read
+        # the byte floor: the active slots' values once (a slot holding a
+        # nonzero; the zero slots that pad each tile to a multiple of
+        # `group` are the packing's, not the product's), the x panels read
         # and the y panels written once (the offsets and tile pointers are
         # under 0.2% of it)
-        byts = data.numel() * data.element_size() + 2 * kk * n * x.element_size()
+        active = int(data.ne(0).any(1).sum())
+        panel_bytes = 2 * kk * n * x.element_size()
+        byts = active * data.shape[1] * data.element_size() + panel_bytes
+        streamed = data.numel() * data.element_size() + panel_bytes
         bound_ms, bound_by = bound(byts, 2 * kk * nnz, x.dtype)
         row = {
-            "phase": "unstructured_timing", "variant": label, "kernel": kname, "k": kk,
-            "n": n, "nnz": nnz, "stored_slots": data.numel(), "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib[kk],
-            "library": f"torch.sparse_csr @ {'x' if kk == 1 else 'X (n, k)'} (cuSPARSE), full storage",
+            "phase": "unstructured_timing", "variant": label, "kernel": kname,
+            "layout": layout, "k": kk, "n": n, "nnz": nnz, "stored_slots": data.numel(),
+            "slots": data.shape[0], "active_slots": active, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib[layout],
+            "library": "torch.sparse_csr @ " + {None: "x", "cols": "X (n, k)",
+                                                "rhs_major": "XT.T (n, k) column-major"}[layout]
+                       + " (cuSPARSE), full storage",
             "true_gnnz_s": kk * nnz / (ms * 1e-3) / 1e9,
-            "library_true_gnnz_s": kk * nnz / (lib[kk] * 1e-3) / 1e9,
+            "library_true_gnnz_s": kk * nnz / (lib[layout] * 1e-3) / 1e9,
             "bytes_floor_gb": byts / 1e9, "achieved_gbs": byts / (ms * 1e-3) / 1e9,
             "share_of_copy": byts / (ms * 1e-3) / 1e9 / stream_gbs,
+            "streamed_gb": streamed / 1e9, "streamed_gbs": streamed / (ms * 1e-3) / 1e9,
             "stream_copy_gbs": stream_gbs, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err_abs, "rel_err": err_rel,
         }
         emit(row)
-        rows.setdefault(kname, row)
+        rows.setdefault(kname if layout is None else f"{kname}/{layout}", row)
     return rows
 
 
 def _manufactured(U):
     """(xstar, xstar in the permuted frame, b = A xstar_p) of
-    benchmarks/unstructured_pruned.py: xstar_i = sin(0.001 i)."""
+    benchmarks/unstructured_pruned.py: xstar_i = sin(0.001 i).  b comes
+    from the plain version, so a solve is not held only to the kernel it
+    drives."""
     import numpy as np
     import torch
 
+    from sigma_tpu_torch.ops import pruned_matvec_reference
+
+    P = U["P"]
     xstar = np.sin(np.arange(U["n"]) * 0.001).astype(np.float32)
     xp = np.empty_like(xstar)
     xp[U["p"]] = xstar
-    xp = torch.from_numpy(xp).to(U["P"].device)
-    return xstar, xp, U["P"].matvec(xp)
+    xp = torch.from_numpy(xp).to(P.device)
+    return xstar, xp, pruned_matvec_reference(P.data, xp, P.offsets, P.tile_ptr, P.n, P.m,
+                                              group=P.group)
 
 
 # recomputed true relative residual that every unstructured CG solve at
 # rtol 1e-6, maxiter 300 must reach (f32; the recursive residual stops at
 # 1e-6, and plain CG needs about 290 iterations: the JAX package's count)
 UNSTRUCTURED_CG_RTOL = 2e-6
+# max |x - xstar| after those solves: measured on an H100 1.27e-3 and
+# 1.28e-3 for CG, 1.15e-3 and 1.14e-3 for multigrid CG, full and
+# symmetric storage (PERF.md, Findings); 3e-3 is 2.3 times the largest,
+# and a consistently wrong kernel, which solves another operator, misses
+# xstar by O(1)
+UNSTRUCTURED_XSTAR_ERR = 3e-3
 
 
 def phase_unstructured_cg(device, U):
@@ -993,10 +1036,12 @@ def phase_unstructured_cg(device, U):
         emit({"phase": "unstructured_cg", "run": label, "n": U["n"],
               "levels": None if M is None else len(M.levels) + 1,
               "iterations": info.iterations, "converged": info.converged,
-              "relative_residual": rel, "max_err_vs_xstar": err, "wall_s_warm": warm,
+              "relative_residual": rel, "max_err_vs_xstar": err,
+              "xstar_tolerance": UNSTRUCTURED_XSTAR_ERR, "wall_s_warm": warm,
               "s_per_iteration": warm / max(info.iterations, 1)})
-        if not (rel <= UNSTRUCTURED_CG_RTOL and np.isfinite(err)):
-            raise AssertionError(f"{label}: true rel residual {rel:.3e} after {info}")
+        if not (rel <= UNSTRUCTURED_CG_RTOL and err <= UNSTRUCTURED_XSTAR_ERR):
+            raise AssertionError(
+                f"{label}: true rel residual {rel:.3e}, max err vs xstar {err:.3e} after {info}")
         del x
     for tag in ("full", "sym"):
         if not iters[f"gmg_cg_{tag}"] * 3 <= iters[f"cg_{tag}"]:
@@ -1010,14 +1055,20 @@ def phase_unstructured_cg(device, U):
 BLOCK_CG_FRO_RTOL = 2e-6
 # LOBPCG + pruned multigrid on the 1M-row mesh at eigen_unstructured.py's
 # settings (tol 1e-5, maxiter 60) does not converge in f32 within 60
-# iterations on the H100 either: the first run ended with Ritz residuals
-# ||A v - lambda v|| / |lambda| of 0.0086-0.127 (1.3e-4 absolute at most;
-# the JAX package's TPU run stalled at 1.4e-2 absolute).  There is no
-# analytic spectrum for a random mesh, so the limit is 0.5 of |lambda|,
-# four times the largest measured, and lambda_1 must equal the shift
-# (the weighted graph Laplacian annihilates the constant vector) to 1e-4.
-LOBPCG_RITZ_RTOL = 0.5
+# iterations on the H100 either: two runs ended with the same Ritz
+# residuals ||A v - lambda v|| / |lambda|, at most 0.127 on full storage
+# and 0.0747 on symmetric (1.3e-4 absolute at most; the JAX package's TPU
+# run stalled at 1.4e-2 absolute).  There is no analytic spectrum for a
+# random mesh, and the eight eigenvalues lie within 3.2e-6 of each other,
+# so three checks hold the result: the Ritz residuals within 0.2 (1.6
+# times the largest measured); lambda_1 equal to the shift (the weighted
+# graph Laplacian annihilates the constant vector) to 1e-4; and the full
+# and symmetric runs, the same operator from the same X0, agreeing on all
+# eight eigenvalues to 4e-4 relative (measured at most 1.33e-4 apart, an
+# eighth of the eight's spread).
+LOBPCG_RITZ_RTOL = 0.2
 LOBPCG_LAMBDA1_RTOL = 1e-4
+LOBPCG_STORAGE_RTOL = 4e-4
 
 
 def phase_unstructured_block(device, U):
@@ -1028,21 +1079,31 @@ def phase_unstructured_block(device, U):
 
     from sigma_tpu_torch import block_cg_solve
 
+    from sigma_tpu_torch.ops import pruned_spmm, pruned_spmm_reference
+
     A, M, n = U["P"], U["Mf"], U["n"]
     i = torch.arange(n, dtype=torch.float32, device=device)
-    B = A.matmat(torch.stack([torch.sin(i * (0.001 * (j + 1))) for j in range(8)], dim=1))
+    # B from the plain version, so the solve is not held only to the kernel
+    B = pruned_spmm_reference(
+        A.data, torch.stack([torch.sin(i * (0.001 * (j + 1))) for j in range(8)], dim=1),
+        A.offsets, A.tile_ptr, n, n, "cols", group=A.group)
     del i
+    before = pruned_spmm.launches_by_layout["cols"]
     (X, info), warm = _timed(lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=300, M=M))
+    cols = pruned_spmm.launches_by_layout["cols"] - before
     rels = _col_rel_residuals(A, B, X)
     fro = (torch.linalg.vector_norm(B - A.matmat(X), dim=0)
            / torch.linalg.vector_norm(B)).tolist()
     emit({"phase": "unstructured_block_cg", "storage": "full", "preconditioner": "pruned_gmg",
+          "cols_spmm_launches": cols,
           "n": n, "rhs": 8, "iterations": info.iterations, "converged": info.converged,
           "col_relative_residuals": rels, "col_residuals_over_block_norm": fro,
           "tolerance": BLOCK_CG_FRO_RTOL, "wall_s_warm": warm,
           "s_per_iteration": warm / max(info.iterations, 1)})
     if not (info.converged and max(fro) <= BLOCK_CG_FRO_RTOL):
         raise AssertionError(f"unstructured block CG did not converge: {info}, {fro}")
+    if cols <= 0:  # block CG keeps (n, k) column panels
+        raise AssertionError("unstructured block CG ran no column-panel pruned SpMM")
 
 
 def phase_unstructured_lobpcg(device, height=16_384, width=64, m=8):
@@ -1056,12 +1117,13 @@ def phase_unstructured_lobpcg(device, height=16_384, width=64, m=8):
 
     U = unstructured_setup(device, height, width)
     X0 = torch.from_numpy(U["rng"].standard_normal((U["n"], m)).astype(np.float32)).to(device)
+    eigs = {}
     for storage, A, M in (("full", U["P"], U["Mf"]), ("sym", U["S"], U["Ms"])):
         res, warm = _timed(lambda: lobpcg(A, X0, M=M, tol=1e-5, maxiter=60))
         V, lam = res.eigenvectors, res.eigenvalues
         ritz = (torch.linalg.vector_norm(A.matmat(V) - V * lam[None, :], dim=0)
                 / (torch.linalg.vector_norm(V, dim=0) * lam.abs())).double().cpu().numpy()
-        lam = lam.double().cpu().numpy()
+        lam = eigs[storage] = np.sort(lam.double().cpu().numpy())
         emit({"phase": "unstructured_lobpcg", "storage": storage, "n": U["n"], "m": m,
               "iterations": res.iterations, "converged": res.converged,
               "eigenvalues": lam.tolist(), "ritz_relative_residuals": ritz.tolist(),
@@ -1073,6 +1135,11 @@ def phase_unstructured_lobpcg(device, height=16_384, width=64, m=8):
                 and lam1_err <= LOBPCG_LAMBDA1_RTOL):
             raise AssertionError(
                 f"unstructured LOBPCG ({storage}): Ritz residuals {ritz}, lambda_1 err {lam1_err:.3e}")
+    apart = np.abs(eigs["full"] - eigs["sym"]) / eigs["sym"]
+    emit({"phase": "unstructured_lobpcg", "full_vs_sym_rel": apart.tolist(),
+          "tolerance": LOBPCG_STORAGE_RTOL})
+    if not apart.max() <= LOBPCG_STORAGE_RTOL:
+        raise AssertionError(f"unstructured LOBPCG: full and symmetric eigenvalues {apart} apart")
 
 
 def main():
@@ -1090,7 +1157,7 @@ def main():
     device = torch.device("cuda", 0)
     # fails early without the package
     from sigma_tpu_torch.ops import (
-        LAYOUTS, dia_spmm, dia_spmv, dia_sym_spmm, dia_sym_spmv, pruned_spmm, pruned_spmv,
+        dia_spmm, dia_spmv, dia_sym_spmm, dia_sym_spmv, pruned_spmm, pruned_spmv,
         pruned_sym_spmm, pruned_sym_spmv,
     )
 
@@ -1113,17 +1180,18 @@ def main():
         for fn in kernels.values():
             fn.launches = 0
             if hasattr(fn, "launches_by_layout"):
-                fn.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+                fn.launches_by_layout = dict.fromkeys(fn.launches_by_layout, 0)
 
     def read_counts(path, must_run):
         launches = {k: fn.launches for k, fn in kernels.items()}
+        by_layout = {k: dict(fn.launches_by_layout) for k, fn in kernels.items()
+                     if hasattr(fn, "launches_by_layout")}
         emit({"phase": "kernel_use", "path": path, "launches": launches,
-              "by_layout": {k: dict(fn.launches_by_layout) for k, fn in kernels.items()
-                            if hasattr(fn, "launches_by_layout")}})
+              "by_layout": by_layout})
         for k in must_run:
             if launches[k] <= 0:
                 raise AssertionError(f"{k} was not launched on the {path} path")
-        return launches
+        return launches, by_layout
 
     paths = []
     # the stencil single-RHS path: counts zeroed just before, read just after
@@ -1150,6 +1218,13 @@ def main():
     phase_unstructured_lobpcg(device)                       # phase 15
     paths.append(read_counts("unstructured_multi_rhs",
                              ("pruned_spmv", "pruned_spmm", "pruned_sym_spmv", "pruned_sym_spmm")))
+    # each SpMM's summary row is its timing in the panel layout its paths
+    # launched most
+    summary_layouts = {}
+    for k in ("dia_spmm", "dia_sym_spmm", "pruned_spmm", "pruned_sym_spmm"):
+        by = {lay: sum(c[1][k][lay] for c in paths) for lay in kernels[k].launches_by_layout}
+        summary_layouts[k] = max(by, key=by.get)
+        rows[k] = rows[f"{k}/{summary_layouts[k]}"]
 
     src = "sigma_tpu_torch/csrc/"
     pallas = "sigma_tpu/ops/spmv_pallas.py"
@@ -1164,11 +1239,12 @@ def main():
         "pruned_spmm": ("pruned.cu", f"{pruned}:334"),
         "pruned_sym_spmm": ("pruned.cu", f"{pruned}:721"),
     }
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "spmm_summary_layouts": summary_layouts})
     emit(smi)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src + f, "replaces": r,
-         "launches": sum(c[k] for c in paths), "max_abs_err": rows[k]["max_abs_err"],
+         "launches": sum(c[0][k] for c in paths), "max_abs_err": rows[k]["max_abs_err"],
          "ms": rows[k]["kernel_ms"], "plain_ms": rows[k]["plain_ms"],
          "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
          "library_ms": rows[k]["library_ms"]}

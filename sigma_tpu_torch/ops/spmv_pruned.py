@@ -34,8 +34,9 @@ Ports of the four Pallas TPU kernels of ``sigma_tpu/ops/spmv_pruned.py``:
 The CUDA kernels live in ``sigma_tpu_torch/csrc/pruned.cu``.  Routing is
 as in :mod:`sigma_tpu_torch.ops.spmv_dia`: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, anything else raises; each wrapper
-counts its launches in ``launches``.  Panels are RHS-major (k, m) or
-column (m, k) blocks (``layout`` ``"rhs_major"`` or ``"cols"``).
+counts its launches in ``launches`` and the SpMMs, per layout, in
+``launches_by_layout``.  Panels are RHS-major (k, m) or column (m, k)
+blocks (``layout`` ``"rhs_major"`` or ``"cols"``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from sigma_tpu_torch.ops.spmm_dia import (
     MAX_PANELS,
     _from_rhs_major,
     _out_shape,
+    _count,
     _panels,
     _to_rhs_major,
 )
@@ -109,7 +111,7 @@ def _pick_halo(T: int, hrows: int):
     return None
 
 
-def _geometry(n, rows, cols, tile_rows, min_reach):
+def _geometry(n, rows, cols, tile_rows):
     """(reach, tile rows, halo, tile count) of a plan.  The tile widens
     (doubling, as the JAX package's) until the band's reach fits one
     tile: the symmetric kernel's mirror terms then come from the row's own
@@ -117,7 +119,7 @@ def _geometry(n, rows, cols, tile_rows, min_reach):
     if tile_rows % 1024:
         raise ValueError("tile_rows must be a multiple of 1024")
     offs = cols - rows
-    reach = int(max(offs.max(initial=0), -offs.min(initial=0), min_reach))
+    reach = int(max(offs.max(initial=0), -offs.min(initial=0)))
     hrows = reach // _LANES + 2
     T = tile_rows // _LANES
     while _pick_halo(T, hrows) is None:
@@ -136,7 +138,6 @@ def _coo(n, m, rows, cols, vals):
 
 def build_pruned_plan(
     n, m, rows, cols, vals, *, tile_rows=16384, group=8, dtype=np.float32,
-    min_reach=0,
 ) -> PrunedPlan:
     """Pack COO entries into the pruned layout (module docstring) with the
     port's host library: a radix sort by (tile, offset) and one fill pass,
@@ -144,10 +145,9 @@ def build_pruned_plan(
 
     ``tile_rows`` is the pruning granularity (a multiple of 1024; widened
     when the band's reach exceeds it), ``group`` the padding multiple of
-    each tile's slot count, ``min_reach`` a floor on the reach that sizes
-    the halo."""
+    each tile's slot count."""
     n, m, rows, cols, vals = _coo(n, m, rows, cols, vals)
-    reach, TR, E, G = _geometry(n, rows, cols, tile_rows, min_reach)
+    reach, TR, E, G = _geometry(n, rows, cols, tile_rows)
     data, offsets, tile_ptr, n_active = native.pack_pruned(
         rows, cols, vals, tile_rows=TR, group=int(group), reach=reach,
         n_tiles=G, dtype=dtype,
@@ -158,12 +158,11 @@ def build_pruned_plan(
 
 def build_pruned_plan_reference(
     n, m, rows, cols, vals, *, tile_rows=16384, group=8, dtype=np.float32,
-    min_reach=0,
 ) -> PrunedPlan:
     """Plain numpy version of :func:`build_pruned_plan` (the JAX package's
     numpy construction, writing the port's layout)."""
     n, m, rows, cols, vals = _coo(n, m, rows, cols, vals)
-    reach, TR, E, G = _geometry(n, rows, cols, tile_rows, min_reach)
+    reach, TR, E, G = _geometry(n, rows, cols, tile_rows)
     C = int(group)
     offs = cols - rows
     tile_of = rows // TR
@@ -371,11 +370,12 @@ def pruned_spmm(data, X, offsets, tile_ptr, n, m, layout, *, group=1):
         return Y
     _launch("sigma_pruned_spmm", data, X, offsets, tile_ptr, (Y,), n, m, k,
             _block(layout, m), _block(layout, n))
-    pruned_spmm.launches += 1
+    _count(pruned_spmm, layout)
     return Y
 
 
 pruned_spmm.launches = 0
+pruned_spmm.launches_by_layout = dict.fromkeys(PRUNED_LAYOUTS, 0)
 
 
 def _check_sym(n, m, tile_rows, halo, sym_shift):
@@ -444,8 +444,9 @@ def pruned_sym_spmm(data, X, offsets, tile_ptr, n, m, layout, *, halo, sym_shift
         _launch("sigma_pruned_sym_spmm", data, X, offsets, tile_ptr, (Y, spill),
                 n, m, k, _block(layout, m), _block(layout, n), _block(layout, EL),
                 sym_shift, EL, rows_out)
-        pruned_sym_spmm.launches += 1
+        _count(pruned_sym_spmm, layout)
     return (Y, spill) if with_spill else Y
 
 
 pruned_sym_spmm.launches = 0
+pruned_sym_spmm.launches_by_layout = dict.fromkeys(PRUNED_LAYOUTS, 0)

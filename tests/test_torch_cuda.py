@@ -248,6 +248,7 @@ def test_pruned_spmv_and_spmm_kernels(cuda, pair, n, m):
     d, o, tp = _on(cuda, P, vdt)
     x = torch.from_numpy(rng.standard_normal(m)).to(cuda, xdt)
     before = sp.pruned_spmv.launches, sp.pruned_spmm.launches
+    by_layout = dict(sp.pruned_spmm.launches_by_layout)
     assert rel(sp.pruned_spmv(d, x, o, tp, n, m), sp.pruned_matvec_reference(d, x, o, tp, n, m)) <= _tol(xdt)
     for layout in sp.PRUNED_LAYOUTS:
         for k in (1, 3, 8, 16):
@@ -257,6 +258,8 @@ def test_pruned_spmv_and_spmm_kernels(cuda, pair, n, m):
             assert rel(Y, sp.pruned_spmm_reference(d, X, o, tp, n, m, layout)) <= _tol(xdt)
     torch.cuda.synchronize()
     assert (sp.pruned_spmv.launches, sp.pruned_spmm.launches) == (before[0] + 1, before[1] + 8)
+    assert {k: sp.pruned_spmm.launches_by_layout[k] - v for k, v in by_layout.items()} == {
+        "rhs_major": 4, "cols": 4}
 
 
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)

@@ -325,3 +325,24 @@ def test_cpu_routing_launches_no_kernel_and_device_tensors_go_to_the_kernel(monk
     assert launched == ["sigma_pruned_spmv", "sigma_pruned_spmm", "sigma_pruned_sym_spmv",
                         "sigma_pruned_sym_spmm"]
     assert [f.launches - b for f, b in zip(kernels, before)] == [1, 1, 1, 1]
+
+
+def test_pruned_spmm_counts_launches_by_layout(monkeypatch):
+    """A contiguous (n, k) block goes to the kernels as column panels, a
+    column-major one (a QR factor, ``XT.T``) as RHS-major panels; each
+    launch is counted under its layout."""
+    rng = np.random.default_rng(9)
+    n = 2100
+    r, c, v, _ = random_symmetric(rng, n, 9000)
+    A = st.PrunedDIAMatrix.from_coo(n, n, r, c, v, tile_rows=1024, device="cpu").to("meta")
+    S = st.SymmetricPrunedDIAMatrix.from_coo(n, n, r, c, v, tile_rows=1024, device="cpu").to("meta")
+    monkeypatch.setattr(sp, "_launch", lambda *args: None)
+    cols = torch.empty((n, 4), dtype=torch.float64, device="meta")
+    rhs_major = torch.empty((4, n), dtype=torch.float64, device="meta").T
+    for M, fn in ((A, sp.pruned_spmm), (S, sp.pruned_sym_spmm)):
+        before = dict(fn.launches_by_layout)
+        for X, times in ((cols, 2), (rhs_major, 1)):
+            for _ in range(times):
+                assert M.matmat(X).shape == (n, 4)
+        assert {k: fn.launches_by_layout[k] - before[k] for k in before} == {
+            "rhs_major": 1, "cols": 2}
