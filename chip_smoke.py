@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--nx 216]
 
-Builds the DIA and pruned SpMV and SpMM kernels from
+Builds the DIA, grouped, staged and pruned SpMV and SpMM kernels from
 ``sigma_tpu_torch/csrc/`` with nvcc (and the host library with g++),
 checks each against its plain PyTorch version on the card (every dtype
 pair; for SpMM every panel layout and k in {1, 3, 8, 16}), and times them
@@ -12,7 +12,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 (10,077,696 rows, 70,263,936 nonzeros) and the shuffled irregular-mesh
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8.  Then it
-drives four paths through the package's public entry points:
+drives seven paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -25,10 +25,28 @@ drives four paths through the package's public entry points:
 - the unstructured multi-RHS path: block CG with 8 right-hand sides and
   pruned multigrid at 10M rows, and LOBPCG + pruned multigrid at
   ``benchmarks/eigen_unstructured.py``'s settings (1M rows, 8 pairs) on
-  full and on symmetric storage.
+  full and on symmetric storage (phases 14-15);
+- the full-band path of ``benchmarks/unstructured.py`` at 1,048,576 rows
+  (phases 16-18): irregular_mesh_laplacian -> shuffle -> CSRMatrix ->
+  to_banded_dia (245 diagonals, assembled on the card); CG at shift 1.0
+  and the bf16-operator refined_solve_fixed; at shift 1e-3 CG,
+  Chebyshev-CG, banded pair-multigrid CG and CG on the symmetric band;
+  and LOBPCG + banded multigrid for 8 pairs, whose k = 24 Rayleigh-Ritz
+  products run the grouped SpMM kernel;
+- the 10,092,544-row mesh's full band (phase 19), built on the card from
+  phase 7's RCM triples (9.89 GB of f32 values): the SpMV, symmetric SpMV,
+  windowed staged SpMV, k = 8 SpMM and k = 32 grouped SpMM (RHS-major
+  through ``matmat_rhs_major``, and columns) beside two 16-column passes,
+  each checked once against its plain version and timed beside its bound
+  and cuSPARSE on the same matrix;
+- the staged-x SpMV entry ``dia_spmv_staged`` (phase 20): the resident
+  kernel on every multigrid level of the nx=216 stencil and of the band
+  whose x fits shared memory, the windowed kernel on the nx=216 stencil,
+  each beside ``dia_spmv``.
 
 The kernels' launch counts are zeroed before each path and read after it,
-and each path must have launched its kernels.
+and each path must have launched its kernels; launches that compare a
+kernel with its plain version run outside the counted paths.
 
 Phases print one line each or more (JSON, or the card's name and power
 limit as nvidia-smi gives them); the line before the last is the kernels'
@@ -543,7 +561,8 @@ def phase_cg(device, nx):
 
 def phase_gmg(device, nx):
     """Plain CG against GMG-CG on pure Poisson, as benchmarks/gmg3d.py
-    runs them (symmetric operator, bf16 levels, 2x2x2 aggregates)."""
+    runs them (symmetric operator, bf16 levels, 2x2x2 aggregates); returns
+    the Chebyshev hierarchy (its levels are the staged path's operands)."""
     import numpy as np
     import torch
 
@@ -586,6 +605,7 @@ def phase_gmg(device, nx):
     for label in ("gmg_jacobi", "gmg_chebyshev"):
         if not iters[label] * 3 <= iters["plain"]:
             raise AssertionError(f"{label} took {iters[label]} iterations vs plain {iters['plain']}")
+    return M
 
 
 def _col_rel_residuals(A, B, X):
@@ -1109,7 +1129,9 @@ def phase_unstructured_block(device, U):
 def phase_unstructured_lobpcg(device, height=16_384, width=64, m=8):
     """LOBPCG + pruned multigrid at benchmarks/eigen_unstructured.py's
     settings (the 1M-row mesh, m=8, tol 1e-5, maxiter 60, X0 from the
-    mesh's generator), on full and on symmetric storage."""
+    mesh's generator), on full and on symmetric storage.  Returns the
+    full-storage eigenvalues and the RCM permutation, which the full-band
+    LOBPCG is held to."""
     import numpy as np
     import torch
 
@@ -1140,6 +1162,424 @@ def phase_unstructured_lobpcg(device, height=16_384, width=64, m=8):
           "tolerance": LOBPCG_STORAGE_RTOL})
     if not apart.max() <= LOBPCG_STORAGE_RTOL:
         raise AssertionError(f"unstructured LOBPCG: full and symmetric eigenvalues {apart} apart")
+    return eigs["full"], U["p"]
+
+
+# -- the full-band path ------------------------------------------------------
+# benchmarks/unstructured.py's configuration: --height 16384 --width 64
+# --seed 0, labels shuffled (1,048,576 rows)
+BAND_HEIGHT, BAND_WIDTH = 16_384, 64
+# the JAX package's recorded iteration counts there (TPU v5e, f32, rtol
+# 1e-6): CG at shift 1.0 (BENCHMARKS.md:302), and CG, Chebyshev(4)-CG and
+# banded pair-multigrid CG at shift 1e-3 (BENCHMARKS.md:370-376)
+JAX_BAND_COUNTS = {"cg_shift1": 23, "cg": 290, "chebyshev_cg": 104, "gmg_cg": 39}
+# max |x - xstar| after the shift-1.0 solves (condition number ~20):
+# measured on the CPU with this package at 65,536 rows, 2.2e-5 for CG (f32,
+# rtol 1e-6) and 7.7e-7 after three bf16-operator refinement sweeps; 5e-4
+# leaves a 20-fold margin and still fails a wrong operator, which misses
+# xstar by O(1).  The shift-1e-3 solves use the unstructured path's limits.
+BAND_XSTAR_ERR_SHIFT1 = 5e-4
+# the refined solve's recomputed relative residual (measured 9.0e-8 on the
+# CPU: three sweeps of inner rtol 1e-3 at condition number ~20)
+BAND_REFINED_RTOL = 1e-5
+# the banded multigrid's coarsest size (unstructured.py's): 8 levels at 1M rows
+BAND_COARSE = 4096
+
+
+def full_band_setup(device, shift, height=BAND_HEIGHT, width=BAND_WIDTH, seed=0):
+    """benchmarks/unstructured.py's band through the public entries:
+    irregular_mesh_laplacian (CSR, f32) -> shuffled labels ->
+    CSRMatrix.from_coo -> to_banded_dia (RCM on the host, the band
+    assembled on the card); and its manufactured right-hand side, b = A
+    xstar by the CSR gather (plain PyTorch) permuted to the band's frame.
+    Returns a dict; the generator is left where phase 15's mesh leaves it,
+    so X0 drawn from it is phase 15's."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        CSRMatrix, band_occupancy, bandwidth, irregular_mesh_laplacian, to_banded_dia,
+    )
+
+    rng = np.random.default_rng(seed)
+    secs = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    A = step("generate_s", lambda: irregular_mesh_laplacian(
+        height, width, rng=rng, shift=shift, dtype=torch.float32, device=device))
+    n = A.shape[0]
+
+    def shuffle():
+        r, c, v = A.entries()
+        sh = rng.permutation(n)
+        return CSRMatrix.from_coo(n, n, sh[r], sh[c], v, dtype=torch.float32, device=device)
+
+    A = step("shuffle_s", shuffle)
+    before = bandwidth(A)
+    D, p = step("to_banded_dia_s", lambda: to_banded_dia(A))
+    row = {"phase": "full_band_setup", "shift": shift, "n": n, "nnz": A.nnz,
+           "bandwidth_before": before, "bandwidth": bandwidth(D), "n_diags": D.graph.n_diags,
+           "occupancy": band_occupancy(D), "dia_data_gb": D.data.numel() * 4 / 1e9,
+           "device": str(D.device), "seconds": secs}
+    emit(row)
+    if not D.grouped_profitable(24):
+        raise AssertionError(f"the band is too narrow for the grouped SpMM at k = 24: {row}")
+    xstar = np.sin(np.arange(n) * 0.001).astype(np.float32)
+    b = A.matvec(torch.from_numpy(xstar).to(device))
+    bp = torch.empty_like(b)
+    bp[torch.from_numpy(p).to(device)] = b
+    return {"A": A, "D": D, "p": p, "rng": rng, "n": n, "xstar": xstar, "bp": bp}
+
+
+def phase_full_band_solves(device, B1, B3):
+    """The solves of benchmarks/unstructured.py on the 1M-row band, each
+    checked against the manufactured solution: at shift 1.0 plain CG and
+    refined_solve_fixed with a bf16-valued band (3 sweeps, inner rtol
+    1e-3); at shift 1e-3 plain CG, Chebyshev(4)-CG (flexible, lmax the
+    value rows' largest absolute sum, lmin lmax/30) and CG with the banded
+    pair multigrid (structured_pair_amg(D, (n,), coarse_size=4096)), and
+    plain and multigrid CG on the symmetric band.  Returns the multigrid
+    hierarchy (the staged path's band levels)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        SymmetricDIAMatrix, cg_solve, chebyshev, refined_solve_fixed, structured_pair_amg,
+    )
+
+    iters = {}
+
+    def record(B, label, A, run, xerr_tol, rtol, jax=None, **extra):
+        out, warm = _timed(run)
+        x, info = out if isinstance(out, tuple) else (out, None)
+        rel = _true_rel_residual(A, B["bp"], x)
+        err = float(np.abs(x.cpu().numpy()[B["p"]] - B["xstar"]).max())
+        k = None if info is None else info.iterations
+        iters[label] = k
+        emit({"phase": "full_band_solve", "run": label, "n": B["n"], "iterations": k,
+              "jax_package_iterations": jax, "converged": None if info is None else info.converged,
+              "relative_residual": rel, "residual_tolerance": rtol, "max_err_vs_xstar": err,
+              "xstar_tolerance": xerr_tol, "wall_s_warm": warm,
+              "s_per_iteration": None if not k else warm / k, **extra})
+        if (info is not None and not info.converged) or not (rel <= rtol and err <= xerr_tol):
+            raise AssertionError(f"full band {label}: {info}, true rel {rel:.3e}, err {err:.3e}")
+
+    D1 = B1["D"]
+    record(B1, "cg_shift1", D1, lambda: cg_solve(D1, B1["bp"], tol=0.0, rtol=1e-6, maxiter=200),
+           BAND_XSTAR_ERR_SHIFT1, UNSTRUCTURED_CG_RTOL, JAX_BAND_COUNTS["cg_shift1"])
+    D1lo = D1.astype(torch.bfloat16)
+    record(B1, "refined_bf16_shift1", D1, lambda: refined_solve_fixed(
+        D1, B1["bp"], A_lo=D1lo, sweeps=3, inner_rtol=1e-3, inner_maxiter=200),
+        BAND_XSTAR_ERR_SHIFT1, BAND_REFINED_RTOL, sweeps=3)
+    del D1lo
+    D = B3["D"]
+    n = B3["n"]
+    bp = B3["bp"]
+    lim = dict(xerr_tol=UNSTRUCTURED_XSTAR_ERR, rtol=UNSTRUCTURED_CG_RTOL)
+    record(B3, "cg", D, lambda: cg_solve(D, bp, tol=0.0, rtol=1e-6, maxiter=400),
+           jax=JAX_BAND_COUNTS["cg"], **lim)
+    lmax = float(D.data.abs().sum(0).max())
+    Mc = chebyshev(D, degree=4, lmax=lmax, lmin=lmax / 30)
+    record(B3, "chebyshev_cg", D, lambda: cg_solve(D, bp, tol=0.0, rtol=1e-6, maxiter=400,
+                                                  M=Mc, flexible=True),
+           jax=JAX_BAND_COUNTS["chebyshev_cg"], lmax=lmax, **lim)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M = structured_pair_amg(D, (n,), coarse_size=BAND_COARSE)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    levels = len(M.levels)
+    record(B3, "gmg_cg", D, lambda: cg_solve(D, bp, tol=0.0, rtol=1e-6, maxiter=400, M=M),
+           jax=JAX_BAND_COUNTS["gmg_cg"], levels=levels, setup_s=setup,
+           level_diagonals=[lv.A.graph.n_diags for lv in M.levels], **lim)
+    S = SymmetricDIAMatrix.from_dia(D)
+    record(B3, "cg_sym", S, lambda: cg_solve(S, bp, tol=0.0, rtol=1e-6, maxiter=400),
+           upper_diagonals=len(S.offsets), **lim)
+    record(B3, "gmg_cg_sym", S, lambda: cg_solve(S, bp, tol=0.0, rtol=1e-6, maxiter=400, M=M),
+           **lim)
+    if levels != int(np.ceil(np.log2(n / BAND_COARSE))):
+        raise AssertionError(f"banded multigrid has {levels} levels for {n} rows")
+    for label in ("gmg_cg", "gmg_cg_sym"):
+        if not iters[label] * 3 <= iters["cg"]:
+            raise AssertionError(f"full band {label} took {iters} iterations")
+    if not iters["chebyshev_cg"] < iters["cg"]:
+        raise AssertionError(f"full band Chebyshev-CG took {iters} iterations")
+    return M
+
+
+def phase_full_band_lobpcg(device, B3, ref_eigs, ref_p, m=8):
+    """LOBPCG for 8 eigenpairs on the 1M-row band at phase 15's settings
+    (tol 1e-5, maxiter 60, X0 from the mesh's generator), preconditioned by
+    the banded multigrid with phase 15's Chebyshev smoother: its
+    Rayleigh-Ritz products are k = 24 columns, the grouped kernel's route.
+    The operator and X0 are phase 15's (the RCM order is checked equal), so
+    the eigenvalues are held to its full-storage run as phase 15 holds its
+    two storages to each other."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import lobpcg, structured_pair_amg
+    from sigma_tpu_torch.ops import dia_spmm_grouped
+
+    D, n = B3["D"], B3["n"]
+    if not np.array_equal(B3["p"], ref_p):
+        raise AssertionError("the band's RCM order differs from phase 15's")
+    M = structured_pair_amg(D, (n,), coarse_size=BAND_COARSE, smoother="chebyshev")
+    X0 = torch.from_numpy(B3["rng"].standard_normal((n, m)).astype(np.float32)).to(device)
+    before = dia_spmm_grouped.launches
+    res, warm = _timed(lambda: lobpcg(D, X0, M=M, tol=1e-5, maxiter=60))
+    grouped = dia_spmm_grouped.launches - before
+    V, lam = res.eigenvectors, res.eigenvalues
+    ritz = (torch.linalg.vector_norm(D.matmat(V) - V * lam[None, :], dim=0)
+            / (torch.linalg.vector_norm(V, dim=0) * lam.abs())).double().cpu().numpy()
+    lam = np.sort(lam.double().cpu().numpy())
+    lam1_err = abs(lam.min() - MESH_SHIFT) / MESH_SHIFT
+    apart = np.abs(lam - ref_eigs) / ref_eigs
+    emit({"phase": "full_band_lobpcg", "n": n, "m": m, "iterations": res.iterations,
+          "converged": res.converged, "grouped_spmm_launches": grouped,
+          "eigenvalues": lam.tolist(), "ritz_relative_residuals": ritz.tolist(),
+          "lambda1_rel_err_vs_shift": float(lam1_err), "vs_phase15_full_rel": apart.tolist(),
+          "tolerances": {"ritz": LOBPCG_RITZ_RTOL, "lambda1": LOBPCG_LAMBDA1_RTOL,
+                         "vs_phase15": LOBPCG_STORAGE_RTOL},
+          "wall_s_warm": warm, "s_per_iteration": warm / max(res.iterations, 1)})
+    if not (np.isfinite(lam).all() and ritz.max() <= LOBPCG_RITZ_RTOL
+            and lam1_err <= LOBPCG_LAMBDA1_RTOL and apart.max() <= LOBPCG_STORAGE_RTOL):
+        raise AssertionError(f"full-band LOBPCG: Ritz {ritz}, lambda_1 err {lam1_err:.3e}, "
+                             f"vs phase 15 {apart}")
+    if grouped <= 0:
+        raise AssertionError("full-band LOBPCG ran no grouped SpMM")
+
+
+def full_band_10m_setup(device, T):
+    """The 10.1M-row mesh's full band from phase 7's RCM triples (no
+    second RCM), assembled on the card by DIAMatrix.from_coo with int64
+    slot positions: 245 diagonals, 9.89 GB of f32 values; and its upper
+    diagonals in symmetric storage."""
+    import torch
+
+    from sigma_tpu_torch import DIAMatrix, SymmetricDIAMatrix, bandwidth
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    D = DIAMatrix.from_coo(T["n"], T["n"], T["pr"], T["pc"], T["vals"], dtype=torch.float32,
+                           device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    S = SymmetricDIAMatrix.from_dia(D)
+    torch.cuda.synchronize()
+    emit({"phase": "full_band_10m_setup", "n": T["n"], "nnz": int(T["pr"].size),
+          "n_diags": D.graph.n_diags, "bandwidth": bandwidth(D), "slots": D.nnz,
+          "dia_data_gb": D.data.numel() * 4 / 1e9, "sym_upper_diagonals": len(S.offsets),
+          "assemble_s": t1 - t0, "symmetric_s": time.perf_counter() - t1,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if D.graph.n_diags != 2 * bandwidth(D) + 1:
+        raise AssertionError(f"{D.graph.n_diags} diagonals for a band of reach {bandwidth(D)}")
+    return D, S
+
+
+def band_10m_variants(device, D, S, k=32):
+    """The 10.1M band's timed products: (kernel, label, layout, k, kernel
+    call through the public entry, plain call, bytes floor).  The floor is
+    the value array as stored (every pass's read, for the two-pass route),
+    the x panels read and the y panels written once."""
+    import torch
+
+    from sigma_tpu_torch.ops import (
+        dia_spmm, dia_spmm_grouped_reference, dia_spmm_reference, dia_spmv_reference,
+        dia_spmv_staged, dia_sym_spmv_reference,
+    )
+
+    n = D.shape[0]
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand(n, generator=g, device=device)
+    X8 = torch.rand((8, n), generator=g, device=device)
+    XT = torch.rand((k, n), generator=g, device=device)
+    Xc = XT.T.contiguous()
+    vals = D.data.numel() * 4
+    vec = n * 4
+    o = D.offsets_dev
+    return {"x": x, "X8": X8, "XT": XT, "Xc": Xc}, [
+        ("dia_spmv", "band_f32", None, 1, lambda: D.matvec(x),
+         lambda: dia_spmv_reference(D.data, x, o, n, n), vals + 2 * vec),
+        ("dia_sym_spmv", "band_sym_f32", None, 1, lambda: S.matvec(x),
+         lambda: dia_sym_spmv_reference(S.data, x, S.offsets_dev, n),
+         S.data.numel() * 4 + 2 * vec),
+        ("dia_spmv_window", "band_f32_window", None, 1,
+         lambda: dia_spmv_staged(D.data, x, D.offsets, n, n, allow_dma_path=True),
+         lambda: dia_spmv_reference(D.data, x, o, n, n), vals + 2 * vec),
+        ("dia_spmm", "band_f32_k8_rhs_major", "rhs_major", 8, lambda: D.matmat_rhs_major(X8),
+         lambda: dia_spmm_reference(D.data, X8, o, n, n, "rhs_major"), vals + 16 * vec),
+        ("dia_spmm_grouped", f"band_f32_k{k}_rhs_major", "rhs_major", k,
+         lambda: D.matmat_rhs_major(XT),
+         lambda: dia_spmm_grouped_reference(D.data, XT, o, n, n, "rhs_major"),
+         vals + 2 * k * vec),
+        ("dia_spmm_grouped", f"band_f32_k{k}_cols", "cols", k, lambda: D.matmat(Xc),
+         lambda: dia_spmm_grouped_reference(D.data, Xc, o, n, n, "cols"), vals + 2 * k * vec),
+        ("dia_spmm", f"band_f32_k{k}_two_passes", "rhs_major", k,
+         lambda: torch.cat([dia_spmm(D.data, XT[j:j + 16], o, n, n, "rhs_major")
+                            for j in range(0, k, 16)]),
+         lambda: dia_spmm_grouped_reference(D.data, XT, o, n, n, "rhs_major"),
+         -(-k // 16) * vals + 2 * k * vec),
+    ]
+
+
+def full_band_10m_checks(variants):
+    """Each 10.1M-band product against its plain version once (the grouped
+    kernel at 1e-5 in f32; a plain k = 32 product is ~0.9 TB of traffic);
+    returns {label: (max abs err, rel err, plain ms)}.  Run outside the
+    counted path: these launches compare, they do not drive."""
+    import torch
+
+    out = {}
+    for kname, label, layout, k, kern, plain, _ in variants:
+        y, yr = kern(), plain()
+        torch.cuda.synchronize()
+        err_abs = float((y - yr).abs().max())
+        err_rel = rel_err(y, yr)
+        del y, yr
+        if not err_rel <= 1e-5:
+            raise AssertionError(f"{kname} {label} on the 10.1M band: rel err {err_rel:.3e}")
+        out[label] = (err_abs, err_rel, median_ms(plain, reps=3, warmup=1))
+    emit({"phase": "full_band_10m_checks", "rel_err": {k: v[1] for k, v in out.items()},
+          "tolerance": "1e-5 (f32 vectors)"})
+    return out
+
+
+def phase_full_band_10m(device, D, ops, variants, checks, T):
+    """The 10.1M band's products timed with CUDA events (median of 30)
+    beside their bound, the copy rate and cuSPARSE (torch.sparse_csr of the
+    same RCM-ordered matrix) on matching operands: x, the (n, k) columns,
+    and RHS-major panels as the column-major block XT.T.  Returns the rows
+    keyed "kernel/layout" or by label."""
+    import torch
+
+    stream_gbs = copy_gbs(device)
+    n = D.shape[0]
+    nnz = int(T["pr"].size)
+    csr = csr_from_coo(*(torch.from_numpy(a).to(device) for a in (T["pr"], T["pc"], T["vals"])),
+                       n, n)
+    x, X8, XT, Xc = ops["x"], ops["X8"], ops["XT"], ops["Xc"]
+    k = XT.shape[0]
+    lib = {(1, None): median_ms(lambda: csr @ x),
+           (8, "rhs_major"): median_ms(lambda: csr @ X8.T),
+           (8, "cols"): median_ms(lambda: csr @ X8.T.contiguous()),
+           (k, "rhs_major"): median_ms(lambda: csr @ XT.T),
+           (k, "cols"): median_ms(lambda: csr @ Xc)}
+    del csr
+    rows = {}
+    for kname, label, layout, kk, kern, _, floor in variants:
+        ms = median_ms(kern)
+        bound_ms, bound_by = bound(floor, 2 * kk * D.nnz, torch.float32)
+        err_abs, err_rel, plain_ms = checks[label]
+        row = {"phase": "full_band_10m", "variant": label, "kernel": kname, "layout": layout,
+               "k": kk, "n": n, "nnz": nnz, "slots": D.nnz, "kernel_ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib[(kk, layout)],
+               "library": "torch.sparse_csr @ " + {None: "x", "cols": "X (n, k)",
+                                                   "rhs_major": "XT.T (n, k) column-major"}[layout]
+                          + " (cuSPARSE), the same matrix",
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes_floor_gb": floor / 1e9,
+               "achieved_gbs": floor / (ms * 1e-3) / 1e9, "stream_copy_gbs": stream_gbs,
+               "true_k_gnnz_s": kk * nnz / (ms * 1e-3) / 1e9,
+               "max_abs_err": err_abs, "rel_err": err_rel}
+        emit(row)
+        rows[label] = row
+        if kname == "dia_spmm_grouped":
+            rows[f"{kname}/{layout}"] = row
+        elif kname == "dia_spmv_window":
+            rows[kname] = row
+    return rows
+
+
+def staged_operands(device, nx, Mst, Mband):
+    """(label, matrix) of the staged path: every multigrid level, of the
+    nx=216 stencil hierarchy (bf16 levels) and of the band's, whose x fits
+    one block's shared memory (the resident kernel's operands), and the
+    nx=216 stencil in f32 (the windowed kernel's)."""
+    import torch
+
+    from sigma_tpu_torch import DIAMatrix, laplacian_3d_dia
+    from sigma_tpu_torch.ops import staged_route
+
+    levels = []
+    for tag, M in ((f"stencil_nx{nx}", Mst), ("band_1m", Mband)):
+        for li, lvl in enumerate(M.levels):
+            A = lvl.A
+            if isinstance(A, DIAMatrix) and staged_route(A.shape[1], 4) == "resident":
+                levels.append((f"{tag}_level{li}", A))
+    return levels, (f"stencil_nx{nx}_f32", laplacian_3d_dia(nx, torch.float32, device))
+
+
+def staged_checks(device, levels, stencil):
+    """dia_spmv_staged (resident on the levels, windowed on the stencil)
+    against the plain version, outside the counted path; returns {label:
+    (max abs err, plain ms)}."""
+    import torch
+
+    from sigma_tpu_torch.ops import dia_spmv_reference, dia_spmv_staged
+
+    out = {}
+    g = torch.Generator(device=device).manual_seed(1)
+    for (label, A), dma in [(lv, False) for lv in levels] + [(stencil, True)]:
+        n = A.shape[0]
+        x = torch.rand(n, generator=g, device=device)
+        y = dia_spmv_staged(A.data, x, A.offsets, n, n, allow_dma_path=dma)
+        plain = partial(dia_spmv_reference, A.data, x, A.offsets_dev, n, n)
+        yr = plain()
+        torch.cuda.synchronize()
+        e = rel_err(y, yr)
+        if not e <= 1e-5:
+            raise AssertionError(f"dia_spmv_staged {label}: rel err {e:.3e}")
+        out[label] = (float((y - yr).abs().max()), median_ms(plain, reps=10, warmup=2))
+    emit({"phase": "staged_checks", "max_abs_err": {k: v[0] for k, v in out.items()},
+          "tolerance": "1e-5 relative (f32 vectors)"})
+    return out
+
+
+def phase_staged(device, levels, stencil, checks, band_window_row):
+    """The staged-x SpMV entry at its own shapes: the resident kernel (#5)
+    on each level of `levels`, and the windowed kernel (#6) on the nx=216
+    stencil (and on the 10.1M band, phase 19's row), each beside dia_spmv
+    (#1) on the same operand and cuSPARSE on the same matrix (bf16 levels:
+    their values widened to f32, exactly), CUDA events, median of 30.
+    Returns the resident kernel's rows keyed by label."""
+    import torch
+
+    from sigma_tpu_torch.ops import dia_spmv_staged
+
+    g = torch.Generator(device=device).manual_seed(2)
+    rows = {}
+    for (label, A), dma in [(lv, False) for lv in levels] + [(stencil, True)]:
+        n = A.shape[0]
+        x = torch.rand(n, generator=g, device=device)
+        ms = median_ms(lambda: dia_spmv_staged(A.data, x, A.offsets, n, n, allow_dma_path=dma))
+        blocked_ms = median_ms(lambda: A.matvec(x))
+        csr = csr_from_dia(A.astype(torch.float32)) if A.dtype == torch.bfloat16 else csr_from_dia(A)
+        library_ms = median_ms(lambda: csr @ x)
+        del csr
+        floor = A.data.numel() * A.data.element_size() + 2 * n * 4
+        bound_ms, bound_by = bound(floor, 2 * A.nnz, torch.float32)
+        kname = "dia_spmv_window" if dma else "dia_spmv_resident"
+        row = {"phase": "staged", "variant": label, "kernel": kname, "n": n,
+               "n_diags": A.graph.n_diags, "value_dtype": str(A.dtype).replace("torch.", ""),
+               "kernel_ms": ms, "dia_spmv_ms": blocked_ms, "plain_ms": checks[label][1],
+               "library_ms": library_ms, "library": "torch.sparse_csr @ x (cuSPARSE), f32 values",
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes_floor_mb": floor / 1e6,
+               "max_abs_err": checks[label][0]}
+        emit(row)
+        if not dma:
+            rows[label] = row
+    emit({"phase": "staged", "variant": "band_10m_window", "kernel": "dia_spmv_window",
+          "n": band_window_row["n"], "kernel_ms": band_window_row["kernel_ms"],
+          "note": "timed in phase 19 beside dia_spmv on the same band"})
+    return rows
 
 
 def main():
@@ -1157,8 +1597,8 @@ def main():
     device = torch.device("cuda", 0)
     # fails early without the package
     from sigma_tpu_torch.ops import (
-        dia_spmm, dia_spmv, dia_sym_spmm, dia_sym_spmv, pruned_spmm, pruned_spmv,
-        pruned_sym_spmm, pruned_sym_spmv,
+        dia_spmm, dia_spmm_grouped, dia_spmv, dia_spmv_resident, dia_spmv_window, dia_sym_spmm,
+        dia_sym_spmv, pruned_spmm, pruned_spmv, pruned_sym_spmm, pruned_sym_spmv,
     )
 
     smi = phase_device()                                    # phase 0
@@ -1174,7 +1614,9 @@ def main():
     kernels = {"dia_spmv": dia_spmv, "dia_sym_spmv": dia_sym_spmv,
                "dia_spmm": dia_spmm, "dia_sym_spmm": dia_sym_spmm,
                "pruned_spmv": pruned_spmv, "pruned_sym_spmv": pruned_sym_spmv,
-               "pruned_spmm": pruned_spmm, "pruned_sym_spmm": pruned_sym_spmm}
+               "pruned_spmm": pruned_spmm, "pruned_sym_spmm": pruned_sym_spmm,
+               "dia_spmm_grouped": dia_spmm_grouped, "dia_spmv_resident": dia_spmv_resident,
+               "dia_spmv_window": dia_spmv_window}
 
     def zero_counts():
         for fn in kernels.values():
@@ -1197,7 +1639,7 @@ def main():
     # the stencil single-RHS path: counts zeroed just before, read just after
     zero_counts()
     phase_cg(device, args.nx)                               # phase 9
-    phase_gmg(device, args.nx)                              # phase 10
+    Mst = phase_gmg(device, args.nx)                        # phase 10
     paths.append(read_counts("single_rhs", ("dia_spmv", "dia_sym_spmv")))
     # the stencil multi-RHS path
     zero_counts()
@@ -1214,14 +1656,45 @@ def main():
     # the unstructured multi-RHS path
     zero_counts()
     phase_unstructured_block(device, U)                     # phase 14
+    T = {k: U[k] for k in ("n", "pr", "pc", "vals")}  # the 10.1M triples, for phase 19
     del U
-    phase_unstructured_lobpcg(device)                       # phase 15
+    eigs15, p15 = phase_unstructured_lobpcg(device)         # phase 15
     paths.append(read_counts("unstructured_multi_rhs",
                              ("pruned_spmv", "pruned_spmm", "pruned_sym_spmv", "pruned_sym_spmm")))
+    # the full-band path at 1M rows
+    B1 = full_band_setup(device, shift=1.0)                 # phase 16
+    B3 = full_band_setup(device, shift=MESH_SHIFT)
+    zero_counts()
+    Mband = phase_full_band_solves(device, B1, B3)          # phase 17
+    del B1
+    phase_full_band_lobpcg(device, B3, eigs15, p15)         # phase 18
+    del B3
+    paths.append(read_counts("full_band",
+                             ("dia_spmv", "dia_sym_spmv", "dia_spmm", "dia_spmm_grouped")))
+    # the full band of the 10.1M-row mesh: kernel timings (compared with
+    # their plain versions first, outside the counted path)
+    D10, S10 = full_band_10m_setup(device, T)               # phase 19
+    ops, variants = band_10m_variants(device, D10, S10)
+    checks = full_band_10m_checks(variants)
+    zero_counts()
+    rows.update(phase_full_band_10m(device, D10, ops, variants, checks, T))
+    paths.append(read_counts("full_band_10m", ("dia_spmv", "dia_sym_spmv", "dia_spmv_window",
+                                               "dia_spmm", "dia_spmm_grouped")))
+    if dia_spmm_grouped.launches_by_layout["rhs_major"] <= 0:
+        raise AssertionError("matmat_rhs_major at k = 32 did not launch the grouped SpMM")
+    del D10, S10, ops, variants, T
+    # the staged-x SpMV entry on the multigrid levels and the stencil
+    levels, stencil = staged_operands(device, args.nx, Mst, Mband)
+    checks = staged_checks(device, levels, stencil)
+    zero_counts()
+    resident = phase_staged(device, levels, stencil, checks, rows["dia_spmv_window"])  # phase 20
+    paths.append(read_counts("staged", ("dia_spmv_resident", "dia_spmv_window", "dia_spmv")))
+    # the resident kernel's row: its largest operand
+    rows["dia_spmv_resident"] = max(resident.values(), key=lambda r: r["n"])
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most
     summary_layouts = {}
-    for k in ("dia_spmm", "dia_sym_spmm", "pruned_spmm", "pruned_sym_spmm"):
+    for k in ("dia_spmm", "dia_sym_spmm", "pruned_spmm", "pruned_sym_spmm", "dia_spmm_grouped"):
         by = {lay: sum(c[1][k][lay] for c in paths) for lay in kernels[k].launches_by_layout}
         summary_layouts[k] = max(by, key=by.get)
         rows[k] = rows[f"{k}/{summary_layouts[k]}"]
@@ -1238,6 +1711,9 @@ def main():
         "pruned_sym_spmv": ("pruned.cu", f"{pruned}:482"),
         "pruned_spmm": ("pruned.cu", f"{pruned}:334"),
         "pruned_sym_spmm": ("pruned.cu", f"{pruned}:721"),
+        "dia_spmm_grouped": ("dia_spmm_grouped.cu", f"{pallas}:1663 and {pallas}:1780"),
+        "dia_spmv_resident": ("dia_spmv.cu", f"{pallas}:1246"),
+        "dia_spmv_window": ("dia_spmv.cu", f"{pallas}:1277"),
     }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "spmm_summary_layouts": summary_layouts})

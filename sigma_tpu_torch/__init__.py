@@ -8,7 +8,11 @@ CG and block CG, the structured pair-aggregation multigrid
 preconditioner, and the LOBPCG eigensolver.  And the unstructured path:
 the irregular-mesh generator, RCM reordering and the pruned block-DIA
 pack (host C++ built by g++), pruned storage (full and symmetric) on its
-four hand-written SpMV/SpMM kernels, and the pruned pair multigrid.
+four hand-written SpMV/SpMM kernels, and the pruned pair multigrid.  And
+the full-band path: CSR and COO matrices, ``to_banded_dia`` (every diagonal
+of an RCM band in DIA storage, assembled on the device), the grouped SpMM
+kernel for k > 16 columns, the staged-x SpMV entry ``dia_spmv_staged`` and
+its two kernels, Chebyshev preconditioning and fixed-sweep refinement.
 
 The package imports torch and numpy only (never JAX) and is importable on
 a machine with no GPU; the kernels are compiled by nvcc at first use on a
@@ -18,16 +22,22 @@ arrays, a grid size) build on CUDA unless given ``device=`` (the tests pass
 else makes its tensors on the device of the operand it derives from.
 """
 
-from sigma_tpu_torch.apps import irregular_mesh_laplacian_coo
+from sigma_tpu_torch.apps import irregular_mesh_laplacian, irregular_mesh_laplacian_coo
 from sigma_tpu_torch.eigen import LOBPCGResult, lobpcg
-from sigma_tpu_torch.graph import DIAGraph, Graph, reverse_cuthill_mckee
+from sigma_tpu_torch.graph import COOGraph, CSRGraph, DIAGraph, Graph, reverse_cuthill_mckee
 from sigma_tpu_torch.matrix import (
+    COOMatrix,
+    CSRMatrix,
     DIAMatrix,
     PrunedDIAMatrix,
     SparseMatrix,
     SymmetricDIAMatrix,
     SymmetricPrunedDIAMatrix,
+    band_occupancy,
+    bandwidth,
     reorder_triples_rcm,
+    to_banded_dia,
+    to_pruned_dia,
 )
 from sigma_tpu_torch.operators import (
     AdjointOperator,
@@ -44,13 +54,17 @@ from sigma_tpu_torch.operators import (
 from sigma_tpu_torch.ops import cuda_available
 from sigma_tpu_torch.problems import laplacian_3d_dia
 from sigma_tpu_torch.solvers import (
+    ChebyshevSmoother,
     SolveInfo,
     StructuredAMGPreconditioner,
     auto_pruned_preconditioner,
     block_cg_solve,
     cg_fused_solve,
     cg_solve,
+    chebyshev,
+    estimate_lmax,
     pruned_pair_amg,
+    refined_solve_fixed,
     skew_dominance,
     structured_pair_amg,
 )

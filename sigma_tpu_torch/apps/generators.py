@@ -1,17 +1,30 @@
-"""Model problems of the unstructured path, as host COO triples.
+"""Model problems of the unstructured path.
 
-Port of ``irregular_mesh_laplacian_coo`` of :mod:`sigma_tpu.apps.generators`:
-the weighted graph Laplacian (+ ``shift`` I) of a randomly triangulated
-H x W quad mesh.  It is host numpy driven by the caller's
-``np.random.Generator``, so a seed gives bitwise the same triples as the
-JAX package.
+Port of ``irregular_mesh_laplacian_coo`` and ``irregular_mesh_laplacian`` of
+:mod:`sigma_tpu.apps.generators`: the weighted graph Laplacian (+ ``shift``
+I) of a randomly triangulated H x W quad mesh, as host COO triples or as a
+:class:`~sigma_tpu_torch.matrix.formats.CSRMatrix`.  It is host numpy
+driven by the caller's ``np.random.Generator``, so a seed gives bitwise the
+same matrix as the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["irregular_mesh_laplacian_coo"]
+__all__ = ["irregular_mesh_laplacian", "irregular_mesh_laplacian_coo"]
+
+
+def irregular_mesh_laplacian(H: int, W: int, rng=None, shift: float = 1.0,
+                             dtype=np.float64, device=None):
+    """The mesh Laplacian of :func:`irregular_mesh_laplacian_coo` in natural
+    vertex order, as a CSR matrix of ``dtype`` on ``device`` (None: CUDA):
+    the start of the full-band pipeline (shuffle, then
+    :func:`~sigma_tpu_torch.matrix.banded.to_banded_dia`)."""
+    from sigma_tpu_torch.matrix.formats import CSRMatrix
+
+    n, rows, cols, vals = irregular_mesh_laplacian_coo(H, W, rng=rng, shift=shift)
+    return CSRMatrix.from_coo(n, n, rows, cols, vals, dtype=dtype, device=device)
 
 
 def irregular_mesh_laplacian_coo(

@@ -10,7 +10,9 @@ is a reshape.  A pruned plan arrives as the JAX package's arrays
 and is mapped to the port's layout: the values are a reshape to
 (L * C, T * 128), each slot's window position becomes its column offset
 ``(rowoff - halo) * 128 + laneoff``, and the per-step tiles become
-per-tile slot ranges.
+per-tile slot ranges.  CSR and COO matrices arrive as their index arrays
+and values, which the JAX package pads to a multiple of 8 past ``nnz``;
+the padding is cut off.
 """
 
 from __future__ import annotations
@@ -20,14 +22,16 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from sigma_tpu_torch.graph.graph import DIAGraph
-from sigma_tpu_torch.matrix.formats import DIAMatrix
+from sigma_tpu_torch.graph.graph import COOGraph, CSRGraph, DIAGraph
+from sigma_tpu_torch.matrix.formats import COOMatrix, CSRMatrix, DIAMatrix
 from sigma_tpu_torch.matrix.pruned import PrunedDIAMatrix, SymmetricPrunedDIAMatrix
 from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
 from sigma_tpu_torch.solvers.gmg import StructuredAMGPreconditioner, _SLevel
 from sigma_tpu_torch.utils.device import resolve_device
 
 __all__ = [
+    "coo_from_arrays",
+    "csr_from_arrays",
     "dia_from_arrays",
     "pruned_amg_from_arrays",
     "pruned_from_arrays",
@@ -50,12 +54,28 @@ def _tensor(arr, device) -> torch.Tensor:
 def dia_from_arrays(offsets, data, shape, device=None) -> DIAMatrix:
     """DIAMatrix from its offsets, values ``(D, S, 128)`` or ``(D, stride)``
     and shape (n, m)."""
-    offsets = tuple(int(o) for o in offsets)
-    n, m = (int(s) for s in shape)
-    nnz = sum(max(0, min(n, m - o) - max(0, -o)) for o in offsets)
-    graph = DIAGraph(offsets=offsets, shape=(n, m), nnz=int(nnz))
-    values = np.asarray(data).reshape(len(offsets), -1)
+    graph = DIAGraph.from_offsets(offsets, *(int(s) for s in shape))
+    values = np.asarray(data).reshape(graph.n_diags, -1)
     return DIAMatrix(graph=graph, data=_tensor(values, device))
+
+
+def csr_from_arrays(indptr, indices, data, shape, device=None) -> CSRMatrix:
+    """CSRMatrix from the JAX package's ``indptr``, ``indices`` and values
+    (padded past nnz = ``indptr[-1]``) and shape (n, m); the values keep
+    their dtype."""
+    nnz = int(np.asarray(indptr)[-1])
+    g = CSRGraph.from_csr(*shape, indptr, np.asarray(indices)[:nnz])
+    return CSRMatrix(graph=g, data=_tensor(np.asarray(data).reshape(-1)[:nnz], device))
+
+
+def coo_from_arrays(rows, cols, data, shape, nnz, device=None) -> COOMatrix:
+    """COOMatrix from the JAX package's row-major sorted, duplicate-free
+    ``rows``, ``cols`` and values (padded past ``nnz``) and shape (n, m)."""
+    nnz = int(nnz)
+    rows = np.asarray(rows, dtype=np.int64)[:nnz]
+    cols = np.asarray(cols, dtype=np.int64)[:nnz]
+    g = COOGraph(rows=rows, cols=cols, shape=tuple(int(s) for s in shape), nnz=nnz)
+    return COOMatrix(graph=g, data=_tensor(np.asarray(data).reshape(-1)[:nnz], device))
 
 
 def sym_dia_from_arrays(offsets, data, n, device=None) -> SymmetricDIAMatrix:

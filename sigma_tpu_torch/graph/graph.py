@@ -1,9 +1,12 @@
 """Frozen graph (sparsity topology) formats.
 
-Port of :mod:`sigma_tpu.graph.graph`, the part the DIA stencil path needs:
-the :class:`Graph` query surface and :class:`DIAGraph`.  A topology is
-host metadata (shapes, offsets, numpy edge exports); it holds no tensors
-and so lives on no device.
+Port of :mod:`sigma_tpu.graph.graph`: the :class:`Graph` query surface,
+:class:`DIAGraph`, and the general formats the full-band path starts
+from, :class:`CSRGraph` and :class:`COOGraph`.  A topology is host
+metadata (shapes, offsets, numpy index arrays and edge exports); it holds
+no tensors and so lives on no device.  The CSR and COO index arrays are
+exactly ``nnz`` long: the JAX package pads them to a multiple of 8 for
+the TPU's lanes (with sentinel row ``n``), which nothing here needs.
 """
 
 from __future__ import annotations
@@ -15,7 +18,45 @@ import numpy as np
 
 from sigma_tpu_torch.utils.dtypes import round_up
 
-__all__ = ["Graph", "DIAGraph"]
+__all__ = ["COOGraph", "CSRGraph", "DIAGraph", "Graph", "compress_coo"]
+
+
+def compress_coo(rows, cols, n: int, m: int, dedup: bool = True):
+    """Sort COO edges row-major (deduplicated unless ``dedup=False``):
+    ``(rows, cols, indptr)`` with ``indptr`` the CSR row pointer.  Raises
+    on an index out of ``[0, n) x [0, m)``, which the linearised key
+    ``rows * m + cols`` would otherwise alias into another row."""
+    rows = np.asarray(rows, dtype=np.int64).ravel()
+    cols = np.asarray(cols, dtype=np.int64).ravel()
+    if rows.size:
+        if int(rows.min()) < 0 or int(rows.max()) >= n:
+            raise ValueError(
+                f"row index out of range [0, {n}): [{int(rows.min())}, {int(rows.max())}]"
+            )
+        if int(cols.min()) < 0 or int(cols.max()) >= m:
+            raise ValueError(
+                f"column index out of range [0, {m}): [{int(cols.min())}, {int(cols.max())}]"
+            )
+    keys = rows * m + cols
+    keys = np.unique(keys) if dedup else np.sort(keys)
+    rows, cols = keys // m, keys % m
+    return rows, cols, _indptr(rows, n)
+
+
+def _indptr(rows: np.ndarray, n: int) -> np.ndarray:
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return indptr
+
+
+def _sorted_positions(keys: np.ndarray, q: np.ndarray, in_range) -> np.ndarray:
+    """Positions of the query keys ``q`` in the ascending ``keys``; -1 for
+    a key that is absent or out of range."""
+    if keys.size == 0:
+        return np.full(q.shape, -1, dtype=np.int64)
+    q = np.where(in_range, q, -1)
+    pos = np.clip(np.searchsorted(keys, q), 0, keys.size - 1)
+    return np.where(in_range & (keys[pos] == q), pos, -1)
 
 
 class Graph:
@@ -36,12 +77,105 @@ class Graph:
         if absent."""
         raise NotImplementedError
 
+    def degrees_numpy(self) -> np.ndarray:
+        """Edges per row."""
+        rows, _ = self.edges_numpy()
+        return np.bincount(rows, minlength=self.shape[0])
+
     @classmethod
     def from_coo(cls, n: int, m: Optional[int], rows, cols) -> "Graph":
         raise NotImplementedError
 
+    def _in_range(self, rows, cols):
+        return (rows >= 0) & (rows < self.shape[0]) & (cols >= 0) & (cols < self.shape[1])
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}(shape={self.shape}, nnz={self.nnz})"
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class CSRGraph(Graph):
+    """Compressed sparse row topology: ``indptr`` (n + 1,) and ``indices``
+    (nnz,), columns sorted within rows, no duplicates; ``row_ids`` (nnz,)
+    is the COO expansion of ``indptr`` that the gather + ``index_add_``
+    products scatter by.  All int64 numpy arrays."""
+
+    indptr: np.ndarray
+    indices: np.ndarray
+    row_ids: np.ndarray
+    shape: Tuple[int, int]
+    nnz: int
+
+    format: ClassVar[str] = "csr"
+
+    @classmethod
+    def from_coo(cls, n, m, rows, cols) -> "CSRGraph":
+        n, m = int(n), int(m if m is not None else n)
+        rows, cols, indptr = compress_coo(rows, cols, n, m)
+        return cls(indptr=indptr, indices=cols, row_ids=rows, shape=(n, m), nnz=int(rows.size))
+
+    @classmethod
+    def from_sorted_coo(cls, n, m, rows, cols) -> "CSRGraph":
+        """Trusted constructor from row-major sorted, duplicate-free edges
+        (no validation, no re-sort)."""
+        rows = np.asarray(rows, dtype=np.int64).ravel()
+        cols = np.asarray(cols, dtype=np.int64).ravel()
+        n, m = int(n), int(m)
+        return cls(indptr=_indptr(rows, n), indices=cols, row_ids=rows, shape=(n, m),
+                   nnz=int(rows.size))
+
+    @classmethod
+    def from_csr(cls, n, m, indptr, indices) -> "CSRGraph":
+        """Trusted constructor from host CSR arrays: rows sorted and
+        duplicate-free (no validation, no re-sort)."""
+        n, m = int(n), int(m)
+        indptr = np.asarray(indptr, dtype=np.int64)
+        indices = np.asarray(indices, dtype=np.int64).ravel()
+        rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+        return cls(indptr=indptr, indices=indices, row_ids=rows, shape=(n, m),
+                   nnz=int(indices.size))
+
+    def edges_numpy(self):
+        return self.row_ids, self.indices
+
+    def degrees_numpy(self) -> np.ndarray:
+        return self.indptr[1:] - self.indptr[:-1]
+
+    def edge_positions(self, rows, cols) -> np.ndarray:
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        m = self.shape[1]
+        return _sorted_positions(self.row_ids * m + self.indices, rows * m + cols,
+                                 self._in_range(rows, cols))
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class COOGraph(Graph):
+    """Coordinate topology, sorted row-major and deduplicated at freeze
+    time: ``rows`` and ``cols`` (nnz,) int64 numpy arrays."""
+
+    rows: np.ndarray
+    cols: np.ndarray
+    shape: Tuple[int, int]
+    nnz: int
+
+    format: ClassVar[str] = "coo"
+
+    @classmethod
+    def from_coo(cls, n, m, rows, cols) -> "COOGraph":
+        n, m = int(n), int(m if m is not None else n)
+        rows, cols, _ = compress_coo(rows, cols, n, m)
+        return cls(rows=rows, cols=cols, shape=(n, m), nnz=int(rows.size))
+
+    def edges_numpy(self):
+        return self.rows, self.cols
+
+    def edge_positions(self, rows, cols) -> np.ndarray:
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        m = self.shape[1]
+        return _sorted_positions(self.rows * m + self.cols, rows * m + cols,
+                                 self._in_range(rows, cols))
 
 
 @dataclasses.dataclass(frozen=True, repr=False)
@@ -72,13 +206,19 @@ class DIAGraph(Graph):
         return round_up(self.shape[0], 128)
 
     @classmethod
+    def from_offsets(cls, offsets, n, m) -> "DIAGraph":
+        """The graph of the given sorted offsets: every in-range slot of
+        each diagonal is an edge."""
+        offsets = tuple(int(o) for o in offsets)
+        nnz = sum(max(0, min(n, m - o) - max(0, -o)) for o in offsets)
+        return cls(offsets=offsets, shape=(int(n), int(m)), nnz=int(nnz))
+
+    @classmethod
     def from_coo(cls, n, m, rows, cols) -> "DIAGraph":
         n, m = int(n), int(m if m is not None else n)
         rows = np.asarray(rows, dtype=np.int64).ravel()
         cols = np.asarray(cols, dtype=np.int64).ravel()
-        offsets = tuple(int(o) for o in np.unique(cols - rows))
-        nnz = sum(max(0, min(n, m - o) - max(0, -o)) for o in offsets)
-        return cls(offsets=offsets, shape=(n, m), nnz=int(nnz))
+        return cls.from_offsets(np.unique(cols - rows), n, m)
 
     def _valid_range(self, o: int) -> Tuple[int, int]:
         n, m = self.shape

@@ -74,7 +74,10 @@ class SparseMatrix(LinearOperator):
     def from_coo(
         cls, n, m, rows, cols, vals, dtype=None, sum_duplicates=True, device=None
     ):
-        """Build from COO triples on the host and push the values once."""
+        """Build from COO triples on the host and push the values once.
+        Duplicates are summed in float64 (``sum_duplicates``); a format
+        whose graph has ``from_sorted_coo`` (CSR) then takes the sorted
+        unique edges as they are and its values in that order."""
         device = resolve_device(device)
         rows = np.asarray(rows).ravel()
         cols = np.asarray(cols).ravel()
@@ -87,6 +90,10 @@ class SparseMatrix(LinearOperator):
                 inv, weights=vals.astype(np.float64), minlength=ukeys.size
             )
             rows, cols, vals = ukeys // m, ukeys % m, acc
+            gcls = cls._graph_class()
+            if hasattr(gcls, "from_sorted_coo"):
+                g = gcls.from_sorted_coo(n, m, rows, cols)
+                return cls(graph=g, data=torch.from_numpy(acc).to(device=device, dtype=dt))
         g = cls._graph_class().from_coo(n, m, rows, cols)
         shape = cls._data_shape(g)
         flat = np.zeros(int(np.prod(shape)), dtype=np.float64)

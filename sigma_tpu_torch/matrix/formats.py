@@ -1,11 +1,19 @@
-"""DIA (diagonal) sparse matrix format on torch tensors.
+"""Sparse matrix formats on torch tensors: DIA, and the general CSR and COO.
 
-Port of :class:`sigma_tpu.matrix.formats.DIAMatrix`.  Every matvec and
-rmatvec goes through :func:`sigma_tpu_torch.ops.spmv_dia.dia_spmv`, and
-every multi-RHS product (``matmat``, ``rmatmat``, ``matmat_rhs_major``,
-``matmat_interleaved``) through :func:`sigma_tpu_torch.ops.spmm_dia.dia_spmm`;
-both run the CUDA kernel for a CUDA operand and the plain PyTorch version
-for a CPU one.
+Port of :class:`sigma_tpu.matrix.formats.DIAMatrix`, ``CSRMatrix`` and
+``COOMatrix``.  Every DIA matvec and rmatvec goes through
+:func:`sigma_tpu_torch.ops.spmv_dia.dia_spmv`, and every multi-RHS product
+(``matmat``, ``rmatmat``, ``matmat_rhs_major``, ``matmat_interleaved``)
+through :func:`sigma_tpu_torch.ops.spmm_dia.dia_spmm` in passes of up to 16
+columns or, for more columns on a wide band, one
+:func:`~sigma_tpu_torch.ops.spmm_dia.dia_spmm_grouped`; each runs the CUDA
+kernel for a CUDA operand and the plain PyTorch version for a CPU one.
+
+CSR and COO products are a gather and an ``index_add_`` in plain PyTorch on
+every device, as the JAX package computes them with an XLA gather and a
+segment sum outside any Pallas kernel: they are the input of
+:func:`~sigma_tpu_torch.matrix.banded.to_banded_dia` and the gather floor
+the band is measured against.
 """
 
 from __future__ import annotations
@@ -13,31 +21,46 @@ from __future__ import annotations
 import dataclasses
 from typing import ClassVar
 
+import numpy as np
 import torch
 
-from sigma_tpu_torch.graph.graph import DIAGraph
+from sigma_tpu_torch.graph.graph import COOGraph, CSRGraph, DIAGraph, Graph
 from sigma_tpu_torch.matrix.base import SparseMatrix
 from sigma_tpu_torch.ops.spmm_dia import (
     MAX_PANELS,
     deinterleave_panels,
     dia_spmm,
+    dia_spmm_grouped,
     interleave_panels,
 )
 from sigma_tpu_torch.ops.spmv_dia import dia_spmv
-from sigma_tpu_torch.utils.dtypes import index_dtype, round_up
+from sigma_tpu_torch.utils.device import resolve_device
+from sigma_tpu_torch.utils.dtypes import (
+    default_real_dtype,
+    index_dtype,
+    round_up,
+    to_numpy,
+    torch_dtype,
+)
 
-__all__ = ["DIAMatrix"]
+__all__ = ["COOMatrix", "CSRMatrix", "DIAMatrix"]
 
 
-def panel_apply(X, spmm, n):
+def panel_apply(X, spmm, n, grouped=None):
     """A @ X for (m, k) panels X through ``spmm(panels, layout)``, in passes
-    of at most 16 columns (the kernel's bound), concatenated.  A column-major
-    X (``X.T`` contiguous, as a QR factor or ``XT.T`` is) is read in place
-    as RHS-major panels and its product comes back column-major; any other
-    X goes in as (m, k) column-layout panels.  No layout copy either way."""
+    of at most 16 columns (the kernel's bound), concatenated; or, when
+    ``grouped`` is given, through one ``grouped(panels, layout)`` for all k
+    columns.  A column-major X (``X.T`` contiguous, as a QR factor or
+    ``XT.T`` is) is read in place as RHS-major panels and its product comes
+    back column-major; any other X goes in as (m, k) column-layout panels.
+    No layout copy either way."""
     k = X.shape[1]
     if k == 0:
         return X.new_zeros((n, 0))
+    if grouped is not None:
+        if not X.is_contiguous() and X.T.is_contiguous():
+            return grouped(X.T, "rhs_major").T
+        return grouped(X.contiguous(), "cols")
     parts = []
     for j0 in range(0, k, MAX_PANELS):
         Xj = X[:, j0 : j0 + MAX_PANELS]
@@ -57,6 +80,22 @@ def interleaved_apply(XI, spmm, matmat_rhs_major, n, m):
     if k <= MAX_PANELS:
         return spmm(XI.contiguous(), "interleaved")
     return interleave_panels(matmat_rhs_major(deinterleave_panels(XI, k, m)), n)
+
+
+def grouped_profitable(k: int, n_diags: int, itemsize: int) -> bool:
+    """The JAX package's rule for a k-column DIA product
+    (``DIAMatrix._pallas_spmm_grouped``): one grouped product, each stored
+    value read once for all k columns, instead of ceil(k/16) passes of up
+    to 16, exactly when k > 16 and the value bytes the extra passes would
+    re-read, ``(passes - 1) * n_diags * itemsize`` per row, exceed the
+    ``16 * k`` the JAX grouped layout's transposes cost.  Wide bands (an
+    RCM band of hundreds of diagonals) take it; the 7-point stencil never
+    does.  The port keeps the rule as it is, without the JAX package's
+    size, dtype and backend gates."""
+    if k <= MAX_PANELS or n_diags == 0:
+        return False
+    passes = -(-k // MAX_PANELS)
+    return (passes - 1) * n_diags * itemsize > MAX_PANELS * k
 
 
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
@@ -82,10 +121,12 @@ class DIAMatrix(SparseMatrix):
 
     The multi-RHS products keep the JAX package's public layouts: (m, k)
     for ``matmat``, (k, m) for ``matmat_rhs_major`` and interleaved
-    (k * ceil(m/128), 128) panels for ``matmat_interleaved``.  The JAX
-    package's ``why_not_pallas`` audits TPU gates (backend, dtype, VMEM
-    fit) that the port does not have: every CUDA operand runs the kernel,
-    so it is left out.
+    (k * ceil(m/128), 128) panels for ``matmat_interleaved``.  More than 16
+    columns go to the grouped product when :meth:`grouped_profitable`
+    says so, else to 16-column passes.  The JAX package's
+    ``why_not_pallas`` audits TPU gates (backend, dtype, VMEM fit) that the
+    port does not have: every CUDA operand runs a kernel, so it is left
+    out.
     """
 
     graph: DIAGraph
@@ -112,6 +153,43 @@ class DIAMatrix(SparseMatrix):
     @classmethod
     def _data_shape(cls, graph):
         return (graph.n_diags, graph.stride)
+
+    @classmethod
+    def from_coo(cls, n, m, rows, cols, vals, dtype=None, sum_duplicates=True, device=None):
+        """Assemble from COO triples (numpy arrays or tensors) on the
+        target device: the offsets are the distinct ``cols - rows``, each
+        triple's slot ``d * stride + row`` is computed in int64 (a
+        245-diagonal band of 10.1M rows has 2.47e9 slots, past 2^31), and
+        the values are scattered into a zero value array there.  No host
+        array of every slot is built.  ``sum_duplicates`` sums repeated
+        (row, col) triples in float64 before the cast to ``dtype``, as the
+        JAX package does; without it a repeated triple keeps one of its
+        values."""
+        device = resolve_device(device)
+        dt = torch_dtype(dtype) if dtype is not None else default_real_dtype()
+        n, m = int(n), int(m)
+        r = torch.as_tensor(rows).to(device=device, dtype=torch.int64).reshape(-1)
+        c = torch.as_tensor(cols).to(device=device, dtype=torch.int64).reshape(-1)
+        v = torch.as_tensor(vals).to(device=device).reshape(-1)
+        if r.numel():
+            lo = torch.stack([r.min(), c.min()]).tolist()
+            hi = torch.stack([r.max(), c.max()]).tolist()
+            if min(lo) < 0 or hi[0] >= n or hi[1] >= m:
+                raise ValueError(f"COO index out of range for shape ({n}, {m}): "
+                                 f"rows [{lo[0]}, {hi[0]}], cols [{lo[1]}, {hi[1]}]")
+        diag = c - r
+        offs = torch.unique(diag)  # sorted
+        graph = DIAGraph.from_offsets(offs.tolist(), n, m)
+        pos = torch.searchsorted(offs, diag) * graph.stride + r
+        del diag, c
+        if sum_duplicates:
+            pos, inv = torch.unique(pos, return_inverse=True)
+            v = torch.zeros(pos.numel(), dtype=torch.float64, device=device).index_add_(
+                0, inv, v.to(torch.float64))
+            del inv
+        data = torch.zeros(graph.n_diags * graph.stride, dtype=dt, device=device)
+        data[pos] = v.to(dt)
+        return cls(graph=graph, data=data.view(graph.n_diags, graph.stride))
 
     @property
     def offsets(self):
@@ -159,17 +237,30 @@ class DIAMatrix(SparseMatrix):
         n, m = self.shape
         return dia_spmm(self.data, X, self.offsets_dev, n, m, layout)
 
+    def _spmm_grouped(self, X, layout):
+        n, m = self.shape
+        return dia_spmm_grouped(self.data, X, self.offsets_dev, n, m, layout)
+
+    def grouped_profitable(self, k) -> bool:
+        """True when a k-column product runs as one grouped product (each
+        stored value read once for all k) rather than 16-column passes:
+        the JAX package's rule, :func:`grouped_profitable`, on this
+        band's diagonal count and value itemsize."""
+        return grouped_profitable(k, self.graph.n_diags, self.data.element_size())
+
     def matmat(self, X):
         """A @ X for X (m, k) -> (n, k): one SpMM kernel launch per 16
-        columns, each stored value read once for all of them."""
+        columns, each stored value read once for all of them; or one
+        grouped launch for all k on a wide band."""
         n, m = self.shape
         if not self.graph.offsets:
             return X.new_zeros((n, X.shape[1]))
-        return panel_apply(X, self._spmm, n)
+        grouped = self._spmm_grouped if self.grouped_profitable(X.shape[1]) else None
+        return panel_apply(X, self._spmm, n, grouped)
 
     def rmatmat(self, X):
         """A^T @ X for X (n, k) -> (m, k), through the transposed layout and
-        the same kernel (as :meth:`rmatvec`)."""
+        the 16-column SpMM (as :meth:`rmatvec`)."""
         n, m = self.shape
         if not self.graph.offsets:
             return X.new_zeros((m, X.shape[1]))
@@ -180,7 +271,7 @@ class DIAMatrix(SparseMatrix):
 
     def matmat_rhs_major(self, XT):
         """RHS-major product XT (k, m) -> (k, n), read and written in that
-        layout by the kernel: no transposes."""
+        layout by the kernels: no transposes."""
         return self.matmat(XT.T).T
 
     def matmat_interleaved(self, XI):
@@ -206,3 +297,93 @@ class DIAMatrix(SparseMatrix):
         if 0 in self.graph.offsets:
             return self.data[self.graph.offsets.index(0), : min(self.shape)]
         return torch.zeros(min(self.shape), dtype=self.dtype, device=self.device)
+
+
+def _gather_scatter(data, X, gather, scatter, length):
+    """out[scatter[e]] += data[e] * X[gather[e]] for 1-D or 2-D X; the
+    product's dtype follows torch's promotion of data and X."""
+    prod = (data[:, None] if X.ndim == 2 else data) * X[gather]
+    out = torch.zeros((length,) + tuple(X.shape[1:]), dtype=prod.dtype, device=prod.device)
+    return out.index_add_(0, scatter, prod)
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class _EdgeListMatrix(SparseMatrix):
+    """Values on an explicit, row-major sorted edge list (CSR, COO):
+    ``data[e]`` = A[rows[e], cols[e]].  The edge indices live beside the
+    values on their device as int64 tensors."""
+
+    graph: Graph
+    data: torch.Tensor  # (nnz,)
+    rows_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
+    cols_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        if tuple(self.data.shape) != (self.graph.nnz,):
+            raise ValueError(f"data shape {tuple(self.data.shape)} != ({self.graph.nnz},)")
+        r, c = self.graph.edges_numpy()
+        dev = self.data.device
+        object.__setattr__(self, "rows_dev", torch.from_numpy(r).to(dev))
+        object.__setattr__(self, "cols_dev", torch.from_numpy(c).to(dev))
+
+    @classmethod
+    def _data_shape(cls, graph):
+        return (graph.nnz,)
+
+    def matvec(self, x):
+        return _gather_scatter(self.data, x, self.cols_dev, self.rows_dev, self.shape[0])
+
+    def rmatvec(self, x):
+        return _gather_scatter(self.data, x, self.rows_dev, self.cols_dev, self.shape[1])
+
+    matmat = matvec  # the gather and scatter take (m, k) blocks as they are
+    rmatmat = rmatvec
+
+    def entries(self):
+        """(rows, cols, values) in the stored (row-major) order."""
+        r, c = self.graph.edges_numpy()
+        return r, c, to_numpy(self.data)
+
+    def diagonal(self) -> torch.Tensor:
+        r, c = self.graph.edges_numpy()
+        on = np.nonzero(r == c)[0]
+        d = torch.zeros(min(self.shape), dtype=self.dtype, device=self.device)
+        d[torch.from_numpy(r[on]).to(self.device)] = self.data[torch.from_numpy(on).to(self.device)]
+        return d
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class CSRMatrix(_EdgeListMatrix):
+    """Row-compressed matrix: matvec gathers x at the column indices,
+    multiplies, and sums by row (``index_add_`` over ``row_ids``)."""
+
+    graph: CSRGraph
+
+    format: ClassVar[str] = "csr"
+
+    @classmethod
+    def _graph_class(cls):
+        return CSRGraph
+
+    @classmethod
+    def from_csr_arrays(cls, n, m, indptr, cols, vals, dtype=None, device=None) -> "CSRMatrix":
+        """Trusted constructor from host CSR arrays (rows sorted and
+        duplicate-free; no re-sort)."""
+        device = resolve_device(device)
+        g = CSRGraph.from_csr(n, m, indptr, cols)
+        dt = torch_dtype(dtype) if dtype is not None else default_real_dtype()
+        vals = torch.tensor(np.asarray(vals).reshape(-1)[: g.nnz])
+        return cls(graph=g, data=vals.to(device=device, dtype=dt))
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class COOMatrix(_EdgeListMatrix):
+    """Coordinate matrix, sorted row-major at freeze time."""
+
+    graph: COOGraph
+
+    format: ClassVar[str] = "coo"
+
+    @classmethod
+    def _graph_class(cls):
+        return COOGraph

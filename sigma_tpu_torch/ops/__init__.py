@@ -4,12 +4,14 @@
   full storage and symmetric storage, with their plain PyTorch versions;
   :class:`~sigma_tpu_torch.matrix.formats.DIAMatrix` and
   :class:`~sigma_tpu_torch.matrix.symmetric.SymmetricDIAMatrix` call them
-  for every matvec.
+  for every matvec.  Beside them the staged-x SpMV entry
+  ``dia_spmv_staged`` and its two kernels (x resident in shared memory, or
+  each tile's x window copied in).
 * :mod:`sigma_tpu_torch.ops.spmm_dia` — the DIA SpMM kernels (Y = A X for
-  up to 16 panels, in the RHS-major, interleaved or column layout) with
-  their plain versions and the panel (de-)interleaving; the same classes
-  call them for every ``matmat``, ``matmat_rhs_major`` and
-  ``matmat_interleaved``.
+  up to 16 panels, in the RHS-major, interleaved or column layout, and the
+  grouped kernel for any number of panels) with their plain versions and
+  the panel (de-)interleaving; the same classes call them for every
+  ``matmat``, ``matmat_rhs_major`` and ``matmat_interleaved``.
 * :mod:`sigma_tpu_torch.ops.spmv_pruned` — the pruned block-DIA plan and
   its four kernels (SpMV and SpMM, full and symmetric storage, the
   symmetric ones with the spill past the last row) with their plain
@@ -21,10 +23,13 @@
 import torch
 
 from sigma_tpu_torch.ops.spmm_dia import (
+    GROUPED_LAYOUTS,
     LAYOUTS,
     MAX_PANELS,
     deinterleave_panels,
     dia_spmm,
+    dia_spmm_grouped,
+    dia_spmm_grouped_reference,
     dia_spmm_reference,
     dia_sym_spmm,
     dia_sym_spmm_reference,
@@ -46,10 +51,16 @@ from sigma_tpu_torch.ops.spmv_pruned import (
 )
 from sigma_tpu_torch.ops.spmv_dia import (
     KERNEL_DTYPES,
+    STAGED_SMEM_BYTES,
     dia_spmv,
     dia_spmv_reference,
+    dia_spmv_resident,
+    dia_spmv_staged,
+    dia_spmv_window,
     dia_sym_spmv,
     dia_sym_spmv_reference,
+    staged_route,
+    window_plan,
 )
 
 
@@ -62,19 +73,26 @@ def cuda_available() -> bool:
 
 
 __all__ = [
+    "GROUPED_LAYOUTS",
     "KERNEL_DTYPES",
     "LAYOUTS",
     "MAX_PANELS",
     "PRUNED_LAYOUTS",
     "PrunedPlan",
+    "STAGED_SMEM_BYTES",
     "build_pruned_plan",
     "build_pruned_plan_reference",
     "cuda_available",
     "deinterleave_panels",
     "dia_spmm",
+    "dia_spmm_grouped",
+    "dia_spmm_grouped_reference",
     "dia_spmm_reference",
     "dia_spmv",
     "dia_spmv_reference",
+    "dia_spmv_resident",
+    "dia_spmv_staged",
+    "dia_spmv_window",
     "dia_sym_spmm",
     "dia_sym_spmm_reference",
     "dia_sym_spmv",
@@ -88,4 +106,6 @@ __all__ = [
     "pruned_sym_spmm",
     "pruned_sym_spmm_reference",
     "pruned_sym_spmv",
+    "staged_route",
+    "window_plan",
 ]

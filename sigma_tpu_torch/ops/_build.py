@@ -125,6 +125,15 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64, ptr,
     ]
     lib.sigma_dia_spmm.restype = i32
+    lib.sigma_dia_spmm_grouped.argtypes = lib.sigma_dia_spmm.argtypes
+    lib.sigma_dia_spmm_grouped.restype = i32
+    lib.sigma_dia_spmv_resident.argtypes = lib.sigma_dia_spmv.argtypes
+    lib.sigma_dia_spmv_resident.restype = i32
+    # (..., D, stride, n, m, plan, pieces, tile_rows, length, stream)
+    lib.sigma_dia_spmv_window.argtypes = [
+        i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr, i64, i64, i64, ptr,
+    ]
+    lib.sigma_dia_spmv_window.restype = i32
     lib.sigma_dia_sym_spmm.argtypes = [
         i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr,
     ]

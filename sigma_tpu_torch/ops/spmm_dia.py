@@ -1,17 +1,24 @@
-"""DIA SpMM: Y = A X for 1 <= k <= 16 panels; kernel wrappers, their plain
-PyTorch versions, panel layouts and launch counts.
+"""DIA SpMM: Y = A X for k panels; kernel wrappers, their plain PyTorch
+versions, panel layouts and launch counts.
 
-Ports of four Pallas TPU kernels (``sigma_tpu/ops/spmv_pallas.py``):
+Ports of five Pallas TPU kernels (``sigma_tpu/ops/spmv_pallas.py``):
 
 * :func:`dia_spmm` <- ``_dia_spmm_core`` (RHS-major panels, and the (m, k)
   entry ``dia_spmm_pallas_blocked``) and ``dia_spmm_interleaved``:
   Y = A X from full-storage DIA values, rectangular n x m;
 * :func:`dia_sym_spmm` <- ``dia_sym_spmm_rhs_major`` and
   ``dia_sym_spmm_interleaved``: the same from the upper diagonals of a
-  symmetric matrix.
+  symmetric matrix;
+* :func:`dia_spmm_grouped` <- ``dia_spmm_grouped`` and
+  ``dia_spmm_grouped_chunked``: Y = A X for any k from full-storage DIA
+  (``DIAMatrix`` takes it for k > 16 on wide bands), RHS-major or column
+  panels.  The TPU kernel's grouped-interleaved panel layout
+  (``interleave_panels_grouped``) existed to cut the panels into DMA
+  chunks; the CUDA kernel reads the port's own layouts, so it is gone.
 
-The CUDA kernels live in ``sigma_tpu_torch/csrc/dia_spmm.cu``.  Each
-stored value is read once for all k panels.  The panels lie in one of
+The CUDA kernels live in ``sigma_tpu_torch/csrc/dia_spmm.cu`` and
+``dia_spmm_grouped.cu``.  Each stored value is read once for all k
+panels.  The panels lie in one of
 three layouts, and the kernel reads and writes each directly (the layout
 is a panel-block length B passed to the kernel, not a separate code
 path):
@@ -36,10 +43,13 @@ import torch
 from sigma_tpu_torch.ops.spmv_dia import _launch
 
 __all__ = [
+    "GROUPED_LAYOUTS",
     "LAYOUTS",
     "MAX_PANELS",
     "deinterleave_panels",
     "dia_spmm",
+    "dia_spmm_grouped",
+    "dia_spmm_grouped_reference",
     "dia_spmm_reference",
     "dia_sym_spmm",
     "dia_sym_spmm_reference",
@@ -47,6 +57,7 @@ __all__ = [
 ]
 
 LAYOUTS = ("rhs_major", "interleaved", "cols")
+GROUPED_LAYOUTS = ("rhs_major", "cols")  # the layouts dia_spmm_grouped takes
 MAX_PANELS = 16  # the most panels one launch takes (the TPU kernels' bound)
 _LANES = 128  # panel-block length of the interleaved layout
 
@@ -159,8 +170,21 @@ def dia_sym_spmm_reference(data, X, offsets, n, layout):
     return _from_rhs_major(YT, layout, n)
 
 
-def _check(data, X, offsets, n, m, layout):
-    """Validate the operands; returns the panel count k."""
+def dia_spmm_grouped_reference(data, X, offsets, n, m, layout):
+    """Plain PyTorch version of :func:`dia_spmm_grouped`: the plain
+    :func:`dia_spmm_reference` over groups of up to 16 panels, joined."""
+    k = _panels(X, layout, m)
+    XT = _to_rhs_major(X, layout, k, m)
+    YT = torch.cat([
+        dia_spmm_reference(data, XT[j0 : j0 + MAX_PANELS], offsets, n, m, "rhs_major")
+        for j0 in range(0, k, MAX_PANELS)
+    ]) if k else XT.new_zeros((0, n))
+    return _from_rhs_major(YT, layout, n)
+
+
+def _check(data, X, offsets, n, m, layout, max_panels=MAX_PANELS):
+    """Validate the operands; returns the panel count k (at most
+    ``max_panels``, or any positive k when it is None)."""
     if data.ndim != 2 or offsets.ndim != 1:
         raise ValueError(
             f"want data (D, stride), offsets (D,); got {tuple(data.shape)}, "
@@ -178,8 +202,8 @@ def _check(data, X, offsets, n, m, layout):
             f"X {X.device}, offsets {offsets.device}"
         )
     k = _panels(X, layout, m)
-    if not 1 <= k <= MAX_PANELS:
-        raise ValueError(f"{k} panels: the SpMM takes 1 to {MAX_PANELS} per call")
+    if k < 1 or (max_panels is not None and k > max_panels):
+        raise ValueError(f"{k} panels: the SpMM takes 1 to {max_panels} per call")
     return k
 
 
@@ -232,3 +256,29 @@ def dia_sym_spmm(data, X, offsets, n, layout):
 
 dia_sym_spmm.launches = 0
 dia_sym_spmm.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+
+
+def dia_spmm_grouped(data, X, offsets, n, m, layout):
+    """Y = A X for the n x m DIA matrix ``data[d, i] = A[i, i + offsets[d]]``
+    and any number k >= 1 of panels X in ``layout``, "rhs_major" or
+    "cols" (see the module docstring), with each stored value read from
+    device memory once for all k; Y comes back in the same layout, in X's
+    dtype."""
+    if layout not in GROUPED_LAYOUTS:
+        raise ValueError(f"the grouped SpMM takes {GROUPED_LAYOUTS} panels, not {layout!r}")
+    k = _check(data, X, offsets, n, m, layout, max_panels=None)
+    if X.device.type == "cpu":
+        return dia_spmm_grouped_reference(data, X, offsets, n, m, layout)
+    shape = _out_shape(layout, k, n)
+    if n == 0 or m == 0:
+        return X.new_zeros(shape)
+    Y = _launch(
+        "sigma_dia_spmm_grouped", data, X, offsets, shape, n, m, k,
+        _block(layout, m), _block(layout, n),
+    )
+    _count(dia_spmm_grouped, layout)
+    return Y
+
+
+dia_spmm_grouped.launches = 0
+dia_spmm_grouped.launches_by_layout = dict.fromkeys(GROUPED_LAYOUTS, 0)

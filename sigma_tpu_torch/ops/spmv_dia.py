@@ -1,12 +1,22 @@
 """DIA SpMV: kernel wrappers, their plain PyTorch versions, launch counts.
 
-Ports of the two Pallas TPU kernels on the stencil main path
-(``sigma_tpu/ops/spmv_pallas.py``):
+Ports of four Pallas TPU kernels (``sigma_tpu/ops/spmv_pallas.py``):
 
 * :func:`dia_spmv` <- ``dia_spmv_pallas_blocked``: y = A x from
   full-storage DIA values, rectangular n x m;
 * :func:`dia_sym_spmv` <- ``dia_sym_spmv_pallas_blocked``: y = A x from the
-  upper diagonals of a symmetric matrix.
+  upper diagonals of a symmetric matrix;
+* :func:`dia_spmv_resident` <- the VMEM-resident body of
+  ``dia_spmv_pallas``: the same y = A x with the whole x staged in each
+  block's shared memory;
+* :func:`dia_spmv_window` <- the manual-DMA body of ``dia_spmv_pallas``:
+  the same with each row tile's x window copied into shared memory by
+  asynchronous copies.
+
+:func:`dia_spmv_staged` is the counterpart of the public
+``dia_spmv_pallas`` entry and routes between the last two and
+:func:`dia_spmv` as it does.  ``DIAMatrix`` keeps calling :func:`dia_spmv`,
+as the JAX ``DIAMatrix`` never calls ``dia_spmv_pallas``.
 
 The CUDA kernels live in ``sigma_tpu_torch/csrc/dia_spmv.cu`` (design and
 traffic notes there).  Values are stored ``(D, stride)`` contiguous; the
@@ -23,16 +33,25 @@ its ``launches`` attribute.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from sigma_tpu_torch.ops import _build
 
 __all__ = [
     "KERNEL_DTYPES",
+    "STAGED_SMEM_BYTES",
     "dia_spmv",
     "dia_spmv_reference",
+    "dia_spmv_resident",
+    "dia_spmv_staged",
+    "dia_spmv_window",
     "dia_sym_spmv",
     "dia_sym_spmv_reference",
+    "staged_route",
+    "window_plan",
 ]
 
 _CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
@@ -156,3 +175,142 @@ def dia_sym_spmv(data, x, offsets, n):
 
 
 dia_sym_spmv.launches = 0
+
+
+# -- staged-x SpMV: kernels #5 and #6 -------------------------------------
+# The shared memory one block may hold on an H100: 232,448 bytes with the
+# opt-in above 48 KB (sharedMemPerBlockOptin), less the 2,048 bytes of
+# offsets the resident kernel stages beside x.  So the resident kernel takes
+# x of up to 57,600 f32 or 28,800 f64 values; the windowed kernel a union
+# window of as many.
+STAGED_SMEM_BYTES = 232_448 - 2_048
+
+
+def staged_route(m, itemsize, allow_dma_path=False) -> str:
+    """The route :func:`dia_spmv_staged` takes for x of ``m`` values of
+    ``itemsize`` bytes: ``"resident"`` when x fits one block's shared
+    memory (``m * itemsize <= STAGED_SMEM_BYTES``), else ``"window"`` with
+    ``allow_dma_path`` and ``"blocked"`` (:func:`dia_spmv`) without, as
+    ``dia_spmv_pallas`` sends an x too large for VMEM to its blocked
+    kernel.  The JAX gate counts x padded by the band's span; the resident
+    kernel stages x itself and bounds-checks each column as every DIA
+    kernel does, so the padding is not staged."""
+    if m * itemsize <= STAGED_SMEM_BYTES:
+        return "resident"
+    return "window" if allow_dma_path else "blocked"
+
+
+def window_plan(offsets, tile_rows):
+    """The shared-memory layout of one row tile's x window for the
+    windowed kernel: ``(starts, bases, pos)`` as int64 numpy arrays.  Row
+    t of a tile starting at row i0 reads diagonal d's x value
+    ``x[i0 + t + offsets[d]]``, so each diagonal needs the window
+    ``[i0 + o, i0 + o + tile_rows)``; the union of these windows is staged
+    as disjoint pieces, piece p covering columns ``i0 + starts[p]`` on
+    from shared-memory index ``bases[p]`` (``bases[-1]`` is the total
+    length).  ``pos[d]`` is where diagonal d's window begins.  A 7-point
+    stencil at nx=216 gives 3 pieces for 256-row tiles (the JAX kernel's one
+    window of tile + span would be 93,568 values, past a block's shared
+    memory), a band of offsets -122..122 one piece of tile_rows + 244."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    order = np.argsort(offs, kind="stable")
+    starts, ends, piece_of = [], [], np.empty(offs.size, dtype=np.int64)
+    for d in order:
+        o = int(offs[d])
+        if starts and o <= ends[-1]:
+            ends[-1] = max(ends[-1], o + tile_rows)
+        else:
+            starts.append(o)
+            ends.append(o + tile_rows)
+        piece_of[d] = len(starts) - 1
+    starts = np.asarray(starts, dtype=np.int64)
+    bases = np.concatenate([[0], np.cumsum(np.asarray(ends, np.int64) - starts)]).astype(np.int64)
+    pos = bases[piece_of] + offs - starts[piece_of]
+    return starts, bases, pos
+
+
+@functools.lru_cache(maxsize=64)
+def _staged_operands(offsets, tile_rows, device):
+    """(offsets tensor, window plan tensor ``[starts, bases, pos]``, number
+    of pieces, window length) on ``device``, made once per offset tuple."""
+    starts, bases, pos = window_plan(offsets, tile_rows)
+    offs = torch.tensor(offsets, dtype=torch.int64, device=device)
+    plan = torch.from_numpy(np.concatenate([starts, bases, pos])).to(device)
+    return offs, plan, int(starts.size), int(bases[-1])
+
+
+def _offset_tuple(offsets):
+    if isinstance(offsets, torch.Tensor):
+        return tuple(offsets.tolist())
+    return tuple(int(o) for o in offsets)
+
+
+def dia_spmv_resident(data, x, offsets, n, m):
+    """y = A x as :func:`dia_spmv` computes it, by the kernel that stages
+    the whole x in each block's shared memory once and walks row tiles
+    from there.  ``offsets`` is a sequence of ints (or an int64 tensor,
+    read back once).  Raises ValueError when x does not fit
+    (``m * itemsize > STAGED_SMEM_BYTES``)."""
+    offs = _staged_operands(_offset_tuple(offsets), 256, x.device)[0]
+    _check(data, x, offs, n, m)
+    if m * x.element_size() > STAGED_SMEM_BYTES:
+        raise ValueError(
+            f"x of {m} {x.dtype} values ({m * x.element_size()} bytes) does not fit "
+            f"one block's shared memory ({STAGED_SMEM_BYTES} bytes)"
+        )
+    if x.device.type == "cpu":
+        return dia_spmv_reference(data, x, offs, n, m)
+    if n == 0:
+        return torch.empty(0, dtype=x.dtype, device=x.device)
+    y = _launch("sigma_dia_spmv_resident", data, x, offs, (n,), n, m)
+    dia_spmv_resident.launches += 1
+    return y
+
+
+dia_spmv_resident.launches = 0
+
+
+def dia_spmv_window(data, x, offsets, n, m, tile_rows=256):
+    """y = A x as :func:`dia_spmv` computes it, by the kernel that copies
+    each ``tile_rows``-row tile's x window (:func:`window_plan`) into
+    shared memory with asynchronous copies and computes from there.
+    ``tile_rows`` is the block's row count (the JAX kernel counted its
+    tile in 128-lane rows), a multiple of 32 up to 1024.  Raises
+    ValueError when the window does not fit one block's shared memory."""
+    if tile_rows % 32 or not 32 <= tile_rows <= 1024:
+        raise ValueError(f"tile_rows must be a multiple of 32 in [32, 1024], got {tile_rows}")
+    offs, plan, pieces, length = _staged_operands(_offset_tuple(offsets), tile_rows, x.device)
+    _check(data, x, offs, n, m)
+    if length * x.element_size() > STAGED_SMEM_BYTES:
+        raise ValueError(
+            f"the x window of a {tile_rows}-row tile ({length} values in {pieces} pieces) "
+            f"does not fit one block's shared memory ({STAGED_SMEM_BYTES} bytes)"
+        )
+    if x.device.type == "cpu":
+        return dia_spmv_reference(data, x, offs, n, m)
+    if n == 0:
+        return torch.empty(0, dtype=x.dtype, device=x.device)
+    y = _launch("sigma_dia_spmv_window", data, x, offs, (n,), n, m,
+                plan.data_ptr(), pieces, tile_rows, length)
+    dia_spmv_window.launches += 1
+    return y
+
+
+dia_spmv_window.launches = 0
+
+
+def dia_spmv_staged(data, x, offsets, n, m, tile_rows=256, allow_dma_path=False):
+    """y = A x for the n x m DIA matrix ``data[d, i] = A[i, i + offsets[d]]``
+    through the staged-x kernels, routed as the JAX package's
+    ``dia_spmv_pallas`` routes (:func:`staged_route`): the resident kernel
+    when x fits shared memory, else the windowed kernel with
+    ``allow_dma_path`` and :func:`dia_spmv` without.  ``offsets`` is a
+    sequence of ints, as the JAX entry's static offsets (an int64 tensor is
+    read back once)."""
+    route = staged_route(m, x.element_size(), allow_dma_path)
+    if route == "resident":
+        return dia_spmv_resident(data, x, offsets, n, m)
+    if route == "window":
+        return dia_spmv_window(data, x, offsets, n, m, tile_rows)
+    offs = _staged_operands(_offset_tuple(offsets), tile_rows, x.device)[0]
+    return dia_spmv(data, x, offs, n, m)

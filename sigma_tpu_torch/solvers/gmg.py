@@ -492,8 +492,7 @@ def structured_pair_amg(
             dat = np.zeros((len(offs), round_up(nl, 128)), dtype)
             for k, V in enumerate(vgrids):
                 dat[k, :nl] = V.reshape(-1)
-            nnz = sum(max(0, min(nl, nl - o) - max(0, -o)) for o in offs)
-            graph = DIAGraph(offsets=tuple(offs), shape=(nl, nl), nnz=int(nnz))
+            graph = DIAGraph.from_offsets(offs, nl, nl)
             Alvl = DIAMatrix(graph=graph, data=dev(dat, lvl_dtype))
         diag = g.get((0,) * len(d))
         dvec = diag.reshape(-1) if diag is not None else np.zeros(nl, dtype)

@@ -316,3 +316,112 @@ def test_unstructured_path_on_card_matches_cpu(cuda):
         X_cpu, ibc = st.block_cg_solve(A, B, tol=0.0, rtol=1e-10, M=M)
         assert ib.converged and abs(ib.iterations - ibc.iterations) <= 1
         assert rel(X_gpu, X_cpu) <= 1e-8
+
+
+# -- the full-band path: grouped SpMM (#9) and staged-x SpMV (#5, #6) --------
+def _band(cuda, rng, n, m, offsets, vdt):
+    data = np.zeros((len(offsets), -(-n // 128) * 128))
+    for d, o in enumerate(offsets):
+        lo, hi = max(0, -o), min(n, m - o)
+        data[d, lo:hi] = rng.standard_normal(max(hi - lo, 0))
+    return torch.from_numpy(data).to(cuda, vdt), torch.tensor(offsets, device=cuda)
+
+
+# the grouped kernel's two routes for x: 100 scattered diagonals (several
+# value slabs in every dtype, each spread too wide for the shared-memory x
+# window) and a band of 117 with gaps (the window, with and without the
+# register carry between consecutive offsets)
+_WIDE = sorted(int(o) for o in np.random.default_rng(20).choice(np.arange(-3000, 3001), 100,
+                                                                replace=False))
+_GAPPED = sorted(set(range(-60, 61)) - {-7, 3, 4, 30})
+
+
+@pytest.mark.parametrize("k", [17, 24, 32, 48])
+@pytest.mark.parametrize("layout", st.ops.GROUPED_LAYOUTS)
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("offsets", [_WIDE, _GAPPED], ids=["scattered", "band_with_gaps"])
+def test_dia_spmm_grouped_kernel(cuda, pair, layout, k, offsets):
+    vdt, xdt = pair
+    rng = np.random.default_rng(21)
+    n, m = 20_001, 25_000  # rectangular, unaligned, an odd row count
+    data, offs = _band(cuda, rng, n, m, offsets, vdt)
+    XT = torch.from_numpy(rng.standard_normal((k, m))).to(cuda, xdt)
+    X = XT if layout == "rhs_major" else XT.T.contiguous()
+    before = st.ops.dia_spmm_grouped.launches_by_layout[layout]
+    Y = st.ops.dia_spmm_grouped(data, X, offs, n, m, layout)
+    torch.cuda.synchronize()
+    assert st.ops.dia_spmm_grouped.launches_by_layout[layout] == before + 1
+    ref = st.ops.dia_spmm_grouped_reference(data, X, offs, n, m, layout)
+    assert Y.dtype == xdt and Y.shape == ref.shape
+    assert rel(Y, ref) <= _tol(xdt)
+
+
+@pytest.mark.parametrize("tile_rows", [128, 256])
+@pytest.mark.parametrize("offsets", [[-3000, -300, -1, 0, 1, 300, 3000], list(range(-122, 123))],
+                         ids=["reach_past_a_tile", "band"])
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+def test_staged_spmv_kernels(cuda, pair, offsets, tile_rows):
+    vdt, xdt = pair
+    rng = np.random.default_rng(22)
+    n = m = 20_001  # unaligned; x fits shared memory in f32 and f64
+    data, offs = _band(cuda, rng, n, m, offsets, vdt)
+    x = torch.from_numpy(rng.standard_normal(m)).to(cuda, xdt)
+    ref = dia_spmv_reference(data, x, offs, n, m)
+    before = st.ops.dia_spmv_resident.launches, st.ops.dia_spmv_window.launches
+    y_res = st.ops.dia_spmv_staged(data, x, offsets, n, m)
+    y_win = st.ops.dia_spmv_window(data, x, offsets, n, m, tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    assert (st.ops.dia_spmv_resident.launches, st.ops.dia_spmv_window.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert rel(y_res, ref) <= _tol(xdt) and rel(y_win, ref) <= _tol(xdt)
+
+
+def test_staged_routes_and_raises_where_x_does_not_fit(cuda):
+    rng = np.random.default_rng(23)
+    n = m = 60_000  # 240,000 bytes of f32 x: past one block's shared memory
+    offsets = [-5000, 0, 7]
+    data, offs = _band(cuda, rng, n, m, offsets, torch.float32)
+    x = torch.from_numpy(rng.standard_normal(m)).to(cuda, torch.float32)
+    ref = dia_spmv_reference(data, x, offs, n, m)
+    with pytest.raises(ValueError, match="does not fit"):
+        st.ops.dia_spmv_resident(data, x, offsets, n, m)
+    before = dia_spmv.launches, st.ops.dia_spmv_window.launches
+    assert rel(st.ops.dia_spmv_staged(data, x, offsets, n, m), ref) <= 1e-5  # -> dia_spmv
+    assert rel(st.ops.dia_spmv_staged(data, x, offsets, n, m, allow_dma_path=True), ref) <= 1e-5
+    assert (dia_spmv.launches, st.ops.dia_spmv_window.launches) == (before[0] + 1, before[1] + 1)
+    # 31 disjoint windows of 1024 f64 values: 253,952 bytes
+    far = [3_000 * j for j in range(-15, 16)]
+    dataf, _ = _band(cuda, rng, 100_000, 100_000, far, torch.float64)
+    xf = torch.zeros(100_000, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        st.ops.dia_spmv_window(dataf, xf, far, 100_000, 100_000, tile_rows=1024)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        st.ops.dia_spmv_window(dataf, xf, far, 100_000, 100_000, tile_rows=100)
+
+
+def test_full_band_path_on_card_matches_cpu(cuda):
+    """CSR -> to_banded_dia assembled on the card equals the CPU band;
+    CG, k = 24 and k = 32 products (the grouped route) and banded
+    multigrid CG agree with the CPU."""
+    n, r, c, v = st.irregular_mesh_laplacian_coo(128, 32, rng=np.random.default_rng(0),
+                                                 shift=1e-3, shuffle=True)
+    A = st.CSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
+    D, p = st.to_banded_dia(A)  # RCM: 117 diagonals
+    Dg, pg = st.to_banded_dia(A.to(cuda))
+    assert Dg.data.device.type == "cuda" and np.array_equal(p, pg)
+    assert Dg.offsets == D.offsets and torch.equal(Dg.data.cpu(), D.data)
+    assert D.grouped_profitable(24) and D.grouped_profitable(32)
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(rng.standard_normal((D.shape[0], 24)))
+    before = dict(st.ops.dia_spmm_grouped.launches_by_layout)
+    assert rel(Dg.matmat(X.to(cuda)), D.matmat(X)) <= 1e-12
+    XT = torch.from_numpy(rng.standard_normal((32, D.shape[0])))
+    assert rel(Dg.matmat_rhs_major(XT.to(cuda)), D.matmat_rhs_major(XT)) <= 1e-12
+    after = st.ops.dia_spmm_grouped.launches_by_layout
+    assert (after["cols"] - before["cols"], after["rhs_major"] - before["rhs_major"]) == (1, 1)
+    b = torch.from_numpy(rng.standard_normal(D.shape[0]))
+    M = st.structured_pair_amg(D, (D.shape[0],), coarse_size=256)
+    x_cpu, i_cpu = st.cg_solve(D, b, tol=0.0, rtol=1e-10, M=M)
+    x_gpu, i_gpu = st.cg_solve(Dg, b.to(cuda), tol=0.0, rtol=1e-10, M=M.to(cuda))
+    assert i_gpu.converged and abs(i_gpu.iterations - i_cpu.iterations) <= 1
+    assert rel(x_gpu, x_cpu) <= 1e-8
