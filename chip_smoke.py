@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py [--nx 216]
 
-Builds the DIA, grouped, staged and pruned SpMV and SpMM kernels from
-``sigma_tpu_torch/csrc/`` with nvcc (and the host library with g++),
-checks each against its plain PyTorch version on the card (every dtype
-pair; for SpMM every panel layout and k in {1, 3, 8, 16}), and times them
+Builds the DIA, grouped, staged, pruned and grouped-BSR SpMV and SpMM
+kernels from ``sigma_tpu_torch/csrc/`` with nvcc (and the host library with
+g++), checks each against its plain PyTorch version on the card (every
+dtype pair; for SpMM every panel layout and k in {1, 3, 8, 16}; the
+grouped-BSR kernel at four block shapes, three group sizes and k in
+{1, 3, 4, 8}), and times them
 at the north stars' shapes beside their bound and the same product in
 cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 (10,077,696 rows, 70,263,936 nonzeros) and the shuffled irregular-mesh
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8.  Then it
-drives seven paths through the package's public entry points:
+drives eight paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -42,7 +44,19 @@ drives seven paths through the package's public entry points:
 - the staged-x SpMV entry ``dia_spmv_staged`` (phase 20): the resident
   kernel on every multigrid level of the nx=216 stencil and of the band
   whose x fits shared memory, the windowed kernel on the nx=216 stencil,
-  each beside ``dia_spmv``.
+  each beside ``dia_spmv``;
+- the block / multi-DOF path (phases 21-22): the grouped-BSR kernel on the
+  block-banded operator of ``bench.py`` ((8, 128) blocks in groups of 8;
+  65,536 rows with 67,108,864 stored slots, and 524,288 rows with 2.15 GB)
+  and on the elasticity-like operator of ``benchmarks/elasticity3d.py`` at
+  nx=150 (10,125,000 dof, 211,410,000 nonzeros) as node-major (3, 3)-block
+  BSR assembled on the card, each timed beside its bound, its plain
+  version, ``torch.sparse_csr`` and ``torch.sparse_bsr`` of the same
+  matrix; and that operator in three layouts (a field-blocked
+  ``BlockMatrix`` of 9 DIA blocks, the node-major DIA band in full and
+  symmetric storage, the grouped BSR): parity of A x, SpMV and SpMM
+  (k = 4) times, and the Jacobi-CG solve against the manufactured
+  solution, with equal iteration counts.
 
 The kernels' launch counts are zeroed before each path and read after it,
 and each path must have launched its kernels; launches that compare a
@@ -1582,6 +1596,328 @@ def phase_staged(device, levels, stencil, checks, band_window_row):
     return rows
 
 
+# -- the block / multi-DOF path: grouped BSR (#14), BlockMatrix ----------------
+
+
+def phase_bsr_kernel(device):
+    """bsr_grouped_spmv against its plain version on the card: every dtype
+    pair, block shapes (8, 128), (8, 16), (4, 4) and (3, 3), groups 1, 4
+    and 8, k in {1, 3, 4, 8}, shapes the blocks do not divide, empty block
+    rows and rows of several groups; the f64 products also against the
+    dense product.  The matrices are assembled on the card by
+    BSRMatrix.from_coo and regrouped by GroupedBSR.from_bsr."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import BSRMatrix
+    from sigma_tpu_torch.ops import (
+        BSR_KERNEL_DTYPES, bsr_grouped_spmv, bsr_grouped_spmv_reference,
+    )
+
+    rng = np.random.default_rng(14)
+
+    def dense_case(n, m, bh):
+        d = np.where(rng.random((n, m)) < 0.04, rng.standard_normal((n, m)), 0.0)
+        d[: 4 * bh] = np.where(rng.random((4 * bh, m)) < 0.3,
+                               rng.standard_normal((4 * bh, m)), 0.0)  # rows of several groups
+        d[n // 2 : n // 2 + 3 * bh] = 0.0  # empty block rows
+        return d
+
+    cases = [((500, 460), (8, 16)), ((260, 260), (4, 4)), ((301, 305), (3, 3)),
+             ((520, 1000), (8, 128))]
+
+    def tol(xdt):
+        # f64 and f32 accumulate in x's dtype; bf16 vectors accumulate in
+        # f32 and round once, so kernel and plain version may land one bf16
+        # step (2^-7 relative) apart
+        return {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}[xdt]
+
+    worst, count = {}, 0
+    for (n, m), blk in cases:
+        dense = dense_case(n, m, blk[0])
+        r, c = np.nonzero(dense)
+        for vdt, xdt in sorted(BSR_KERNEL_DTYPES, key=str):
+            A = BSRMatrix.from_coo(n, m, r, c, dense[r, c], dtype=vdt, block_shape=blk,
+                                   device=device)
+            for group in (1, 4, 8):
+                G = A.grouped(group)
+                for k in (1, 3, 4, 8):
+                    X = torch.from_numpy(rng.standard_normal((m, k))).to(device, xdt)
+                    Xp = G._pad_x(X).contiguous()
+                    args = (G.gdata, G.gcols, G.grow, Xp, G.nb_rows, G.nb_cols, G.block_shape,
+                            G.group)
+                    Y = bsr_grouped_spmv(*args, gptr=G.gptr)
+                    torch.cuda.synchronize()
+                    e = rel_err(Y, bsr_grouped_spmv_reference(*args))
+                    if not e <= tol(xdt):
+                        raise AssertionError(
+                            f"bsr_grouped_spmv {blk} group {group} k {k} {vdt}/{xdt}: rel err {e:.3e}")
+                    if vdt == xdt == torch.float64:
+                        ed = rel_err(Y[:n].cpu(), torch.from_numpy(dense @ X.cpu().numpy()))
+                        if not ed <= 1e-12:
+                            raise AssertionError(f"bsr_grouped_spmv {blk} vs dense: {ed:.3e}")
+                    key = str(xdt).replace("torch.", "")
+                    worst[key] = max(worst.get(key, 0.0), e)
+                    count += 1
+    emit({"phase": "bsr_kernel_checks", "cases": count, "worst_rel_err_by_vector": worst,
+          "tolerance": "1e-12 with f64 vectors, 1e-5 with f32, 2^-7 with bf16 vectors "
+                       "(f32 accumulation, one rounding on the store)"})
+
+
+def _library_operands(G):
+    """The matrix of a GroupedBSR as torch.sparse_csr and torch.sparse_bsr
+    (a block that a row names twice summed, the all-zero padding blocks
+    dropped), for the library yardsticks; used nowhere in the port."""
+    import torch
+
+    n, m = G.nb_rows * G.block_shape[0], G.nb_cols * G.block_shape[1]
+    bh, bw = G.block_shape
+    n_groups, B = G.gcols.shape
+    dev = G.gdata.device
+    bkeys, inv = torch.unique(G.grow.long()[:, None] * G.nb_cols + G.gcols.long(),
+                              return_inverse=True)
+    blocks = G.gdata.view(n_groups, bh, B, bw).permute(0, 2, 1, 3).reshape(n_groups * B, bh, bw)
+    values = torch.zeros((bkeys.numel(), bh, bw), dtype=G.gdata.dtype, device=dev)
+    values.index_add_(0, inv.reshape(-1), blocks)
+    del blocks, inv
+    keep = values.abs().amax(dim=(1, 2)) > 0
+    bkeys, values = bkeys[keep], values[keep]
+    brow, bcol = bkeys // G.nb_cols, bkeys % G.nb_cols
+    crow = torch.zeros(G.nb_rows + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(brow, minlength=G.nb_rows), 0)
+    bsr = torch.sparse_bsr_tensor(crow.int(), bcol.int(), values, size=(n, m))
+    rows = (brow[:, None, None] * bh + torch.arange(bh, device=dev)[None, :, None]) \
+        .expand(-1, bh, bw).reshape(-1)
+    cols = (bcol[:, None, None] * bw + torch.arange(bw, device=dev)[None, None, :]) \
+        .expand(-1, bh, bw).reshape(-1)
+    csr = csr_from_coo(rows, cols, values.reshape(-1), n, m)
+    return csr, bsr
+
+
+def block_setup(device, nx=150):
+    """Build the block path's operators and print the set-up seconds per
+    step: configuration A (the block-banded operator, 8,192 and 65,536 block
+    rows) and configuration B (the elasticity operator at nx in its three
+    layouts, the node-major ones assembled on the card)."""
+    import torch
+
+    from sigma_tpu_torch import (
+        BSRMatrix, block_banded_grouped_bsr, elasticity_field_blocked, elasticity_jacobi,
+        elasticity_node_major_dia, elasticity_permutation,
+    )
+    from sigma_tpu_torch.problems import elasticity_node_major_coo
+
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    S = {"nx": nx, "n": nx ** 3}
+    S["A_small"] = step("A_8192_generate", lambda: block_banded_grouped_bsr(8192, device=device))
+    S["A_large"] = step("A_65536_generate", lambda: block_banded_grouped_bsr(65536, device=device))
+    S["field"] = step("B_field_blocked", lambda: elasticity_field_blocked(nx, torch.float32, device))
+    S["node"] = step("B_node_dia", lambda: elasticity_node_major_dia(nx, torch.float32, device))
+    S["node_sym"] = step("B_node_sym_dia", lambda: elasticity_node_major_dia(
+        nx, torch.float32, device, symmetric=True))
+    N, r, c, v = step("B_node_triples", lambda: elasticity_node_major_coo(nx, torch.float32, device))
+    torch.cuda.reset_peak_memory_stats()
+    S["bsr"] = step("B_bsr_from_coo", lambda: BSRMatrix.from_coo(
+        N, N, r, c, v, dtype=torch.float32, sum_duplicates=False, device=device,
+        block_shape=(3, 3)))
+    peak = torch.cuda.max_memory_allocated()
+    del r, c, v
+    S["grouped"] = step("B_grouped", lambda: S["bsr"].grouped(8))
+    S["perm"] = torch.from_numpy(elasticity_permutation(S["n"])).to(device)
+    S["M_field"] = elasticity_jacobi(nx, torch.float32, device)
+    S["M_node"] = elasticity_jacobi(nx, torch.float32, device, node_major=True)
+    G, B = S["grouped"], S["bsr"]
+    emit({"phase": "block_setup", "seconds": steps,
+          "A": {name: {"shape": S[name].shape, "slots": S[name].stored_slots,
+                       "value_mb": S[name].stored_slots * 4 / 1e6}
+                for name in ("A_small", "A_large")},
+          "B": {"nx": nx, "dof": N, "nnz": B.nnz, "blocks": B.graph.nnzb,
+                "groups": G.gdata.shape[0], "slots": G.stored_slots,
+                "value_mb": G.stored_slots * 4 / 1e6, "column_indices": G.gcols.numel(),
+                "node_diagonals": S["node"].graph.n_diags,
+                "node_sym_diagonals": len(S["node_sym"].offsets),
+                "field_blocked_value_mb": 9 * S["field"].blocks[0][0].data.numel() * 4 / 1e6,
+                "assembly_peak_gb": peak / 1e9}})
+    if (N, B.nnz, G.stored_slots) != (3 * nx ** 3, 9 * (7 * nx ** 3 - 6 * nx * nx),
+                                      8 * 9 * nx ** 3):
+        raise AssertionError(f"elasticity operator: {N} dof, {B.nnz} nnz, {G.stored_slots} slots")
+    return S
+
+
+def _bsr_variants(S, device):
+    """(label, GroupedBSR, k, X) of the grouped-BSR kernel's timed shapes."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(14)
+    out = []
+    for label, G, ks in (("A_8192", S["A_small"], (1, 4, 8)), ("A_65536", S["A_large"], (1, 4, 8)),
+                         ("B3_elasticity", S["grouped"], (1, 4))):
+        for k in ks:
+            X = torch.randn((G.shape[1], k), generator=g, device=device)
+            out.append((f"{label}_k{k}", G, k, X))
+    return out
+
+
+def block_checks(device, S, variants):
+    """Outside the counted path: the kernel at each timed shape against its
+    plain version (limit 1e-5 relative, f32), the plain version's time, the
+    kernel's time at every lane count beside the wrapper's choice, and
+    the library yardsticks on the same operands: torch.sparse_csr @ X and
+    torch.sparse_bsr @ X of the same matrix.  Returns {label: dict}."""
+    import torch
+
+    from sigma_tpu_torch.ops import (
+        bsr_grouped_lanes, bsr_grouped_spmv, bsr_grouped_spmv_reference,
+    )
+
+    out = {}
+    lib_of, csr, bsr = None, None, None  # the library copies of one operator at a time
+    for label, G, k, X in variants:
+        args = (G.gdata, G.gcols, G.grow, X, G.nb_rows, G.nb_cols, G.block_shape, G.group)
+        Y = bsr_grouped_spmv(*args, gptr=G.gptr)
+        ref = bsr_grouped_spmv_reference(*args)
+        torch.cuda.synchronize()
+        e = rel_err(Y, ref)
+        if not e <= 1e-5:
+            raise AssertionError(f"bsr_grouped_spmv {label}: rel err {e:.3e}")
+        out[label] = {"max_abs_err": float((Y - ref).abs().max()), "rel_err": e,
+                      "plain_ms": median_ms(partial(bsr_grouped_spmv_reference, *args),
+                                            reps=5, warmup=1)}
+        del ref
+        # the wrapper's lane rule (bsr_grouped_lanes) beside the other widths
+        out[label]["ms_by_lanes"] = {
+            lanes: median_ms(partial(bsr_grouped_spmv, *args, gptr=G.gptr, lanes=lanes),
+                             reps=10, warmup=2)
+            for lanes in (1, 2, 4, 8, 16, 32)}
+        out[label]["lanes"] = bsr_grouped_lanes(G.group * G.block_shape[1])
+        if G is not lib_of:
+            csr = bsr = None
+            torch.cuda.empty_cache()
+            csr, bsr = _library_operands(G)
+            lib_of = G
+        Xv = X[:, 0].contiguous() if k == 1 else X
+        yl = (csr @ Xv).reshape(-1)
+        el = rel_err(yl, Y.reshape(-1))
+        if not el <= 1e-5:
+            raise AssertionError(f"torch.sparse_csr disagrees at {label}: {el:.3e}")
+        out[label]["library_ms"] = median_ms(lambda: csr @ Xv, reps=10, warmup=2)
+        try:  # a yardstick, not a check: this torch may not take the block shape
+            out[label]["library_bsr_rel_err"] = rel_err((bsr @ Xv).reshape(-1), yl)
+            out[label]["library_bsr_ms"] = median_ms(lambda: bsr @ Xv, reps=10, warmup=2)
+        except (RuntimeError, NotImplementedError) as exc:
+            out[label]["library_bsr_ms"] = None
+            out[label]["library_bsr_error"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+    del csr, bsr
+    torch.cuda.empty_cache()
+    emit({"phase": "block_checks", "checks": out,
+          "tolerance": "1e-5 relative (f32 vectors), kernel vs plain and library vs kernel"})
+    return out
+
+
+def phase_block(device, S, variants, checks):
+    """The counted block path.  Timings (CUDA events, median of 30) of the
+    grouped-BSR kernel at configurations A and B.3 beside bound, plain
+    version and the library calls; the three layouts of the elasticity
+    operator: parity of A x, SpMV and SpMM (k = 4) times, and the Jacobi-CG
+    solve of benchmarks/elasticity3d.py against its manufactured solution.
+    Returns the kernel's rows keyed by label."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import cg_solve
+    from sigma_tpu_torch.ops import bsr_grouped_spmv, dia_spmm, dia_spmv, dia_sym_spmm, dia_sym_spmv
+
+    rows = {}
+    for label, G, k, X in variants:
+        Xv = X[:, 0].contiguous() if k == 1 else X
+        ms = median_ms((lambda: G.matvec(Xv)) if k == 1 else (lambda: G.matmat(Xv)))
+        slots = G.stored_slots
+        n_out = G.nb_rows * G.block_shape[0]
+        floor = (G.gdata.numel() * 4 + G.gcols.numel() * 4 + G.gptr.numel() * 8
+                 + X.numel() * 4 + n_out * k * 4)
+        gathered = G.gcols.numel() * G.block_shape[1] * k * 4
+        bound_ms, bound_by = bound(floor, 2 * slots * k, torch.float32)
+        c = checks[label]
+        row = {"phase": "block", "kernel": "bsr_grouped_spmv", "variant": label, "k": k,
+               "shape": G.shape, "block": G.block_shape, "group": G.group, "slots": slots,
+               "kernel_ms": ms, "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+               "library": "torch.sparse_csr @ X (cuSPARSE), the same matrix",
+               "library_bsr_ms": c["library_bsr_ms"],
+               "library_bsr": c.get("library_bsr_error", "torch.sparse_bsr @ X, the same matrix"),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes_floor_mb": floor / 1e6,
+               "gathered_x_mb": gathered / 1e6, "achieved_gbs": floor / (ms * 1e-3) / 1e9,
+               "slot_gnnz_s": slots * k / (ms * 1e-3) / 1e9,
+               "max_abs_err": c["max_abs_err"], "rel_err": c["rel_err"]}
+        emit(row)
+        rows[label] = row
+
+    # configuration B: the three layouts of the elasticity operator
+    n, N, perm = S["n"], 3 * S["n"], S["perm"]
+    layouts = [("field_blocked", S["field"], S["M_field"], False),
+               ("node_dia", S["node"], S["M_node"], True),
+               ("node_sym_dia", S["node_sym"], S["M_node"], True),
+               ("node_bsr_grouped", S["grouped"], S["M_node"], True)]
+
+    def to_layout(v, node):  # field-blocked vector or panels -> the layout's dof order
+        if not node:
+            return v
+        out = torch.empty_like(v)
+        out[perm] = v
+        return out
+
+    g = torch.Generator(device=device).manual_seed(5)
+    xv = torch.randn(N, generator=g, device=device)
+    Xv = torch.randn((N, 4), generator=g, device=device)
+    y_ref = S["field"].matvec(xv)
+    Y_ref = S["field"].matmat(Xv)
+    xstar = torch.sin(torch.arange(n, dtype=torch.float32, device=device) * 0.001).repeat(3)
+    b = S["field"].matvec(xstar)
+    iters = {}
+    for name, A, M, node in layouts:
+        x_l, X_l, b_l = to_layout(xv, node), to_layout(Xv, node), to_layout(b, node)
+        before = {f.__name__: f.launches
+                  for f in (bsr_grouped_spmv, dia_spmv, dia_sym_spmv, dia_spmm, dia_sym_spmm)}
+        y, Y = A.matvec(x_l), A.matmat(X_l)
+        per_product = {k: f.launches - before[k]
+                       for k, f in (("bsr_grouped_spmv", bsr_grouped_spmv), ("dia_spmv", dia_spmv),
+                                    ("dia_sym_spmv", dia_sym_spmv), ("dia_spmm", dia_spmm),
+                                    ("dia_sym_spmm", dia_sym_spmm)) if f.launches - before[k]}
+        parity = rel_err(y[perm] if node else y, y_ref)
+        parity_mm = rel_err(Y[perm] if node else Y, Y_ref)
+        if not (parity <= 1e-5 and parity_mm <= 1e-5):
+            raise AssertionError(f"{name}: A x differs from the field-blocked layout by "
+                                 f"{parity:.3e} (k = 4: {parity_mm:.3e})")
+        spmv_ms = median_ms(lambda: A.matvec(x_l))
+        spmm_ms = median_ms(lambda: A.matmat(X_l))
+        (x, info), warm = _timed(lambda: cg_solve(A, b_l, tol=0.0, rtol=1e-6, maxiter=150, M=M))
+        rel = _true_rel_residual(A, b_l, x)
+        err = float(((x[perm] if node else x) - xstar).abs().max())
+        iters[name] = info.iterations
+        emit({"phase": "block", "layout": name, "dof": N, "nnz": S["bsr"].nnz,
+              "launches_matvec_plus_matmat": per_product,
+              "rel_err_vs_field_blocked": parity, "rel_err_vs_field_blocked_k4": parity_mm,
+              "spmv_ms": spmv_ms, "spmm_k4_ms": spmm_ms,
+              "spmv_gnnz_s": S["bsr"].nnz / (spmv_ms * 1e-3) / 1e9,
+              "cg_iterations": info.iterations, "cg_converged": info.converged,
+              "relative_residual": rel, "max_err_vs_manufactured": err,
+              "cg_wall_s_warm": warm, "cg_s_per_iteration": warm / max(info.iterations, 1),
+              "jax_tpu_iterations": 26})
+        if not (info.converged and rel < 1e-5 and err < 1e-3):
+            raise AssertionError(f"{name}: CG {info}, true rel {rel:.3e}, error {err:.3e}")
+    if max(iters.values()) - min(iters.values()) > 1:
+        raise AssertionError(f"the layouts' CG iteration counts differ by more than 1: {iters}")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
@@ -1597,8 +1933,9 @@ def main():
     device = torch.device("cuda", 0)
     # fails early without the package
     from sigma_tpu_torch.ops import (
-        dia_spmm, dia_spmm_grouped, dia_spmv, dia_spmv_resident, dia_spmv_window, dia_sym_spmm,
-        dia_sym_spmv, pruned_spmm, pruned_spmv, pruned_sym_spmm, pruned_sym_spmv,
+        bsr_grouped_spmv, dia_spmm, dia_spmm_grouped, dia_spmv, dia_spmv_resident,
+        dia_spmv_window, dia_sym_spmm, dia_sym_spmv, pruned_spmm, pruned_spmv, pruned_sym_spmm,
+        pruned_sym_spmv,
     )
 
     smi = phase_device()                                    # phase 0
@@ -1606,6 +1943,7 @@ def main():
     phase_kernels(device)                                   # phase 2
     phase_spmm_kernels(device)                              # phase 3
     phase_pruned_kernels(device)                            # phase 4
+    phase_bsr_kernel(device)                                # phase 4b
     rows = phase_north_star_spmv(device, args.nx)           # phase 5
     rows.update(phase_north_star_spmm(device, args.nx))     # phase 6
     U = unstructured_setup(device, emit_as="unstructured_setup")  # phase 7
@@ -1616,7 +1954,7 @@ def main():
                "pruned_spmv": pruned_spmv, "pruned_sym_spmv": pruned_sym_spmv,
                "pruned_spmm": pruned_spmm, "pruned_sym_spmm": pruned_sym_spmm,
                "dia_spmm_grouped": dia_spmm_grouped, "dia_spmv_resident": dia_spmv_resident,
-               "dia_spmv_window": dia_spmv_window}
+               "dia_spmv_window": dia_spmv_window, "bsr_grouped_spmv": bsr_grouped_spmv}
 
     def zero_counts():
         for fn in kernels.values():
@@ -1691,6 +2029,19 @@ def main():
     paths.append(read_counts("staged", ("dia_spmv_resident", "dia_spmv_window", "dia_spmv")))
     # the resident kernel's row: its largest operand
     rows["dia_spmv_resident"] = max(resident.values(), key=lambda r: r["n"])
+    del levels, stencil, Mst, Mband
+    # the block / multi-DOF path: grouped BSR and BlockMatrix
+    S = block_setup(device)                                 # phase 21
+    variants = _bsr_variants(S, device)
+    checks = block_checks(device, S, variants)
+    zero_counts()
+    block_rows = phase_block(device, S, variants, checks)   # phase 22
+    paths.append(read_counts("block", ("bsr_grouped_spmv", "dia_spmv", "dia_spmm",
+                                       "dia_sym_spmv")))
+    # the grouped-BSR kernel's row: the shape its path launches most, the
+    # elasticity operator's matvec
+    rows["bsr_grouped_spmv"] = block_rows["B3_elasticity_k1"]
+    del S, variants
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most
     summary_layouts = {}
@@ -1714,6 +2065,7 @@ def main():
         "dia_spmm_grouped": ("dia_spmm_grouped.cu", f"{pallas}:1663 and {pallas}:1780"),
         "dia_spmv_resident": ("dia_spmv.cu", f"{pallas}:1246"),
         "dia_spmv_window": ("dia_spmv.cu", f"{pallas}:1277"),
+        "bsr_grouped_spmv": ("bsr_grouped.cu", "sigma_tpu/ops/bsr_pallas.py:59"),
     }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "spmm_summary_layouts": summary_layouts})

@@ -13,6 +13,10 @@ the full-band path: CSR and COO matrices, ``to_banded_dia`` (every diagonal
 of an RCM band in DIA storage, assembled on the device), the grouped SpMM
 kernel for k > 16 columns, the staged-x SpMV entry ``dia_spmv_staged`` and
 its two kernels, Chebyshev preconditioning and fixed-sweep refinement.
+And the block / multi-DOF path: BSR matrices (assembled on the device) and
+their grouped layout ``GroupedBSR`` on the hand-written grouped-BSR kernel,
+``BlockMatrix`` (a matrix of matrices), the CSC and ELL formats, the graph
+builder, the format factories and the ``set_values``/``add_values`` API.
 
 The package imports torch and numpy only (never JAX) and is importable on
 a machine with no GPU; the kernels are compiled by nvcc at first use on a
@@ -24,17 +28,36 @@ else makes its tensors on the device of the operand it derives from.
 
 from sigma_tpu_torch.apps import irregular_mesh_laplacian, irregular_mesh_laplacian_coo
 from sigma_tpu_torch.eigen import LOBPCGResult, lobpcg
-from sigma_tpu_torch.graph import COOGraph, CSRGraph, DIAGraph, Graph, reverse_cuthill_mckee
+from sigma_tpu_torch.graph import (
+    BSRGraph,
+    COOGraph,
+    CSCGraph,
+    CSRGraph,
+    DIAGraph,
+    ELLGraph,
+    Graph,
+    GraphBuilder,
+    build_graph,
+    choose_graph_type,
+    convert_graph,
+    reverse_cuthill_mckee,
+)
 from sigma_tpu_torch.matrix import (
+    BlockMatrix,
+    BSRMatrix,
     COOMatrix,
+    CSCMatrix,
     CSRMatrix,
     DIAMatrix,
+    ELLMatrix,
     PrunedDIAMatrix,
     SparseMatrix,
     SymmetricDIAMatrix,
     SymmetricPrunedDIAMatrix,
     band_occupancy,
     bandwidth,
+    choose_matrix_type,
+    convert_matrix,
     reorder_triples_rcm,
     to_banded_dia,
     to_pruned_dia,
@@ -51,8 +74,16 @@ from sigma_tpu_torch.operators import (
     SumOperator,
     aslinearoperator,
 )
-from sigma_tpu_torch.ops import cuda_available
-from sigma_tpu_torch.problems import laplacian_3d_dia
+from sigma_tpu_torch.ops import GroupedBSR, cuda_available
+from sigma_tpu_torch.problems import (
+    block_banded_grouped_bsr,
+    elasticity_field_blocked,
+    elasticity_jacobi,
+    elasticity_node_major_bsr,
+    elasticity_node_major_dia,
+    elasticity_permutation,
+    laplacian_3d_dia,
+)
 from sigma_tpu_torch.solvers import (
     ChebyshevSmoother,
     SolveInfo,

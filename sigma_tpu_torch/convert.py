@@ -12,7 +12,11 @@ and is mapped to the port's layout: the values are a reshape to
 ``(rowoff - halo) * 128 + laneoff``, and the per-step tiles become
 per-tile slot ranges.  CSR and COO matrices arrive as their index arrays
 and values, which the JAX package pads to a multiple of 8 past ``nnz``;
-the padding is cut off.
+the padding is cut off; so do CSC matrices.  ELL matrices arrive as the
+(n, width) neighbour and value arrays.  BSR matrices arrive as their block
+arrays, padding included, because the port keeps that padding; a grouped
+BSR as its three arrays.  A block matrix is put together from leaves that
+were converted one by one.
 """
 
 from __future__ import annotations
@@ -22,17 +26,38 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from sigma_tpu_torch.graph.graph import COOGraph, CSRGraph, DIAGraph
-from sigma_tpu_torch.matrix.formats import COOMatrix, CSRMatrix, DIAMatrix
+from sigma_tpu_torch.graph.graph import (
+    BSRGraph,
+    COOGraph,
+    CSCGraph,
+    CSRGraph,
+    DIAGraph,
+    ELLGraph,
+)
+from sigma_tpu_torch.matrix.composite import BlockMatrix
+from sigma_tpu_torch.matrix.formats import (
+    BSRMatrix,
+    COOMatrix,
+    CSCMatrix,
+    CSRMatrix,
+    DIAMatrix,
+    ELLMatrix,
+)
+from sigma_tpu_torch.ops.bsr_grouped import GroupedBSR
 from sigma_tpu_torch.matrix.pruned import PrunedDIAMatrix, SymmetricPrunedDIAMatrix
 from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
 from sigma_tpu_torch.solvers.gmg import StructuredAMGPreconditioner, _SLevel
 from sigma_tpu_torch.utils.device import resolve_device
 
 __all__ = [
+    "block_matrix_from_blocks",
+    "bsr_from_arrays",
     "coo_from_arrays",
+    "csc_from_arrays",
     "csr_from_arrays",
     "dia_from_arrays",
+    "ell_from_arrays",
+    "grouped_bsr_from_arrays",
     "pruned_amg_from_arrays",
     "pruned_from_arrays",
     "structured_amg_from_arrays",
@@ -76,6 +101,70 @@ def coo_from_arrays(rows, cols, data, shape, nnz, device=None) -> COOMatrix:
     cols = np.asarray(cols, dtype=np.int64)[:nnz]
     g = COOGraph(rows=rows, cols=cols, shape=tuple(int(s) for s in shape), nnz=nnz)
     return COOMatrix(graph=g, data=_tensor(np.asarray(data).reshape(-1)[:nnz], device))
+
+
+def csc_from_arrays(indptr, indices, data, shape, device=None) -> CSCMatrix:
+    """CSCMatrix from the JAX package's per-column ``indptr``, row
+    ``indices`` and column-major values (padded past nnz = ``indptr[-1]``)
+    and shape (n, m)."""
+    n, m = (int(s) for s in shape)
+    indptr = np.asarray(indptr, dtype=np.int64)
+    nnz = int(indptr[-1])
+    g = CSCGraph(
+        indptr=indptr, indices=np.asarray(indices, dtype=np.int64)[:nnz],
+        col_ids=np.repeat(np.arange(m, dtype=np.int64), np.diff(indptr)),
+        shape=(n, m), nnz=nnz,
+    )
+    return CSCMatrix(graph=g, data=_tensor(np.asarray(data).reshape(-1)[:nnz], device))
+
+
+def ell_from_arrays(cols, degrees, data, shape, device=None) -> ELLMatrix:
+    """ELLMatrix from the JAX package's (n, width) neighbour array, row
+    degrees and (n, width) values, and shape (n, m)."""
+    degrees = np.asarray(degrees, dtype=np.int64)
+    g = ELLGraph(cols=np.asarray(cols, dtype=np.int64), degrees=degrees,
+                 shape=tuple(int(s) for s in shape), nnz=int(degrees.sum()))
+    return ELLMatrix(graph=g, data=_tensor(data, device))
+
+
+def bsr_from_arrays(indptr, indices, block_rows, mask, data, shape, block_shape,
+                    device=None) -> BSRMatrix:
+    """BSRMatrix from the JAX package's block arrays, padding included:
+    ``indptr`` (nb_rows + 1,), ``indices`` and ``block_rows`` (nnzb_pad,),
+    ``mask`` and values (nnzb_pad, bh, bw), and the shapes."""
+    device = resolve_device(device)
+    indptr = np.asarray(indptr, dtype=np.int64)
+    nnzb = int(indptr[-1])
+    mask = np.asarray(mask, dtype=bool)
+    g = BSRGraph(
+        indptr=torch.from_numpy(indptr).to(device),
+        indices=torch.from_numpy(np.asarray(indices, dtype=np.int64)).to(device),
+        block_rows=torch.from_numpy(np.asarray(block_rows, dtype=np.int64)).to(device),
+        mask=torch.from_numpy(mask).to(device),
+        shape=tuple(int(s) for s in shape), block_shape=tuple(int(s) for s in block_shape),
+        nnz=int(mask[:nnzb].sum()), nnzb=nnzb,
+    )
+    return BSRMatrix(graph=g, data=_tensor(data, device))
+
+
+def grouped_bsr_from_arrays(gdata, gcols, grow, shape, block_shape, group,
+                            device=None) -> GroupedBSR:
+    """GroupedBSR from the JAX package's ``gdata`` (G, bh, B*bw), ``gcols``
+    (G, B) and ``grow`` (G,), and the shapes."""
+    device = resolve_device(device)
+    return GroupedBSR(
+        gdata=_tensor(gdata, device),
+        gcols=torch.from_numpy(np.array(gcols, dtype=np.int32)).to(device),
+        grow=torch.from_numpy(np.array(grow, dtype=np.int32)).to(device),
+        shape=shape, block_shape=block_shape, group=group,
+    )
+
+
+def block_matrix_from_blocks(blocks) -> BlockMatrix:
+    """BlockMatrix from a nested sequence of port operators (each made by
+    one of this module's functions from the arrays of the JAX block in its
+    place) and ``None`` for the absent blocks."""
+    return BlockMatrix.from_blocks(blocks)
 
 
 def sym_dia_from_arrays(offsets, data, n, device=None) -> SymmetricDIAMatrix:

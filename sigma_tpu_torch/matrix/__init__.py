@@ -6,7 +6,21 @@ from sigma_tpu_torch.matrix.banded import (
     to_pruned_dia,
 )
 from sigma_tpu_torch.matrix.base import SparseMatrix
-from sigma_tpu_torch.matrix.formats import COOMatrix, CSRMatrix, DIAMatrix
+from sigma_tpu_torch.matrix.composite import BlockMatrix
+from sigma_tpu_torch.matrix.factory import (
+    MATRIX_FORMATS,
+    choose_matrix_type,
+    convert_matrix,
+    num_matrix_types,
+)
+from sigma_tpu_torch.matrix.formats import (
+    BSRMatrix,
+    COOMatrix,
+    CSCMatrix,
+    CSRMatrix,
+    DIAMatrix,
+    ELLMatrix,
+)
 from sigma_tpu_torch.matrix.pruned import (
     PrunedDIAMatrix,
     SymmetricPrunedDIAMatrix,
@@ -15,9 +29,14 @@ from sigma_tpu_torch.matrix.pruned import (
 from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
 
 __all__ = [
+    "BSRMatrix",
+    "BlockMatrix",
     "COOMatrix",
+    "CSCMatrix",
     "CSRMatrix",
     "DIAMatrix",
+    "ELLMatrix",
+    "MATRIX_FORMATS",
     "PrunedDIAMatrix",
     "SparseMatrix",
     "SymmetricDIAMatrix",
@@ -25,6 +44,9 @@ __all__ = [
     "band_occupancy",
     "bandwidth",
     "check_symmetric_triples",
+    "choose_matrix_type",
+    "convert_matrix",
+    "num_matrix_types",
     "reorder_triples_rcm",
     "to_banded_dia",
     "to_pruned_dia",

@@ -1,7 +1,7 @@
-"""Sparse matrix formats on torch tensors: DIA, and the general CSR and COO.
+"""Sparse matrix formats on torch tensors: DIA, the general CSR, CSC, COO
+and ELL, and the block format BSR.
 
-Port of :class:`sigma_tpu.matrix.formats.DIAMatrix`, ``CSRMatrix`` and
-``COOMatrix``.  Every DIA matvec and rmatvec goes through
+Port of :mod:`sigma_tpu.matrix.formats`.  Every DIA matvec and rmatvec goes through
 :func:`sigma_tpu_torch.ops.spmv_dia.dia_spmv`, and every multi-RHS product
 (``matmat``, ``rmatmat``, ``matmat_rhs_major``, ``matmat_interleaved``)
 through :func:`sigma_tpu_torch.ops.spmm_dia.dia_spmm` in passes of up to 16
@@ -9,11 +9,15 @@ columns or, for more columns on a wide band, one
 :func:`~sigma_tpu_torch.ops.spmm_dia.dia_spmm_grouped`; each runs the CUDA
 kernel for a CUDA operand and the plain PyTorch version for a CPU one.
 
-CSR and COO products are a gather and an ``index_add_`` in plain PyTorch on
-every device, as the JAX package computes them with an XLA gather and a
-segment sum outside any Pallas kernel: they are the input of
-:func:`~sigma_tpu_torch.matrix.banded.to_banded_dia` and the gather floor
-the band is measured against.
+CSR, CSC, COO and ELL products are a gather and an ``index_add_`` (ELL: a
+row sum) in plain PyTorch on every device, as the JAX package computes
+them with an XLA gather and a segment sum outside any Pallas kernel: CSR
+is the input of :func:`~sigma_tpu_torch.matrix.banded.to_banded_dia` and
+the gather floor the band is measured against.  So are the four products
+of the ungrouped :class:`BSRMatrix` (gather, batched block product,
+``index_add_``); its kernel path is :meth:`BSRMatrix.grouped`, the
+:class:`~sigma_tpu_torch.ops.bsr_grouped.GroupedBSR` layout, every product
+of which on a CUDA tensor is the hand-written grouped-BSR kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +28,16 @@ from typing import ClassVar
 import numpy as np
 import torch
 
-from sigma_tpu_torch.graph.graph import COOGraph, CSRGraph, DIAGraph, Graph
+from sigma_tpu_torch.graph.graph import (
+    BSRGraph,
+    COOGraph,
+    CSCGraph,
+    CSRGraph,
+    DIAGraph,
+    ELLGraph,
+    Graph,
+    _element_keys,
+)
 from sigma_tpu_torch.matrix.base import SparseMatrix
 from sigma_tpu_torch.ops.spmm_dia import (
     MAX_PANELS,
@@ -43,7 +56,7 @@ from sigma_tpu_torch.utils.dtypes import (
     torch_dtype,
 )
 
-__all__ = ["COOMatrix", "CSRMatrix", "DIAMatrix"]
+__all__ = ["BSRMatrix", "COOMatrix", "CSCMatrix", "CSRMatrix", "DIAMatrix", "ELLMatrix"]
 
 
 def panel_apply(X, spmm, n, grouped=None):
@@ -135,6 +148,8 @@ class DIAMatrix(SparseMatrix):
     offsets_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     format: ClassVar[str] = "dia"
+    is_get_row_fast: ClassVar[bool] = True
+    is_get_column_fast: ClassVar[bool] = True
 
     def __post_init__(self):
         want = self._data_shape(self.graph)
@@ -309,8 +324,8 @@ def _gather_scatter(data, X, gather, scatter, length):
 
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class _EdgeListMatrix(SparseMatrix):
-    """Values on an explicit, row-major sorted edge list (CSR, COO):
-    ``data[e]`` = A[rows[e], cols[e]].  The edge indices live beside the
+    """Values on an explicit sorted edge list (CSR and COO row-major, CSC
+    column-major): ``data[e]`` = A[rows[e], cols[e]].  The edge indices live beside the
     values on their device as int64 tensors."""
 
     graph: Graph
@@ -340,7 +355,7 @@ class _EdgeListMatrix(SparseMatrix):
     rmatmat = rmatvec
 
     def entries(self):
-        """(rows, cols, values) in the stored (row-major) order."""
+        """(rows, cols, values) in the stored order."""
         r, c = self.graph.edges_numpy()
         return r, c, to_numpy(self.data)
 
@@ -360,6 +375,7 @@ class CSRMatrix(_EdgeListMatrix):
     graph: CSRGraph
 
     format: ClassVar[str] = "csr"
+    is_get_row_fast: ClassVar[bool] = True
 
     @classmethod
     def _graph_class(cls):
@@ -387,3 +403,196 @@ class COOMatrix(_EdgeListMatrix):
     @classmethod
     def _graph_class(cls):
         return COOGraph
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class CSCMatrix(_EdgeListMatrix):
+    """Column-compressed matrix: the stored arrays are the CSR compression
+    of A^T and the values are in column-major order, so matvec scatters by
+    row and rmatvec sums by column: CSR's two products swapped."""
+
+    graph: CSCGraph
+
+    format: ClassVar[str] = "csc"
+    is_get_column_fast: ClassVar[bool] = True
+
+    @classmethod
+    def _graph_class(cls):
+        return CSCGraph
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class ELLMatrix(SparseMatrix):
+    """ELLPACK matrix: values in a dense (n, width) tensor mirroring the
+    topology's neighbour array (value 0 in the padding slots).  matvec is
+    a fixed-trip-count gather, multiply and row sum."""
+
+    graph: ELLGraph
+    data: torch.Tensor  # (n, width)
+    cols_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    format: ClassVar[str] = "ell"
+    is_get_row_fast: ClassVar[bool] = True
+
+    def __post_init__(self):
+        want = self._data_shape(self.graph)
+        if tuple(self.data.shape) != want:
+            raise ValueError(f"data shape {tuple(self.data.shape)} != expected {want}")
+        object.__setattr__(self, "cols_dev", torch.from_numpy(self.graph.cols).to(self.data.device))
+
+    @classmethod
+    def _graph_class(cls):
+        return ELLGraph
+
+    @classmethod
+    def _data_shape(cls, graph):
+        return tuple(graph.cols.shape)
+
+    def matvec(self, x):
+        return (self.data * x[self.cols_dev]).sum(dim=1)
+
+    def rmatvec(self, x):
+        prod = self.data * x[:, None]
+        out = torch.zeros(self.shape[1], dtype=prod.dtype, device=prod.device)
+        return out.index_add_(0, self.cols_dev.reshape(-1), prod.reshape(-1))
+
+    def matmat(self, X):
+        return (self.data[:, :, None] * X[self.cols_dev]).sum(dim=1)
+
+    def rmatmat(self, X):
+        prod = self.data[:, :, None] * X[:, None, :]
+        out = torch.zeros((self.shape[1], X.shape[1]), dtype=prod.dtype, device=prod.device)
+        return out.index_add_(0, self.cols_dev.reshape(-1), prod.reshape(-1, X.shape[1]))
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class BSRMatrix(SparseMatrix):
+    """Block CSR matrix with dense (bh, bw) value blocks, ``data``
+    (nnzb_pad, bh, bw), zero at slots that are no true edge and in the
+    padding blocks.
+
+    SpMV = gather of x blocks, batched block product, sum over block rows
+    (``index_add_``, whose order on CUDA changes from run to run); SpMM
+    contracts each block against a (bw, k) slab.  Plain PyTorch on every
+    device, as the JAX package computes them in XLA.  The kernel path is
+    :meth:`grouped`.  Products are computed in the values' dtype (x is
+    cast to it), as in the JAX package."""
+
+    graph: BSRGraph
+    data: torch.Tensor  # (nnzb_pad, bh, bw)
+
+    format: ClassVar[str] = "bsr"
+    is_get_row_fast: ClassVar[bool] = True
+
+    def __post_init__(self):
+        want = self._data_shape(self.graph)
+        if tuple(self.data.shape) != want:
+            raise ValueError(f"data shape {tuple(self.data.shape)} != expected {want}")
+        if self.data.device != self.graph.device:
+            raise ValueError(f"values on {self.data.device}, graph on {self.graph.device}")
+
+    @classmethod
+    def _graph_class(cls):
+        return BSRGraph
+
+    @classmethod
+    def _data_shape(cls, graph):
+        return (graph.indices.shape[0],) + tuple(graph.block_shape)
+
+    def _format_kwargs(self):
+        return dict(block_shape=self.graph.block_shape)
+
+    def _format_kwargs_transposed(self):
+        bh, bw = self.graph.block_shape
+        return dict(block_shape=(bw, bh))
+
+    @classmethod
+    def _coerce_graph(cls, graph, device=None):
+        device = resolve_device(device)
+        if isinstance(graph, BSRGraph):
+            return graph if graph.device == device else graph.to(device)
+        rows, cols = graph.edges_numpy()
+        return BSRGraph.from_coo(graph.shape[0], graph.shape[1], rows, cols, device=device)
+
+    def _coerce_graph_from_builder(self, b):
+        rows, cols = b.edges()
+        return BSRGraph.from_coo(b.n, b.m, rows, cols, block_shape=self.graph.block_shape,
+                                 device=self.device)
+
+    @classmethod
+    def from_coo(cls, n, m, rows, cols, vals, dtype=None, sum_duplicates=True, device=None,
+                 block_shape=(8, 8)):
+        """Assemble from COO triples (numpy arrays or tensors) on the
+        target device: element keys ``row * m + col`` in int64, one
+        ``torch.unique`` for the sorted edge set (repeated triples summed
+        in float64 with ``sum_duplicates``, else one of them kept), one for
+        the blocks, one scatter of the values into the zero block array.
+        The arrays are those of the JAX package's host assembly, in the
+        same order with the same padding."""
+        device = resolve_device(device)
+        dt = torch_dtype(dtype) if dtype is not None else default_real_dtype()
+        n, m = int(n), int(m)
+        keys, inv = torch.unique(_element_keys(n, m, rows, cols, device), return_inverse=True)
+        v = torch.as_tensor(vals).to(device).reshape(-1)
+        if sum_duplicates:
+            v = torch.zeros(keys.numel(), dtype=torch.float64, device=device).index_add_(
+                0, inv, v.to(torch.float64))
+        else:
+            v = torch.zeros(keys.numel(), dtype=v.dtype, device=device).index_copy_(0, inv, v)
+        del inv
+        graph, flat = BSRGraph._from_sorted_keys(n, m, keys, block_shape)
+        del keys
+        data = torch.zeros(cls._data_shape(graph), dtype=dt, device=device)
+        data.view(-1)[flat] = v.to(dt)
+        return cls(graph=graph, data=data)
+
+    def entries(self):
+        rows, cols = self.graph.edges_torch()
+        vals = self.data.reshape(-1)[self.graph.positions_torch(rows, cols)]
+        return rows.cpu().numpy(), cols.cpu().numpy(), to_numpy(vals)
+
+    def _padded(self, x, length):
+        if x.shape[0] != length:
+            x = torch.cat([x, x.new_zeros((length - x.shape[0],) + tuple(x.shape[1:]))])
+        return x
+
+    def _padded_x(self, x):
+        return self._padded(x, self.graph.nb_cols * self.graph.block_shape[1])
+
+    def grouped(self, group: int = 8):
+        """The kernel's grouped layout
+        (:class:`sigma_tpu_torch.ops.bsr_grouped.GroupedBSR`), regrouped on
+        this matrix's device: the production path for block matrices, one
+        hand-written kernel launch per product on a CUDA tensor."""
+        from sigma_tpu_torch.ops.bsr_grouped import GroupedBSR
+
+        return GroupedBSR.from_bsr(self, group=group)
+
+    def matvec(self, x):
+        return self.matmat(x[:, None])[:, 0]
+
+    def rmatvec(self, x):
+        return self.rmatmat(x[:, None])[:, 0]
+
+    def matmat(self, X):
+        g = self.graph
+        bh, bw = g.block_shape
+        k = X.shape[1]
+        Xb = self._padded_x(X).reshape(g.nb_cols, bw, k)
+        Yb = torch.bmm(self.data, Xb[g.indices].to(self.dtype))  # (nnzb_pad, bh, k)
+        # one more row takes the padding blocks' sentinel block row
+        Y = torch.zeros((g.nb_rows + 1, bh, k), dtype=Yb.dtype, device=Yb.device)
+        Y.index_add_(0, g.block_rows, Yb)
+        return Y[: g.nb_rows].reshape(-1, k)[: g.shape[0]]
+
+    def rmatmat(self, X):
+        g = self.graph
+        bh, bw = g.block_shape
+        k = X.shape[1]
+        Xp = self._padded(X, g.nb_rows * bh).reshape(g.nb_rows, bh, k)
+        # the padding blocks' sentinel row is clamped; their values are 0
+        gathered = Xp[g.block_rows.clamp(max=g.nb_rows - 1)].to(self.dtype)
+        Yb = torch.bmm(self.data.transpose(1, 2), gathered)
+        Y = torch.zeros((g.nb_cols, bw, k), dtype=Yb.dtype, device=Yb.device)
+        Y.index_add_(0, g.indices, Yb)
+        return Y.reshape(-1, k)[: g.shape[1]]

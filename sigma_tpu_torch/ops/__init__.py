@@ -18,10 +18,23 @@
   versions; :class:`~sigma_tpu_torch.matrix.pruned.PrunedDIAMatrix` and
   :class:`~sigma_tpu_torch.matrix.pruned.SymmetricPrunedDIAMatrix` call
   them for every product.
+* :mod:`sigma_tpu_torch.ops.bsr_grouped` — the grouped block-sparse-row
+  SpMV/SpMM kernel with its plain version and the
+  :class:`~sigma_tpu_torch.ops.bsr_grouped.GroupedBSR` operator, which
+  calls it for every product; the kernel path of
+  :class:`~sigma_tpu_torch.matrix.formats.BSRMatrix` (``.grouped()``).
 """
 
 import torch
 
+from sigma_tpu_torch.ops.bsr_grouped import (
+    BSR_KERNEL_DTYPES,
+    GroupedBSR,
+    bsr_group_pointer,
+    bsr_grouped_lanes,
+    bsr_grouped_spmv,
+    bsr_grouped_spmv_reference,
+)
 from sigma_tpu_torch.ops.spmm_dia import (
     GROUPED_LAYOUTS,
     LAYOUTS,
@@ -73,13 +86,19 @@ def cuda_available() -> bool:
 
 
 __all__ = [
+    "BSR_KERNEL_DTYPES",
     "GROUPED_LAYOUTS",
+    "GroupedBSR",
     "KERNEL_DTYPES",
     "LAYOUTS",
     "MAX_PANELS",
     "PRUNED_LAYOUTS",
     "PrunedPlan",
     "STAGED_SMEM_BYTES",
+    "bsr_group_pointer",
+    "bsr_grouped_lanes",
+    "bsr_grouped_spmv",
+    "bsr_grouped_spmv_reference",
     "build_pruned_plan",
     "build_pruned_plan_reference",
     "cuda_available",

@@ -151,4 +151,10 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [i32, i32, i32, ptr, ptr, ptr, ptr, *[ptr] * n_out, i64, i64,
                        *[i64] * n_sizes, ptr]
         fn.restype = i32
+    # (device, vtype, xtype, gdata, gcols, gptr, x, y, nb_rows, bh, bw, B, k,
+    # lanes, stream)
+    lib.sigma_bsr_grouped_spmv.argtypes = [
+        i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
+    ]
+    lib.sigma_bsr_grouped_spmv.restype = i32
     return lib

@@ -425,3 +425,113 @@ def test_full_band_path_on_card_matches_cpu(cuda):
     x_gpu, i_gpu = st.cg_solve(Dg, b.to(cuda), tol=0.0, rtol=1e-10, M=M.to(cuda))
     assert i_gpu.converged and abs(i_gpu.iterations - i_cpu.iterations) <= 1
     assert rel(x_gpu, x_cpu) <= 1e-8
+
+
+# -- the block / multi-DOF path: grouped BSR, BlockMatrix ----------------------
+
+_BSR_TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _block_dense(rng, n, m, bh):
+    d = np.where(rng.random((n, m)) < 0.04, rng.standard_normal((n, m)), 0.0)
+    d[: 4 * bh] = np.where(rng.random((4 * bh, m)) < 0.3, rng.standard_normal((4 * bh, m)), 0.0)
+    d[n // 2 : n // 2 + 3 * bh] = 0.0  # empty block rows
+    return d
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 11])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("pair", sorted(st.ops.BSR_KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("shape,blk", [((500, 460), (8, 16)), ((260, 260), (4, 4)),
+                                       ((301, 305), (3, 3)), ((520, 1000), (8, 128))])
+def test_bsr_grouped_kernel(cuda, shape, blk, pair, group, k):
+    """The grouped-BSR kernel against its plain version on the card, and
+    the matrix assembled on the card against the one assembled on the CPU:
+    shapes the blocks do not divide, empty block rows, rows of several
+    groups, k past the 8 columns of one pass.  f64 and f32 accumulate in
+    x's dtype; bf16 vectors in f32 with one rounding, so kernel and plain
+    version may land one bf16 step (2^-7) apart."""
+    vdt, xdt = pair
+    n, m = shape
+    rng = np.random.default_rng(14)
+    dense = _block_dense(rng, n, m, blk[0])
+    r, c = np.nonzero(dense)
+    A = st.BSRMatrix.from_coo(n, m, r, c, dense[r, c], dtype=vdt, block_shape=blk)
+    assert A.device.type == "cuda" and A.graph.device.type == "cuda"
+    Ac = st.BSRMatrix.from_coo(n, m, r, c, dense[r, c], dtype=vdt, block_shape=blk, device="cpu")
+    assert torch.equal(A.data.cpu(), Ac.data) and torch.equal(A.graph.mask.cpu(), Ac.graph.mask)
+    G, Gc = A.grouped(group), Ac.grouped(group)
+    for name in ("gdata", "gcols", "grow", "gptr"):
+        assert torch.equal(getattr(G, name).cpu(), getattr(Gc, name)), name
+    X = torch.from_numpy(rng.standard_normal((m, k))).to(cuda, xdt)
+    before = st.ops.bsr_grouped_spmv.launches
+    Y = G.matmat(X)
+    torch.cuda.synchronize()
+    assert st.ops.bsr_grouped_spmv.launches == before + 1
+    Xp = G._pad_x(X).contiguous()
+    ref = st.ops.bsr_grouped_spmv_reference(G.gdata, G.gcols, G.grow, Xp, G.nb_rows, G.nb_cols,
+                                            G.block_shape, G.group)[:n]
+    assert Y.dtype == xdt and rel(Y, ref) <= _BSR_TOL[xdt]
+    assert rel(Y, Gc.matmat(X.cpu())) <= _BSR_TOL[xdt]
+    if k == 1:
+        assert rel(G.matvec(X[:, 0].contiguous()), ref[:, 0]) <= _BSR_TOL[xdt]
+
+
+def test_bsr_grouped_kernel_rejects_what_it_does_not_take(cuda):
+    dense = _block_dense(np.random.default_rng(15), 64, 64, 4)
+    r, c = np.nonzero(dense)
+    G = st.BSRMatrix.from_coo(64, 64, r, c, dense[r, c], dtype=torch.float64,
+                              block_shape=(4, 4)).grouped(4)
+    with pytest.raises(TypeError, match="no grouped-BSR kernel"):
+        G.matvec(torch.zeros(64, dtype=torch.float32, device=cuda))  # f64 values, f32 vector
+    with pytest.raises(TypeError, match="no grouped-BSR kernel"):
+        G.matvec(torch.zeros(64, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="different devices"):
+        G.matvec(torch.zeros(64, dtype=torch.float64))
+    X = torch.zeros((64, 2), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        st.ops.bsr_grouped_spmv(G.gdata, G.gcols, G.grow, X.T.contiguous().T, G.nb_rows,
+                                G.nb_cols, G.block_shape, G.group)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        st.ops.bsr_grouped_spmv(G.gdata, G.gcols, G.grow, X, G.nb_rows, G.nb_cols,
+                                G.block_shape, G.group, lanes=3)
+
+
+def test_block_path_on_card_matches_cpu(cuda):
+    """The elasticity operator at nx = 12 in its three layouts, built on the
+    card: equal arrays to the CPU build, A x agreeing across the layouts,
+    a BlockMatrix matvec of 9 DIA launches, and Jacobi-CG with the CPU's
+    iteration count (+-1: f32 sums in another order)."""
+    nx = 12
+    n = nx ** 3
+    perm = torch.from_numpy(st.elasticity_permutation(n)).to(cuda)
+    A = st.elasticity_field_blocked(nx)
+    D = st.elasticity_node_major_dia(nx)
+    S = st.elasticity_node_major_dia(nx, symmetric=True)
+    B = st.elasticity_node_major_bsr(nx)
+    G = B.grouped(8)
+    assert {op.device.type for op in (A, D, S, B, G)} == {"cuda"}
+    Gc = st.elasticity_node_major_bsr(nx, device="cpu").grouped(8)
+    for name in ("gdata", "gcols", "grow"):
+        assert torch.equal(getattr(G, name).cpu(), getattr(Gc, name)), name
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xv = torch.randn(3 * n, generator=g, device=cuda)
+    xn = torch.empty_like(xv)
+    xn[perm] = xv
+    before = st.ops.dia_spmv.launches
+    y = A.matvec(xv)
+    assert st.ops.dia_spmv.launches == before + 9
+    for op in (D, S, G, B):
+        assert rel(op.matvec(xn)[perm], y) <= 1e-5
+        assert rel(op.matmat(torch.stack([xn, 2 * xn], 1))[perm], torch.stack([y, 2 * y], 1)) <= 1e-5
+    xstar = torch.sin(torch.arange(n, dtype=torch.float32, device=cuda) * 0.001).repeat(3)
+    b = A.matvec(xstar)
+    bn = torch.empty_like(b)
+    bn[perm] = b
+    Ac, Mc = st.elasticity_field_blocked(nx, device="cpu"), st.elasticity_jacobi(nx, device="cpu")
+    _, i_cpu = st.cg_solve(Ac, b.cpu(), tol=0.0, rtol=1e-6, maxiter=150, M=Mc)
+    for op, rhs, node in ((A, b, False), (D, bn, True), (S, bn, True), (G, bn, True)):
+        M = st.elasticity_jacobi(nx, node_major=node)
+        x, info = st.cg_solve(op, rhs, tol=0.0, rtol=1e-6, maxiter=150, M=M)
+        assert info.converged and abs(info.iterations - i_cpu.iterations) <= 1
+        assert float(((x[perm] if node else x) - xstar).abs().max()) < 1e-4

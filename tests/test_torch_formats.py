@@ -1,0 +1,322 @@
+"""The port's general formats and mutable matrix API against the JAX
+package, on the CPU in float64: CSC and ELL graphs and their four products,
+the ``SparseMatrix`` accessors and functional mutators on every format,
+the graph builder and the format factories.
+
+The same numpy inputs go to both packages.  Index arrays and value reads
+agree exactly (the JAX package's padding past ``nnz`` cut off); products
+agree to 1e-12 relative (a few terms summed in another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sigma_tpu as sj
+import sigma_tpu_torch as st
+from sigma_tpu.graph import GraphBuilder as JGraphBuilder
+from sigma_tpu.graph import factory as jgf
+from sigma_tpu.matrix import factory as jmf
+from sigma_tpu_torch.graph import factory as tgf
+from sigma_tpu_torch.matrix import factory as tmf
+
+torch.set_num_threads(1)
+
+TOL = 1e-12
+FORMATS = ["coo", "csr", "csc", "ell", "bsr", "dia"]
+
+
+def rel(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.float64))
+
+
+def random_dense(seed, n, m, p=0.12):
+    rng = np.random.default_rng(seed)
+    d = np.where(rng.random((n, m)) < p, rng.standard_normal((n, m)), 0.0)
+    d[n // 2] = 0.0  # an empty row
+    return d
+
+
+def banded_dense(seed, n):
+    """Every slot of five diagonals filled: the pattern DIA keeps exactly."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros((n, n))
+    for o in (-7, -1, 0, 1, 5):
+        i = np.arange(max(0, -o), min(n, n - o))
+        d[i, i + o] = rng.standard_normal(i.size)
+    return d
+
+
+def kw(fmt):
+    return dict(block_shape=(4, 4)) if fmt == "bsr" else {}
+
+
+def both(fmt, dense):
+    Aj = jmf.choose_matrix_type(fmt).from_dense(dense, **kw(fmt))
+    At = tmf.choose_matrix_type(fmt).from_dense(dense, device="cpu", **kw(fmt))
+    assert At.dtype == torch.float64 and At.format == Aj.format == fmt
+    return Aj, At
+
+
+# -- graphs ---------------------------------------------------------------------
+
+
+def test_csc_graph_arrays_equal_jax():
+    dense = random_dense(0, 37, 29)
+    r, c = np.nonzero(dense)
+    order = np.random.default_rng(1).permutation(r.size)
+    r, c = np.r_[r[order], r[:5]], np.r_[c[order], c[:5]]  # unsorted, with duplicates
+    gj, gt = sj.graph.CSCGraph.from_coo(37, 29, r, c), st.CSCGraph.from_coo(37, 29, r, c)
+    assert (gt.shape, gt.nnz) == (gj.shape, gj.nnz)
+    assert np.array_equal(gt.indptr, np.asarray(gj.indptr))
+    assert np.array_equal(gt.indices, np.asarray(gj.indices)[: gj.nnz])
+    assert np.array_equal(gt.col_ids, np.asarray(gj.col_ids)[: gj.nnz])
+    for a, b in zip(gt.edges_numpy(), gj.edges_numpy()):
+        assert np.array_equal(a, b)
+    rng = np.random.default_rng(2)
+    qr, qc = rng.integers(-2, 39, 200), rng.integers(-2, 31, 200)
+    assert np.array_equal(gt.edge_positions(qr, qc), gj.edge_positions(qr, qc))
+    assert np.array_equal(gt.degrees_numpy(), gj.degrees_numpy())
+
+
+@pytest.mark.parametrize("min_width", [1, 12])
+def test_ell_graph_arrays_equal_jax(min_width):
+    """The (n, width) neighbour array with the duplicate-first-neighbour
+    padding rule, an empty row included."""
+    dense = random_dense(3, 31, 23)
+    r, c = np.nonzero(dense)
+    gj = sj.graph.ELLGraph.from_coo(31, 23, r, c, min_width=min_width)
+    gt = st.ELLGraph.from_coo(31, 23, r, c, min_width=min_width)
+    assert (gt.shape, gt.nnz, gt.width) == (gj.shape, gj.nnz, gj.width)
+    assert np.array_equal(gt.cols, np.asarray(gj.cols))
+    assert np.array_equal(gt.degrees, np.asarray(gj.degrees))
+    # padding slots repeat the row's first neighbour; the empty row holds 0
+    i = int(np.argmax((gt.degrees > 0) & (gt.degrees < gt.width)))
+    assert (gt.cols[i, gt.degrees[i]:] == gt.cols[i, 0]).all() and (gt.cols[31 // 2] == 0).all()
+    for a, b in zip(gt.edges_numpy(), gj.edges_numpy()):
+        assert np.array_equal(a, b)
+    rng = np.random.default_rng(4)
+    qr, qc = rng.integers(-2, 33, 200), rng.integers(-2, 25, 200)
+    assert np.array_equal(gt.edge_positions(qr, qc), gj.edge_positions(qr, qc))
+    assert np.array_equal(gt.neighbors(3), gj.neighbors(3))
+
+
+@pytest.mark.parametrize("fmt", ["coo", "csr", "csc", "ell", "bsr"])
+def test_graph_queries_and_transforms_equal_jax(fmt):
+    dense = random_dense(5, 26, 21)
+    r, c = np.nonzero(dense)
+    extra = dict(device="cpu") if fmt == "bsr" else {}
+    gj = jgf.build_graph(JGraphBuilder.from_coo(26, 21, r, c), fmt, **kw(fmt))
+    gt = tgf.build_graph(st.GraphBuilder.from_coo(26, 21, r, c), fmt, **kw(fmt), **extra)
+    assert type(gt).__name__ == type(gj).__name__ and gt.format == fmt
+    gb = type(gt).from_builder(st.GraphBuilder.from_coo(26, 21, r, c), **kw(fmt), **extra)
+    assert np.array_equal(gb.to_dense(), gj.to_dense())
+    assert (gt.num_edges, gt.max_degree, gt.degree(3)) == (gj.num_edges, gj.max_degree, gj.degree(3))
+    assert np.array_equal(np.sort(gt.neighbors(3)), np.sort(gj.neighbors(3)))
+    assert gt.has_edge(int(r[0]), int(c[0])) and not gt.has_edge(26 // 2, 0)
+    assert np.array_equal(gt.to_dense(), gj.to_dense())
+    rng = np.random.default_rng(6)
+    p, q = rng.permutation(26), rng.permutation(21)
+    assert np.array_equal(gt.transpose().to_dense(), gj.transpose().to_dense())
+    assert np.array_equal(gt.permute_rows(p).to_dense(), gj.permute_rows(p).to_dense())
+    assert np.array_equal(gt.permute_cols(q).to_dense(), gj.permute_cols(q).to_dense())
+    assert np.array_equal(type(gt).from_dense(dense != 0, **extra, **kw(fmt)).to_dense(), gj.to_dense())
+
+
+def test_graph_builder_matches_jax():
+    rng = np.random.default_rng(7)
+    bj, bt = JGraphBuilder(15, 11), st.GraphBuilder(15, 11)
+    r, c = rng.integers(0, 15, 40), rng.integers(0, 11, 40)
+    for b in (bj, bt):
+        b.add_edges(r, c)
+        b.add_edge(14, 10)
+        b.delete_edge(int(r[0]), int(c[0]))
+        b.delete_edge(3, 3)
+        b.add_edges([3], [3])  # re-added in bulk: must not stay deleted
+    for a, b in zip(bt.edges(), bj.edges()):
+        assert np.array_equal(a, b)
+    assert bt.num_edges == bj.num_edges and bt.max_degree == bj.max_degree
+    assert np.array_equal(bt.degrees(), bj.degrees()) and bt.degree(3) == bj.degree(3)
+    assert np.array_equal(bt.neighbors(3), bj.neighbors(3))
+    assert bt.has_edge(14, 10) and not bt.has_edge(int(r[0]), int(c[0]))
+    assert np.array_equal(bt.to_dense(), bj.to_dense())
+    assert np.array_equal(bt.transpose().to_dense(), bj.transpose().to_dense())
+    assert np.array_equal(st.GraphBuilder.from_graph(bt.freeze("csc")).to_dense(), bj.to_dense())
+    assert bt.freeze("ell").format == "ell"
+    with pytest.raises(IndexError):
+        bt.add_edge(15, 0)
+    with pytest.raises(ValueError):
+        st.GraphBuilder(-1)
+
+
+def test_factories_choose_by_name_and_code():
+    assert tgf.num_graph_types == jgf.num_graph_types == tmf.num_matrix_types == 5
+    for code in range(1, 6):
+        assert tgf.choose_graph_type(code).__name__ == jgf.choose_graph_type(code).__name__
+        assert tmf.choose_matrix_type(code).__name__ == jmf.choose_matrix_type(code).__name__
+    assert sorted(tgf.GRAPH_FORMATS) == sorted(jgf.GRAPH_FORMATS)
+    assert sorted(tmf.MATRIX_FORMATS) == sorted(jmf.MATRIX_FORMATS)
+    for name in tgf.GRAPH_FORMATS:
+        assert tgf.choose_graph_type(name.upper()).__name__ == jgf.choose_graph_type(name).__name__
+    for bad in (0, 6, "nope"):
+        with pytest.raises(ValueError):
+            tgf.choose_graph_type(bad)
+        with pytest.raises(ValueError):
+            tmf.choose_matrix_type(bad)
+
+
+@pytest.mark.parametrize("src", FORMATS[:5])
+@pytest.mark.parametrize("dst", FORMATS[:5])
+def test_convert_between_formats(src, dst):
+    """convert_graph and convert_matrix across every pair of the five
+    pattern-exact formats keep sparsity and values."""
+    dense = random_dense(8, 24, 20)
+    _, At = both(src, dense)
+    extra = dict(device="cpu") if dst == "bsr" else {}
+    g = tgf.convert_graph(At.graph, dst, **kw(dst), **extra)
+    assert g.format == dst and np.array_equal(g.to_dense(), dense != 0)
+    B = tmf.convert_matrix(At, dst, **kw(dst))
+    assert B.format == dst and B.nnz == At.nnz and B.device.type == "cpu"
+    assert np.array_equal(B.to_dense(), dense)
+
+
+# -- products of the formats this slice adds ----------------------------------------
+
+
+@pytest.mark.parametrize("fmt", ["csc", "ell"])
+@pytest.mark.parametrize("product", ["matvec", "rmatvec", "matmat", "rmatmat"])
+def test_products_match_jax(fmt, product):
+    dense = random_dense(9, 41, 33)
+    Aj, At = both(fmt, dense)
+    rng = np.random.default_rng(10)
+    rows = 41 if product.startswith("r") else 33
+    x = rng.standard_normal(rows if product.endswith("vec") else (rows, 5))
+    y = getattr(At, product)(t(x))
+    assert rel(y, getattr(Aj, product)(jnp.asarray(x))) <= TOL
+    assert rel(y, (dense.T if product.startswith("r") else dense) @ x) <= TOL
+
+
+@pytest.mark.parametrize("fmt", ["csc", "ell"])
+def test_values_equal_jax(fmt):
+    dense = random_dense(11, 30, 30)
+    Aj, At = both(fmt, dense)
+    dj = np.asarray(Aj.data)
+    assert np.array_equal(At.data.numpy().reshape(-1), dj.reshape(-1)[: At.data.numel()])
+    for a, b in zip(At.entries(), Aj.entries()):
+        assert np.array_equal(a, b)
+    assert np.array_equal(At.diagonal().numpy(), np.asarray(Aj.diagonal()))
+    assert (At.is_get_row_fast, At.is_get_column_fast) == (Aj.is_get_row_fast, Aj.is_get_column_fast)
+
+
+# -- the mutable SparseMatrix API on every format ------------------------------------
+
+
+def _dense_for(fmt, seed, n=24):
+    return banded_dense(seed, n) if fmt == "dia" else random_dense(seed, n, n)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_accessors_match_jax(fmt):
+    dense = _dense_for(fmt, 12)
+    Aj, At = both(fmt, dense)
+    rng = np.random.default_rng(13)
+    ii, jj = rng.integers(0, 24, 60), rng.integers(0, 24, 60)
+    assert np.array_equal(At.get_values(ii, jj), Aj.get_values(ii, jj))
+    assert At.get_value(5, 5) == Aj.get_value(5, 5) == dense[5, 5]
+    for i in (0, 5, 12, 23):
+        for a, b in zip(At.get_row(i), Aj.get_row(i)):
+            assert np.array_equal(a, b)
+        cj, vj = Aj.get_column(i)
+        ct, vt = At.get_column(i)
+        oj, ot = np.argsort(cj), np.argsort(ct)
+        assert np.array_equal(ct[ot], cj[oj]) and np.array_equal(vt[ot], vj[oj])
+        assert At.row_degree(i) == Aj.row_degree(i)
+    assert (At.is_get_row_fast, At.is_get_column_fast) == (Aj.is_get_row_fast, Aj.is_get_column_fast)
+    assert np.array_equal(At.to_dense(), dense)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_set_and_add_values_match_jax(fmt):
+    """Updates at stored positions (with a repeated pair, which add_values
+    accumulates) and at absent ones (fill-in: a host-side graph rebuild)."""
+    dense = _dense_for(fmt, 14)
+    Aj, At = both(fmt, dense)
+    r, c = np.nonzero(dense)
+    pick = slice(0, r.size, max(1, r.size // 9))
+    ii, jj = r[pick], c[pick]
+    vals = np.arange(ii.size, dtype=float) + 2.0
+    Aj2, At2 = Aj.set_values(ii, jj, vals), At.set_values(ii, jj, vals)
+    assert At2.graph is At.graph  # a value update shares the topology
+    assert np.array_equal(At2.to_dense(), Aj2.to_dense())
+    assert np.array_equal(At.to_dense(), dense)  # functional: the source is untouched
+    ii2, jj2 = np.r_[ii, ii[:3]], np.r_[jj, jj[:3]]
+    v2 = np.ones(ii2.size) * 0.5
+    assert np.array_equal(At2.add_values(ii2, jj2, v2).to_dense(), Aj2.add_values(ii2, jj2, v2).to_dense())
+    # fill-in
+    zr, zc = np.nonzero(dense == 0)
+    fi, fj = np.r_[zr[:4], ii[:2]], np.r_[zc[:4], jj[:2]]
+    fv = np.arange(6, dtype=float) + 10.0
+    Aj3, At3 = Aj.set_values(fi, fj, fv), At.set_values(fi, fj, fv)
+    assert np.array_equal(At3.to_dense(), Aj3.to_dense())
+    assert At3.nnz == Aj3.nnz and At3.format == fmt and At3.device.type == "cpu"
+    Aj4, At4 = Aj.add_values(fi, fj, fv), At.add_values(fi, fj, fv)
+    assert np.array_equal(At4.to_dense(), Aj4.to_dense())
+    x = np.random.default_rng(15).standard_normal(24)
+    assert rel(At3.matvec(t(x)), Aj3.to_dense() @ x) <= TOL
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_add_block_scale_with_data_match_jax(fmt):
+    dense = _dense_for(fmt, 16)
+    Aj, At = both(fmt, dense)
+    rows, cols = np.array([2, 3, 9]), np.array([3, 4])
+    block = np.arange(6, dtype=float).reshape(3, 2) + 1.0
+    assert np.array_equal(At.add_block(rows, cols, block).to_dense(),
+                          Aj.add_block(rows, cols, block).to_dense())
+    assert np.array_equal(At.scale(-2.5).to_dense(), Aj.scale(-2.5).to_dense())
+    new = np.asarray(Aj.data) * 3.0
+    Bt = At.with_data(new.reshape(-1)[: At.data.numel()].reshape(tuple(At.data.shape)))
+    assert np.array_equal(Bt.to_dense(), Aj.with_data(jnp.asarray(new)).to_dense())
+    with pytest.raises(ValueError):
+        At.with_data(np.zeros(3))
+    assert At.astype(torch.float32).dtype == torch.float32
+    small = tmf.choose_matrix_type(fmt).from_dense(np.round(dense * 4) / 4, device="cpu", **kw(fmt))
+    assert small.astype_exact(torch.bfloat16).dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        At.astype_exact(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_transpose_and_permute_match_jax(fmt):
+    n, m = (24, 24) if fmt == "dia" else (24, 20)
+    dense = banded_dense(17, n) if fmt == "dia" else random_dense(17, n, m)
+    Aj, At = both(fmt, dense)
+    Tj, Tt = Aj.transpose_matrix(), At.transpose_matrix()
+    assert Tt.format == fmt and Tt.shape == (m, n) and np.array_equal(Tt.to_dense(), Tj.to_dense())
+    if fmt == "bsr":
+        assert Tt.graph.block_shape == Tj.graph.block_shape
+    rng = np.random.default_rng(18)
+    p, q = rng.permutation(n), rng.permutation(m)
+    assert np.array_equal(At.permute_rows(p).to_dense(), Aj.permute_rows(p).to_dense())
+    assert np.array_equal(At.permute_cols(q).to_dense(), Aj.permute_cols(q).to_dense())
+    assert np.array_equal(At.permute_rows(p).to_dense()[p], dense)
+
+
+def test_from_graph_shares_and_coerces():
+    dense = random_dense(19, 16, 16)
+    r, c = np.nonzero(dense)
+    g = st.CSRGraph.from_coo(16, 16, r, c)
+    A = st.CSRMatrix.from_graph(g, dtype=torch.float64, device="cpu")
+    assert A.graph is g and float(A.data.abs().sum()) == 0.0
+    for fmt in ("csc", "ell", "coo", "bsr"):
+        B = tmf.choose_matrix_type(fmt).from_graph(g, dtype=torch.float64, device="cpu")
+        assert B.format == fmt and B.nnz == g.nnz
+        assert np.array_equal(B.set_values(r, c, dense[r, c]).to_dense(), dense)
+    gb = st.BSRGraph.from_coo(16, 16, r, c, block_shape=(4, 4), device="cpu")
+    assert st.BSRMatrix.from_graph(gb, device="cpu").graph is gb

@@ -129,7 +129,10 @@ def test_import_loads_no_jax(tmp_path):
         "[importlib.import_module(n) for n in names]; "
         "bad = sorted(m for m in sys.modules if m in ('jax', 'sigma_tpu') "
         "or m.startswith(('jax.', 'sigma_tpu.'))); "
-        "assert len(names) >= 20 and 'sigma_tpu_torch.ops.spmv_pruned' in names, names; "
+        "assert len(names) >= 26 and {'sigma_tpu_torch.ops.spmv_pruned', "
+        "'sigma_tpu_torch.ops.bsr_grouped', 'sigma_tpu_torch.matrix.composite', "
+        "'sigma_tpu_torch.matrix.factory', 'sigma_tpu_torch.graph.builder', "
+        "'sigma_tpu_torch.graph.factory'} <= set(names), names; "
         "assert not bad, bad"
     )
     subprocess.run(
