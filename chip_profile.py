@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's solves goes, on one GPU.
 
-    python3 chip_profile.py [--nx 216] [--out chiprun_out/profile.txt]
+    python3 chip_profile.py [--nx 216] [--paths stencil,unstructured] [--out FILE]
 
 Runs the solves of ``chip_smoke.py``'s paths through the same entry
 points (CG and fused CG on Laplacian + I; plain CG and GMG-CG with the
@@ -10,11 +10,13 @@ right-hand sides in the ``auto`` (interleaved) layout on Laplacian + I;
 f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson; on the 10M-row
 irregular mesh, CG and pruned-multigrid CG on full and on symmetric
 pruned storage), each five times warm and untraced and once under
-``torch.profiler``, and prints one JSON line per solve:
+``torch.profiler``, and prints one JSON line per solve (``--paths``
+picks the stencil solves, the unstructured ones or both):
 
 - ``device_busy_ms``: the union of the kernel and copy intervals in the
   trace;
-- ``wall_ms``: the median of five untraced warm solves, host clock;
+- ``wall_ms``: the median of five untraced warm solves, host clock,
+  taken for every solve before any is traced;
 - ``idle_share``: 1 - device_busy_ms / wall_ms;
 - ``device_ops``: the number of kernels and copies the solve ran;
 - ``port_kernels_ms``: the device time of the port's DIA and pruned
@@ -22,8 +24,12 @@ pruned storage), each five times warm and untraced and once under
 - ``top``: the kernels that take the most device time, as
   [name, ms, launches].
 
-Every kernel, by device time, goes to ``--out``.  The card's name and
-power limit come first, as nvidia-smi gives them.  Needs a CUDA device.
+Every kernel, by device time, goes to ``--out``.  On the unstructured
+path it also prints, for each level of the two pruned multigrid
+hierarchies, the matvec's time (CUDA events, median of 30) beside the
+level's rows: the coarse levels are bound by their launches.  The card's
+name and power limit come first, as nvidia-smi gives them.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -35,12 +41,12 @@ import statistics
 import sys
 import time
 
-from chip_smoke import _manufactured, emit, phase_device, unstructured_setup
+from chip_smoke import _manufactured, emit, median_ms, phase_device, unstructured_setup
 
 
-def _solves(device, nx):
-    """(label, solve) pairs: chip_smoke.py's solves.  Each solve returns a
-    pair whose second item has ``iterations``."""
+def _stencil_solves(device, nx):
+    """(label, solve) pairs: chip_smoke.py's stencil solves.  Each solve
+    returns a pair whose second item has ``iterations``."""
     import numpy as np
     import torch
 
@@ -50,46 +56,59 @@ def _solves(device, nx):
     )
 
     A = laplacian_3d_dia(nx, torch.float32, device)
-    b = A.matvec(torch.sin(torch.arange(A.shape[0], dtype=torch.float32, device=device) * 0.001))
-    yield "cg_solve", lambda: cg_solve(A, b, tol=0.0, rtol=1e-6, maxiter=100)
-    yield "cg_fused_solve", lambda: cg_fused_solve(A, b, tol=0.0, rtol=1e-6, maxiter=100)
-    del A, b
-
+    i = torch.arange(A.shape[0], dtype=torch.float32, device=device)
+    b = A.matvec(torch.sin(i * 0.001))
+    B = A.matmat(torch.stack([torch.sin(i * (0.001 * (j + 1))) for j in range(8)], dim=1))
+    del i
     S = SymmetricDIAMatrix.from_dia(laplacian_3d_dia(nx, torch.float32, device, diag=6.0))
     xstar = np.random.default_rng(0).standard_normal(S.shape[0]).astype(np.float32)
     bs = S.matvec(torch.from_numpy(xstar).to(device))
-    yield "plain_cg_poisson", lambda: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000)
-    for label, kw in (
-        ("gmg_jacobi", dict(smoother="jacobi", n_smooth=1)),
-        ("gmg_chebyshev", dict(smoother="chebyshev", n_smooth=4)),
-    ):
-        M = structured_pair_amg(
-            S, (nx, nx, nx), pairs_per_level=3, level_dtype=torch.bfloat16, **kw
-        )
-        yield label, lambda M=M: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=M)
-    del S, bs, M
-
-    A = laplacian_3d_dia(nx, torch.float32, device)
-    i = torch.arange(A.shape[0], dtype=torch.float32, device=device)
-    B = A.matmat(torch.stack([torch.sin(i * (0.001 * (j + 1))) for j in range(8)], dim=1))
-    yield "block_cg_auto", lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=100)
-    del A, B, i
-
+    Mj, Mc = (structured_pair_amg(S, (nx, nx, nx), pairs_per_level=3,
+                                  level_dtype=torch.bfloat16, **kw)
+              for kw in (dict(smoother="jacobi", n_smooth=1),
+                         dict(smoother="chebyshev", n_smooth=4)))
     host = laplacian_3d_dia(nx, torch.float32, "cpu", diag=6.0)
     P = host.to(device)
-    M = structured_pair_amg(P, (nx, nx, nx), pairs_per_level=3, host_data=host.data.numpy())
+    Mp = structured_pair_amg(P, (nx, nx, nx), pairs_per_level=3, host_data=host.data.numpy())
     X0 = torch.from_numpy(
         np.random.default_rng(0).standard_normal((P.shape[0], 4)).astype(np.float32)
     ).to(device)
-    yield "lobpcg_f32_gmg", lambda: (None, lobpcg(P, X0, M=M, tol=1e-4, maxiter=120))
-    del host, P, M, X0
+    return [
+        ("cg_solve", lambda: cg_solve(A, b, tol=0.0, rtol=1e-6, maxiter=100)),
+        ("cg_fused_solve", lambda: cg_fused_solve(A, b, tol=0.0, rtol=1e-6, maxiter=100)),
+        ("plain_cg_poisson", lambda: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000)),
+        ("gmg_jacobi", lambda: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=Mj)),
+        ("gmg_chebyshev", lambda: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=Mc)),
+        ("block_cg_auto", lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=100)),
+        ("lobpcg_f32_gmg", lambda: (None, lobpcg(P, X0, M=Mp, tol=1e-4, maxiter=120))),
+    ]
 
-    U = unstructured_setup(device)
+
+def _unstructured_solves(U):
+    """(label, solve) pairs of the 10M-row mesh, as ``_stencil_solves``."""
+    from sigma_tpu_torch import cg_solve
+
     b = _manufactured(U)[2]
-    for label, A, Mg in (("pruned_cg_full", U["P"], None), ("pruned_cg_sym", U["S"], None),
-                         ("pruned_gmg_cg_full", U["P"], U["Mf"]),
-                         ("pruned_gmg_cg_sym", U["S"], U["Ms"])):
-        yield label, lambda A=A, Mg=Mg: cg_solve(A, b, tol=0.0, rtol=1e-6, maxiter=300, M=Mg)
+    return [
+        (label, lambda A=A, Mg=Mg: cg_solve(A, b, tol=0.0, rtol=1e-6, maxiter=300, M=Mg))
+        for label, A, Mg in (("pruned_cg_full", U["P"], None), ("pruned_cg_sym", U["S"], None),
+                             ("pruned_gmg_cg_full", U["P"], U["Mf"]),
+                             ("pruned_gmg_cg_sym", U["S"], U["Ms"]))
+    ]
+
+
+def _level_times(U):
+    """One JSON line per pruned multigrid hierarchy: each level's rows and
+    the time of its matvec (the fine operator is level 0)."""
+    import torch
+
+    for label, A, M in (("full", U["P"], U["Mf"]), ("sym", U["S"], U["Ms"])):
+        levels = []
+        for op in (A, *(lv.A for lv in M.levels)):
+            x = torch.rand(op.shape[1], device=op.data.device)
+            levels.append([op.shape[0], median_ms(lambda: op.matvec(x))])
+        emit({"phase": "profile_levels", "hierarchy": label, "levels": len(levels),
+              "rows_and_matvec_ms": levels})
 
 
 def _device_events(prof):
@@ -115,6 +134,8 @@ def _union_us(events) -> float:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
+    ap.add_argument("--paths", default="stencil,unstructured",
+                    help="comma-separated: stencil, unstructured")
     ap.add_argument("--out", default="chiprun_out/profile.txt",
                     help="file for every kernel's device time per solve")
     args = ap.parse_args()
@@ -126,18 +147,37 @@ def main():
     device = torch.device("cuda", 0)
     phase_device()
 
+    paths = args.paths.split(",")
+    if not paths or set(paths) - {"stencil", "unstructured"}:
+        sys.exit(f"chip_profile: unknown --paths {args.paths!r}")
+
+    solves, U = [], None
+    if "stencil" in paths:
+        solves += _stencil_solves(device, args.nx)
+    if "unstructured" in paths:
+        U = unstructured_setup(device)
+        solves += _unstructured_solves(U)
+
+    # every solve's untraced wall first: a traced run can leave the
+    # profiler's hooks behind, slowing the host side of later launches
+    walls = {}
+    for label, solve in solves:
+        solve()  # warm-up
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = solve()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls[label] = statistics.median(times), info
+    if U is not None:
+        _level_times(U)
+
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as out:
-        for label, solve in _solves(device, args.nx):
-            solve()  # warm-up
-            walls = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                _, info = solve()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            wall = statistics.median(walls)
+        for label, solve in solves:
+            wall, info = walls[label]
             with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU,
                             torch.profiler.ProfilerActivity.CUDA],

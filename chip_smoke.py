@@ -193,6 +193,25 @@ def phase_device():
     return smi
 
 
+def _ptxas_entries(log):
+    """(function, registers, spill store bytes, spill load bytes) of every
+    kernel instantiation in nvcc's ``-Xptxas -v`` output."""
+    out, name, spills = [], None, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = int(m.group(1)), int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name and spills:
+            out.append((name, int(m.group(1)), *spills))
+            name = spills = None
+    return out
+
+
+# the SpMV kernels redesigned for Hopper (pruned.cu), reported one by one
+PTXAS_REPORTED = ("pruned_spmv_kernel", "pruned_sym_spmv_kernel")
+
+
 def phase_build():
     from sigma_tpu_torch.ops import _build
 
@@ -202,10 +221,19 @@ def phase_build():
     # "N bytes stack frame, N bytes spill stores, N bytes spill loads", one
     # line per kernel instantiation
     spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", b.log)]
+    entries = _ptxas_entries(b.log)
+    reported = [
+        {"kernel": next(k for k in PTXAS_REPORTED if k in name), "function": name,
+         "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld}
+        for name, regs, st, ld in entries if any(k in name for k in PTXAS_REPORTED)
+    ]
     emit({"phase": "build", "seconds": round(b.seconds, 3), "library": b.path.name,
           "kernels": len(spills), "spill_store_bytes": sum(spills), "ptxas": ptxas})
+    emit({"phase": "build_spmv_kernels", "instantiations": reported})
     if not spills or any(spills):
         raise AssertionError(f"ptxas spill stores per kernel: {spills}")
+    if len(reported) != 10 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in reported):
+        raise AssertionError(f"want 10 pruned SpMV instantiations without spills: {reported}")
 
 
 def _random_dia(rng, n, m, offsets, vdtype, device):
@@ -770,11 +798,45 @@ def _random_pruned(rng, n, m, band, *, lo=None, outliers=0, tile_rows=1024, grou
                              tile_rows=tile_rows, group=group, dtype=np.float64)
 
 
+# edge cases of the SpMV kernels #10 and #12 (1024-row blocks; a TMA value
+# ring and a staged x window where the tile's reach allows, plain loads
+# beyond it): (name, n, m, tile_rows, reach, sym_shift, tile left empty)
+SPMV_EDGES = [
+    ("n_not_a_multiple_of_the_block", 5000, 5000, 1024, 300, 0, None),
+    ("tile_of_padding_only", 6000, 6000, 1024, 200, 0, 2),
+    ("reach_at_the_halo", 4096, 4096, 1024, 895, 0, None),
+    ("window_at_its_cap", 4096, 4096, 1024, 508, 0, None),
+    ("t_minus_1_beyond_the_first_block", 6144, 6144, 2048, 1500, 0, None),
+    ("sym_shift_spill", 2048, 2560, 1024, 300, 128, None),
+]
+
+
+def _edge_plan(rng, n, m, tile_rows, reach, shift, empty):
+    """A pruned plan (f64 values) of banded triples whose reach is exactly
+    ``reach`` (columns >= rows + shift for a symmetric block), without the
+    rows of tile ``empty``."""
+    import numpy as np
+
+    from sigma_tpu_torch.ops import build_pruned_plan
+
+    rows = rng.integers(0, n, 4 * n)
+    cols = rows + rng.integers(shift if shift else -reach, reach + 1, rows.size)
+    rows = np.r_[rows, n // 2, n // 3]
+    cols = np.r_[cols, n // 2 + reach, n // 3 + (shift if shift else -reach)]
+    keep = (cols >= 0) & (cols < m)
+    if empty is not None:
+        keep &= rows // tile_rows != empty
+    return build_pruned_plan(n, m, rows[keep], cols[keep], rng.standard_normal(int(keep.sum())),
+                             tile_rows=tile_rows, group=3, dtype=np.float64)
+
+
 def phase_pruned_kernels(device):
     """The four pruned kernels against their plain versions on the card:
     every dtype pair, both panel layouts, k in {1, 3, 8, 16}, rectangular
     and unaligned shapes, tiles of 1024 and 2048 rows, groups 3, 8 and 12,
-    and a rectangular symmetric block with sym_shift > 0 and its spill."""
+    and a rectangular symmetric block with sym_shift > 0 and its spill; the
+    SpMVs with the plan's active tile ends and without them (every slot
+    walked), and on the edge cases of ``SPMV_EDGES``."""
     import numpy as np
     import torch
 
@@ -820,14 +882,20 @@ def phase_pruned_kernels(device):
              for c in full_cases]
     sym_plans = [(c, _random_pruned(rng, c[1], c[2], c[3] + c[4], lo=c[4], tile_rows=c[5], group=c[6]))
                  for c in sym_cases]
+    edge_plans = [(c, _edge_plan(rng, *c[1:])) for c in SPMV_EDGES]
+
+    def ends(P):
+        return torch.from_numpy(P.tile_end).to(device)
     for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
         for (name, n, m, *_), P in plans:
             d = torch.from_numpy(P.data).to(device, vdt)
             o, tp = torch.from_numpy(P.offsets).to(device), torch.from_numpy(P.tile_ptr).to(device)
             x = torch.from_numpy(rng.standard_normal(m)).to(device, xdt)
             label = f"{name} {vdt}/{xdt}"
-            check(label, "pruned_spmv", pruned_spmv(d, x, o, tp, n, m),
-                  pruned_matvec_reference(d, x, o, tp, n, m), xdt)
+            yr = pruned_matvec_reference(d, x, o, tp, n, m)
+            check(label, "pruned_spmv", pruned_spmv(d, x, o, tp, n, m), yr, xdt)
+            check(f"{label} active ends", "pruned_spmv",
+                  pruned_spmv(d, x, o, tp, n, m, tile_end=ends(P)), yr, xdt)
             for layout in PRUNED_LAYOUTS:
                 for k in (1, 3, 8, 16):
                     X = panels(k, m, xdt, layout)
@@ -840,10 +908,11 @@ def phase_pruned_kernels(device):
             kw = dict(halo=P.halo, sym_shift=shift, with_spill=True)
             x = torch.from_numpy(rng.standard_normal(m)).to(device, xdt)
             label = f"{name} {vdt}/{xdt}"
-            y, s = pruned_sym_spmv(d, x, o, tp, n, m, **kw)
             yr, sr = pruned_sym_matvec_reference(d, x, o, tp, n, m, **kw)
-            check(label, "pruned_sym_spmv", y, yr, xdt)
-            spill_check(label, "pruned_sym_spmv", s, sr, float(yr.abs().max()), xdt)
+            for te in (None, ends(P)):
+                y, s = pruned_sym_spmv(d, x, o, tp, n, m, tile_end=te, **kw)
+                check(label, "pruned_sym_spmv", y, yr, xdt)
+                spill_check(label, "pruned_sym_spmv", s, sr, float(yr.abs().max()), xdt)
             if (shift > 0) != bool(sr.abs().max() > 0):
                 raise AssertionError(f"pruned_sym_spmv {label}: spill {float(sr.abs().max())}")
             for layout in PRUNED_LAYOUTS:
@@ -853,6 +922,24 @@ def phase_pruned_kernels(device):
                     Yr, Sr = pruned_sym_spmm_reference(d, X, o, tp, n, m, layout, **kw)
                     check(f"{label} {layout} k={k}", "pruned_sym_spmm", Y, Yr, xdt)
                     spill_check(label, "pruned_sym_spmm", S, Sr, float(Yr.abs().max()), xdt)
+        for (name, n, m, _, _, shift, empty), P in edge_plans:
+            d = torch.from_numpy(P.data).to(device, vdt)
+            o, tp = torch.from_numpy(P.offsets).to(device), torch.from_numpy(P.tile_ptr).to(device)
+            if empty is not None and not P.tile_end[empty] == P.tile_ptr[empty] < P.tile_ptr[empty + 1]:
+                raise AssertionError(f"{name}: tile {empty} is not padding only")
+            x = torch.from_numpy(rng.standard_normal(m)).to(device, xdt)
+            label = f"{name} {vdt}/{xdt}"
+            kw = dict(halo=P.halo, sym_shift=shift, with_spill=True)
+            yr, sr = pruned_sym_matvec_reference(d, x, o, tp, n, m, **kw)
+            if (shift > 0) != bool(sr.abs().max() > 0):
+                raise AssertionError(f"pruned_sym_spmv {label}: spill {float(sr.abs().max())}")
+            for te in (ends(P), None):
+                if not shift:
+                    check(label, "pruned_spmv", pruned_spmv(d, x, o, tp, n, m, tile_end=te),
+                          pruned_matvec_reference(d, x, o, tp, n, m), xdt)
+                y, s = pruned_sym_spmv(d, x, o, tp, n, m, tile_end=te, **kw)
+                check(label, "pruned_sym_spmv", y, yr, xdt)
+                spill_check(label, "pruned_sym_spmv", s, sr, float(yr.abs().max()), xdt)
     torch.cuda.synchronize()
     emit({"phase": "pruned_kernel_checks", "cases": count, "worst_rel_err": worst,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
@@ -946,22 +1033,30 @@ def phase_unstructured_timing(device, U, k=8):
     lib = {None: median_ms(lambda: csr @ x), "cols": median_ms(lambda: csr @ panels["cols"]),
            "rhs_major": median_ms(lambda: csr @ XT.T)}
     del csr
-    Pb = P.astype(torch.bfloat16)
+    Pb, Sb = P.astype(torch.bfloat16), S.astype(torch.bfloat16)
 
     sym = dict(halo=S.halo)
-    variants = [  # (kernel, label, layout, kernel call, plain call, value array, k)
-        ("pruned_spmv", "full_f32", None, partial(pruned_spmv, P.data, x, P.offsets, P.tile_ptr, n, n),
+    variants = [  # (kernel, label, layout, kernel call, plain call, matrix, k)
+        ("pruned_spmv", "full_f32", None,
+         partial(pruned_spmv, P.data, x, P.offsets, P.tile_ptr, n, n, tile_end=P.tile_end),
          partial(pruned_matvec_reference, P.data, x, P.offsets, P.tile_ptr, n, n, group=P.group),
-         P.data, 1),
+         P, 1),
         ("pruned_spmv", "full_bf16_values", None,
-         partial(pruned_spmv, Pb.data, x, Pb.offsets, Pb.tile_ptr, n, n),
+         partial(pruned_spmv, Pb.data, x, Pb.offsets, Pb.tile_ptr, n, n, tile_end=Pb.tile_end),
          partial(pruned_matvec_reference, Pb.data, x, Pb.offsets, Pb.tile_ptr, n, n, group=P.group),
-         Pb.data, 1),
+         Pb, 1),
         ("pruned_sym_spmv", "sym_f32", None,
-         partial(pruned_sym_spmv, S.data, x, S.offsets, S.tile_ptr, n, n, **sym),
+         partial(pruned_sym_spmv, S.data, x, S.offsets, S.tile_ptr, n, n, tile_end=S.tile_end,
+                 **sym),
          partial(pruned_sym_matvec_reference, S.data, x, S.offsets, S.tile_ptr, n, n,
                  group=S.group, **sym),
-         S.data, 1),
+         S, 1),
+        ("pruned_sym_spmv", "sym_bf16_values", None,
+         partial(pruned_sym_spmv, Sb.data, x, Sb.offsets, Sb.tile_ptr, n, n,
+                 tile_end=Sb.tile_end, **sym),
+         partial(pruned_sym_matvec_reference, Sb.data, x, Sb.offsets, Sb.tile_ptr, n, n,
+                 group=S.group, **sym),
+         Sb, 1),
     ]
     for layout in PRUNED_LAYOUTS:
         X = panels[layout]
@@ -970,15 +1065,16 @@ def phase_unstructured_timing(device, U, k=8):
              partial(pruned_spmm, P.data, X, P.offsets, P.tile_ptr, n, n, layout),
              partial(pruned_spmm_reference, P.data, X, P.offsets, P.tile_ptr, n, n, layout,
                      group=P.group),
-             P.data, k),
+             P, k),
             ("pruned_sym_spmm", f"sym_f32_{layout}", layout,
              partial(pruned_sym_spmm, S.data, X, S.offsets, S.tile_ptr, n, n, layout, **sym),
              partial(pruned_sym_spmm_reference, S.data, X, S.offsets, S.tile_ptr, n, n, layout,
                      group=S.group, **sym),
-             S.data, k),
+             S, k),
         ]
     rows = {}
-    for kname, label, layout, kern, plain, data, kk in variants:
+    for kname, label, layout, kern, plain, A, kk in variants:
+        data = A.data
         y, yr = kern(), plain()
         torch.cuda.synchronize()
         err_abs = float((y - yr).abs().max())
@@ -995,8 +1091,18 @@ def phase_unstructured_timing(device, U, k=8):
         # under 0.2% of it)
         active = int(data.ne(0).any(1).sum())
         panel_bytes = 2 * kk * n * x.element_size()
-        byts = active * data.shape[1] * data.element_size() + panel_bytes
-        streamed = data.numel() * data.element_size() + panel_bytes
+        slot_bytes = data.shape[1] * data.element_size()
+        byts = active * slot_bytes + panel_bytes
+        # what the kernel streams: the SpMVs walk each tile's active slots
+        # (tile_end), the SpMMs every slot, padding included
+        walked = (int((A.tile_end - A.tile_ptr[:-1]).sum()) if layout is None
+                  else data.shape[0])
+        streamed = walked * slot_bytes + panel_bytes
+        extra = {}
+        if layout is None:  # the SpMV walking every slot, padding included
+            walk_all = partial(kern, tile_end=None)
+            extra = {"padding_walked_ms": median_ms(walk_all),
+                     "padding_walked_streamed_gb": (data.shape[0] * slot_bytes + panel_bytes) / 1e9}
         bound_ms, bound_by = bound(byts, 2 * kk * nnz, x.dtype)
         row = {
             "phase": "unstructured_timing", "variant": label, "kernel": kname,
@@ -1011,8 +1117,9 @@ def phase_unstructured_timing(device, U, k=8):
             "bytes_floor_gb": byts / 1e9, "achieved_gbs": byts / (ms * 1e-3) / 1e9,
             "share_of_copy": byts / (ms * 1e-3) / 1e9 / stream_gbs,
             "streamed_gb": streamed / 1e9, "streamed_gbs": streamed / (ms * 1e-3) / 1e9,
+            "streamed_share_of_copy": streamed / (ms * 1e-3) / 1e9 / stream_gbs,
             "stream_copy_gbs": stream_gbs, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err_abs, "rel_err": err_rel,
+            "max_abs_err": err_abs, "rel_err": err_rel, **extra,
         }
         emit(row)
         rows.setdefault(kname if layout is None else f"{kname}/{layout}", row)

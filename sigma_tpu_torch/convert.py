@@ -44,6 +44,7 @@ from sigma_tpu_torch.matrix.formats import (
     ELLMatrix,
 )
 from sigma_tpu_torch.ops.bsr_grouped import GroupedBSR
+from sigma_tpu_torch.ops.spmv_pruned import active_tile_ends
 from sigma_tpu_torch.matrix.pruned import PrunedDIAMatrix, SymmetricPrunedDIAMatrix
 from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
 from sigma_tpu_torch.solvers.gmg import StructuredAMGPreconditioner, _SLevel
@@ -229,12 +230,14 @@ def pruned_from_arrays(data, tile, first, rowoff, laneoff, n, m, halo, nnz,
         raise ValueError("want each tile's steps contiguous, in tile order, the first flagged")
     offsets = (np.asarray(rowoff, np.int64) - int(halo)) * lanes + np.asarray(laneoff, np.int64)
     tile_ptr = np.concatenate([[0], np.cumsum(steps * C)]).astype(np.int64)
+    data = data.reshape(L * C, T * lanes)
     device = resolve_device(device)
     cls = SymmetricPrunedDIAMatrix if symmetric else PrunedDIAMatrix
     return cls(
-        data=_tensor(data.reshape(L * C, T * lanes), device),
+        data=_tensor(data, device),
         offsets=torch.from_numpy(offsets).to(device),
         tile_ptr=torch.from_numpy(tile_ptr).to(device),
+        tile_end=torch.from_numpy(active_tile_ends(data, offsets, tile_ptr)).to(device),
         n=int(n), m=int(m), halo=int(halo), nnz=int(nnz), group=int(C),
     )
 

@@ -1,29 +1,52 @@
 """Bandwidth-reducing vertex orderings (host, set-up time).
 
-Port of ``reverse_cuthill_mckee`` of :mod:`sigma_tpu.graph.permutations`
-on CSR adjacency arrays.  Every permutation is in scatter form: ``p[i]`` is
-the new label of old vertex ``i``.  :func:`reverse_cuthill_mckee` runs in
-the port's host library; :func:`reverse_cuthill_mckee_reference` is its
-plain numpy version, which the tests hold it to.
+Port of ``reverse_cuthill_mckee`` of :mod:`sigma_tpu.graph.permutations`:
+it takes any square graph of :mod:`sigma_tpu_torch.graph.graph`, as the
+reference does.  Every permutation is in scatter form: ``p[i]`` is the new
+label of old vertex ``i``.  The ordering runs in the port's host library
+on CSR adjacency arrays (:func:`_rcm_arrays`, which the banded conversion
+calls directly); :func:`reverse_cuthill_mckee_reference` is its plain
+numpy version on the same arrays, which the tests hold it to.
 """
 
 from __future__ import annotations
 
 from collections import deque
+from typing import Tuple
 
 import numpy as np
 
 from sigma_tpu_torch import native
+from sigma_tpu_torch.graph.graph import CSRGraph, Graph
 
 __all__ = ["reverse_cuthill_mckee", "reverse_cuthill_mckee_reference"]
 
 
-def reverse_cuthill_mckee(indptr, indices) -> np.ndarray:
-    """Reverse Cuthill-McKee permutation of the square graph with CSR
-    adjacency ``(indptr, indices)``: BFS from a minimum-degree vertex per
-    component, neighbours in ascending-degree order (ties by vertex id),
-    ranks reversed."""
+def _adjacency(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR ``(indptr, indices)`` of a square graph, as numpy: a CSR graph's
+    own arrays, any other format's edges sorted by (row, column)."""
+    n, m = g.shape
+    if n != m:
+        raise ValueError("reordering requires a square graph")
+    if isinstance(g, CSRGraph):
+        return g.indptr, g.indices[: g.nnz]
+    rows, cols = (np.asarray(a, dtype=np.int64).ravel() for a in g.edges_numpy())
+    order = np.lexsort((cols, rows))
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return indptr, cols[order]
+
+
+def _rcm_arrays(indptr, indices) -> np.ndarray:
+    """:func:`reverse_cuthill_mckee` on CSR adjacency arrays."""
     return native.rcm_order(indptr, indices)
+
+
+def reverse_cuthill_mckee(g: Graph) -> np.ndarray:
+    """Reverse Cuthill-McKee permutation of the square graph ``g`` (any
+    format): BFS from a minimum-degree vertex per component, neighbours in
+    ascending-degree order (ties by vertex id), ranks reversed."""
+    return _rcm_arrays(*_adjacency(g))
 
 
 def reverse_cuthill_mckee_reference(indptr, indices) -> np.ndarray:

@@ -19,7 +19,7 @@ import torch
 
 from sigma_tpu_torch import native
 from sigma_tpu_torch.graph.graph import CSRGraph, DIAGraph
-from sigma_tpu_torch.graph.permutations import reverse_cuthill_mckee
+from sigma_tpu_torch.graph.permutations import _rcm_arrays
 from sigma_tpu_torch.matrix.formats import DIAMatrix
 
 __all__ = [
@@ -111,7 +111,7 @@ def _reordered_triples(A, reorder: bool, method: str):
         else:
             g = CSRGraph.from_coo(A.shape[0], A.shape[1], rows, cols)
             indptr, indices = g.indptr, g.indices
-        p = reverse_cuthill_mckee(indptr, indices)
+        p = _rcm_arrays(indptr, indices)
         rows, cols, vals, p = _keep_better_order(rows, cols, vals, p)
     return rows, cols, vals, p
 

@@ -93,14 +93,16 @@ class PrunedDIAMatrix(LinearOperator):
     ``data[s, r]`` is ``A[t * tile_rows + r, t * tile_rows + r +
     offsets[s]]`` for slot s of tile t; tile t's slots are ``tile_ptr[t]
     .. tile_ptr[t + 1]``, in offset order, padded with zero slots to a
-    multiple of ``group``.  ``halo`` (rows of 128) sizes the symmetric
-    spill.  ``t`` optionally carries the transposed plan, built at set-up
-    by :meth:`with_transpose`.
+    multiple of ``group``, and ``tile_end[t]`` ends tile t's active slots
+    (the SpMV kernels skip the padding).  ``halo`` (rows of 128) sizes the
+    symmetric spill.  ``t`` optionally carries the transposed plan, built
+    at set-up by :meth:`with_transpose`.
     """
 
     data: torch.Tensor  # (n_slots, tile_rows) packed values
     offsets: torch.Tensor  # (n_slots,) int64 column offset per slot
     tile_ptr: torch.Tensor  # (G + 1,) int64 first slot per tile
+    tile_end: torch.Tensor  # (G,) int64 end of each tile's active slots
     n: int
     m: int
     halo: int
@@ -142,8 +144,8 @@ class PrunedDIAMatrix(LinearOperator):
 
         return cls(
             data=dev(plan.data).to(dtype), offsets=dev(plan.offsets),
-            tile_ptr=dev(plan.tile_ptr), n=plan.n, m=plan.m, halo=plan.halo,
-            nnz=int(nnz), group=plan.group,
+            tile_ptr=dev(plan.tile_ptr), tile_end=dev(plan.tile_end), n=plan.n, m=plan.m,
+            halo=plan.halo, nnz=int(nnz), group=plan.group,
         )
 
     @classmethod
@@ -247,7 +249,7 @@ class PrunedDIAMatrix(LinearOperator):
         if x.ndim != 1:
             raise ValueError("matvec expects a vector; use matmat")
         return pruned_spmv(self.data, x, self.offsets, self.tile_ptr, self.n, self.m,
-                           group=self.group)
+                           group=self.group, tile_end=self.tile_end)
 
     def _spmm(self, X, layout):
         return pruned_spmm(self.data, X, self.offsets, self.tile_ptr, self.n, self.m, layout,
@@ -389,7 +391,8 @@ class SymmetricPrunedDIAMatrix(PrunedDIAMatrix):
         if x.ndim != 1:
             raise ValueError("matvec expects a vector; use matmat")
         return pruned_sym_spmv(self.data, x, self.offsets, self.tile_ptr, self.n,
-                               self.m, halo=self.halo, group=self.group)
+                               self.m, halo=self.halo, group=self.group,
+                               tile_end=self.tile_end)
 
     rmatvec = matvec
 

@@ -100,6 +100,18 @@ class SymmetricDIAMatrix(LinearOperator):
         sel = [offs.index(o) for o in keep]
         return cls(data=A.data[sel], offsets=tuple(keep), n=int(n))
 
+    @classmethod
+    def from_coo(cls, n, m, rows, cols, vals, dtype=None, **kw):
+        """Assemble both triangles' COO triples as a DIAMatrix
+        (:meth:`DIAMatrix.from_coo`, which takes ``device`` and
+        ``sum_duplicates``) and fold it."""
+        return cls.from_dia(DIAMatrix.from_coo(n, m, rows, cols, vals, dtype=dtype, **kw))
+
+    @classmethod
+    def from_dense(cls, dense, *, device=None, **kw):
+        """Fold a dense symmetric array; ``kw`` goes to :meth:`from_dia`."""
+        return cls.from_dia(DIAMatrix.from_dense(dense, device=device), **kw)
+
     def to_dia(self) -> DIAMatrix:
         """Expand back to full (two-triangle) DIA storage."""
         n = self.n
@@ -153,6 +165,10 @@ class SymmetricDIAMatrix(LinearOperator):
 
     def to_dense(self) -> np.ndarray:
         return self.to_dia().to_dense()
+
+    def memory_bytes(self) -> int:
+        """Bytes of the stored upper diagonals."""
+        return self.data.numel() * self.data.element_size()
 
     def __repr__(self) -> str:
         return (

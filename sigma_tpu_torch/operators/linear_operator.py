@@ -113,6 +113,15 @@ class LinearOperator:
             return self.matmat(x)
         raise ValueError(f"operand must be 1- or 2-D, got shape {tuple(x.shape)}")
 
+    # -- probes ----------------------------------------------------------------
+    def get_value(self, i: int, j: int) -> float:
+        """Entry probe by a matvec with the basis vector e_j (float64, as
+        :meth:`to_dense`), the generic fallback; matrices override it
+        with a direct lookup."""
+        e = torch.zeros(self.shape[1], dtype=torch.float64, device=self.device)
+        e[j] = 1.0
+        return float(self.matvec(e)[i])
+
     def to_dense(self) -> np.ndarray:
         """Dense mirror, probed with a float64 identity (exact for float32
         and bfloat16 values under the operand-dtype convention)."""

@@ -139,16 +139,16 @@ def library() -> ctypes.CDLL:
     ]
     lib.sigma_dia_sym_spmm.restype = i32
     # pruned entries: (device, vtype, xtype, data, x, offsets, tile_ptr,
-    # outputs..., tile_rows, n_tiles, sizes..., stream)
+    # [tile_end,] outputs..., tile_rows, n_tiles, sizes..., stream)
     pruned = {
-        "sigma_pruned_spmv": (1, 2),  # outputs y; sizes n, m
-        "sigma_pruned_spmm": (1, 5),  # n, m, k, bx, by
-        "sigma_pruned_sym_spmv": (2, 5),  # y, spill; n, m, sym_shift, spill_rows, rows_out
-        "sigma_pruned_sym_spmm": (2, 9),  # n, m, k, bx, by, bs, sym_shift, spill_rows, rows_out
+        "sigma_pruned_spmv": (2, 2),  # tile_end, y; sizes n, m
+        "sigma_pruned_spmm": (1, 5),  # y; n, m, k, bx, by
+        "sigma_pruned_sym_spmv": (3, 5),  # tile_end, y, spill; n, m, sym_shift, spill_rows, rows_out
+        "sigma_pruned_sym_spmm": (2, 9),  # y, spill; n, m, k, bx, by, bs, sym_shift, spill_rows, rows_out
     }
-    for name, (n_out, n_sizes) in pruned.items():
+    for name, (n_ptr, n_sizes) in pruned.items():
         fn = getattr(lib, name)
-        fn.argtypes = [i32, i32, i32, ptr, ptr, ptr, ptr, *[ptr] * n_out, i64, i64,
+        fn.argtypes = [i32, i32, i32, ptr, ptr, ptr, ptr, *[ptr] * n_ptr, i64, i64,
                        *[i64] * n_sizes, ptr]
         fn.restype = i32
     # (device, vtype, xtype, gdata, gcols, gptr, x, y, nb_rows, bh, bw, B, k,

@@ -19,6 +19,9 @@ pruned layout keeps only the active blocks:
   window positions into a haloed VMEM frame (``rowoff``/``laneoff``) and
   first-step flags; the halo ``E`` (sublane rows of 128) survives only as
   the length ``E * 128`` of the symmetric kernels' spill.
+- ``tile_end`` (G,) is the end of each tile's active slots
+  (:func:`active_tile_ends`, computed once with the plan), so the SpMV
+  kernels walk no padding slot.
 
 Ports of the four Pallas TPU kernels of ``sigma_tpu/ops/spmv_pruned.py``:
 
@@ -61,6 +64,7 @@ from sigma_tpu_torch.ops.spmv_dia import _CODES, KERNEL_DTYPES
 __all__ = [
     "PRUNED_LAYOUTS",
     "PrunedPlan",
+    "active_tile_ends",
     "build_pruned_plan",
     "build_pruned_plan_reference",
     "pruned_matvec_reference",
@@ -87,6 +91,7 @@ class PrunedPlan:
     data: np.ndarray  # (n_slots, tile_rows) packed values
     offsets: np.ndarray  # (n_slots,) int64 column offset per slot
     tile_ptr: np.ndarray  # (G + 1,) int64 first slot per tile
+    tile_end: np.ndarray  # (G,) int64 end of each tile's active slots
     tile_rows: int
     halo: int  # E: the symmetric spill is E * 128 rows
     group: int
@@ -97,6 +102,28 @@ class PrunedPlan:
     @property
     def n_steps(self) -> int:
         return self.data.shape[0] // self.group
+
+
+def active_tile_ends(data, offsets, tile_ptr) -> np.ndarray:
+    """(G,) int64 end of each tile's active slots, from the plan's host
+    arrays alone.  A tile's active slots come first, in strictly
+    ascending offset order, and the zero padding slots of offset 0 follow,
+    so the active run is the tile's strictly ascending prefix of offsets;
+    when that prefix ends in an all-zero slot of offset 0 (the first
+    padding slot after negative offsets, or the one padding step of an
+    empty tile) the slot is dropped.  Walking ``tile_ptr[t] .. tile_end[t]``
+    instead of the whole tile removes only ``+ 0 * x`` terms."""
+    starts, stops = tile_ptr[:-1], tile_ptr[1:]
+    # slots that break their tile's ascending run (never a tile's first)
+    brk = np.ones(offsets.size, dtype=bool)
+    brk[1:] = offsets[1:] <= offsets[:-1]
+    brk[starts[starts < offsets.size]] = False
+    bpos = np.append(np.flatnonzero(brk), offsets.size)
+    ends = np.minimum(bpos[np.searchsorted(bpos, starts)], stops)
+    last = np.maximum(ends - 1, 0)
+    cand = np.flatnonzero((ends > starts) & (offsets[last] == 0))
+    ends[cand[~data[last[cand]].any(axis=1)]] -= 1
+    return ends
 
 
 def _pick_halo(T: int, hrows: int):
@@ -152,7 +179,8 @@ def build_pruned_plan(
         rows, cols, vals, tile_rows=TR, group=int(group), reach=reach,
         n_tiles=G, dtype=dtype,
     )
-    return PrunedPlan(data=data, offsets=offsets, tile_ptr=tile_ptr, tile_rows=TR,
+    return PrunedPlan(data=data, offsets=offsets, tile_ptr=tile_ptr,
+                      tile_end=active_tile_ends(data, offsets, tile_ptr), tile_rows=TR,
                       halo=E, group=int(group), n=n, m=m, n_slots_active=n_active)
 
 
@@ -180,9 +208,10 @@ def build_pruned_plan_reference(
     offsets[uslot] = uoff
     data = np.zeros((offsets.size, TR), dtype=dtype)
     data.reshape(-1)[uslot[inv] * TR + (rows - tile_of * TR)] = vals.astype(dtype)
-    return PrunedPlan(data=data, offsets=offsets, tile_ptr=slot_base.astype(np.int64),
-                      tile_rows=TR, halo=E, group=C, n=n, m=m,
-                      n_slots_active=int(ukey.size))
+    tile_ptr = slot_base.astype(np.int64)
+    return PrunedPlan(data=data, offsets=offsets, tile_ptr=tile_ptr,
+                      tile_end=active_tile_ends(data, offsets, tile_ptr), tile_rows=TR,
+                      halo=E, group=C, n=n, m=m, n_slots_active=int(ukey.size))
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -318,10 +347,26 @@ def _block(layout, length):
     return 1 if layout == "cols" else length
 
 
-def _launch(entry, data, X, offsets, tile_ptr, outs, *sizes):
+def _tile_end(tile_end, tile_ptr):
+    """The SpMV kernels' per-tile slot ends: the plan's active ends, or
+    every tile's last slot (``tile_ptr[1:]``) when none are given."""
+    if tile_end is None:
+        return tile_ptr[1:]
+    if tile_end.dtype != torch.int64 or tuple(tile_end.shape) != (tile_ptr.shape[0] - 1,):
+        raise ValueError(
+            f"tile_end must be int64 of shape ({tile_ptr.shape[0] - 1},), got "
+            f"{tile_end.dtype} {tuple(tile_end.shape)}"
+        )
+    if tile_end.device != tile_ptr.device:
+        raise ValueError(f"tile_end on {tile_end.device}, tile_ptr on {tile_ptr.device}")
+    return tile_end
+
+
+def _launch(entry, data, X, offsets, tile_ptr, outs, *sizes, tile_end=None):
     """Launch one kernel on the current stream into the preallocated
-    outputs ``outs`` (the null pointer for None).  Raises on anything the
-    kernel does not take."""
+    outputs ``outs`` (the null pointer for None); ``tile_end`` goes to the
+    SpMV kernels after ``tile_ptr``.  Raises on anything the kernel does
+    not take."""
     if X.device.type != "cuda":
         raise ValueError(f"no pruned kernel for device {X.device}")
     if (data.dtype, X.dtype) not in KERNEL_DTYPES:
@@ -329,10 +374,13 @@ def _launch(entry, data, X, offsets, tile_ptr, outs, *sizes):
     for name, t in (("data", data), ("x", X), ("offsets", offsets), ("tile_ptr", tile_ptr)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if data.data_ptr() % 16:
+        raise ValueError("data must start on a 16-byte boundary")
     stream = torch.cuda.current_stream(X.device).cuda_stream
     rc = getattr(_build.library(), entry)(
         X.device.index, _CODES[data.dtype], _CODES[X.dtype],
         data.data_ptr(), X.data_ptr(), offsets.data_ptr(), tile_ptr.data_ptr(),
+        *([] if tile_end is None else [tile_end.data_ptr()]),
         *[0 if o is None else o.data_ptr() for o in outs],
         data.shape[1], tile_ptr.shape[0] - 1, *sizes, stream,
     )
@@ -340,18 +388,21 @@ def _launch(entry, data, X, offsets, tile_ptr, outs, *sizes):
         raise RuntimeError(f"{entry} failed with CUDA error {rc}")
 
 
-def pruned_spmv(data, x, offsets, tile_ptr, n, m, *, group=1):
+def pruned_spmv(data, x, offsets, tile_ptr, n, m, *, group=1, tile_end=None):
     """y = A x for the n x m pruned matrix ``(data, offsets, tile_ptr)``
     (module docstring); y is (n,) in x's dtype.  ``group`` is the slot
     grouping of the plan, which orders the plain version's sums (the
-    kernel sums in slot order)."""
+    kernel sums in slot order); ``tile_end`` (:func:`active_tile_ends`)
+    lets the kernel skip the padding slots, which the plain version sums
+    as zeros."""
     _check(data, x, offsets, tile_ptr, n, m, None)
+    tile_end = _tile_end(tile_end, tile_ptr)
     if x.device.type == "cpu":
         return pruned_matvec_reference(data, x, offsets, tile_ptr, n, m, group=group)
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    _launch("sigma_pruned_spmv", data, x, offsets, tile_ptr, (y,), n, m)
+    _launch("sigma_pruned_spmv", data, x, offsets, tile_ptr, (y,), n, m, tile_end=tile_end)
     pruned_spmv.launches += 1
     return y
 
@@ -394,16 +445,17 @@ def _check_sym(n, m, tile_rows, halo, sym_shift):
 
 
 def pruned_sym_spmv(data, x, offsets, tile_ptr, n, m, *, halo, sym_shift=0,
-                    with_spill=False, group=1):
+                    with_spill=False, group=1, tile_end=None):
     """y = A x from the packed slots with offset >= ``sym_shift`` (the
     upper triangle and main diagonal; for a rectangular block of a
     distributed layout, the columns shifted by ``sym_shift``) and their
     mirror ``A[i + om, i] = data`` at mirror offset ``om = offset -
     sym_shift > 0``.  With ``with_spill`` returns ``(y, spill)``, spill the
     (halo * 128,) mirror terms on rows n, n + 1, ... (all zero for a square
-    matrix)."""
+    matrix).  ``group`` and ``tile_end`` as for :func:`pruned_spmv`."""
     _check(data, x, offsets, tile_ptr, n, m, None)
     _check_sym(n, m, data.shape[1], halo, sym_shift)
+    tile_end = _tile_end(tile_end, tile_ptr)
     if x.device.type == "cpu":
         return pruned_sym_matvec_reference(data, x, offsets, tile_ptr, n, m, halo=halo,
                                            sym_shift=sym_shift, with_spill=with_spill,
@@ -414,7 +466,7 @@ def pruned_sym_spmv(data, x, offsets, tile_ptr, n, m, *, halo, sym_shift=0,
     rows_out = n + (EL if with_spill else 0)
     if rows_out:
         _launch("sigma_pruned_sym_spmv", data, x, offsets, tile_ptr, (y, spill),
-                n, m, sym_shift, EL, rows_out)
+                n, m, sym_shift, EL, rows_out, tile_end=tile_end)
         pruned_sym_spmv.launches += 1
     return (y, spill) if with_spill else y
 

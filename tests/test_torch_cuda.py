@@ -285,6 +285,59 @@ def test_pruned_sym_kernels_with_spill(cuda, pair, n, m, shift):
             assert float((S - Sr).abs().max()) <= _tol(xdt) * float(Yr.abs().max())
 
 
+# edge cases of the SpMV kernels (1024-row blocks, a TMA value ring and a
+# staged x window where the tile's reach allows, plain loads beyond it):
+# (n, m, tile_rows, reach, sym_shift, empty tile)
+_SPMV_EDGES = {
+    "n_not_a_multiple_of_the_block": (5000, 5000, 1024, 300, 0, None),
+    "tile_of_padding_only": (6000, 6000, 1024, 200, 0, 2),
+    "reach_at_the_halo": (4096, 4096, 1024, 895, 0, None),
+    "window_at_its_cap": (4096, 4096, 1024, 508, 0, None),
+    "t_minus_1_beyond_the_first_block": (6144, 6144, 2048, 1500, 0, None),
+    "sym_shift_spill": (2048, 2560, 1024, 300, 128, None),
+}
+
+
+def _edge_plan(rng, n, m, tile_rows, reach, shift, empty):
+    """Banded triples whose reach is exactly ``reach`` (columns >= rows +
+    shift for a symmetric block), without the rows of tile ``empty``."""
+    rows = rng.integers(0, n, 4 * n)
+    lo = shift if shift else -reach
+    cols = rows + rng.integers(lo, reach + 1, rows.size)
+    rows = np.r_[rows, n // 2, n // 3]
+    cols = np.r_[cols, n // 2 + reach, n // 3 + (shift if shift else -reach)]
+    keep = (cols >= 0) & (cols < m)
+    if empty is not None:
+        keep &= rows // tile_rows != empty
+    return sp.build_pruned_plan(n, m, rows[keep], cols[keep], rng.standard_normal(keep.sum()),
+                                tile_rows=tile_rows, group=3, dtype=np.float64)
+
+
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("case", sorted(_SPMV_EDGES))
+def test_pruned_spmv_kernels_edge_cases(cuda, pair, case):
+    vdt, xdt = pair
+    n, m, tile_rows, reach, shift, empty = _SPMV_EDGES[case]
+    P = _edge_plan(np.random.default_rng(14), n, m, tile_rows, reach, shift, empty)
+    assert P.tile_rows == tile_rows
+    if empty is not None:
+        assert P.tile_end[empty] == P.tile_ptr[empty] < P.tile_ptr[empty + 1]
+    d, o, tp = _on(cuda, P, vdt)
+    te = torch.from_numpy(P.tile_end).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(m)).to(cuda, xdt)
+    kw = dict(halo=P.halo, sym_shift=shift, with_spill=True)
+    yr, sr = sp.pruned_sym_matvec_reference(d, x, o, tp, n, m, **kw)
+    for ends in (te, None):
+        if not shift:
+            y = sp.pruned_spmv(d, x, o, tp, n, m, tile_end=ends)
+            assert rel(y, sp.pruned_matvec_reference(d, x, o, tp, n, m)) <= _tol(xdt)
+        y, s = sp.pruned_sym_spmv(d, x, o, tp, n, m, tile_end=ends, **kw)
+        assert rel(y, yr) <= _tol(xdt)
+        assert float((s - sr).abs().max()) <= _tol(xdt) * float(yr.abs().max())
+    assert (shift > 0) == bool(sr.abs().max() > 0)
+    torch.cuda.synchronize()
+
+
 def test_pruned_kernels_reject_what_they_do_not_take(cuda):
     rng = np.random.default_rng(12)
     P = _random_plan(rng, 2048, 2048, 100)

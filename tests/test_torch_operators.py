@@ -70,3 +70,28 @@ def test_shape_mismatch_raises():
         o["R"] @ o["A"]
     with pytest.raises(NotImplementedError):
         st.MatvecOperator(None, lambda p, x: x, None, (6, 6)).rmatvec(torch.ones(6))
+
+
+@pytest.mark.parametrize("name", ["sum", "scaled", "product"])
+def test_get_value_probes_like_the_jax_package(name):
+    """An operator without a lookup of its own answers get_value by a
+    basis-vector matvec, as the reference's LinearOperator does."""
+    expr = EXPRESSIONS[name]
+    opj = expr(_factors(sigma_tpu, jnp.asarray))
+    opt = expr(_factors(st, torch.from_numpy))
+    dense = opt.to_dense()
+    for i, j in ((0, 0), (2, 3), (5, 1), (opt.shape[0] - 1, opt.shape[1] - 1)):
+        got = opt.get_value(i, j)
+        assert isinstance(got, float)
+        np.testing.assert_allclose(got, float(opj.get_value(i, j)), rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(got, dense[i, j], rtol=1e-12, atol=1e-12)
+
+
+def test_matrix_get_value_keeps_its_lookup():
+    """The matrix classes answer from their stored entries, not by a
+    matvec."""
+    rng = np.random.default_rng(4)
+    dense = np.where(rng.random((7, 7)) < 0.4, rng.standard_normal((7, 7)), 0.0)
+    A = st.CSRMatrix.from_dense(dense, device="cpu")
+    assert type(A).get_value is not st.LinearOperator.get_value
+    assert all(A.get_value(i, j) == dense[i, j] for i in range(7) for j in range(7))

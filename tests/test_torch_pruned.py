@@ -280,6 +280,60 @@ def test_pruned_from_arrays_carries_the_jax_plan():
         assert A.stored_slots == Aj.stored_slots and A.group == Aj.group
 
 
+def _recount_ends(n, rows, cols, tile_rows, tile_ptr):
+    """Each tile's first slot plus its number of distinct (tile, offset)
+    pairs, counted from the triples."""
+    G = tile_ptr.size - 1
+    tile = rows // tile_rows
+    pairs = np.unique(tile * (4 * n + 1) + (cols - rows + 2 * n))
+    return tile_ptr[:-1] + np.bincount(pairs // (4 * n + 1), minlength=G)
+
+
+@pytest.mark.parametrize("case", ["full", "full_negative_only", "sym", "sym_shift"])
+def test_active_tile_ends_match_a_recount_of_the_plan(case):
+    """The per-tile end of the active slots, from the host pack, its numpy
+    form, the matrix classes and a plan carried across from the JAX
+    package, against a count of the (tile, offset) pairs of the triples.
+    The plans have tiles with no pair (one padding step only) and tiles
+    whose last active offset is negative (the first padding slot follows
+    in ascending order)."""
+    rng = np.random.default_rng(13)
+    n, m, T = 6000, 6000, 1024
+    if case.startswith("sym"):
+        shift = 128 if case == "sym_shift" else 0
+        m = n + 512 if shift else n
+        r, c, v, _ = random_banded(rng, n, m, 9000, band=shift + 200, outliers=0, lo=shift)
+    else:
+        r, c, v, _ = random_banded(rng, n, m, 9000, band=200, outliers=0,
+                                   lo=None if case == "full" else 200)
+        if case == "full_negative_only":
+            keep = c < r
+            r, c, v = r[keep], c[keep], v[keep]
+    # empty tiles 2 and 4
+    keep = (r // T != 2) & (r // T != 4)
+    r, c, v = r[keep], c[keep], v[keep]
+    for build in (sp.build_pruned_plan, sp.build_pruned_plan_reference):
+        P = build(n, m, r, c, v, tile_rows=T, group=5, dtype=np.float64)
+        want = _recount_ends(n, r, c, P.tile_rows, P.tile_ptr)
+        assert want[2] == P.tile_ptr[2] and want[4] == P.tile_ptr[4]
+        assert np.array_equal(P.tile_end, want)
+        assert int((P.tile_end - P.tile_ptr[:-1]).sum()) == P.n_slots_active
+    A = st.PrunedDIAMatrix.from_coo(n, m, r, c, v, tile_rows=T, group=5, device="cpu")
+    assert np.array_equal(A.tile_end.numpy(), want)
+    assert np.array_equal(A.astype(torch.bfloat16).tile_end.numpy(), want)
+    J = jsp.build_pruned_plan(n, m, r, c, v, tile_rows=T, group=5, dtype=np.float64)
+    C = convert.pruned_from_arrays(J.data.reshape(J.L, J.C, J.T, 128), J.tile, J.first,
+                                   J.rowoff, J.laneoff, n, m, J.E, r.size, device="cpu")
+    assert np.array_equal(C.tile_ptr.numpy(), P.tile_ptr)
+    assert np.array_equal(C.tile_end.numpy(), want)
+    # the ends only drop padding: the product is unchanged
+    x = torch.from_numpy(rng.standard_normal(m))
+    y = sp.pruned_spmv(A.data, x, A.offsets, A.tile_ptr, n, m, group=5, tile_end=A.tile_end)
+    assert torch.equal(y, A.matvec(x))
+    with pytest.raises(ValueError, match="tile_end must be int64"):
+        sp.pruned_spmv(A.data, x, A.offsets, A.tile_ptr, n, m, tile_end=A.tile_end[1:])
+
+
 def test_host_library_is_built_once_and_raises_without_a_compiler(monkeypatch, tmp_path):
     path = native.build()
     assert path.exists() and native.build() == path
@@ -307,8 +361,11 @@ def test_cpu_routing_launches_no_kernel_and_device_tensors_go_to_the_kernel(monk
 
     launched = []
 
-    def fake_launch(entry, data, X, offsets, tile_ptr, outs, *sizes):
+    def fake_launch(entry, data, X, offsets, tile_ptr, outs, *sizes, tile_end=None):
         assert data.device == X.device == offsets.device == tile_ptr.device
+        # the SpMV kernels get the matrix's active tile ends, the SpMMs none
+        assert (tile_end is None) == entry.endswith("spmm")
+        assert tile_end is None or tile_end.device == X.device
         launched.append(entry)
 
     def no_plain(*args, **kw):

@@ -107,3 +107,37 @@ def test_from_dia_rejects_nonsymmetric():
         st.SymmetricDIAMatrix.from_dia(Au)
     with pytest.raises(ValueError, match="offsets >= 0"):
         st.SymmetricDIAMatrix(data=torch.zeros(1, 128), offsets=(-1,), n=n)
+
+
+def test_from_coo_from_dense_and_memory_bytes_match_the_jax_package():
+    """SymmetricDIAMatrix.from_coo, .from_dense and .memory_bytes against
+    the reference's (f64 and f32)."""
+    rng = np.random.default_rng(7)
+    n = 700
+    offs = (0, 1, 9, 130)
+    rows, cols, vals = [], [], []
+    for o in offs:
+        i = np.arange(n - o)
+        v = rng.standard_normal(n - o) + (4.0 if o == 0 else 0.0)
+        rows += [i, i + o][: 1 if o == 0 else 2]
+        cols += [i + o, i][: 1 if o == 0 else 2]
+        vals += [v, v][: 1 if o == 0 else 2]
+    r, c, v = np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+    dense = np.zeros((n, n))
+    dense[r, c] = v
+    x = rng.standard_normal(n)
+    for dt, jdt in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
+        J = JaxSym.from_coo(n, n, r, c, v, dtype=jdt)
+        A = st.SymmetricDIAMatrix.from_coo(n, n, r, c, v, dtype=dt, device="cpu")
+        assert A.offsets == J.offsets == offs and A.dtype == dt
+        assert A.memory_bytes() == J.memory_bytes() == len(offs) * 768 * A.data.element_size()
+        tol = 1e-12 if dt == torch.float64 else 1e-5
+        y = A.matvec(torch.from_numpy(x).to(dt))
+        assert rel(y, np.asarray(J.matvec(jnp.asarray(x, jdt)))) <= tol
+        assert rel(y, dense @ x) <= tol
+    D = st.SymmetricDIAMatrix.from_dense(dense, device="cpu")
+    Jd = JaxSym.from_dense(dense)
+    assert D.offsets == Jd.offsets and np.array_equal(D.to_dense(), np.asarray(Jd.to_dense()))
+    assert D.memory_bytes() == Jd.memory_bytes()
+    with pytest.raises(ValueError, match="not symmetric"):
+        st.SymmetricDIAMatrix.from_dense(dense + np.triu(dense, 1) * 0.5, device="cpu")

@@ -19,7 +19,9 @@ from sigma_tpu.solvers import cg_solve as jax_cg
 from sigma_tpu.solvers import gmg as jax_gmg
 import sigma_tpu_torch as st
 from sigma_tpu_torch import convert, native
-from sigma_tpu_torch.graph.permutations import reverse_cuthill_mckee_reference
+from sigma_tpu.graph import graph as jax_graph
+from sigma_tpu.graph.permutations import reverse_cuthill_mckee as jax_rcm_graph
+from sigma_tpu_torch.graph.permutations import _rcm_arrays, reverse_cuthill_mckee_reference
 from sigma_tpu_torch.matrix import banded
 from sigma_tpu_torch.solvers import gmg
 
@@ -62,8 +64,7 @@ def test_rcm_matches_the_jax_package_and_its_plain_version(mesh):
     assert np.array_equal(p, jp) and np.array_equal(pr, jr) and np.array_equal(pc, jc)
     assert np.array_equal(pv, jv)
     adj, indptr = native.adjacency_from_coo(n, r, c)
-    assert np.array_equal(st.reverse_cuthill_mckee(indptr, adj),
-                          reverse_cuthill_mckee_reference(indptr, adj))
+    assert np.array_equal(_rcm_arrays(indptr, adj), reverse_cuthill_mckee_reference(indptr, adj))
     # the band after RCM is narrow: O(W), not O(n)
     assert int(np.abs(pc - pr).max()) < 4 * W < int(np.abs(c - r).max())
     # the input order is kept, with the identity, when it is the better one
@@ -71,6 +72,24 @@ def test_rcm_matches_the_jax_package_and_its_plain_version(mesh):
     assert np.array_equal(kp, np.arange(n)) and kr is pr and kc is pc
     with pytest.raises(ValueError, match="out of range"):
         st.reorder_triples_rcm(10, [0, 10], [0, 1], [1.0, 1.0])
+
+
+@pytest.mark.parametrize("fmt", ["CSRGraph", "COOGraph", "CSCGraph", "ELLGraph"])
+def test_rcm_of_a_graph_matches_the_jax_package(fmt):
+    """reverse_cuthill_mckee takes a graph of any format, as the
+    reference's does, and gives the reference's permutation."""
+    rng = np.random.default_rng(3)
+    n, k = 300, 1200
+    r, c = rng.integers(0, n, k), rng.integers(0, n, k)
+    rows, cols = np.r_[r, c, np.arange(n)], np.r_[c, r, np.arange(n)]
+    g = getattr(st, fmt).from_coo(n, n, rows, cols)
+    p = st.reverse_cuthill_mckee(g)
+    assert np.array_equal(p, jax_rcm_graph(getattr(jax_graph, fmt).from_coo(n, n, rows, cols)))
+    assert sorted(p.tolist()) == list(range(n))
+    csr = st.CSRGraph.from_coo(n, n, rows, cols)
+    assert np.array_equal(p, reverse_cuthill_mckee_reference(csr.indptr, csr.indices))
+    with pytest.raises(ValueError, match="square"):
+        st.reverse_cuthill_mckee(getattr(st, fmt).from_coo(n, n + 1, rows, cols))
 
 
 def test_pair_coarsening_and_smoother_data_match_the_jax_package(mesh):
