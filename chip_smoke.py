@@ -7,8 +7,9 @@ Builds the DIA, grouped, staged, pruned and grouped-BSR SpMV and SpMM
 kernels from ``sigma_tpu_torch/csrc/`` with nvcc (and the host library with
 g++), checks each against its plain PyTorch version on the card (every
 dtype pair; for SpMM every panel layout and k in {1, 3, 8, 16}; the
-grouped-BSR kernel at four block shapes, three group sizes and k in
-{1, 3, 4, 8}), and times them
+grouped SpMM in both of its layouts at k in {1, 17, 24, 32, 33, 48} on
+five offset sets, and with no diagonals; the grouped-BSR kernel at four
+block shapes, three group sizes and k in {1, 3, 4, 8}), and times them
 at the north stars' shapes beside their bound and the same product in
 cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 (10,077,696 rows, 70,263,936 nonzeros) and the shuffled irregular-mesh
@@ -34,7 +35,8 @@ drives eight paths through the package's public entry points:
   and the bf16-operator refined_solve_fixed; at shift 1e-3 CG,
   Chebyshev-CG, banded pair-multigrid CG and CG on the symmetric band;
   and LOBPCG + banded multigrid for 8 pairs, whose k = 24 Rayleigh-Ritz
-  products run the grouped SpMM kernel;
+  products run the grouped SpMM kernel (timed at that shape after the
+  path, in both layouts, beside its bound and cuSPARSE);
 - the 10,092,544-row mesh's full band (phase 19), built on the card from
   phase 7's RCM triples (9.89 GB of f32 values): the SpMV, symmetric SpMV,
   windowed staged SpMV, k = 8 SpMM and k = 32 grouped SpMM (RHS-major
@@ -194,8 +196,9 @@ def phase_device():
 
 
 def _ptxas_entries(log):
-    """(function, registers, spill store bytes, spill load bytes) of every
-    kernel instantiation in nvcc's ``-Xptxas -v`` output."""
+    """(function, registers, spill store bytes, spill load bytes, static
+    shared-memory bytes) of every kernel instantiation in nvcc's
+    ``-Xptxas -v`` output."""
     out, name, spills = [], None, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -203,17 +206,21 @@ def _ptxas_entries(log):
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spills = int(m.group(1)), int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and name and spills:
-            out.append((name, int(m.group(1)), *spills))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0))
             name = spills = None
     return out
 
 
 # the SpMV kernels redesigned for Hopper (pruned.cu), reported one by one
 PTXAS_REPORTED = ("pruned_spmv_kernel", "pruned_sym_spmv_kernel")
+# the grouped SpMM (dia_spmm_grouped.cu): one instantiation a dtype pair
+GROUPED_KERNEL = "dia_spmm_grouped_kernel"
 
 
 def phase_build():
-    from sigma_tpu_torch.ops import _build
+    from sigma_tpu_torch.ops import KERNEL_DTYPES, _build
+    from sigma_tpu_torch.ops.spmm_dia import grouped_launch_config
 
     b = _build.build()
     _build.library()
@@ -225,15 +232,26 @@ def phase_build():
     reported = [
         {"kernel": next(k for k in PTXAS_REPORTED if k in name), "function": name,
          "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld}
-        for name, regs, st, ld in entries if any(k in name for k in PTXAS_REPORTED)
+        for name, regs, st, ld, _ in entries if any(k in name for k in PTXAS_REPORTED)
     ]
+    grouped = [
+        {"function": name, "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
+         "static_smem_bytes": smem}
+        for name, regs, st, ld, smem in entries if GROUPED_KERNEL in name
+    ]
+    launch = {f"{v}/{x}": grouped_launch_config(v, x)
+              for v, x in sorted(KERNEL_DTYPES, key=str)}
     emit({"phase": "build", "seconds": round(b.seconds, 3), "library": b.path.name,
           "kernels": len(spills), "spill_store_bytes": sum(spills), "ptxas": ptxas})
     emit({"phase": "build_spmv_kernels", "instantiations": reported})
+    emit({"phase": "build_grouped_spmm", "instantiations": grouped,
+          "launch_by_dtype_pair": launch})
     if not spills or any(spills):
         raise AssertionError(f"ptxas spill stores per kernel: {spills}")
     if len(reported) != 10 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in reported):
         raise AssertionError(f"want 10 pruned SpMV instantiations without spills: {reported}")
+    if len(grouped) != 5 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in grouped):
+        raise AssertionError(f"want 5 grouped SpMM instantiations without spills: {grouped}")
 
 
 def _random_dia(rng, n, m, offsets, vdtype, device):
@@ -420,6 +438,68 @@ def phase_spmm_kernels(device):
     emit({"phase": "spmm_kernel_checks", "cases": count + 1,
           "worst_rel_err": {k: float(v) for k, v in worst.items()},
           "rmatmat_rel_err": e,
+          "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
+
+
+# the grouped SpMM's check cases (tests/test_torch_cuda.py's): scattered
+# offsets and a band past the window space (the runs route), a band with
+# gaps, all-positive and all-negative bands; k of one column, partial and
+# whole register tiles and several column groups; n not a multiple of 256
+GROUPED_CHECK_K = (1, 17, 24, 32, 33, 48)
+
+
+def phase_grouped_kernels(device):
+    """dia_spmm_grouped against its plain version on the card: every dtype
+    pair, both layouts, every k of GROUPED_CHECK_K, five offset sets, at
+    20,001 x 25,000; and D = 0 (zeros written over torch.empty)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.ops import (
+        GROUPED_LAYOUTS, KERNEL_DTYPES, dia_spmm_grouped, dia_spmm_grouped_reference,
+    )
+
+    rng = np.random.default_rng(20)
+    offsets = {
+        "scattered": sorted(int(o) for o in rng.choice(np.arange(-3000, 3001), 100,
+                                                       replace=False)),
+        "band_with_gaps": sorted(set(range(-60, 61)) - {-7, 3, 4, 30}),
+        "all_positive": list(range(1, 90)),
+        "all_negative": list(range(-89, 0)),
+        "past_the_window": list(range(-150, 151)),
+    }
+    n, m = 20_001, 25_000
+    worst, count = {}, 0
+    for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
+        tol = 1e-12 if xdt == torch.float64 else 1e-5
+        for label, offs in offsets.items():
+            data = _random_dia(rng, n, m, offs, vdt, device)
+            off_t = torch.tensor(offs, dtype=torch.int64, device=device)
+            for layout in GROUPED_LAYOUTS:
+                for k in GROUPED_CHECK_K:
+                    XT = torch.from_numpy(rng.standard_normal((k, m))).to(device, xdt)
+                    X = XT if layout == "rhs_major" else XT.T.contiguous()
+                    Y = dia_spmm_grouped(data, X, off_t, n, m, layout)
+                    torch.cuda.synchronize()
+                    ref = dia_spmm_grouped_reference(data, X, off_t, n, m, layout)
+                    e = rel_err(Y, ref)
+                    if not (e <= tol and Y.shape == ref.shape):
+                        raise AssertionError(f"dia_spmm_grouped {label} {layout} k={k} "
+                                             f"{vdt}/{xdt}: rel err {e:.3e} > {tol}")
+                    worst[label] = max(worst.get(label, 0.0), e)
+                    count += 1
+        for layout in GROUPED_LAYOUTS:
+            X = torch.ones((40, 700) if layout == "rhs_major" else (700, 40), dtype=xdt,
+                           device=device)
+            Y = dia_spmm_grouped(torch.empty((0, 1024), dtype=vdt, device=device), X,
+                                 torch.empty(0, dtype=torch.int64, device=device), 1000, 700,
+                                 layout)
+            torch.cuda.synchronize()
+            if Y.any():
+                raise AssertionError(f"dia_spmm_grouped with no diagonals wrote nonzeros ({layout})")
+            count += 1
+    emit({"phase": "grouped_kernel_checks", "cases": count, "k": list(GROUPED_CHECK_K),
+          "worst_rel_err": worst,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
 
@@ -1478,6 +1558,51 @@ def phase_full_band_lobpcg(device, B3, ref_eigs, ref_p, m=8):
         raise AssertionError("full-band LOBPCG ran no grouped SpMM")
 
 
+def phase_full_band_grouped(device, B3, k=24):
+    """#9 at the shape full-band LOBPCG launches: the 1M-row band at k = 24
+    in both layouts (D.matmat of (n, k) columns, D.matmat_rhs_major of
+    (k, n) panels), each checked once against its plain version and timed
+    beside its bound and cuSPARSE (torch.sparse_csr of the band's nonzeros
+    @ X, @ XT.T).  Run after the counted full-band path."""
+    import torch
+
+    from sigma_tpu_torch.ops import dia_spmm_grouped_reference
+
+    D, n = B3["D"], B3["n"]
+    if not D.grouped_profitable(k):
+        raise AssertionError(f"the 1M band does not take the grouped SpMM at k = {k}")
+    g = torch.Generator(device=device).manual_seed(1)
+    XT = torch.rand((k, n), generator=g, device=device)
+    Xc = XT.T.contiguous()
+    csr = csr_from_dia(D)
+    o = D.offsets_dev
+    floor = D.data.numel() * 4 + 2 * k * n * 4
+    rows = {}
+    for layout, kern, plain, lib in (
+        ("rhs_major", lambda: D.matmat_rhs_major(XT),
+         lambda: dia_spmm_grouped_reference(D.data, XT, o, n, n, "rhs_major"), lambda: csr @ XT.T),
+        ("cols", lambda: D.matmat(Xc),
+         lambda: dia_spmm_grouped_reference(D.data, Xc, o, n, n, "cols"), lambda: csr @ Xc),
+    ):
+        y, yr = kern(), plain()
+        torch.cuda.synchronize()
+        err_abs, err_rel = float((y - yr).abs().max()), rel_err(y, yr)
+        del y, yr
+        if not err_rel <= 1e-5:
+            raise AssertionError(f"dia_spmm_grouped 1M band k={k} {layout}: rel err {err_rel:.3e}")
+        ms = median_ms(kern)
+        bound_ms, bound_by = bound(floor, 2 * k * D.nnz, torch.float32)
+        row = {"phase": "full_band_grouped", "kernel": "dia_spmm_grouped", "layout": layout,
+               "k": k, "n": n, "slots": D.nnz, "kernel_ms": ms,
+               "plain_ms": median_ms(plain, reps=3, warmup=1), "library_ms": median_ms(lib),
+               "library": "torch.sparse_csr of the band's nonzeros (cuSPARSE)",
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes_floor_gb": floor / 1e9,
+               "max_abs_err": err_abs, "rel_err": err_rel}
+        emit(row)
+        rows[f"band_1m_f32_k{k}_{layout}"] = row
+    return rows
+
+
 def full_band_10m_setup(device, T):
     """The 10.1M-row mesh's full band from phase 7's RCM triples (no
     second RCM), assembled on the card by DIAMatrix.from_coo with int64
@@ -2049,6 +2174,7 @@ def main():
     phase_build()                                           # phase 1
     phase_kernels(device)                                   # phase 2
     phase_spmm_kernels(device)                              # phase 3
+    phase_grouped_kernels(device)                           # phase 3b
     phase_pruned_kernels(device)                            # phase 4
     phase_bsr_kernel(device)                                # phase 4b
     rows = phase_north_star_spmv(device, args.nx)           # phase 5
@@ -2113,9 +2239,10 @@ def main():
     Mband = phase_full_band_solves(device, B1, B3)          # phase 17
     del B1
     phase_full_band_lobpcg(device, B3, eigs15, p15)         # phase 18
-    del B3
     paths.append(read_counts("full_band",
                              ("dia_spmv", "dia_sym_spmv", "dia_spmm", "dia_spmm_grouped")))
+    rows.update(phase_full_band_grouped(device, B3))        # phase 18b
+    del B3
     # the full band of the 10.1M-row mesh: kernel timings (compared with
     # their plain versions first, outside the counted path)
     D10, S10 = full_band_10m_setup(device, T)               # phase 19

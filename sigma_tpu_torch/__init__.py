@@ -4,11 +4,12 @@ A second package beside the JAX one, held against it by the tests.  It
 holds the stencil main path: DIA storage (full and symmetric), the
 hand-written DIA SpMV and SpMM kernels for Hopper that every matvec and
 multi-RHS product runs on a CUDA device, the operator algebra, CG, fused
-CG and block CG, the structured pair-aggregation multigrid
+CG, BiCG-stab and block CG, the structured pair-aggregation multigrid
 preconditioner, and the LOBPCG eigensolver.  And the unstructured path:
-the irregular-mesh generator, RCM reordering and the pruned block-DIA
-pack (host C++ built by g++), pruned storage (full and symmetric) on its
-four hand-written SpMV/SpMM kernels, and the pruned pair multigrid.  And
+the irregular-mesh generator, RCM and BFS reordering and the pruned
+block-DIA pack (host C++ built by g++), pruned storage (full and
+symmetric) on its four hand-written SpMV/SpMM kernels, and the pruned
+pair multigrid.  And
 the full-band path: CSR and COO matrices, ``to_banded_dia`` (every diagonal
 of an RCM band in DIA storage, assembled on the device), the grouped SpMM
 kernel for k > 16 columns, the staged-x SpMV entry ``dia_spmv_staged`` and
@@ -37,6 +38,7 @@ from sigma_tpu_torch.graph import (
     ELLGraph,
     Graph,
     GraphBuilder,
+    breadth_first_search,
     build_graph,
     choose_graph_type,
     convert_graph,
@@ -89,6 +91,7 @@ from sigma_tpu_torch.solvers import (
     SolveInfo,
     StructuredAMGPreconditioner,
     auto_pruned_preconditioner,
+    bicgstab_solve,
     block_cg_solve,
     cg_fused_solve,
     cg_solve,

@@ -1,9 +1,9 @@
-// Host-side set-up of the unstructured pruned path: adjacency, reverse
-// Cuthill-McKee ordering, the pruned block-DIA pack and the 1-D pair
-// coarsening of the multigrid hierarchy.
+// Host-side set-up of the unstructured pruned path: adjacency, the
+// breadth-first and reverse Cuthill-McKee orderings, the pruned block-DIA
+// pack and the 1-D pair coarsening of the multigrid hierarchy.
 //
-// The port's own copy of four function families of the JAX package's host
-// core (native/sigma_host.cpp: adjacency_from_coo, rcm_order,
+// The port's own copy of five function families of the JAX package's host
+// core (native/sigma_host.cpp: adjacency_from_coo, bfs_order, rcm_order,
 // pack_pruned_count/active/fill, coarsen_pair_count/fetch), so that the
 // port never loads that package.  The algorithms, and so the results, are
 // the same; the pack's fill writes the port's layout (one signed offset
@@ -59,6 +59,37 @@ void adjacency_from_coo(i64 n, i64 ne, const i64* rows, const i64* cols,
     for (i64 i = 0; i < n; ++i) indptr[i + 1] += indptr[i];
     std::vector<i64> pos(indptr, indptr + n);
     for (i64 e = 0; e < ne; ++e) out_cols[pos[rows[e]]++] = cols[e];
+}
+
+// Breadth-first visit ranks (perm[v] = visit rank) from ``start``,
+// restarting at the lowest unvisited vertex; neighbours in adjacency order.
+void bfs_order(i64 n, const i64* indptr, const i64* indices, i64 start, i64* perm) {
+    std::vector<char> seen(static_cast<size_t>(n), 0);
+    std::vector<i64> queue;
+    queue.reserve(static_cast<size_t>(n));
+    i64 rank = 0, scan = 0, s = start;
+    while (rank < n) {
+        if (s < 0) {
+            while (scan < n && seen[scan]) ++scan;
+            if (scan >= n) break;
+            s = scan;
+        }
+        queue.clear();
+        queue.push_back(s);
+        seen[s] = 1;
+        for (size_t q = 0; q < queue.size(); ++q) {
+            i64 v = queue[q];
+            perm[v] = rank++;
+            for (i64 k = indptr[v]; k < indptr[v + 1]; ++k) {
+                i64 u = indices[k];
+                if (!seen[u]) {
+                    seen[u] = 1;
+                    queue.push_back(u);
+                }
+            }
+        }
+        s = -1;
+    }
 }
 
 // Reverse Cuthill-McKee: BFS from a minimum-degree vertex per component

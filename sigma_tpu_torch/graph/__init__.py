@@ -16,6 +16,8 @@ from sigma_tpu_torch.graph.graph import (
     Graph,
 )
 from sigma_tpu_torch.graph.permutations import (
+    breadth_first_search,
+    breadth_first_search_reference,
     reverse_cuthill_mckee,
     reverse_cuthill_mckee_reference,
 )
@@ -30,6 +32,8 @@ __all__ = [
     "GRAPH_FORMATS",
     "Graph",
     "GraphBuilder",
+    "breadth_first_search",
+    "breadth_first_search_reference",
     "build_graph",
     "choose_graph_type",
     "convert_graph",

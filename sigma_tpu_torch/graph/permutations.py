@@ -1,12 +1,14 @@
 """Bandwidth-reducing vertex orderings (host, set-up time).
 
-Port of ``reverse_cuthill_mckee`` of :mod:`sigma_tpu.graph.permutations`:
-it takes any square graph of :mod:`sigma_tpu_torch.graph.graph`, as the
-reference does.  Every permutation is in scatter form: ``p[i]`` is the new
-label of old vertex ``i``.  The ordering runs in the port's host library
-on CSR adjacency arrays (:func:`_rcm_arrays`, which the banded conversion
-calls directly); :func:`reverse_cuthill_mckee_reference` is its plain
-numpy version on the same arrays, which the tests hold it to.
+Port of ``breadth_first_search`` and ``reverse_cuthill_mckee`` of
+:mod:`sigma_tpu.graph.permutations`: each takes any square graph of
+:mod:`sigma_tpu_torch.graph.graph`, as the reference does.  Every
+permutation is in scatter form: ``p[i]`` is the new label of old vertex
+``i``.  The orderings run in the port's host library on CSR adjacency
+arrays (``native.bfs_order`` and :func:`_rcm_arrays`, which the banded
+conversion calls directly); :func:`breadth_first_search_reference` and
+:func:`reverse_cuthill_mckee_reference` are their plain numpy versions on
+the same arrays, which the tests hold them to.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ import numpy as np
 from sigma_tpu_torch import native
 from sigma_tpu_torch.graph.graph import CSRGraph, Graph
 
-__all__ = ["reverse_cuthill_mckee", "reverse_cuthill_mckee_reference"]
+__all__ = [
+    "breadth_first_search",
+    "breadth_first_search_reference",
+    "reverse_cuthill_mckee",
+    "reverse_cuthill_mckee_reference",
+]
 
 
 def _adjacency(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
@@ -35,6 +42,42 @@ def _adjacency(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
     return indptr, cols[order]
+
+
+def breadth_first_search(g: Graph, start: int = 0) -> np.ndarray:
+    """Breadth-first level ordering of the square graph ``g`` (any
+    format): ``p[i]`` is the visit rank of vertex ``i``, visiting from
+    ``start`` and restarting at the lowest unvisited vertex of each further
+    component, neighbours in adjacency order (columns ascending)."""
+    return native.bfs_order(*_adjacency(g), start)
+
+
+def breadth_first_search_reference(indptr, indices, start: int = 0) -> np.ndarray:
+    """Plain numpy version of :func:`breadth_first_search` (a Python loop
+    over the vertices: for small graphs and tests)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    n = indptr.size - 1
+    p = np.full(n, -1, dtype=np.int64)
+    rank = 0
+    # the first component from start, then the lowest unvisited vertex; a
+    # FIFO queue labels in push order, which is the pop order the C++
+    # labels in
+    starts = [int(start), *range(n)] if n else []
+    for s in starts:
+        if p[s] >= 0:
+            continue
+        p[s] = rank
+        rank += 1
+        q: deque[int] = deque([s])
+        while q:
+            u = q.popleft()
+            for v in indices[indptr[u] : indptr[u + 1]]:
+                if p[v] < 0:
+                    p[v] = rank
+                    rank += 1
+                    q.append(int(v))
+    return p
 
 
 def _rcm_arrays(indptr, indices) -> np.ndarray:

@@ -6,8 +6,8 @@ diagonal of its band in a :class:`~sigma_tpu_torch.matrix.formats.DIAMatrix`
 (:func:`to_banded_dia`), or with only its active (row tile x diagonal)
 blocks in a pruned matrix (:func:`to_pruned_dia`);
 :func:`reorder_triples_rcm` is the same reordering on raw COO triples.
-RCM runs in the port's host library.  The JAX package's ``"bfs"`` method
-waits for the port of the graph orderings and raises here.
+The ordering (``method``: ``"rcm"``, the default, or ``"bfs"``, the plain
+breadth-first level order) runs in the port's host library.
 """
 
 from __future__ import annotations
@@ -31,9 +31,13 @@ __all__ = [
 ]
 
 
-def _check_method(method: str) -> None:
-    if method != "rcm":
-        raise ValueError(f"unknown reorder method {method!r}; the port has 'rcm'")
+_ORDERINGS = {"rcm": _rcm_arrays, "bfs": native.bfs_order}  # on CSR adjacency arrays
+
+
+def _ordering(method: str):
+    if method not in _ORDERINGS:
+        raise ValueError(f"unknown reorder method {method!r}; want one of {sorted(_ORDERINGS)}")
+    return _ORDERINGS[method]
 
 
 def _dia_diagonals(g: DIAGraph):
@@ -97,12 +101,11 @@ def _reordered_triples(A, reorder: bool, method: str):
     """The shared reorder and keep-better-order rule of the banded and
     pruned conversions: ``(rows, cols, vals, p)`` of A's entries, with
     ``p`` in scatter form (the identity when the input order is kept,
-    None when ``reorder=False``).  RCM runs on the CSR adjacency of A's
-    graph (a CSR matrix's own arrays)."""
+    None when ``reorder=False``).  The ordering runs on the CSR adjacency
+    of A's graph (a CSR matrix's own arrays, columns ascending)."""
     if A.shape[0] != A.shape[1]:
         raise ValueError("banded conversion expects a square matrix")
-    if reorder:
-        _check_method(method)
+    order = _ordering(method) if reorder else None
     rows, cols, vals = A.entries()
     p = None
     if reorder:
@@ -111,19 +114,20 @@ def _reordered_triples(A, reorder: bool, method: str):
         else:
             g = CSRGraph.from_coo(A.shape[0], A.shape[1], rows, cols)
             indptr, indices = g.indptr, g.indices
-        p = _rcm_arrays(indptr, indices)
+        p = order(indptr, indices)
         rows, cols, vals, p = _keep_better_order(rows, cols, vals, p)
     return rows, cols, vals, p
 
 
 def reorder_triples_rcm(n, rows, cols, vals, method: str = "rcm"):
-    """RCM reordering of duplicate-free COO triples on the host:
-    ``(pr, pc, vals, p)`` with ``p`` in scatter form (``A[i, j]`` lands at
-    ``(p[i], p[j])``), the identity when the input order has the better
-    (distinct-diagonal count, reach).  The adjacency is a counting sort by
-    row and RCM runs on it, both in the port's host library.  The triples
-    are not re-sorted: the pruned pack sorts them itself."""
-    _check_method(method)
+    """RCM (or, with ``method="bfs"``, breadth-first) reordering of
+    duplicate-free COO triples on the host: ``(pr, pc, vals, p)`` with
+    ``p`` in scatter form (``A[i, j]`` lands at ``(p[i], p[j])``), the
+    identity when the input order has the better (distinct-diagonal count,
+    reach).  The adjacency is a counting sort by row (neighbours in input
+    order) and the ordering runs on it, both in the port's host library.
+    The triples are not re-sorted: the pruned pack sorts them itself."""
+    order = _ordering(method)
     rows = np.asarray(rows, dtype=np.int64).ravel()
     cols = np.asarray(cols, dtype=np.int64).ravel()
     vals = np.asarray(vals).ravel()
@@ -136,14 +140,15 @@ def reorder_triples_rcm(n, rows, cols, vals, method: str = "rcm"):
         if lo < 0 or hi >= n:
             raise ValueError(f"COO index out of range for n={n}: min {lo}, max {hi}")
     adj_cols, indptr = native.adjacency_from_coo(n, rows, cols)
-    p = native.rcm_order(indptr, adj_cols)
+    p = order(indptr, adj_cols)
     return _keep_better_order(rows, cols, vals, p)
 
 
 def to_banded_dia(A, reorder: bool = True, method: str = "rcm") -> Tuple[DIAMatrix, Optional[np.ndarray]]:
     """Convert a square sparse matrix to DIA with every diagonal of its
-    band stored, after an RCM reordering of rows and columns unless
-    ``reorder=False``.  Returns ``(D, p)`` with ``p`` in scatter form
+    band stored, after a bandwidth-reducing reordering of rows and columns
+    (``method``: ``"rcm"`` reverse Cuthill-McKee, the default, or ``"bfs"``
+    the plain breadth-first level order) unless ``reorder=False``.  Returns ``(D, p)`` with ``p`` in scatter form
     (None without reordering): ``D[p[i], p[j]] == A[i, j]``.  To solve
     A x = b in the permuted frame: ``b_p[p] = b``, solve ``D x_p = b_p``,
     then ``x = x_p[p]``.  The better of the input and the reordered order
@@ -158,7 +163,7 @@ def to_banded_dia(A, reorder: bool = True, method: str = "rcm") -> Tuple[DIAMatr
 def to_pruned_dia(A, reorder: bool = True, method: str = "rcm", tile_rows: int = 16384,
                   group: int | None = None, symmetric: bool = False, validate: bool = True,
                   rtol: float = 1e-12):
-    """RCM-reorder A and pack it straight into the pruned block-DIA layout
+    """Reorder A (RCM, or BFS with ``method="bfs"``) and pack it straight into the pruned block-DIA layout
     (``symmetric=True``: the upper triangle, in symmetric storage): the
     full band is never built.  Same ``(P, p)`` contract and order rule as
     :func:`to_banded_dia`; P lives on A's device."""

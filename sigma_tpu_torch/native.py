@@ -1,8 +1,8 @@
 """ctypes binding of the port's host library (``csrc/host/pruned_host.cpp``).
 
 The library holds the host set-up of the unstructured pruned path:
-adjacency, reverse Cuthill-McKee ordering, the pruned block-DIA pack and
-the multigrid's 1-D pair coarsening.  It is the port's own copy of those
+adjacency, the breadth-first and reverse Cuthill-McKee orderings, the
+pruned block-DIA pack and the multigrid's 1-D pair coarsening.  It is the port's own copy of those
 functions of the JAX package's host core, so the port never loads that
 package.
 
@@ -31,6 +31,7 @@ import numpy as np
 
 __all__ = [
     "adjacency_from_coo",
+    "bfs_order",
     "coarsen_pair",
     "library",
     "pack_pruned",
@@ -91,6 +92,8 @@ def library() -> ctypes.CDLL:
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     lib.adjacency_from_coo.restype = None
     lib.adjacency_from_coo.argtypes = [i64, i64, _i64p, _i64p, _i64p, _i64p]
+    lib.bfs_order.restype = None
+    lib.bfs_order.argtypes = [i64, _i64p, _i64p, i64, _i64p]
     lib.rcm_order.restype = None
     lib.rcm_order.argtypes = [i64, _i64p, _i64p, _i64p]
     lib.pack_pruned_count.restype = i64
@@ -123,6 +126,19 @@ def adjacency_from_coo(n: int, rows, cols):
     indptr = np.empty(int(n) + 1, dtype=np.int64)
     library().adjacency_from_coo(int(n), rows.size, rows, cols, out_c, indptr)
     return out_c, indptr
+
+
+def bfs_order(indptr, indices, start: int = 0) -> np.ndarray:
+    """Breadth-first visit ranks of a CSR adjacency from ``start``,
+    restarting at the lowest unvisited vertex (``p[v]`` is the visit rank
+    of v)."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    n = indptr.size - 1
+    if n and not 0 <= int(start) < n:
+        raise ValueError(f"start vertex {start} out of range for {n} vertices")
+    perm = np.empty(n, dtype=np.int64)
+    library().bfs_order(n, indptr, indices, int(start), perm)
+    return perm
 
 
 def rcm_order(indptr, indices) -> np.ndarray:

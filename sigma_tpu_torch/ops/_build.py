@@ -127,6 +127,8 @@ def library() -> ctypes.CDLL:
     lib.sigma_dia_spmm.restype = i32
     lib.sigma_dia_spmm_grouped.argtypes = lib.sigma_dia_spmm.argtypes
     lib.sigma_dia_spmm_grouped.restype = i32
+    lib.sigma_dia_spmm_grouped_config.argtypes = [i32, i32, ptr]
+    lib.sigma_dia_spmm_grouped_config.restype = i32
     lib.sigma_dia_spmv_resident.argtypes = lib.sigma_dia_spmv.argtypes
     lib.sigma_dia_spmv_resident.restype = i32
     # (..., D, stride, n, m, plan, pieces, tile_rows, length, stream)

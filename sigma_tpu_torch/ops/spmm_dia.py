@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from sigma_tpu_torch.ops.spmv_dia import _launch
+from sigma_tpu_torch.ops.spmv_dia import _CODES, _launch
 
 __all__ = [
     "GROUPED_LAYOUTS",
@@ -282,3 +282,21 @@ def dia_spmm_grouped(data, X, offsets, n, m, layout):
 
 dia_spmm_grouped.launches = 0
 dia_spmm_grouped.launches_by_layout = dict.fromkeys(GROUPED_LAYOUTS, 0)
+
+
+def grouped_launch_config(vdtype, xdtype):
+    """The grouped kernel's launch shape for one (value, vector) dtype pair,
+    as its library reports it: dynamic shared memory a block, window rows,
+    diagonals a ring stage, ring stages, columns a block and the blocks an
+    SM its register bound allows.  Builds and loads the kernel library (a
+    machine with nvcc)."""
+    import ctypes
+
+    from sigma_tpu_torch.ops._build import library
+
+    keys = ("smem_bytes", "window_rows", "stage_diagonals", "stages", "block_columns",
+            "min_blocks_per_sm")
+    out = (ctypes.c_int64 * len(keys))()
+    if library().sigma_dia_spmm_grouped_config(_CODES[vdtype], _CODES[xdtype], out) != 0:
+        raise TypeError(f"no grouped kernel for values {vdtype} with vector {xdtype}")
+    return dict(zip(keys, out))

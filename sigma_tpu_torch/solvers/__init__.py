@@ -8,6 +8,7 @@ from sigma_tpu_torch.solvers.gmg import (
 )
 from sigma_tpu_torch.solvers.krylov import (
     SolveInfo,
+    bicgstab_solve,
     block_cg_solve,
     cg_fused_solve,
     cg_solve,
@@ -19,6 +20,7 @@ __all__ = [
     "SolveInfo",
     "StructuredAMGPreconditioner",
     "auto_pruned_preconditioner",
+    "bicgstab_solve",
     "block_cg_solve",
     "cg_fused_solve",
     "cg_solve",

@@ -589,8 +589,10 @@ def auto_pruned_preconditioner(n, rows, cols, vals, *, skew_threshold: float = 0
     ``(M, info)`` with ``M`` a :func:`pruned_pair_amg` hierarchy
     (symmetric-storage levels when the operator is numerically symmetric,
     or when ``symmetric=True`` is passed) or None when
-    :func:`skew_dominance` exceeds ``skew_threshold`` (plain BiCG-stab wins
-    there, measured by the JAX package); ``info`` is
+    :func:`skew_dominance` exceeds ``skew_threshold``: the caller then runs
+    :func:`~sigma_tpu_torch.solvers.krylov.bicgstab_solve` with no
+    preconditioner (plain BiCG-stab wins there, measured by the JAX
+    package); ``info`` is
     ``{"skew_dominance": s, "route": "pruned_gmg" | "pruned_gmg_sym" |
     "plain"}``."""
     sym_requested = bool(amg_kwargs.pop("symmetric", False))

@@ -1,13 +1,13 @@
-"""Conjugate-gradient solvers on torch tensors.
+"""Krylov solvers on torch tensors.
 
-Port of ``cg_solve``, ``cg_fused_solve`` and ``block_cg_solve`` from
-:mod:`sigma_tpu.solvers.krylov`.  The JAX solve is one on-device
+Port of ``cg_solve``, ``cg_fused_solve``, ``bicgstab_solve`` and
+``block_cg_solve`` from :mod:`sigma_tpu.solvers.krylov`.  The JAX solve is one on-device
 ``lax.while_loop``; here the loop runs on the host and reads the residual
 norm back once per iteration (one device synchronisation each) to apply
 the same stopping rule, so iteration counts match the JAX package.  All
 vectors stay on the device of ``b``; dot products are ``torch.dot``.
 
-Both take ``A`` and optional ``M`` as LinearOperators (``M`` applies the
+All take ``A`` and optional ``M`` as LinearOperators (``M`` applies the
 *inverse* preconditioner, z = M^{-1} r).
 """
 
@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["SolveInfo", "block_cg_solve", "cg_solve", "cg_fused_solve"]
+__all__ = ["SolveInfo", "bicgstab_solve", "block_cg_solve", "cg_solve", "cg_fused_solve"]
 
 
 class SolveInfo(NamedTuple):
@@ -151,6 +151,57 @@ def cg_fused_solve(
             hist[k] = torch.sqrt(res2)
         k += 1
     resn = torch.sqrt(res2)
+    return x, SolveInfo(k, resn, bool(resn <= tol_eff), hist)
+
+
+def bicgstab_solve(
+    A, b, x0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, history=False
+):
+    """Preconditioned BiCG-stab for nonsymmetric A.
+
+    The shadow residual is the initial residual; the loop runs while
+    ``||r|| > max(tol, rtol * ||b||)`` and fewer than ``maxiter`` (default
+    10 n) iterations were taken.  A non-finite omega (t = A M^{-1} s = 0,
+    the method's breakdown) becomes 0, as in the reference.
+    ``history=True`` records the residual norm after every iteration.
+    """
+    n = A.shape[0]
+    x = torch.zeros_like(b) if x0 is None else x0
+    maxiter = 10 * n if maxiter is None else int(maxiter)
+    apply_M = _apply(M)
+    matvec = A.matvec
+    tol_eff = _tol_eff(b, tol, rtol)
+
+    r = b - matvec(x)
+    rhat = r
+    p = v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    resn = torch.linalg.vector_norm(r)
+    hist = (
+        torch.full((maxiter,), float("nan"), dtype=b.dtype, device=b.device)
+        if history
+        else None
+    )
+    k = 0
+    while k < maxiter and bool(resn > tol_eff):
+        rho_new = torch.dot(rhat, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = apply_M(p)
+        v = matvec(phat)
+        alpha = rho_new / torch.dot(rhat, v)
+        s = r - alpha * v
+        shat = apply_M(s)
+        t = matvec(shat)
+        omega = torch.dot(t, s) / torch.dot(t, t)
+        omega = torch.where(torch.isfinite(omega), omega, torch.zeros_like(omega))
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        resn = torch.linalg.vector_norm(r)
+        if hist is not None:
+            hist[k] = resn
+        k += 1
     return x, SolveInfo(k, resn, bool(resn <= tol_eff), hist)
 
 

@@ -146,8 +146,34 @@ def test_to_banded_dia_matches_the_jax_package(band):
     small = st.irregular_mesh_laplacian(8, 5, rng=np.random.default_rng(0), device="cpu")
     D0, p0 = st.to_banded_dia(small, reorder=False)
     assert p0 is None and D0.offsets == (-6, -5, -4, -1, 0, 1, 4, 5, 6)
-    with pytest.raises(ValueError, match="'rcm'"):
-        st.to_banded_dia(At, method="bfs")
+    with pytest.raises(ValueError, match="unknown reorder method"):
+        st.to_banded_dia(At, method="nope")
+
+
+def test_bfs_banded_and_pruned_dia_match_the_jax_package(band):
+    """``method="bfs"``: the breadth-first order, the permutation and the
+    stored values equal to the JAX package's in the band, the pruned pack
+    and the triples route."""
+    Aj, At, *_ = band
+    Dj, pj = jax_banded.to_banded_dia(Aj, method="bfs")
+    Dt, pt = st.to_banded_dia(At, method="bfs")
+    assert np.array_equal(pt, pj) and not np.array_equal(pt, np.arange(pt.size))
+    assert Dt.offsets == Dj.graph.offsets
+    assert np.array_equal(Dt.data.numpy(), np.asarray(Dj.data).reshape(Dt.data.shape))
+    assert st.bandwidth(Dt) == jax_banded.bandwidth(Dj) < st.bandwidth(At)
+    for symmetric in (False, True):
+        Pj, qj = jax_banded.to_pruned_dia(Aj, method="bfs", tile_rows=1024,
+                                          symmetric=symmetric)
+        Pt, qt = st.to_pruned_dia(At, method="bfs", tile_rows=1024, symmetric=symmetric)
+        assert np.array_equal(qt, pj) and np.array_equal(qj, pj)
+        assert Pt.stored_slots == Pj.stored_slots and Pt.nnz == Pj.nnz
+        assert np.array_equal(Pt.data.numpy().reshape(-1), np.asarray(Pj.data).reshape(-1))
+    n = At.shape[0]
+    r, c, v = At.entries()
+    got = st.reorder_triples_rcm(n, r, c, v, method="bfs")
+    want = jax_banded.reorder_triples_rcm(n, r, c, v, method="bfs")
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("symmetric", [False, True], ids=["full", "symmetric"])

@@ -380,24 +380,35 @@ def _band(cuda, rng, n, m, offsets, vdt):
     return torch.from_numpy(data).to(cuda, vdt), torch.tensor(offsets, device=cuda)
 
 
-# the grouped kernel's two routes for x: 100 scattered diagonals (several
-# value slabs in every dtype, each spread too wide for the shared-memory x
-# window) and a band of 117 with gaps (the window, with and without the
-# register carry between consecutive offsets)
+# the grouped kernel's routes for x: 100 scattered diagonals (each spread
+# too wide for one shared-memory x window: the runs route), a band of 117
+# with gaps (one window, with and without the register carry between
+# consecutive offsets), bands of all-positive and of all-negative offsets,
+# and a band of 301 (a span of 300 rows past the 296 the window holds
+# beside a block's 256 rows, so it takes the runs route)
 _WIDE = sorted(int(o) for o in np.random.default_rng(20).choice(np.arange(-3000, 3001), 100,
                                                                 replace=False))
 _GAPPED = sorted(set(range(-60, 61)) - {-7, 3, 4, 30})
+_GROUPED_OFFSETS = {
+    "scattered": _WIDE,
+    "band_with_gaps": _GAPPED,
+    "all_positive": list(range(1, 90)),
+    "all_negative": list(range(-89, 0)),
+    "past_the_window": list(range(-150, 151)),
+}
 
 
-@pytest.mark.parametrize("k", [17, 24, 32, 48])
+# k: one column through the grouped entry, whole and partial register tiles
+# (8 columns a thread in f32, 4 in f64) and one or more column groups
+@pytest.mark.parametrize("k", [1, 17, 24, 32, 33, 48])
 @pytest.mark.parametrize("layout", st.ops.GROUPED_LAYOUTS)
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
-@pytest.mark.parametrize("offsets", [_WIDE, _GAPPED], ids=["scattered", "band_with_gaps"])
+@pytest.mark.parametrize("offsets", sorted(_GROUPED_OFFSETS))
 def test_dia_spmm_grouped_kernel(cuda, pair, layout, k, offsets):
     vdt, xdt = pair
     rng = np.random.default_rng(21)
-    n, m = 20_001, 25_000  # rectangular, unaligned, an odd row count
-    data, offs = _band(cuda, rng, n, m, offsets, vdt)
+    n, m = 20_001, 25_000  # rectangular, not a multiple of a block's 256 rows
+    data, offs = _band(cuda, rng, n, m, _GROUPED_OFFSETS[offsets], vdt)
     XT = torch.from_numpy(rng.standard_normal((k, m))).to(cuda, xdt)
     X = XT if layout == "rhs_major" else XT.T.contiguous()
     before = st.ops.dia_spmm_grouped.launches_by_layout[layout]
@@ -407,6 +418,22 @@ def test_dia_spmm_grouped_kernel(cuda, pair, layout, k, offsets):
     ref = st.ops.dia_spmm_grouped_reference(data, X, offs, n, m, layout)
     assert Y.dtype == xdt and Y.shape == ref.shape
     assert rel(Y, ref) <= _tol(xdt)
+
+
+@pytest.mark.parametrize("layout", st.ops.GROUPED_LAYOUTS)
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+def test_dia_spmm_grouped_kernel_without_diagonals(cuda, pair, layout):
+    """D = 0: the kernel writes zeros over y (torch.empty), in both layouts
+    and with a partial last block (n = 1,000)."""
+    vdt, xdt = pair
+    n, m, k = 1_000, 700, 40
+    data = torch.empty((0, 1024), dtype=vdt, device=cuda)
+    offs = torch.empty(0, dtype=torch.int64, device=cuda)
+    X = torch.ones((k, m) if layout == "rhs_major" else (m, k), dtype=xdt, device=cuda)
+    Y = st.ops.dia_spmm_grouped(data, X, offs, n, m, layout)
+    torch.cuda.synchronize()
+    assert Y.shape == ((k, n) if layout == "rhs_major" else (n, k))
+    assert not Y.any()
 
 
 @pytest.mark.parametrize("tile_rows", [128, 256])

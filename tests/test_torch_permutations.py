@@ -1,0 +1,88 @@
+"""The port's breadth-first ordering held against the JAX package's: the
+same permutation from the host library and from the plain numpy version,
+on the cases of the reference's own tests (a random symmetric graph, a
+path graph, a disconnected graph, a start vertex > 0) and on every graph
+format."""
+
+import numpy as np
+import pytest
+
+from sigma_tpu.graph import GraphBuilder as JaxBuilder
+from sigma_tpu.graph import build_graph as jax_build_graph
+from sigma_tpu.graph import graph as jax_graph
+from sigma_tpu.graph.permutations import breadth_first_search as jax_bfs
+import sigma_tpu_torch as st
+from sigma_tpu_torch import native
+from sigma_tpu_torch.graph.permutations import breadth_first_search_reference
+
+
+def both_graphs(n, edges):
+    """The port's and the JAX package's CSR graphs of an edge list."""
+    b, bj = st.GraphBuilder(n), JaxBuilder(n)
+    for i, j in edges:
+        b.add_edge(i, j)
+        bj.add_edge(i, j)
+    return st.build_graph(b, "csr"), jax_build_graph(bj, "csr")
+
+
+def path_edges(n):
+    return [e for i in range(n - 1) for e in ((i, i + 1), (i + 1, i))] + [
+        (i, i) for i in range(n)
+    ]
+
+
+def check(g, gj, start, want=None):
+    """Host ordering == numpy version == the JAX package's (== ``want``)."""
+    p = st.breadth_first_search(g, start)
+    assert np.array_equal(p, jax_bfs(gj, start))
+    assert np.array_equal(p, breadth_first_search_reference(g.indptr, g.indices, start))
+    assert np.array_equal(np.sort(p), np.arange(g.shape[0]))
+    if want is not None:
+        assert np.array_equal(p, want)
+    return p
+
+
+@pytest.mark.parametrize("start", [0, 17])
+def test_bfs_of_a_random_graph_is_the_jax_packages(start):
+    rng = np.random.default_rng(0)
+    n = 50
+    d = rng.random((n, n)) < 0.1
+    d = d | d.T | np.eye(n, dtype=bool)
+    g, gj = both_graphs(n, zip(*np.nonzero(d)))
+    check(g, gj, start)
+
+
+def test_bfs_of_a_path_graph_is_the_identity():
+    g, gj = both_graphs(10, path_edges(10))
+    check(g, gj, 0, want=np.arange(10))
+
+
+@pytest.mark.parametrize(
+    "start, want", [(0, [0, 1, 2, 3, 4, 5]), (4, [2, 3, 4, 5, 0, 1])], ids=["0", "4"]
+)
+def test_bfs_restarts_at_the_lowest_unvisited_vertex(start, want):
+    g, gj = both_graphs(6, [(0, 1), (1, 0), (4, 5), (5, 4)])
+    check(g, gj, start, want=np.array(want))
+
+
+def test_bfs_from_a_start_after_zero():
+    g, gj = both_graphs(10, path_edges(10))
+    # from 3: 3, then 2 and 4, then 1 and 5, then 0 and 6, then 7, 8, 9
+    check(g, gj, 3, want=np.array([5, 3, 1, 0, 2, 4, 6, 7, 8, 9]))
+
+
+@pytest.mark.parametrize("fmt", ["CSRGraph", "COOGraph", "CSCGraph", "ELLGraph"])
+def test_bfs_of_a_graph_of_any_format_is_the_jax_packages(fmt):
+    rng = np.random.default_rng(3)
+    n, k = 300, 1200
+    r, c = rng.integers(0, n, k), rng.integers(0, n, k)
+    rows, cols = np.r_[r, c, np.arange(n)], np.r_[c, r, np.arange(n)]
+    p = st.breadth_first_search(getattr(st, fmt).from_coo(n, n, rows, cols), 5)
+    assert np.array_equal(p, jax_bfs(getattr(jax_graph, fmt).from_coo(n, n, rows, cols), 5))
+    csr = st.CSRGraph.from_coo(n, n, rows, cols)
+    assert np.array_equal(native.bfs_order(csr.indptr, csr.indices, 5),
+                          breadth_first_search_reference(csr.indptr, csr.indices, 5))
+    with pytest.raises(ValueError, match="square"):
+        st.breadth_first_search(getattr(st, fmt).from_coo(n, n + 1, rows, cols))
+    with pytest.raises(ValueError, match="out of range"):
+        st.breadth_first_search(csr, n)
