@@ -6,8 +6,10 @@
 Builds the DIA, grouped, staged, pruned and grouped-BSR SpMV and SpMM
 kernels from ``sigma_tpu_torch/csrc/`` with nvcc (and the host library with
 g++), checks each against its plain PyTorch version on the card (every
-dtype pair; for SpMM every panel layout and k in {1, 3, 8, 16}; the
-grouped SpMM in both of its layouts at k in {1, 17, 24, 32, 33, 48} on
+dtype pair; for SpMM every panel layout and k in {1, 3, 8, 16}, and the
+full-storage SpMM at k in {1, 3, 4, 5, 8, 9, 12, 16} on eight offset sets
+and value strides with NaN in every slot outside the matrix; the grouped
+SpMM in both of its layouts at k in {1, 17, 24, 32, 33, 48} on
 five offset sets, and with no diagonals; the grouped-BSR kernel at four
 block shapes, three group sizes and k in {1, 3, 4, 8}), and times them
 at the north stars' shapes beside their bound and the same product in
@@ -39,8 +41,9 @@ drives eight paths through the package's public entry points:
   path, in both layouts, beside its bound and cuSPARSE);
 - the 10,092,544-row mesh's full band (phase 19), built on the card from
   phase 7's RCM triples (9.89 GB of f32 values): the SpMV, symmetric SpMV,
-  windowed staged SpMV, k = 8 SpMM and k = 32 grouped SpMM (RHS-major
-  through ``matmat_rhs_major``, and columns) beside two 16-column passes,
+  windowed staged SpMV, k = 8 and k = 16 SpMM and k = 32 grouped SpMM
+  (RHS-major through ``matmat_rhs_major``, and columns) beside two
+  16-column passes,
   each checked once against its plain version and timed beside its bound
   and cuSPARSE on the same matrix;
 - the staged-x SpMV entry ``dia_spmv_staged`` (phase 20): the resident
@@ -216,11 +219,17 @@ def _ptxas_entries(log):
 PTXAS_REPORTED = ("pruned_spmv_kernel", "pruned_sym_spmv_kernel")
 # the grouped SpMM (dia_spmm_grouped.cu): one instantiation a dtype pair
 GROUPED_KERNEL = "dia_spmm_grouped_kernel"
+# the SpMM (dia_spmm.cu): one instantiation a dtype pair and column-group
+# count G (1 or 2 with f32 vectors, 1, 2 or 4 with f64)
+SPMM_KERNEL = "dia_spmm_kernel"
+SPMM_INSTANTIATIONS = 13
 
 
 def phase_build():
+    import torch
+
     from sigma_tpu_torch.ops import KERNEL_DTYPES, _build
-    from sigma_tpu_torch.ops.spmm_dia import grouped_launch_config
+    from sigma_tpu_torch.ops.spmm_dia import grouped_launch_config, spmm_launch_config
 
     b = _build.build()
     _build.library()
@@ -239,19 +248,32 @@ def phase_build():
          "static_smem_bytes": smem}
         for name, regs, st, ld, smem in entries if GROUPED_KERNEL in name
     ]
+    spmm = [
+        {"function": name, "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
+         "static_smem_bytes": smem}
+        for name, regs, st, ld, smem in entries if SPMM_KERNEL in name
+    ]
     launch = {f"{v}/{x}": grouped_launch_config(v, x)
               for v, x in sorted(KERNEL_DTYPES, key=str)}
+    # one k per column-group count: 1, and one past each multiple of C
+    spmm_launch = {f"{v}/{x}/k={k}": spmm_launch_config(v, x, k)
+                   for v, x in sorted(KERNEL_DTYPES, key=str)
+                   for k in ((1, 9) if x == torch.float32 else (1, 5, 9))}
     emit({"phase": "build", "seconds": round(b.seconds, 3), "library": b.path.name,
           "kernels": len(spills), "spill_store_bytes": sum(spills), "ptxas": ptxas})
     emit({"phase": "build_spmv_kernels", "instantiations": reported})
     emit({"phase": "build_grouped_spmm", "instantiations": grouped,
           "launch_by_dtype_pair": launch})
+    emit({"phase": "build_spmm", "instantiations": spmm, "launch_by_dtype_pair_and_k": spmm_launch})
     if not spills or any(spills):
         raise AssertionError(f"ptxas spill stores per kernel: {spills}")
     if len(reported) != 10 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in reported):
         raise AssertionError(f"want 10 pruned SpMV instantiations without spills: {reported}")
     if len(grouped) != 5 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in grouped):
         raise AssertionError(f"want 5 grouped SpMM instantiations without spills: {grouped}")
+    if len(spmm) != SPMM_INSTANTIATIONS or any(r["spill_store_bytes"] or r["spill_load_bytes"]
+                                               for r in spmm):
+        raise AssertionError(f"want {SPMM_INSTANTIATIONS} SpMM instantiations without spills: {spmm}")
 
 
 def _random_dia(rng, n, m, offsets, vdtype, device):
@@ -346,11 +368,89 @@ def phase_kernels(device):
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
 
+# dia_spmm's check cases (tests/test_torch_cuda.py's): k of one and two
+# column groups (four with f64 vectors), whole and partial register tiles
+SPMM_CHECK_K = (1, 3, 4, 5, 8, 9, 12, 16)
+SPMM_CHECK_SHAPE = (20_001, 25_000)  # n != m, n not a multiple of a block's rows
+
+
+def spmm_check_offsets(n, m):
+    """dia_spmm's offset sets over the port's value stride (n padded to a
+    multiple of 128: value rows in 16-byte pieces, NaN padding rows n and
+    above): a stencil's far offsets (runs of one diagonal), one consecutive
+    band, a band with gaps, a band wider than one window (several runs),
+    offsets wholly outside [-n, m], and none; and the stencil's offsets
+    again over an odd stride (value rows one value a copy) and over a
+    stride of 2 mod 4 just past n (f64 rows in 16-byte pieces, whose last
+    row group's piece would run past the row)."""
+    stencil = [-4900, -70, -1, 0, 1, 70, 4900]
+    padded = -(-n // 128) * 128
+    return {
+        "stencil": (stencil, padded),
+        "band": (list(range(-122, 123)), padded),
+        "band_with_gaps": (sorted(set(range(-60, 61)) - {-7, 3, 4, 30}), padded),
+        "past_the_window": (list(range(-600, 601)), padded),
+        "outside": ([-n - 7, -n, m, m + 5, 3 * m], padded),
+        "none": ([], padded),
+        "odd_stride": (stencil, n + 2),
+        "stride_2_mod_4": (stencil, n + 1),
+    }
+
+
+def nan_outside_dia(g, n, m, offsets, stride, vdtype, device):
+    """Random (D, stride) DIA values, NaN in every slot outside the n x m
+    matrix: an out-of-range term must be selected away, never multiplied
+    by zero."""
+    import torch
+
+    offs = torch.tensor(offsets, dtype=torch.int64, device=device)
+    data = torch.randn((len(offsets), stride), generator=g, device=device, dtype=torch.float64)
+    rows = torch.arange(stride, device=device)
+    cols = rows[None, :] + offs[:, None]
+    data[~((rows[None, :] < n) & (cols >= 0) & (cols < m))] = float("nan")
+    return data.to(vdtype), offs
+
+
+def dia_spmm_cases(device):
+    """dia_spmm against its plain version on every SPMM_CHECK_K, offset
+    set, dtype pair and layout; returns (cases, worst rel err by set)."""
+    import torch
+
+    from sigma_tpu_torch.ops import (
+        KERNEL_DTYPES, LAYOUTS, dia_spmm, dia_spmm_reference, interleave_panels,
+    )
+
+    n, m = SPMM_CHECK_SHAPE
+    g = torch.Generator(device=device).manual_seed(9)
+    worst, count = {}, 0
+    for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
+        tol = 1e-12 if xdt == torch.float64 else 1e-5
+        for label, (offs, stride) in spmm_check_offsets(n, m).items():
+            data, off_t = nan_outside_dia(g, n, m, offs, stride, vdt, device)
+            for layout in LAYOUTS:
+                for k in SPMM_CHECK_K:
+                    XT = torch.randn((k, m), generator=g, device=device, dtype=xdt)
+                    X = (XT if layout == "rhs_major" else XT.T.contiguous()
+                         if layout == "cols" else interleave_panels(XT, m))
+                    # y comes from torch.empty: the comparison covers every
+                    # row, the interleaved layout's zero padding included
+                    Y = dia_spmm(data, X, off_t, n, m, layout)
+                    torch.cuda.synchronize()
+                    ref = dia_spmm_reference(data, X, off_t, n, m, layout)
+                    e = rel_err(Y, ref)
+                    if not (e <= tol and Y.shape == ref.shape):
+                        raise AssertionError(f"dia_spmm {label} {layout} k={k} {vdt}/{xdt}: "
+                                             f"rel err {e:.3e} > {tol}")
+                    worst[label] = max(worst.get(label, 0.0), e)
+                    count += 1
+    return count, worst
+
+
 def phase_spmm_kernels(device):
     """dia_spmm and dia_sym_spmm against their plain versions on the card:
     every dtype pair, every panel layout, k in {1, 3, 8, 16}, at the odd
-    shapes of phase_kernels; and DIAMatrix.rmatmat of a tall matrix
-    against the CPU."""
+    shapes of phase_kernels; dia_spmm also on dia_spmm_cases; and
+    DIAMatrix.rmatmat of a tall matrix against the CPU."""
     import numpy as np
     import torch
 
@@ -435,8 +535,11 @@ def phase_spmm_kernels(device):
     e = rel_err(YT.cpu(), A.to("cpu").rmatmat(X.cpu()))
     if not e <= 1e-12:
         raise AssertionError(f"DIAMatrix.rmatmat: rel err {e:.3e}")
-    emit({"phase": "spmm_kernel_checks", "cases": count + 1,
+    cases, worst_by_set = dia_spmm_cases(device)
+    emit({"phase": "spmm_kernel_checks", "cases": count + 1 + cases,
           "worst_rel_err": {k: float(v) for k, v in worst.items()},
+          "dia_spmm_cases": cases, "dia_spmm_k": list(SPMM_CHECK_K),
+          "dia_spmm_worst_rel_err_by_offsets": worst_by_set,
           "rmatmat_rel_err": e,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
@@ -1649,10 +1752,13 @@ def band_10m_variants(device, D, S, k=32):
     X8 = torch.rand((8, n), generator=g, device=device)
     XT = torch.rand((k, n), generator=g, device=device)
     Xc = XT.T.contiguous()
+    X8c = X8.T.contiguous()
+    X16 = torch.rand((16, n), generator=g, device=device)
+    X16c = X16.T.contiguous()
     vals = D.data.numel() * 4
     vec = n * 4
     o = D.offsets_dev
-    return {"x": x, "X8": X8, "XT": XT, "Xc": Xc}, [
+    return {"x": x, "X8": X8, "XT": XT, "Xc": Xc, "X8c": X8c, "X16": X16, "X16c": X16c}, [
         ("dia_spmv", "band_f32", None, 1, lambda: D.matvec(x),
          lambda: dia_spmv_reference(D.data, x, o, n, n), vals + 2 * vec),
         ("dia_sym_spmv", "band_sym_f32", None, 1, lambda: S.matvec(x),
@@ -1663,6 +1769,12 @@ def band_10m_variants(device, D, S, k=32):
          lambda: dia_spmv_reference(D.data, x, o, n, n), vals + 2 * vec),
         ("dia_spmm", "band_f32_k8_rhs_major", "rhs_major", 8, lambda: D.matmat_rhs_major(X8),
          lambda: dia_spmm_reference(D.data, X8, o, n, n, "rhs_major"), vals + 16 * vec),
+        ("dia_spmm", "band_f32_k8_cols", "cols", 8, lambda: D.matmat(X8c),
+         lambda: dia_spmm_reference(D.data, X8c, o, n, n, "cols"), vals + 16 * vec),
+        ("dia_spmm", "band_f32_k16_rhs_major", "rhs_major", 16, lambda: D.matmat_rhs_major(X16),
+         lambda: dia_spmm_reference(D.data, X16, o, n, n, "rhs_major"), vals + 32 * vec),
+        ("dia_spmm", "band_f32_k16_cols", "cols", 16, lambda: D.matmat(X16c),
+         lambda: dia_spmm_reference(D.data, X16c, o, n, n, "cols"), vals + 32 * vec),
         ("dia_spmm_grouped", f"band_f32_k{k}_rhs_major", "rhs_major", k,
          lambda: D.matmat_rhs_major(XT),
          lambda: dia_spmm_grouped_reference(D.data, XT, o, n, n, "rhs_major"),
@@ -1713,10 +1825,13 @@ def phase_full_band_10m(device, D, ops, variants, checks, T):
     csr = csr_from_coo(*(torch.from_numpy(a).to(device) for a in (T["pr"], T["pc"], T["vals"])),
                        n, n)
     x, X8, XT, Xc = ops["x"], ops["X8"], ops["XT"], ops["Xc"]
+    X8c, X16, X16c = ops["X8c"], ops["X16"], ops["X16c"]
     k = XT.shape[0]
     lib = {(1, None): median_ms(lambda: csr @ x),
            (8, "rhs_major"): median_ms(lambda: csr @ X8.T),
-           (8, "cols"): median_ms(lambda: csr @ X8.T.contiguous()),
+           (8, "cols"): median_ms(lambda: csr @ X8c),
+           (16, "rhs_major"): median_ms(lambda: csr @ X16.T),
+           (16, "cols"): median_ms(lambda: csr @ X16c),
            (k, "rhs_major"): median_ms(lambda: csr @ XT.T),
            (k, "cols"): median_ms(lambda: csr @ Xc)}
     del csr

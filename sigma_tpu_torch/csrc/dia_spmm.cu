@@ -26,82 +26,75 @@
 // of 128) are written as zeros: the block solvers' Gram products run over
 // the padded layout.
 //
-// What bounds them.  Memory: the point of the TPU kernels, kept here, is
-// that each stored value is read once for all k right-hand sides.  The
-// byte floor of one product is the stored values once plus k x-panels and
-// k y-panels: for the f32 7-point stencil at nx=216 (10,077,696 rows,
-// 70,263,936 stored values) and k=8, 281 + 322 + 322 MB.  The design is
-// the SpMV kernels' (dia_spmv.cu) with k accumulators: one thread per
-// output row, offsets staged in shared memory in chunks, each value loaded
-// once, converted to the vector type and multiplied into k accumulators
-// held in registers.  Neighbouring threads read neighbouring rows, so the
-// value stream and, in the RHS-major and interleaved layouts, every panel
-// stream is coalesced; in the column layout a warp reads 32 * k
-// consecutive elements over its k loads, which L1 serves.  The D shifted
-// windows of each panel overlap and the largest stencil offset (46,656
-// rows at nx=216, 1.5 MB of eight f32 panels) is far inside the 50 MB L2,
-// so x comes from device memory about once.
+// What bounds them.  Memory: each stored value is read once for all k
+// right-hand sides.  The byte floor of one product is the stored values
+// once plus k x-panels and k y-panels: for the f32 7-point stencil at
+// nx=216 (10,077,696 rows) and k = 8, 281 + 322 + 322 MB; for the
+// 10.1M-row mesh's RCM band (245 diagonals) 9.89 + 0.32 + 0.32 GB.  Every
+// FMA needs its x operand from on-chip memory, so the x stream must cost
+// no more than about a byte of shared-memory read per FMA while the value
+// stream runs underneath at the copy rate.
 //
-// The symmetric kernel adds the mirror term val(d, i - o) * X(j, i - o)
-// for o > 0, a second coalesced value stream shifted back by o rows.  As
-// in dia_sym_spmv, only 4 x 46,656 f32 values (746 KB) plus 8 panels'
-// windows stream between a value line's two reads, so the second read
-// hits L2 and the values still come from device memory about once.
+// dia_spmm is the staged-window design of dia_window.cuh (shared with
+// dia_spmm_grouped.cu): a register tile of 4 rows x C columns a thread (C =
+// 8 with f32 vectors, 4 with f64), G = ceil(k / C) threads on a row group,
+// so a block of 256 threads covers all k columns of 1024 / G rows and no
+// thread computes only zeros; the block's x window staged once per run of
+// diagonals (16-byte pieces where the layout allows: 4 consecutive rows of
+// a panel, or a row of (m, k) columns); the values through a 3-stage
+// cp.async ring of 16 KB stages; x carried along the band in the tile.  A
+// stencil's far offsets (+-nx^2) are runs of their own: from panels, whose
+// 4 rows of a column are one coalesced piece, each is loaded straight into
+// the tile; from (m, k) columns each is staged as a window.
+// The result is stored in 16-byte pieces where y's layout allows; the
+// block that owns the interleaved layout's padding rows writes their zeros.
 //
-// Registers.  k is a runtime value; the accumulators are an array of a
-// compile-time bound K in {4, 8, 16} (the smallest that holds k) indexed
-// only inside fully unrolled loops guarded by j < k, so they stay in
-// registers (ptxas -v: no spill stores).
+// dia_sym_spmm is the first version: one thread per output row, offsets
+// staged in shared memory in chunks, each value loaded once and multiplied
+// into k accumulators held in registers (a compile-time bound K in {4, 8,
+// 16}, indexed only inside fully unrolled loops guarded by j < k).  It adds
+// the mirror term val(d, i - o) * X(j, i - o) for o > 0, a second
+// coalesced value stream shifted back by o rows; only 4 x 46,656 f32
+// values (746 KB) plus 8 panels' windows stream between a value line's two
+// reads, so the second read hits L2 and the values still come from device
+// memory about once.
 //
-// Masking, types, indexing: as in dia_spmv.cu.  Out-of-range terms are
-// skipped, never multiplied by zero (NaN * 0 is NaN); accumulation is in
-// the vector type; the five (value, vector) dtype pairs of the SpMV
-// kernels; all index arithmetic is 64-bit.
+// Masking, types, indexing: out-of-range terms are selected away, never
+// multiplied by zero (NaN * 0 is NaN); accumulation is in the vector type,
+// each row's terms in ascending diagonal order, one FMA each; the five
+// (value, vector) dtype pairs of the SpMV kernels; all index arithmetic on
+// rows and slots is 64-bit; any value stride and alignment.
 //
 // Interface.  Plain C entry points bound with ctypes; each launches on the
 // caller's stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a dtype pair, a k or a
-// panel-block length it does not take.
+// panel-block length it does not take.  sigma_dia_spmm_config reports the
+// launch shape dia_spmm takes for a dtype pair and k.
 
-#include "dia_common.cuh"
+#include "dia_window.cuh"
 
 namespace {
 
 using namespace sigma_dia;
 
-template <typename V, typename X, int K>
-__global__ void __launch_bounds__(kThreads)
+// dia_spmm's block shape for G column groups: 16 KB ring stages, 3 ring
+// buffers, 110 KB of shared memory (two blocks an SM), or 200 KB where the
+// registers allow one block an SM (f64 values with f64 vectors); 8 panel
+// pieces in flight a thread while the window is staged (at 12 ptxas
+// spilled)
+template <typename V, typename X, int G>
+using FullShape =
+    WindowShape<V, X, G, 16 * 1024, 3, (sizeof(V) == 8 && sizeof(X) == 8 ? 200 : 110) * 1024, 8>;
+
+template <typename V, typename X, int G>
+__global__ void __launch_bounds__(kBlockThreads, (FullShape<V, X, G>::kMinBlocks))
     dia_spmm_kernel(const V* __restrict__ data, const X* __restrict__ x,
-                    const int64_t* __restrict__ offsets, X* __restrict__ y,
-                    int64_t D, int64_t stride, int64_t n, int64_t m, int k,
-                    Panels px, Panels py, int64_t rows_out) {
-  __shared__ int64_t s_off[kOffsetChunk];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  X acc[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) acc[j] = X(0);
-  for (int64_t d0 = 0; d0 < D; d0 += kOffsetChunk) {
-    const int64_t dn = D - d0 < kOffsetChunk ? D - d0 : kOffsetChunk;
-    stage_offsets(s_off, offsets, d0, dn);
-    if (i < n) {
-      for (int64_t t = 0; t < dn; ++t) {
-        const int64_t c = i + s_off[t];
-        if (c >= 0 && c < m) {
-          const X v = to_x<X>(data[(d0 + t) * stride + i]);
-          const X* xc = x + px.at(c);
-#pragma unroll
-          for (int j = 0; j < K; ++j)
-            if (j < k) acc[j] += v * xc[j * px.B];
-        }
-      }
-    }
-  }
-  if (i < rows_out) {
-    X* yi = y + py.at(i);
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-      if (j < k) yi[j * py.B] = i < n ? acc[j] : X(0);
-  }
+                    const int64_t* __restrict__ offsets, X* __restrict__ y, int64_t D,
+                    int64_t stride, int64_t n, int64_t m, int k, Panels px, Panels py,
+                    int64_t rows_out, int route, bool v_pieces, bool direct) {
+  using S = FullShape<V, X, G>;
+  window_spmm_block<S>(data, x, offsets, y, D, stride, n, m, k, px, py, rows_out,
+                       static_cast<int64_t>(blockIdx.x) * S::kRows, 0, route, v_pieces, direct);
 }
 
 template <typename V, typename X, int K>
@@ -150,27 +143,67 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename V, typename X, int K>
-cudaError_t launch_full_k(const void* data, const void* x, const void* offsets,
-                          void* y, int64_t D, int64_t stride, int64_t n,
-                          int64_t m, int k, Panels px, Panels py,
-                          cudaStream_t stream) {
+template <typename V, typename X, int G>
+cudaError_t launch_full_g(const void* data, const void* x, const void* offsets, void* y,
+                          int64_t D, int64_t stride, int64_t n, int64_t m, int k, Panels px,
+                          Panels py, cudaStream_t stream) {
+  using S = FullShape<V, X, G>;
   const int64_t rows_out = py.rows(n);
-  dia_spmm_kernel<V, X, K><<<blocks_for(rows_out), kThreads, 0, stream>>>(
+  const int64_t blocks = (rows_out + S::kRows - 1) / S::kRows;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  if (blocks == 0) return cudaSuccess;
+  auto kernel = dia_spmm_kernel<V, X, G>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // 16-byte value copies where every value row is 16-byte aligned
+  const bool v_pieces = reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
+                        stride % (16 / static_cast<int64_t>(sizeof(V))) == 0;
+  const int route = pick_route<S>(x, k, px);
+  // runs of one diagonal straight into the tile from panels (the faster
+  // route there on the stencil); through the window from (m, k) columns
+  const bool direct = route == kPanelPieces || route == kPanelValues;
+  kernel<<<static_cast<unsigned>(blocks), kBlockThreads, S::kSmemBytes, stream>>>(
       static_cast<const V*>(data), static_cast<const X*>(x),
-      static_cast<const int64_t*>(offsets), static_cast<X*>(y), D, stride, n,
-      m, k, px, py, rows_out);
+      static_cast<const int64_t*>(offsets), static_cast<X*>(y), D, stride, n, m, k, px, py,
+      rows_out, route, v_pieces, direct);
   return cudaGetLastError();
 }
 
+// G: the fewest column groups whose tiles cover k (C columns a thread)
 template <typename V, typename X>
-cudaError_t launch_full(const void* data, const void* x, const void* offsets,
-                        void* y, int64_t D, int64_t stride, int64_t n,
-                        int64_t m, int k, Panels px, Panels py,
-                        cudaStream_t s) {
-  if (k <= 4) return launch_full_k<V, X, 4>(data, x, offsets, y, D, stride, n, m, k, px, py, s);
-  if (k <= 8) return launch_full_k<V, X, 8>(data, x, offsets, y, D, stride, n, m, k, px, py, s);
-  return launch_full_k<V, X, 16>(data, x, offsets, y, D, stride, n, m, k, px, py, s);
+cudaError_t launch_full(const void* data, const void* x, const void* offsets, void* y,
+                        int64_t D, int64_t stride, int64_t n, int64_t m, int k, Panels px,
+                        Panels py, cudaStream_t s) {
+  constexpr int C = sizeof(X) == 8 ? 4 : 8;
+  if (k <= C) return launch_full_g<V, X, 1>(data, x, offsets, y, D, stride, n, m, k, px, py, s);
+  if (k <= 2 * C) return launch_full_g<V, X, 2>(data, x, offsets, y, D, stride, n, m, k, px, py, s);
+  if constexpr (sizeof(X) == 8) {
+    if (k <= 4 * C) return launch_full_g<V, X, 4>(data, x, offsets, y, D, stride, n, m, k, px, py, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename V, typename X, int G>
+void full_config(int64_t* out) {
+  using S = FullShape<V, X, G>;
+  out[0] = S::kSmemBytes;
+  out[1] = S::kWindowRows;
+  out[2] = S::kDiags;
+  out[3] = S::kStages;
+  out[4] = S::kCols;
+  out[5] = S::kMinBlocks;
+  out[6] = S::kRows;
+}
+
+template <typename V, typename X>
+int full_config_k(int64_t k, int64_t* out) {
+  constexpr int C = sizeof(X) == 8 ? 4 : 8;
+  if (k < 1 || k > 16) return cudaErrorInvalidValue;
+  if (k <= C) return full_config<V, X, 1>(out), 0;
+  if (k <= 2 * C) return full_config<V, X, 2>(out), 0;
+  if constexpr (sizeof(X) == 8) return full_config<V, X, 4>(out), 0;
+  return cudaErrorInvalidValue;
 }
 
 template <typename V, typename X, int K>
@@ -237,5 +270,19 @@ extern "C" int sigma_dia_sym_spmm(int device, int vtype, int xtype,
     if (vtype == kF32) return launch_sym<float, double>(data, x, offsets, y, D, stride, n, kk, p, s);
     if (vtype == kBF16) return launch_sym<__nv_bfloat16, double>(data, x, offsets, y, D, stride, n, kk, p, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+// dia_spmm's launch shape for a dtype pair and k: out[0..6] = dynamic
+// shared memory bytes a block, window rows, diagonals a ring stage, ring
+// stages, columns a block, the blocks an SM its register bound allows, and
+// rows a block.  Returns cudaErrorInvalidValue for a dtype pair or k it
+// does not take.
+extern "C" int sigma_dia_spmm_config(int vtype, int xtype, int64_t k, int64_t* out) {
+  if (xtype == kF32 && vtype == kF32) return full_config_k<float, float>(k, out);
+  if (xtype == kF32 && vtype == kBF16) return full_config_k<__nv_bfloat16, float>(k, out);
+  if (xtype == kF64 && vtype == kF64) return full_config_k<double, double>(k, out);
+  if (xtype == kF64 && vtype == kF32) return full_config_k<float, double>(k, out);
+  if (xtype == kF64 && vtype == kBF16) return full_config_k<__nv_bfloat16, double>(k, out);
   return cudaErrorInvalidValue;
 }

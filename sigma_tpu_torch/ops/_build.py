@@ -125,6 +125,8 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64, ptr,
     ]
     lib.sigma_dia_spmm.restype = i32
+    lib.sigma_dia_spmm_config.argtypes = [i32, i32, i64, ptr]
+    lib.sigma_dia_spmm_config.restype = i32
     lib.sigma_dia_spmm_grouped.argtypes = lib.sigma_dia_spmm.argtypes
     lib.sigma_dia_spmm_grouped.restype = i32
     lib.sigma_dia_spmm_grouped_config.argtypes = [i32, i32, ptr]

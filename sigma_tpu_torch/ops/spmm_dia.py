@@ -17,8 +17,12 @@ Ports of five Pallas TPU kernels (``sigma_tpu/ops/spmv_pallas.py``):
   chunks; the CUDA kernel reads the port's own layouts, so it is gone.
 
 The CUDA kernels live in ``sigma_tpu_torch/csrc/dia_spmm.cu`` and
-``dia_spmm_grouped.cu``.  Each stored value is read once for all k
-panels.  The panels lie in one of
+``dia_spmm_grouped.cu``; :func:`dia_spmm` and :func:`dia_spmm_grouped`
+share the staged-window machinery of ``dia_window.cuh`` (the block's x
+window in shared memory, the values through a cp.async ring, a register
+tile of 4 rows x up to 8 columns a thread with x carried along the band).
+Each stored value is read once for all k panels (once per 32-column group
+in the grouped kernel).  The panels lie in one of
 three layouts, and the kernel reads and writes each directly (the layout
 is a panel-block length B passed to the kernel, not a separate code
 path):
@@ -235,7 +239,6 @@ def dia_spmm(data, X, offsets, n, m, layout):
 dia_spmm.launches = 0
 dia_spmm.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 
-
 def dia_sym_spmm(data, X, offsets, n, layout):
     """Y = A X for the symmetric n x n matrix whose upper diagonals are
     ``data[d, i] = A[i, i + offsets[d]] = A[i + offsets[d], i]`` (offsets
@@ -284,6 +287,26 @@ dia_spmm_grouped.launches = 0
 dia_spmm_grouped.launches_by_layout = dict.fromkeys(GROUPED_LAYOUTS, 0)
 
 
+_CONFIG_KEYS = ("smem_bytes", "window_rows", "stage_diagonals", "stages", "block_columns",
+                "min_blocks_per_sm")
+
+
+def spmm_launch_config(vdtype, xdtype, k):
+    """:func:`dia_spmm`'s launch shape for one (value, vector) dtype pair
+    and k panels, as its library reports it: the keys of
+    :func:`grouped_launch_config` and the rows a block.  Builds and loads
+    the kernel library (a machine with nvcc)."""
+    import ctypes
+
+    from sigma_tpu_torch.ops._build import library
+
+    keys = (*_CONFIG_KEYS, "block_rows")
+    out = (ctypes.c_int64 * len(keys))()
+    if library().sigma_dia_spmm_config(_CODES[vdtype], _CODES[xdtype], k, out) != 0:
+        raise TypeError(f"no DIA SpMM kernel for values {vdtype} with vector {xdtype} at k={k}")
+    return dict(zip(keys, out))
+
+
 def grouped_launch_config(vdtype, xdtype):
     """The grouped kernel's launch shape for one (value, vector) dtype pair,
     as its library reports it: dynamic shared memory a block, window rows,
@@ -294,8 +317,7 @@ def grouped_launch_config(vdtype, xdtype):
 
     from sigma_tpu_torch.ops._build import library
 
-    keys = ("smem_bytes", "window_rows", "stage_diagonals", "stages", "block_columns",
-            "min_blocks_per_sm")
+    keys = _CONFIG_KEYS
     out = (ctypes.c_int64 * len(keys))()
     if library().sigma_dia_spmm_grouped_config(_CODES[vdtype], _CODES[xdtype], out) != 0:
         raise TypeError(f"no grouped kernel for values {vdtype} with vector {xdtype}")

@@ -144,6 +144,57 @@ def test_dia_spmm_kernel(cuda, pair, layout, k):
     assert rel(Y, ref) <= _tol(xdt)
 
 
+# dia_spmm's offset sets at 20,001 x 25,000 (n != m, n not a multiple of a
+# block's rows) over the port's value stride (n padded to a multiple of 128:
+# value rows in 16-byte pieces, NaN padding rows from n on): a stencil's far
+# offsets (runs of one diagonal), a band, a band with gaps, a band wider
+# than one window (several runs), offsets wholly outside [-n, m], none; and
+# the stencil's offsets over an odd stride (one value a copy) and over a
+# stride of 2 mod 4 just past n (f64 rows in 16-byte pieces, whose last row
+# group's piece would run past the row).  Slots outside the matrix hold NaN:
+# an out-of-range term must be selected away.
+_SPMM_N, _SPMM_M = 20_001, 25_000
+_SPMM_STRIDE = -(-_SPMM_N // 128) * 128
+_STENCIL = [-4900, -70, -1, 0, 1, 70, 4900]
+_SPMM_OFFSETS = {
+    "stencil": (_STENCIL, _SPMM_STRIDE),
+    "band": (list(range(-122, 123)), _SPMM_STRIDE),
+    "band_with_gaps": (sorted(set(range(-60, 61)) - {-7, 3, 4, 30}), _SPMM_STRIDE),
+    "past_the_window": (list(range(-600, 601)), _SPMM_STRIDE),
+    "outside": ([-_SPMM_N - 7, -_SPMM_N, _SPMM_M, _SPMM_M + 5, 3 * _SPMM_M], _SPMM_STRIDE),
+    "none": ([], _SPMM_STRIDE),
+    "odd_stride": (_STENCIL, _SPMM_N + 2),
+    "stride_2_mod_4": (_STENCIL, _SPMM_N + 1),
+}
+
+
+# k: one and two column groups of the register tile (four with f64
+# vectors), whole and partial tiles
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 8, 9, 12, 16])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("offsets", sorted(_SPMM_OFFSETS))
+def test_dia_spmm_kernel_offset_sets(cuda, pair, layout, k, offsets):
+    vdt, xdt = pair
+    offs, stride = _SPMM_OFFSETS[offsets]
+    n, m = _SPMM_N, _SPMM_M
+    g = torch.Generator(device=cuda).manual_seed(5)
+    off_t = torch.tensor(offs, dtype=torch.int64, device=cuda)
+    data = torch.randn((len(offs), stride), generator=g, device=cuda, dtype=torch.float64)
+    rows = torch.arange(stride, device=cuda)
+    cols = rows[None, :] + off_t[:, None]
+    data[~((rows[None, :] < n) & (cols >= 0) & (cols < m))] = float("nan")
+    data = data.to(vdt)
+    X = _panels(torch.randn((k, m), generator=g, device=cuda, dtype=xdt), layout)
+    Y = dia_spmm(data, X, off_t, n, m, layout)
+    torch.cuda.synchronize()
+    ref = dia_spmm_reference(data, X, off_t, n, m, layout)
+    assert Y.dtype == xdt and Y.shape == ref.shape
+    # every row, the interleaved layout's zero padding included (y comes
+    # from torch.empty)
+    assert rel(Y, ref) <= _tol(xdt)
+
+
 @pytest.mark.parametrize("k", [1, 3, 8, 16])
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)

@@ -85,27 +85,41 @@ def rhs_major(Y, layout, k, n):
 FULL_OFFSETS = (0, 1, -1, 300, -300)
 SYM_OFFSETS = (0, 1, 128, 300)
 N_UNALIGNED = 9001
+# (n, m, offsets) of the full SpMM: the stencil-like offsets, a band (a
+# consecutive run with gaps) and a rectangular matrix
+SPMM_CASES = {
+    "stencil": (N_UNALIGNED, N_UNALIGNED, FULL_OFFSETS),
+    "band": (N_UNALIGNED, N_UNALIGNED, tuple(sorted(set(range(-40, 41)) - {-3, 7}))),
+    "rectangular": (7500, N_UNALIGNED, FULL_OFFSETS),
+}
+# k: one and two column groups of the CUDA kernel's register tile, whole
+# and partial; the stencil case keeps its ids of one parameter pair
+SPMM_PARAMS = [
+    pytest.param(kernel, k, case, id=f"{kernel}-{k}" + ("" if case == "stencil" else f"-{case}"))
+    for case in SPMM_CASES
+    for k in (1, 3, 5, 8, 9, 12, 16)
+    for kernel in ("rhs_major", "interleaved")
+]
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
-@pytest.mark.parametrize("kernel", ["rhs_major", "interleaved"])
-def test_dia_spmm_plain_matches_jax_kernel(kernel, k, monkeypatch):
-    n = m = N_UNALIGNED
+@pytest.mark.parametrize("kernel,k,case", SPMM_PARAMS)
+def test_dia_spmm_plain_matches_jax_kernel(kernel, k, case, monkeypatch):
+    n, m, offsets = SPMM_CASES[case]
     rng = np.random.default_rng(100 + k)
-    data = full_data(rng, n, m, FULL_OFFSETS)
+    data = full_data(rng, n, m, offsets)
     XT = rng.standard_normal((k, m)).astype(np.float32)
     monkeypatch.setattr(sp, "_spmm_tile_pick", _small_tiles)
     if kernel == "rhs_major":
         Yj = sp.dia_spmm_rhs_major(
-            jnp.asarray(data), jnp.asarray(XT), FULL_OFFSETS, n, m, interpret=True
+            jnp.asarray(data), jnp.asarray(XT), offsets, n, m, interpret=True
         )
     else:
         YI = sp.dia_spmm_interleaved(
             jnp.asarray(data), sp.interleave_panels(jnp.asarray(XT), m),
-            FULL_OFFSETS, n, m, interpret=True,
+            offsets, n, m, interpret=True,
         )
         Yj = sp.deinterleave_panels(YI, k, n)
-    offs = torch.tensor(FULL_OFFSETS)
+    offs = torch.tensor(offsets)
     Y = dia_spmm(torch.from_numpy(data), in_layout(XT, kernel), offs, n, m, kernel)
     assert rel(rhs_major(Y, kernel, k, n), Yj) <= 1e-5
 
