@@ -10,8 +10,9 @@ dtype pair; for SpMM every panel layout and k in {1, 3, 8, 16}, and the
 full-storage SpMM at k in {1, 3, 4, 5, 8, 9, 12, 16} on eight offset sets
 and value strides with NaN in every slot outside the matrix; the grouped
 SpMM in both of its layouts at k in {1, 17, 24, 32, 33, 48} on
-five offset sets, and with no diagonals; the grouped-BSR kernel at four
-block shapes, three group sizes and k in {1, 3, 4, 8}), and times them
+five offset sets, and with no diagonals; the grouped-BSR kernel in every
+form at six block shapes, three group sizes and k in {1, 2, 3, 4, 5, 8,
+9, 16}, and with gdata and x off a 16-byte boundary), and times them
 at the north stars' shapes beside their bound and the same product in
 cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 (10,077,696 rows, 70,263,936 nonzeros) and the shuffled irregular-mesh
@@ -112,6 +113,27 @@ def median_ms(fn, reps=30, warmup=5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, launches=50, reps=5) -> float:
+    """Device time per launch: ``launches`` back-to-back calls between two
+    CUDA events, over ``launches``; the median of ``reps`` such runs.  The
+    host's time per call hides behind the device's when it is shorter."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -223,6 +245,11 @@ GROUPED_KERNEL = "dia_spmm_grouped_kernel"
 # count G (1 or 2 with f32 vectors, 1, 2 or 4 with f64)
 SPMM_KERNEL = "dia_spmm_kernel"
 SPMM_INSTANTIATIONS = 13
+# the grouped-BSR kernel (bsr_grouped.cu): the wide form per dtype pair and
+# column tile (1, 2, 4 or 8 columns a pass), the narrow form per dtype
+# pair, column tile and load width (16-byte pieces or one value)
+BSR_KERNELS = ("bsr_wide_kernel", "bsr_narrow_kernel")
+BSR_INSTANTIATIONS = 7 * 4 + 7 * 4 * 2
 
 
 def phase_build():
@@ -253,6 +280,11 @@ def phase_build():
          "static_smem_bytes": smem}
         for name, regs, st, ld, smem in entries if SPMM_KERNEL in name
     ]
+    bsr = [
+        {"function": name, "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
+         "static_smem_bytes": smem}
+        for name, regs, st, ld, smem in entries if any(k in name for k in BSR_KERNELS)
+    ]
     launch = {f"{v}/{x}": grouped_launch_config(v, x)
               for v, x in sorted(KERNEL_DTYPES, key=str)}
     # one k per column-group count: 1, and one past each multiple of C
@@ -265,6 +297,10 @@ def phase_build():
     emit({"phase": "build_grouped_spmm", "instantiations": grouped,
           "launch_by_dtype_pair": launch})
     emit({"phase": "build_spmm", "instantiations": spmm, "launch_by_dtype_pair_and_k": spmm_launch})
+    emit({"phase": "build_bsr_grouped", "instantiations": bsr,
+          "registers": [min(r["registers"] for r in bsr), max(r["registers"] for r in bsr)]
+          if bsr else None,
+          "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in bsr)})
     if not spills or any(spills):
         raise AssertionError(f"ptxas spill stores per kernel: {spills}")
     if len(reported) != 10 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in reported):
@@ -274,6 +310,10 @@ def phase_build():
     if len(spmm) != SPMM_INSTANTIATIONS or any(r["spill_store_bytes"] or r["spill_load_bytes"]
                                                for r in spmm):
         raise AssertionError(f"want {SPMM_INSTANTIATIONS} SpMM instantiations without spills: {spmm}")
+    if len(bsr) != BSR_INSTANTIATIONS or any(r["spill_store_bytes"] or r["spill_load_bytes"]
+                                             for r in bsr):
+        raise AssertionError(f"want {BSR_INSTANTIATIONS} grouped-BSR instantiations without "
+                             f"spills: {bsr}")
 
 
 def _random_dia(rng, n, m, offsets, vdtype, device):
@@ -1948,15 +1988,18 @@ def phase_staged(device, levels, stencil, checks, band_window_row):
 
 def phase_bsr_kernel(device):
     """bsr_grouped_spmv against its plain version on the card: every dtype
-    pair, block shapes (8, 128), (8, 16), (4, 4) and (3, 3), groups 1, 4
-    and 8, k in {1, 3, 4, 8}, shapes the blocks do not divide, empty block
-    rows and rows of several groups; the f64 products also against the
-    dense product.  The matrices are assembled on the card by
-    BSRMatrix.from_coo and regrouped by GroupedBSR.from_bsr."""
+    pair, block shapes (8, 128), (12, 64), (8, 16), (4, 4), (3, 3) and the
+    odd (4, 33), groups 1, 4 and 8, k in {1, 2, 3, 4, 5, 8, 9, 16}, shapes
+    the blocks do not divide, empty block rows and rows of several groups:
+    every form of the kernel (bsr_grouped_form) in every dtype pair, with
+    group rows that are and are not 16-byte multiples; then gdata and x
+    off a 16-byte boundary.  The f64 products also against the dense
+    product.  The matrices are assembled on the card by BSRMatrix.from_coo
+    and regrouped by GroupedBSR.from_bsr."""
     import numpy as np
     import torch
 
-    from sigma_tpu_torch import BSRMatrix
+    from sigma_tpu_torch import BSRMatrix, GroupedBSR
     from sigma_tpu_torch.ops import (
         BSR_KERNEL_DTYPES, bsr_grouped_spmv, bsr_grouped_spmv_reference,
     )
@@ -1971,7 +2014,7 @@ def phase_bsr_kernel(device):
         return d
 
     cases = [((500, 460), (8, 16)), ((260, 260), (4, 4)), ((301, 305), (3, 3)),
-             ((520, 1000), (8, 128))]
+             ((520, 1000), (8, 128)), ((400, 700), (12, 64)), ((300, 330), (4, 33))]
 
     def tol(xdt):
         # f64 and f32 accumulate in x's dtype; bf16 vectors accumulate in
@@ -1979,7 +2022,31 @@ def phase_bsr_kernel(device):
         # step (2^-7 relative) apart
         return {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}[xdt]
 
-    worst, count = {}, 0
+    def off_boundary(t):  # a contiguous copy one value into a larger store
+        store = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        store[1:] = t.reshape(-1)
+        return store[1:].view(t.shape)
+
+    worst, count, by_form = {}, 0, {}
+
+    def check(label, G, X, dense=None):
+        nonlocal count
+        Xp = G._pad_x(X).contiguous()  # X itself where it needs no padding
+        args = (G.gdata, G.gcols, G.grow, Xp, G.nb_rows, G.nb_cols, G.block_shape, G.group)
+        Y = bsr_grouped_spmv(*args, gptr=G.gptr)
+        torch.cuda.synchronize()
+        e = rel_err(Y, bsr_grouped_spmv_reference(*args))
+        if not e <= tol(X.dtype):
+            raise AssertionError(f"bsr_grouped_spmv {label} ({G.form}): rel err {e:.3e}")
+        if dense is not None:
+            ed = rel_err(Y[: dense.shape[0]].cpu(), torch.from_numpy(dense @ X.cpu().numpy()))
+            if not ed <= 1e-12:
+                raise AssertionError(f"bsr_grouped_spmv {label} vs dense: {ed:.3e}")
+        key = str(X.dtype).replace("torch.", "")
+        worst[key] = max(worst.get(key, 0.0), e)
+        by_form[G.form] = by_form.get(G.form, 0) + 1
+        count += 1
+
     for (n, m), blk in cases:
         dense = dense_case(n, m, blk[0])
         r, c = np.nonzero(dense)
@@ -1988,25 +2055,29 @@ def phase_bsr_kernel(device):
                                    device=device)
             for group in (1, 4, 8):
                 G = A.grouped(group)
-                for k in (1, 3, 4, 8):
+                for k in (1, 2, 3, 4, 5, 8, 9, 16):
                     X = torch.from_numpy(rng.standard_normal((m, k))).to(device, xdt)
-                    Xp = G._pad_x(X).contiguous()
-                    args = (G.gdata, G.gcols, G.grow, Xp, G.nb_rows, G.nb_cols, G.block_shape,
+                    check(f"{blk} group {group} k {k} {vdt}/{xdt}", G, X,
+                          dense if vdt == xdt == torch.float64 else None)
+    # gdata and x off a 16-byte boundary
+    n, m = 260, 1024
+    for blk, group in (((8, 128), 8), ((3, 3), 8), ((4, 4), 4)):
+        dense = dense_case(n, m, blk[0])
+        r, c = np.nonzero(dense)
+        for vdt, xdt in sorted(BSR_KERNEL_DTYPES, key=str):
+            G = BSRMatrix.from_coo(n, m, r, c, dense[r, c], dtype=vdt, block_shape=blk,
+                                   device=device).grouped(group)
+            Go = GroupedBSR(off_boundary(G.gdata), G.gcols, G.grow, G.shape, G.block_shape,
                             G.group)
-                    Y = bsr_grouped_spmv(*args, gptr=G.gptr)
-                    torch.cuda.synchronize()
-                    e = rel_err(Y, bsr_grouped_spmv_reference(*args))
-                    if not e <= tol(xdt):
-                        raise AssertionError(
-                            f"bsr_grouped_spmv {blk} group {group} k {k} {vdt}/{xdt}: rel err {e:.3e}")
-                    if vdt == xdt == torch.float64:
-                        ed = rel_err(Y[:n].cpu(), torch.from_numpy(dense @ X.cpu().numpy()))
-                        if not ed <= 1e-12:
-                            raise AssertionError(f"bsr_grouped_spmv {blk} vs dense: {ed:.3e}")
-                    key = str(xdt).replace("torch.", "")
-                    worst[key] = max(worst.get(key, 0.0), e)
-                    count += 1
-    emit({"phase": "bsr_kernel_checks", "cases": count, "worst_rel_err_by_vector": worst,
+            if Go.form != "narrow_unaligned":
+                raise AssertionError(f"gdata off a 16-byte boundary took the {Go.form} form")
+            for k in (1, 4, 8):
+                X = off_boundary(torch.from_numpy(rng.standard_normal((G.nb_cols * blk[1], k)))
+                                 .to(device, xdt))
+                check(f"{blk} group {group} k {k} {vdt}/{xdt} x off boundary", G, X)
+                check(f"{blk} group {group} k {k} {vdt}/{xdt} gdata, x off boundary", Go, X)
+    emit({"phase": "bsr_kernel_checks", "cases": count, "cases_by_form": by_form,
+          "worst_rel_err_by_vector": worst,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32, 2^-7 with bf16 vectors "
                        "(f32 accumulation, one rounding on the store)"})
 
@@ -2117,14 +2188,12 @@ def _bsr_variants(S, device):
 def block_checks(device, S, variants):
     """Outside the counted path: the kernel at each timed shape against its
     plain version (limit 1e-5 relative, f32), the plain version's time, the
-    kernel's time at every lane count beside the wrapper's choice, and
-    the library yardsticks on the same operands: torch.sparse_csr @ X and
+    bare wrapper's single-launch and device time (device_ms), and the
+    library yardsticks on the same operands: torch.sparse_csr @ X and
     torch.sparse_bsr @ X of the same matrix.  Returns {label: dict}."""
     import torch
 
-    from sigma_tpu_torch.ops import (
-        bsr_grouped_lanes, bsr_grouped_spmv, bsr_grouped_spmv_reference,
-    )
+    from sigma_tpu_torch.ops import bsr_grouped_spmv, bsr_grouped_spmv_reference
 
     out = {}
     lib_of, csr, bsr = None, None, None  # the library copies of one operator at a time
@@ -2140,12 +2209,9 @@ def block_checks(device, S, variants):
                       "plain_ms": median_ms(partial(bsr_grouped_spmv_reference, *args),
                                             reps=5, warmup=1)}
         del ref
-        # the wrapper's lane rule (bsr_grouped_lanes) beside the other widths
-        out[label]["ms_by_lanes"] = {
-            lanes: median_ms(partial(bsr_grouped_spmv, *args, gptr=G.gptr, lanes=lanes),
-                             reps=10, warmup=2)
-            for lanes in (1, 2, 4, 8, 16, 32)}
-        out[label]["lanes"] = bsr_grouped_lanes(G.group * G.block_shape[1])
+        bare = partial(bsr_grouped_spmv, *args, gptr=G.gptr)
+        out[label].update(form=G.form, wrapper_ms=median_ms(bare),
+                          wrapper_device_ms=device_ms(bare))
         if G is not lib_of:
             csr = bsr = None
             torch.cuda.empty_cache()
@@ -2157,6 +2223,7 @@ def block_checks(device, S, variants):
         if not el <= 1e-5:
             raise AssertionError(f"torch.sparse_csr disagrees at {label}: {el:.3e}")
         out[label]["library_ms"] = median_ms(lambda: csr @ Xv, reps=10, warmup=2)
+        out[label]["library_device_ms"] = device_ms(lambda: csr @ Xv, reps=3)
         try:  # a yardstick, not a check: this torch may not take the block shape
             out[label]["library_bsr_rel_err"] = rel_err((bsr @ Xv).reshape(-1), yl)
             out[label]["library_bsr_ms"] = median_ms(lambda: bsr @ Xv, reps=10, warmup=2)
@@ -2171,9 +2238,11 @@ def block_checks(device, S, variants):
 
 
 def phase_block(device, S, variants, checks):
-    """The counted block path.  Timings (CUDA events, median of 30) of the
-    grouped-BSR kernel at configurations A and B.3 beside bound, plain
-    version and the library calls; the three layouts of the elasticity
+    """The counted block path.  Timings of the grouped-BSR kernel through
+    G.matvec / G.matmat at configurations A and B.3, single launches
+    (CUDA events, median of 30) and device time (device_ms), each with its
+    share of the bound, beside the bare wrapper's, the plain version's and
+    the library calls' times; the three layouts of the elasticity
     operator: parity of A x, SpMV and SpMM (k = 4) times, and the Jacobi-CG
     solve of benchmarks/elasticity3d.py against its manufactured solution.
     Returns the kernel's rows keyed by label."""
@@ -2186,7 +2255,8 @@ def phase_block(device, S, variants, checks):
     rows = {}
     for label, G, k, X in variants:
         Xv = X[:, 0].contiguous() if k == 1 else X
-        ms = median_ms((lambda: G.matvec(Xv)) if k == 1 else (lambda: G.matmat(Xv)))
+        product = (lambda: G.matvec(Xv)) if k == 1 else (lambda: G.matmat(Xv))
+        ms, dev_ms = median_ms(product), device_ms(product)
         slots = G.stored_slots
         n_out = G.nb_rows * G.block_shape[0]
         floor = (G.gdata.numel() * 4 + G.gcols.numel() * 4 + G.gptr.numel() * 8
@@ -2196,11 +2266,17 @@ def phase_block(device, S, variants, checks):
         c = checks[label]
         row = {"phase": "block", "kernel": "bsr_grouped_spmv", "variant": label, "k": k,
                "shape": G.shape, "block": G.block_shape, "group": G.group, "slots": slots,
-               "kernel_ms": ms, "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+               "form": c["form"], "kernel_ms": ms, "device_ms": dev_ms,
+               "wrapper_ms": c["wrapper_ms"], "wrapper_device_ms": c["wrapper_device_ms"],
+               "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+               "library_device_ms": c["library_device_ms"],
                "library": "torch.sparse_csr @ X (cuSPARSE), the same matrix",
                "library_bsr_ms": c["library_bsr_ms"],
                "library_bsr": c.get("library_bsr_error", "torch.sparse_bsr @ X, the same matrix"),
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes_floor_mb": floor / 1e6,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": bound_ms / ms, "device_share_of_bound": bound_ms / dev_ms,
+               "wrapper_device_share_of_bound": bound_ms / c["wrapper_device_ms"],
+               "bytes_floor_mb": floor / 1e6,
                "gathered_x_mb": gathered / 1e6, "achieved_gbs": floor / (ms * 1e-3) / 1e9,
                "slot_gnnz_s": slots * k / (ms * 1e-3) / 1e9,
                "max_abs_err": c["max_abs_err"], "rel_err": c["rel_err"]}

@@ -31,7 +31,7 @@ from sigma_tpu_torch.ops.bsr_grouped import (
     BSR_KERNEL_DTYPES,
     GroupedBSR,
     bsr_group_pointer,
-    bsr_grouped_lanes,
+    bsr_grouped_form,
     bsr_grouped_spmv,
     bsr_grouped_spmv_reference,
 )
@@ -96,7 +96,7 @@ __all__ = [
     "PrunedPlan",
     "STAGED_SMEM_BYTES",
     "bsr_group_pointer",
-    "bsr_grouped_lanes",
+    "bsr_grouped_form",
     "bsr_grouped_spmv",
     "bsr_grouped_spmv_reference",
     "build_pruned_plan",

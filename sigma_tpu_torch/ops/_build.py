@@ -156,7 +156,7 @@ def library() -> ctypes.CDLL:
                        *[i64] * n_sizes, ptr]
         fn.restype = i32
     # (device, vtype, xtype, gdata, gcols, gptr, x, y, nb_rows, bh, bw, B, k,
-    # lanes, stream)
+    # form, stream)
     lib.sigma_bsr_grouped_spmv.argtypes = [
         i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
     ]

@@ -12,9 +12,11 @@ with no blocks gets one zero group, and group g stores
 
 :func:`bsr_grouped_spmv` <- ``bsr_grouped_spmv`` (the scalar-prefetch Pallas
 kernel).  The CUDA kernel lives in ``sigma_tpu_torch/csrc/bsr_grouped.cu``
-(design and traffic notes there): one sub-group of lanes per output row
-walks the row's contiguous run of groups through a group pointer and
-writes y once, in a fixed summation order.
+(design and traffic notes there): one warp per block row (wide groups)
+or one thread per output row (narrow groups), in the form
+:func:`bsr_grouped_form` picks from the shape and dtype, walks the row's
+contiguous run of groups through a group pointer and writes y once, in a
+fixed summation order.
 
 Routing is by the device of the tensors, and nothing else: a CPU tensor
 goes to the plain version (:func:`bsr_grouped_spmv_reference`), a CUDA
@@ -44,7 +46,7 @@ __all__ = [
     "BSR_KERNEL_DTYPES",
     "GroupedBSR",
     "bsr_group_pointer",
-    "bsr_grouped_lanes",
+    "bsr_grouped_form",
     "bsr_grouped_spmv",
     "bsr_grouped_spmv_reference",
 ]
@@ -74,18 +76,28 @@ def bsr_group_pointer(grow, nb_rows) -> torch.Tensor:
     return torch.searchsorted(grow, rows).to(torch.int64)
 
 
-def bsr_grouped_lanes(width: int) -> int:
-    """Lanes of a warp that share one output row, for groups ``width`` =
-    B*bw columns wide: the largest power of two up to ``width / 16`` and 8,
-    at least 1 (8 for (8, 128) blocks in groups of 8, one thread per output
-    row for (3, 3) blocks in groups of 8).  Wider sub-groups lose more to
-    their shuffle reduction than they gain in coalescing, because
-    neighbouring output rows' value rows are neighbours in memory anyway
-    (``chip_smoke.py`` times every lane count beside this rule)."""
-    lanes = 1
-    while lanes * 2 <= min(width // 16, 8):
-        lanes *= 2
-    return lanes
+def bsr_grouped_form(block_shape, group: int, itemsize: int, aligned: bool = True) -> str:
+    """The kernel form for groups of ``group`` blocks of ``block_shape``
+    with values of ``itemsize`` bytes, in gdata that starts on a 16-byte
+    boundary (``aligned``), as the kernel's source describes them:
+
+    * ``"wide"``: one warp per block row, values in 16-byte pieces of P =
+      16 / itemsize, each piece's x rows gathered once for the block row's
+      output rows; when bw is a multiple of P and a group row holds at
+      least 32 pieces (a warp's width), e.g. (8, 128) blocks in groups of 8;
+    * ``"narrow"``: one thread per output row, its group row read in 16-byte
+      pieces, when the group row is a multiple of 16 bytes wide, e.g.
+      (3, 3) f32 blocks in groups of 8 (96 bytes);
+    * ``"narrow_unaligned"``: the same, one value a load, for any other
+      group row (or gdata off a 16-byte boundary)."""
+    bw = int(block_shape[1])
+    piece = 16 // itemsize
+    width = int(group) * bw
+    if not aligned or (width * itemsize) % 16:
+        return "narrow_unaligned"
+    if bw % piece == 0 and width >= 32 * piece:
+        return "wide"
+    return "narrow"
 
 
 def bsr_grouped_spmv_reference(gdata, gcols, grow, x, nb_rows, nb_cols, block_shape, B):
@@ -104,16 +116,39 @@ def bsr_grouped_spmv_reference(gdata, gcols, grow, x, nb_rows, nb_cols, block_sh
     return Y.reshape(nb_rows * bh, k).to(x.dtype)
 
 
-def bsr_grouped_spmv(gdata, gcols, grow, x, nb_rows, nb_cols, block_shape, B,
-                     gptr=None, lanes=None):
-    """Y = grouped-BSR SpMV/SpMM.  ``gdata`` (G, bh, B*bw), ``gcols``
-    (G, B) int32, ``grow`` (G,) int32 ascending, ``x`` (nb_cols*bw, k)
-    contiguous; returns (nb_rows*bh, k) in x's dtype.  Pass a k=1 column
-    for a plain matvec.  ``gptr`` is :func:`bsr_group_pointer` of ``grow``
-    (made here when not given); ``lanes`` overrides
-    :func:`bsr_grouped_lanes` (a power of two up to 32)."""
-    bh, bw = (int(s) for s in block_shape)
-    G = gdata.shape[0]
+# the kernel's forms, as the C entry numbers them
+_FORMS = {"narrow_unaligned": 0, "narrow": 1, "wide": 2}
+
+
+def _launch(gdata, gcols, gptr, x, nb_rows, bh, bw, B, form):
+    """Launch the kernel on checked operands (x (nb_cols*bw,) or
+    (nb_cols*bw, k), contiguous on a CUDA device, a dtype pair of
+    BSR_KERNEL_DTYPES); count it.  Returns y (nb_rows*bh,) or
+    (nb_rows*bh, k)."""
+    k = x.shape[1] if x.ndim == 2 else 1
+    y = torch.empty((nb_rows * bh, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    if nb_rows == 0 or k == 0:
+        return y
+    dev = x.device.index
+    rc = _build.library().sigma_bsr_grouped_spmv(
+        dev, _CODES[gdata.dtype], _CODES[x.dtype],
+        gdata.data_ptr(), gcols.data_ptr(), gptr.data_ptr(), x.data_ptr(), y.data_ptr(),
+        nb_rows, bh, bw, B, k, _FORMS[form],
+        # the current stream's handle without building a Stream object (a
+        # fifth of the product's host time through torch.cuda.current_stream)
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"sigma_bsr_grouped_spmv failed with CUDA error {rc}")
+    bsr_grouped_spmv.launches += 1
+    return y
+
+
+def _check_arrays(gdata, gcols, grow, block_shape, B):
+    """Raise unless the grouped layout's arrays have their shapes, int32
+    indices and one device."""
+    bh, bw = block_shape
+    G = gdata.shape[0] if gdata.ndim else 0
     if gdata.ndim != 3 or tuple(gdata.shape[1:]) != (bh, B * bw):
         raise ValueError(f"want gdata (G, {bh}, {B * bw}), got {tuple(gdata.shape)}")
     if tuple(gcols.shape) != (G, B) or tuple(grow.shape) != (G,):
@@ -122,23 +157,38 @@ def bsr_grouped_spmv(gdata, gcols, grow, x, nb_rows, nb_cols, block_shape, B,
         )
     if gcols.dtype != torch.int32 or grow.dtype != torch.int32:
         raise TypeError(f"gcols and grow must be int32, got {gcols.dtype}, {grow.dtype}")
-    if x.ndim != 2 or x.shape[0] != nb_cols * bw:
-        raise ValueError(f"want x ({nb_cols * bw}, k), got {tuple(x.shape)}")
-    if not (gdata.device == gcols.device == grow.device == x.device):
-        raise ValueError(
-            f"operands on different devices: gdata {gdata.device}, gcols {gcols.device}, "
-            f"grow {grow.device}, x {x.device}"
-        )
+    if not gcols.device == grow.device == gdata.device:
+        raise ValueError(f"arrays on different devices: gdata {gdata.device}, "
+                         f"gcols {gcols.device}, grow {grow.device}")
+
+
+def _check_kernel_operands(gdata, x):
+    """Route check of a product: raises unless x is on gdata's device, a
+    CPU tensor or a CUDA tensor of a dtype pair the kernel takes."""
+    if x.device != gdata.device:
+        raise ValueError(f"operands on different devices: gdata {gdata.device}, x {x.device}")
     if x.device.type == "cpu":
-        return bsr_grouped_spmv_reference(gdata, gcols, grow, x, nb_rows, nb_cols, (bh, bw), B)
+        return
     if x.device.type != "cuda":
         raise ValueError(f"no grouped-BSR kernel for device {x.device}")
     if (gdata.dtype, x.dtype) not in BSR_KERNEL_DTYPES:
         raise TypeError(f"no grouped-BSR kernel for values {gdata.dtype} with vector {x.dtype}")
-    k = x.shape[1]
-    y = torch.empty((nb_rows * bh, k), dtype=x.dtype, device=x.device)
-    if nb_rows == 0 or k == 0:
-        return y
+
+
+def bsr_grouped_spmv(gdata, gcols, grow, x, nb_rows, nb_cols, block_shape, B, gptr=None):
+    """Y = grouped-BSR SpMV/SpMM.  ``gdata`` (G, bh, B*bw), ``gcols``
+    (G, B) int32, ``grow`` (G,) int32 ascending, ``x`` (nb_cols*bw, k)
+    contiguous; returns (nb_rows*bh, k) in x's dtype.  Pass a k=1 column
+    for a plain matvec.  ``gptr`` is :func:`bsr_group_pointer` of ``grow``
+    (made here when not given).  Checks every operand on every call
+    (:class:`GroupedBSR` checks its fixed arrays once, at construction)."""
+    bh, bw = (int(s) for s in block_shape)
+    _check_arrays(gdata, gcols, grow, (bh, bw), B)
+    if x.ndim != 2 or x.shape[0] != nb_cols * bw:
+        raise ValueError(f"want x ({nb_cols * bw}, k), got {tuple(x.shape)}")
+    _check_kernel_operands(gdata, x)
+    if x.device.type == "cpu":
+        return bsr_grouped_spmv_reference(gdata, gcols, grow, x, nb_rows, nb_cols, (bh, bw), B)
     if gptr is None:
         gptr = bsr_group_pointer(grow, nb_rows)
     if gptr.dtype != torch.int64 or tuple(gptr.shape) != (nb_rows + 1,) or gptr.device != x.device:
@@ -146,17 +196,8 @@ def bsr_grouped_spmv(gdata, gcols, grow, x, nb_rows, nb_cols, block_shape, B,
     for name, t in (("gdata", gdata), ("gcols", gcols), ("gptr", gptr), ("x", x)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lanes = bsr_grouped_lanes(B * bw) if lanes is None else int(lanes)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.library().sigma_bsr_grouped_spmv(
-        x.device.index, _CODES[gdata.dtype], _CODES[x.dtype],
-        gdata.data_ptr(), gcols.data_ptr(), gptr.data_ptr(), x.data_ptr(), y.data_ptr(),
-        nb_rows, bh, bw, B, k, lanes, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"sigma_bsr_grouped_spmv failed with CUDA error {rc}")
-    bsr_grouped_spmv.launches += 1
-    return y
+    form = bsr_grouped_form((bh, bw), B, gdata.element_size(), gdata.data_ptr() % 16 == 0)
+    return _launch(gdata, gcols, gptr, x, nb_rows, bh, bw, B, form)
 
 
 bsr_grouped_spmv.launches = 0
@@ -184,6 +225,8 @@ class GroupedBSR(LinearOperator):
     group: int
     # the run of groups of each block row, for the kernel
     gptr: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # the kernel's form (bsr_grouped_form), fixed by the arrays
+    form: str = dataclasses.field(init=False, repr=False)
 
     format: ClassVar[str] = "bsr_grouped"
 
@@ -193,7 +236,31 @@ class GroupedBSR(LinearOperator):
             self, "block_shape", (int(self.block_shape[0]), int(self.block_shape[1]))
         )
         object.__setattr__(self, "group", int(self.group))
+        self._validate()
         object.__setattr__(self, "gptr", bsr_group_pointer(self.grow, self.nb_rows))
+        object.__setattr__(self, "form", bsr_grouped_form(
+            self.block_shape, self.group, self.gdata.element_size(),
+            self.gdata.data_ptr() % 16 == 0))
+
+    def _validate(self):
+        """Check the fixed arrays once, so that a product checks only its
+        operand: shapes, dtypes, one device, contiguity, and (off the meta
+        device, with one read) grow ascending in [0, nb_rows) and gcols in
+        [0, nb_cols), which the kernel indexes with."""
+        gdata, gcols, grow = self.gdata, self.gcols, self.grow
+        if min(*self.block_shape, self.group) < 1 or min(self.shape) < 0:
+            raise ValueError(f"bad shape {self.shape}, block {self.block_shape}, "
+                             f"group {self.group}")
+        _check_arrays(gdata, gcols, grow, self.block_shape, self.group)
+        for name, t in (("gdata", gdata), ("gcols", gcols), ("grow", grow)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if grow.numel() and gdata.device.type != "meta":
+            bad = ((grow[1:] < grow[:-1]).any() | (grow[0] < 0) | (grow[-1] >= self.nb_rows)
+                   | (gcols.min() < 0) | (gcols.max() >= self.nb_cols))
+            if bool(bad):
+                raise ValueError(f"want grow ascending in [0, {self.nb_rows}) and gcols in "
+                                 f"[0, {self.nb_cols})")
 
     @property
     def nb_rows(self) -> int:
@@ -253,15 +320,26 @@ class GroupedBSR(LinearOperator):
         return x
 
     def _apply(self, X):
-        Xp = self._pad_x(X).contiguous()
-        Y = bsr_grouped_spmv(
-            self.gdata, self.gcols, self.grow, Xp, self.nb_rows, self.nb_cols,
-            self.block_shape, self.group, gptr=self.gptr,
-        )
-        return Y[: self.shape[0]]
+        """One product on X, (m,) or (m, k): checks X alone (the arrays
+        were checked at construction) and launches, or on the CPU runs the
+        plain version."""
+        _check_kernel_operands(self.gdata, X)
+        (bh, bw), n = self.block_shape, self.shape[0]
+        if X.shape[0] not in (self.shape[1], self.nb_cols * bw):
+            raise ValueError(f"want x ({self.shape[1]}, k), got {tuple(X.shape)}")
+        if X.device.type == "cpu":
+            X2 = X[:, None] if X.ndim == 1 else X
+            Y = bsr_grouped_spmv_reference(
+                self.gdata, self.gcols, self.grow, self._pad_x(X2).contiguous(), self.nb_rows,
+                self.nb_cols, self.block_shape, self.group,
+            )[:n]
+            return Y[:, 0] if X.ndim == 1 else Y
+        Y = _launch(self.gdata, self.gcols, self.gptr, self._pad_x(X).contiguous(), self.nb_rows,
+                    bh, bw, self.group, self.form)
+        return Y if Y.shape[0] == n else Y[:n]
 
     def matvec(self, x):
-        return self._apply(x[:, None])[:, 0]
+        return self._apply(x)
 
     def matmat(self, X):
         return self._apply(X)

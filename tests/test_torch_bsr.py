@@ -228,12 +228,100 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
     assert (torch.float16, torch.float16) not in bg.BSR_KERNEL_DTYPES
 
 
-def test_lanes_rule():
-    assert bg.bsr_grouped_lanes(8 * 128) == 8
-    assert bg.bsr_grouped_lanes(8 * 3) == 1
-    assert bg.bsr_grouped_lanes(4 * 16) == 4
-    assert bg.bsr_grouped_lanes(1) == 1
-    assert all(bg.bsr_grouped_lanes(w) in (1, 2, 4, 8) for w in range(1, 3000, 7))
+@pytest.mark.parametrize("blk,group,itemsize,aligned,form", [
+    ((8, 128), 8, 4, True, "wide"),  # block-banded operator: 1,024 f32 columns
+    ((8, 128), 1, 4, True, "wide"),  # 128 columns: one 16-byte piece a lane
+    ((8, 128), 8, 2, True, "wide"),  # bf16: 8 values a piece, 128 pieces
+    ((8, 128), 1, 2, True, "narrow"),  # bf16: 16 pieces, under a warp's width
+    ((12, 64), 4, 8, True, "wide"),  # f64: 2 values a piece; 12 rows, two passes
+    ((8, 16), 8, 8, True, "wide"),
+    ((8, 16), 4, 4, True, "narrow"),
+    ((3, 3), 8, 4, True, "narrow"),  # elasticity: 96-byte group rows
+    ((3, 3), 8, 2, True, "narrow"),  # 48 bytes
+    ((3, 3), 1, 4, True, "narrow_unaligned"),  # 12 bytes
+    ((4, 4), 1, 2, True, "narrow_unaligned"),  # 8 bytes
+    ((4, 4), 8, 2, True, "narrow"),
+    ((4, 33), 8, 4, True, "narrow"),  # 1,056 bytes, but pieces straddle blocks
+    ((4, 33), 1, 2, True, "narrow_unaligned"),  # odd bw, bf16: 66 bytes
+    ((8, 128), 8, 4, False, "narrow_unaligned"),  # gdata off a 16-byte boundary
+])
+def test_form_rule(blk, group, itemsize, aligned, form):
+    """The wrapper's one rule for the kernel's form, from the block shape,
+    the group, the value size and gdata's alignment."""
+    assert bg.bsr_grouped_form(blk, group, itemsize, aligned) == form
+
+
+def test_grouped_bsr_form_follows_its_arrays():
+    """GroupedBSR fixes its form at construction: the block-banded operator
+    wide, the elasticity operator narrow, a group of one (3, 3) block and
+    gdata off a 16-byte boundary one value a load; products on the CPU do
+    not depend on it."""
+    assert st.block_banded_grouped_bsr(16, device="cpu").form == "wide"
+    B = st.elasticity_node_major_bsr(4, torch.float32, "cpu")
+    G8, G1 = B.grouped(8), B.grouped(1)
+    assert (G8.form, G1.form) == ("narrow", "narrow_unaligned")
+    store = torch.zeros(G8.gdata.numel() + 1, dtype=torch.float32)
+    store[1:] = G8.gdata.reshape(-1)
+    off = bg.GroupedBSR(store[1:].view(G8.gdata.shape), G8.gcols, G8.grow, G8.shape,
+                        G8.block_shape, G8.group)
+    assert off.gdata.data_ptr() % 16 and off.form == "narrow_unaligned"
+    x = torch.from_numpy(np.random.default_rng(18).standard_normal(B.shape[1])).float()
+    assert torch.equal(off.matvec(x), G8.matvec(x))
+    assert rel(G1.matvec(x), B.matvec(x)) <= 1e-6
+
+
+def _bad_grouped(case):
+    G = st.BSRMatrix.from_dense(random_dense(19, 64, 64, p=0.2), block_shape=(4, 4),
+                                device="cpu").grouped(4)
+    a = dict(gdata=G.gdata, gcols=G.gcols, grow=G.grow, shape=G.shape,
+             block_shape=G.block_shape, group=G.group)
+    if case == "gdata_shape":
+        a["gdata"] = G.gdata[:, :, :8].contiguous()
+    elif case == "gcols_shape":
+        a["gcols"] = G.gcols[:, :3].contiguous()
+    elif case == "gcols_int64":
+        a["gcols"] = G.gcols.long()
+    elif case == "grow_int64":
+        a["grow"] = G.grow.long()
+    elif case == "gdata_not_contiguous":
+        a["gdata"] = G.gdata.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "grow_descending":
+        a["grow"] = G.grow.flip(0).contiguous()
+    elif case == "grow_past_last_row":
+        a["shape"] = (G.shape[0] - 8, G.shape[1])
+    elif case == "gcols_past_last_column":
+        a["gcols"] = G.gcols + 15
+    elif case == "gcols_negative":
+        a["gcols"] = G.gcols - 1
+    elif case == "devices_differ":
+        a["gcols"] = G.gcols.to("meta")
+    return a
+
+
+@pytest.mark.parametrize("case,error", [
+    ("gdata_shape", ValueError), ("gcols_shape", ValueError), ("gcols_int64", TypeError),
+    ("grow_int64", TypeError), ("gdata_not_contiguous", ValueError),
+    ("grow_descending", ValueError), ("grow_past_last_row", ValueError),
+    ("gcols_past_last_column", ValueError), ("gcols_negative", ValueError),
+    ("devices_differ", ValueError),
+])
+def test_grouped_bsr_rejects_bad_arrays_at_construction(case, error):
+    """The fixed arrays are checked once, when the operator is made, so a
+    product checks only its operand: each bad array raises there."""
+    with pytest.raises(error):
+        bg.GroupedBSR(**_bad_grouped(case))
+
+
+def test_grouped_bsr_product_checks_its_operand():
+    G = st.BSRMatrix.from_dense(random_dense(20, 64, 60, p=0.2), block_shape=(4, 4),
+                                device="cpu").grouped(4)
+    with pytest.raises(ValueError, match="want x"):
+        G.matmat(torch.zeros((59, 2), dtype=torch.float64))
+    with pytest.raises(ValueError, match="different devices"):
+        G.matvec(torch.zeros(60, dtype=torch.float64, device="meta"))
+    # the unpadded and the padded operand (nb_cols * bw = 60 here: equal) agree
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(60))
+    assert rel(G.matvec(x), G.to_dense() @ x.numpy()) <= TOL
 
 
 def test_grouped_in_cg_matches_jax():

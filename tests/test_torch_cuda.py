@@ -570,18 +570,23 @@ def _block_dense(rng, n, m, bh):
     return d
 
 
-@pytest.mark.parametrize("k", [1, 3, 4, 8, 11])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 11, 16])
 @pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("pair", sorted(st.ops.BSR_KERNEL_DTYPES, key=str), ids=str)
 @pytest.mark.parametrize("shape,blk", [((500, 460), (8, 16)), ((260, 260), (4, 4)),
-                                       ((301, 305), (3, 3)), ((520, 1000), (8, 128))])
+                                       ((301, 305), (3, 3)), ((520, 1000), (8, 128)),
+                                       ((400, 700), (12, 64)), ((300, 330), (4, 33))])
 def test_bsr_grouped_kernel(cuda, shape, blk, pair, group, k):
     """The grouped-BSR kernel against its plain version on the card, and
     the matrix assembled on the card against the one assembled on the CPU:
     shapes the blocks do not divide, empty block rows, rows of several
-    groups, k past the 8 columns of one pass.  f64 and f32 accumulate in
-    x's dtype; bf16 vectors in f32 with one rounding, so kernel and plain
-    version may land one bf16 step (2^-7) apart."""
+    groups, k past the 8 columns of one pass, and every form of the kernel
+    in every dtype pair (bsr_grouped_form: wide groups, including 12-row
+    blocks in two register passes; narrow ones in 16-byte pieces; group
+    rows that are not 16-byte multiples, as (3, 3) blocks in groups of 1,
+    (4, 4) bf16 blocks in groups of 1 and the odd bw of (4, 33)).  f64 and
+    f32 accumulate in x's dtype; bf16 vectors in f32 with one rounding, so
+    kernel and plain version may land one bf16 step (2^-7) apart."""
     vdt, xdt = pair
     n, m = shape
     rng = np.random.default_rng(14)
@@ -623,9 +628,46 @@ def test_bsr_grouped_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         st.ops.bsr_grouped_spmv(G.gdata, G.gcols, G.grow, X.T.contiguous().T, G.nb_rows,
                                 G.nb_cols, G.block_shape, G.group)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        st.ops.bsr_grouped_spmv(G.gdata, G.gcols, G.grow, X, G.nb_rows, G.nb_cols,
-                                G.block_shape, G.group, lanes=3)
+    # the C entry refuses a form whose loads the arrays do not allow (16-byte
+    # pieces, narrow or wide, from gdata off a 16-byte boundary) and a form
+    # code it does not know
+    lib = st.ops._build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    y = torch.empty((64, 2), dtype=torch.float64, device=cuda)
+    store = torch.zeros(G.gdata.numel() + 1, dtype=torch.float64, device=cuda)
+    for gdata, form in ((store[1:], 1), (store[1:], 2), (G.gdata, 3), (G.gdata, -1)):
+        rc = lib.sigma_bsr_grouped_spmv(cuda.index or 0, 1, 1, gdata.data_ptr(),
+                                        G.gcols.data_ptr(), G.gptr.data_ptr(), X.data_ptr(),
+                                        y.data_ptr(), G.nb_rows, 4, 4, 4, 2, form, stream)
+        assert rc != 0, form
+
+
+@pytest.mark.parametrize("pair", sorted(st.ops.BSR_KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("blk,group", [((8, 128), 8), ((3, 3), 8), ((4, 4), 4)])
+def test_bsr_grouped_kernel_unaligned_operands(cuda, blk, group, pair):
+    """gdata and x off a 16-byte boundary (contiguous views one value into
+    a larger store): the operator takes the one-value-a-load form, x is
+    loaded value by value, and the products equal the aligned operator's
+    within the dtype's tolerance."""
+    vdt, xdt = pair
+    rng = np.random.default_rng(16)
+    n, m = 260, 1024
+    dense = _block_dense(rng, n, m, blk[0])
+    r, c = np.nonzero(dense)
+    G = st.BSRMatrix.from_coo(n, m, r, c, dense[r, c], dtype=vdt, block_shape=blk).grouped(group)
+    store = torch.zeros(G.gdata.numel() + 1, dtype=vdt, device=cuda)
+    store[1:] = G.gdata.reshape(-1)
+    off = st.GroupedBSR(store[1:].view(G.gdata.shape), G.gcols, G.grow, G.shape, G.block_shape,
+                        G.group)
+    assert off.form == "narrow_unaligned"
+    for k in (1, 4, 8):
+        X = torch.from_numpy(rng.standard_normal((m, k))).to(cuda, xdt)
+        xs = torch.zeros(X.numel() + 1, dtype=xdt, device=cuda)
+        xs[1:] = X.reshape(-1)
+        Xo = xs[1:].view(m, k)
+        ref = G.matmat(X)
+        assert rel(off.matmat(Xo), ref) <= _BSR_TOL[xdt]
+        assert rel(G.matmat(Xo), ref) <= _BSR_TOL[xdt]
 
 
 def test_block_path_on_card_matches_cpu(cuda):
