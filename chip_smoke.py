@@ -6,7 +6,11 @@
 Builds the DIA, grouped, staged, pruned and grouped-BSR SpMV and SpMM
 kernels from ``sigma_tpu_torch/csrc/`` with nvcc (and the host library with
 g++), checks each against its plain PyTorch version on the card (every
-dtype pair; for SpMM every panel layout and k in {1, 3, 8, 16}, and the
+dtype pair; the full-storage SpMV at each of its load forms: odd strides,
+values or x off a 16-byte boundary, n not a whole number of a thread's
+rows or below one block, offsets past +-n, more diagonals than one staged
+chunk; the resident staged SpMV at a 32,768-row level and below one row
+tile; for SpMM every panel layout and k in {1, 3, 8, 16}, and the
 full-storage SpMM at k in {1, 3, 4, 5, 8, 9, 12, 16} on eight offset sets
 and value strides with NaN in every slot outside the matrix; the grouped
 SpMM in both of its layouts at k in {1, 17, 24, 32, 33, 48} on
@@ -50,7 +54,8 @@ drives eight paths through the package's public entry points:
 - the staged-x SpMV entry ``dia_spmv_staged`` (phase 20): the resident
   kernel on every multigrid level of the nx=216 stencil and of the band
   whose x fits shared memory, the windowed kernel on the nx=216 stencil,
-  each beside ``dia_spmv``;
+  each beside ``dia_spmv`` and cuSPARSE, single launch and device time
+  (50 back-to-back launches; ``device_ms`` also in phases 5 and 19);
 - the block / multi-DOF path (phases 21-22): the grouped-BSR kernel on the
   block-banded operator of ``bench.py`` ((8, 128) blocks in groups of 8;
   65,536 rows with 67,108,864 stored slots, and 524,288 rows with 2.15 GB)
@@ -250,6 +255,10 @@ SPMM_INSTANTIATIONS = 13
 # pair, column tile and load width (16-byte pieces or one value)
 BSR_KERNELS = ("bsr_wide_kernel", "bsr_narrow_kernel")
 BSR_INSTANTIATIONS = 7 * 4 + 7 * 4 * 2
+# the DIA SpMV (dia_spmv.cu) #1 and #5: one instantiation a dtype pair and
+# value-load form (16-byte pieces, or one value a load) each
+DIA_SPMV_KERNELS = ("dia_spmv_kernel", "dia_spmv_resident_kernel")
+DIA_SPMV_INSTANTIATIONS = 5 * 2
 
 
 def phase_build():
@@ -285,6 +294,12 @@ def phase_build():
          "static_smem_bytes": smem}
         for name, regs, st, ld, smem in entries if any(k in name for k in BSR_KERNELS)
     ]
+    dia_spmv = {
+        k: [{"function": name, "registers": regs, "spill_store_bytes": st,
+             "spill_load_bytes": ld, "static_smem_bytes": smem}
+            for name, regs, st, ld, smem in entries if k in name]
+        for k in DIA_SPMV_KERNELS
+    }
     launch = {f"{v}/{x}": grouped_launch_config(v, x)
               for v, x in sorted(KERNEL_DTYPES, key=str)}
     # one k per column-group count: 1, and one past each multiple of C
@@ -301,8 +316,15 @@ def phase_build():
           "registers": [min(r["registers"] for r in bsr), max(r["registers"] for r in bsr)]
           if bsr else None,
           "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in bsr)})
+    emit({"phase": "build_dia_spmv", "instantiations": dia_spmv,
+          "dynamic_smem": "dia_spmv none; dia_spmv_resident its window, at most m values"})
     if not spills or any(spills):
         raise AssertionError(f"ptxas spill stores per kernel: {spills}")
+    for k, rows in dia_spmv.items():
+        if len(rows) != DIA_SPMV_INSTANTIATIONS or any(
+                r["spill_store_bytes"] or r["spill_load_bytes"] for r in rows):
+            raise AssertionError(f"want {DIA_SPMV_INSTANTIATIONS} {k} instantiations without "
+                                 f"spills: {rows}")
     if len(reported) != 10 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in reported):
         raise AssertionError(f"want 10 pruned SpMV instantiations without spills: {reported}")
     if len(grouped) != 5 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in grouped):
@@ -342,6 +364,7 @@ def phase_kernels(device):
 
     rng = np.random.default_rng(0)
     band = sorted(int(o) for o in rng.choice(np.arange(-3000, 3001), 64, replace=False))
+    many = sorted(int(o) for o in rng.choice(np.arange(-3000, 3001), 300, replace=False))
     full_cases = [
         ("square", 50_000, 50_000, [0, 1, -1, 300, -300, 2500, -2500]),
         ("tall", 60_000, 45_001, [0, 4, -300, 2500, -2500]),
@@ -350,6 +373,28 @@ def phase_kernels(device):
         ("one_diag", 70_000, 70_000, [0]),
         ("band64", 40_000, 40_000, band),
     ]
+    # dia_spmv's load forms (NaN in every slot outside the matrix): an odd
+    # stride and values or x off a 16-byte boundary (one value a load), n
+    # not a whole number of a thread's rows, n below one block, offsets past
+    # +-n, more diagonals than one staged chunk of 128
+    form_cases = [
+        ("odd_stride", 33_333, 33_333, [-300, -1, 0, 1, 2, 3, 300], "odd_stride"),
+        ("rows_not_whole", 50_003, 49_999, [-2500, -3, -1, 0, 1, 7, 2500], "aligned"),
+        ("below_one_block", 100, 90, [-7, -1, 0, 1, 2, 50], "aligned"),
+        ("below_one_block_odd_stride", 37, 41, [-5, 0, 3], "odd_stride"),
+        ("past_n", 20_000, 20_000, [-20_005, -20_000, -1, 0, 1, 20_000, 20_003], "aligned"),
+        ("many_diagonals", 20_001, 25_000, many, "aligned"),
+        ("many_diagonals_odd_stride", 20_001, 25_000, many, "odd_stride"),
+        ("values_off_16", 30_000, 30_000, [-300, -1, 0, 1, 300], "values_off_16"),
+        ("x_off_16", 30_000, 30_000, [-300, -1, 0, 1, 300], "x_off_16"),
+    ]
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def off_16(t):  # a contiguous copy one value into a larger store
+        store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = store[1:].view(t.shape)
+        v.copy_(t)
+        return v
     sym_cases = [
         ("stencil", 50_000, [0, 1, 300, 2500]),
         ("no_main_unaligned", 33_333, [1, 130, 259]),
@@ -361,6 +406,7 @@ def phase_kernels(device):
         return 1e-12 if xdt == torch.float64 else 1e-5
 
     worst = {"dia_spmv": 0.0, "dia_sym_spmv": 0.0}
+    worst_form = {}
     count = 0
     for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
         for name, n, m, offs in full_cases:
@@ -373,6 +419,21 @@ def phase_kernels(device):
             if not e <= tol(vdt, xdt):
                 raise AssertionError(f"dia_spmv {name} {vdt}/{xdt}: rel err {e:.3e}")
             worst["dia_spmv"] = max(worst["dia_spmv"], e)
+            count += 1
+        for name, n, m, offs, form in form_cases:
+            stride = n + 1 + n % 2 if form == "odd_stride" else -(-n // 128) * 128
+            data, off_t = nan_outside_dia(g, n, m, offs, stride, vdt, device)
+            x = torch.randn(m, generator=g, device=device, dtype=torch.float64).to(xdt)
+            if form == "values_off_16":
+                data = off_16(data)
+            elif form == "x_off_16":
+                x = off_16(x)
+            y = dia_spmv(data, x, off_t, n, m)
+            torch.cuda.synchronize()
+            e = rel_err(y, dia_spmv_reference(data, x, off_t, n, m))
+            if not e <= tol(vdt, xdt):
+                raise AssertionError(f"dia_spmv {name} {vdt}/{xdt}: rel err {e:.3e}")
+            worst_form[name] = max(worst_form.get(name, 0.0), e)
             count += 1
         for name, n, offs in sym_cases:
             offs = sorted(offs)
@@ -404,6 +465,7 @@ def phase_kernels(device):
         raise AssertionError(f"DIAMatrix.rmatvec: rel err {e:.3e}")
     emit({"phase": "kernel_checks", "cases": count + 1,
           "worst_rel_err": {k: float(v) for k, v in worst.items()},
+          "dia_spmv_load_forms_worst_rel_err": worst_form,
           "rmatvec_rel_err": e,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
@@ -742,6 +804,7 @@ def phase_north_star_spmv(device, nx):
     Ab = A.astype_exact(torch.bfloat16)
     csr = csr_from_dia(A)
     library_ms = median_ms(lambda: csr @ x)
+    library_device_ms = device_ms(lambda: csr @ x)
     del csr
     variants = [
         ("dia_spmv", "full_f32", A.data, A.offsets_dev, dia_spmv, dia_spmv_reference, (n, n)),
@@ -758,6 +821,7 @@ def phase_north_star_spmv(device, nx):
         if not err_rel <= 1e-5:
             raise AssertionError(f"{kname} {label} at nx={nx}: rel err {err_rel:.3e}")
         ms = median_ms(lambda: kern(data, x, offs, *dims))
+        dev_ms = device_ms(lambda: kern(data, x, offs, *dims))
         plain_ms = median_ms(lambda: plain(data, x, offs, *dims))
         # bytes: stored nonzero values once + x read + y written (the
         # bench.py:579 model, 4 + 8n/nnz B/nnz for full f32)
@@ -769,9 +833,12 @@ def phase_north_star_spmv(device, nx):
         )
         row = {
             "phase": "north_star_spmv", "variant": label, "kernel": kname,
-            "n": n, "nnz": nnz, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library": "torch.sparse_csr @ x (cuSPARSE), full storage",
+            "n": n, "nnz": nnz, "kernel_ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "library": "torch.sparse_csr @ x (cuSPARSE), full storage",
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "device_bound_share": bound_ms / dev_ms,
+            "library_device_bound_share": bound_ms / library_device_ms,
             "gnnz_s": nnz / (ms * 1e-3) / 1e9,
             "plain_gnnz_s": nnz / (plain_ms * 1e-3) / 1e9,
             "bytes_per_nnz": byts / nnz,
@@ -1878,11 +1945,13 @@ def phase_full_band_10m(device, D, ops, variants, checks, T):
     rows = {}
     for kname, label, layout, kk, kern, _, floor in variants:
         ms = median_ms(kern)
+        # the SpMVs' device time too (50 back-to-back launches)
+        dev_ms = device_ms(kern) if kk == 1 else None
         bound_ms, bound_by = bound(floor, 2 * kk * D.nnz, torch.float32)
         err_abs, err_rel, plain_ms = checks[label]
         row = {"phase": "full_band_10m", "variant": label, "kernel": kname, "layout": layout,
                "k": kk, "n": n, "nnz": nnz, "slots": D.nnz, "kernel_ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib[(kk, layout)],
+               "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib[(kk, layout)],
                "library": "torch.sparse_csr @ " + {None: "x", "cols": "X (n, k)",
                                                    "rhs_major": "XT.T (n, k) column-major"}[layout]
                           + " (cuSPARSE), the same matrix",
@@ -1920,14 +1989,32 @@ def staged_operands(device, nx, Mst, Mband):
 
 def staged_checks(device, levels, stencil):
     """dia_spmv_staged (resident on the levels, windowed on the stencil)
-    against the plain version, outside the counted path; returns {label:
-    (max abs err, plain ms)}."""
+    against the plain version, outside the counted path; and the resident
+    kernel in every dtype pair at a level's shape (32,768 rows, a narrow
+    band) and below one row tile, NaN in every slot outside the matrix.
+    Returns {label: (max abs err, plain ms)} of the levels and the
+    stencil."""
     import torch
 
-    from sigma_tpu_torch.ops import dia_spmv_reference, dia_spmv_staged
+    from sigma_tpu_torch.ops import KERNEL_DTYPES, dia_spmv_reference, dia_spmv_staged
 
     out = {}
     g = torch.Generator(device=device).manual_seed(1)
+    worst = {}
+    for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
+        tol = 1e-12 if xdt == torch.float64 else 1e-5
+        for label, n, offs in (("level_like_32768", 32_768, list(range(-12, 13))),
+                               ("below_one_tile", 100, [-9, -4, -1, 0, 1, 4, 9])):
+            data, off_t = nan_outside_dia(g, n, n, offs, -(-n // 128) * 128, vdt, device)
+            x = torch.randn(n, generator=g, device=device, dtype=torch.float64).to(xdt)
+            y = dia_spmv_staged(data, x, offs, n, n)
+            torch.cuda.synchronize()
+            e = rel_err(y, dia_spmv_reference(data, x, off_t, n, n))
+            if not e <= tol:
+                raise AssertionError(f"dia_spmv_resident {label} {vdt}/{xdt}: rel err {e:.3e}")
+            worst[label] = max(worst.get(label, 0.0), e)
+    emit({"phase": "staged_checks_resident", "worst_rel_err": worst, "dtype_pairs": 5,
+          "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
     for (label, A), dma in [(lv, False) for lv in levels] + [(stencil, True)]:
         n = A.shape[0]
         x = torch.rand(n, generator=g, device=device)
@@ -1960,19 +2047,25 @@ def phase_staged(device, levels, stencil, checks, band_window_row):
     for (label, A), dma in [(lv, False) for lv in levels] + [(stencil, True)]:
         n = A.shape[0]
         x = torch.rand(n, generator=g, device=device)
-        ms = median_ms(lambda: dia_spmv_staged(A.data, x, A.offsets, n, n, allow_dma_path=dma))
-        blocked_ms = median_ms(lambda: A.matvec(x))
+        staged = partial(dia_spmv_staged, A.data, x, A.offsets, n, n, allow_dma_path=dma)
+        ms, dev_ms = median_ms(staged), device_ms(staged)
+        blocked_ms, blocked_dev_ms = median_ms(lambda: A.matvec(x)), device_ms(lambda: A.matvec(x))
         csr = csr_from_dia(A.astype(torch.float32)) if A.dtype == torch.bfloat16 else csr_from_dia(A)
-        library_ms = median_ms(lambda: csr @ x)
+        library_ms, library_dev_ms = median_ms(lambda: csr @ x), device_ms(lambda: csr @ x)
         del csr
         floor = A.data.numel() * A.data.element_size() + 2 * n * 4
         bound_ms, bound_by = bound(floor, 2 * A.nnz, torch.float32)
         kname = "dia_spmv_window" if dma else "dia_spmv_resident"
         row = {"phase": "staged", "variant": label, "kernel": kname, "n": n,
                "n_diags": A.graph.n_diags, "value_dtype": str(A.dtype).replace("torch.", ""),
-               "kernel_ms": ms, "dia_spmv_ms": blocked_ms, "plain_ms": checks[label][1],
-               "library_ms": library_ms, "library": "torch.sparse_csr @ x (cuSPARSE), f32 values",
+               "kernel_ms": ms, "device_ms": dev_ms,
+               "dia_spmv_ms": blocked_ms, "dia_spmv_device_ms": blocked_dev_ms,
+               "plain_ms": checks[label][1],
+               "library_ms": library_ms, "library_device_ms": library_dev_ms,
+               "library": "torch.sparse_csr @ x (cuSPARSE), f32 values",
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes_floor_mb": floor / 1e6,
+               "bound_share": {"kernel": bound_ms / dev_ms, "dia_spmv": bound_ms / blocked_dev_ms,
+                               "library": bound_ms / library_dev_ms},
                "max_abs_err": checks[label][0]}
         emit(row)
         if not dma:

@@ -42,6 +42,7 @@ from sigma_tpu_torch.graph import (
     build_graph,
     choose_graph_type,
     convert_graph,
+    num_graph_types,
     reverse_cuthill_mckee,
 )
 from sigma_tpu_torch.matrix import (
@@ -60,6 +61,7 @@ from sigma_tpu_torch.matrix import (
     bandwidth,
     choose_matrix_type,
     convert_matrix,
+    num_matrix_types,
     reorder_triples_rcm,
     to_banded_dia,
     to_pruned_dia,

@@ -15,20 +15,54 @@
 //
 // Layout.  Values are (D, stride) row-major: val(d, i) = data[d*stride + i]
 // holds A[i, i + offsets[d]].  Offsets arrive as a device int64 array and
-// are staged in shared memory in chunks of kOffsetChunk, so D is a runtime
-// value and a band of any width runs in one launch (the TPU kernel needed
-// VMEM tile picks and a chunked wrapper for that).
+// are staged in shared memory in chunks, so D is a runtime value and a band
+// of any width runs in one launch (the TPU kernel needed VMEM tile picks
+// and a chunked wrapper for that).
 //
 // What bounds them.  SpMV is memory bound: at best each launch reads every
 // stored value once and x and y once, D*sizeof(val) + sizeof(x) + sizeof(y)
 // bytes per row (36 B/row for the f32 7-point stencil in full storage,
-// 24 B/row for its 4 upper diagonals).  The design keeps the traffic at that
-// floor with the simplest access pattern the card coalesces: one thread per
-// output row, so neighbouring threads read neighbouring addresses of each
-// value row and of each shifted x window (x[i + o]).  The x windows of the
-// D diagonals overlap, and at the 10.1M-row north star the largest offset
-// is nx*nx = 46,656 rows (186 KB of f32 x), far inside the 50 MB L2, so x
-// comes from device memory about once.
+// 24 B/row for its 4 upper diagonals).  The x windows of the D diagonals
+// overlap, and at the 10.1M-row north star the largest offset is nx*nx =
+// 46,656 rows (186 KB of f32 x), far inside the 50 MB L2, so x comes from
+// device memory about once.
+//
+// dia_spmv (#1) and dia_spmv_resident (#5) share one row-tile body, built
+// to keep enough value bytes in flight to stream at the card's rate:
+//
+//  * A thread owns R consecutive rows, R = 16 / sizeof(value): one 16-byte
+//    piece of each value row (4 f32, 8 bf16 or 2 f64 values), read by one
+//    16-byte load where the value rows are 16-byte aligned (data aligned
+//    and stride a multiple of R; the port's storage always is, its stride a
+//    multiple of 128), else by one load a value.
+//  * Diagonals go in batches of a fixed count (8 in 16-byte pieces): all
+//    of a batch's value loads are issued before its first FMA, 128 bytes a
+//    thread in flight, where the first version (one thread a row, one
+//    4-byte value and one x load a step of a runtime loop) had about 8.
+//    Their x comes in groups of 128 bytes a thread (8 diagonals' x with f32
+//    values and vectors, 4 with bf16 values, 2 with bf16 values and f64
+//    vectors).
+//  * Offsets and the 64-bit value-row bases d * stride are staged in shared
+//    memory once a chunk of diagonals: a value's address is a base plus the
+//    thread's first row, with no 64-bit multiply a term.
+//  * x.  The R values x[c .. c + R) of a diagonal (c = first row + offset)
+//    are read as the 16-byte aligned pieces that hold them (R/P pieces, one
+//    more when c is not aligned; P = 16 / sizeof(x)) and shifted into place
+//    by selects.  An aligned 16-byte piece that holds an element of x lies
+//    inside one page, so the neighbours it brings along cannot fault; they
+//    are never selected.  #1 reads x through the read-only data path (on
+//    the stencil offsets -1, 0, +1 and +-nx share L1 lines, +-nx^2 come
+//    from L2); #5 from the x window its block staged (below).
+//  * A batch whose diagonals keep all of the thread's columns in [0, m)
+//    loads its x pieces without a branch; any other batch tests each term.
+//  * #1's blocks stay resident (one wave, sized once a device from the
+//    occupancy) and walk the row tiles grid-stride, so offsets that fit
+//    one chunk (every stencil, the 245-diagonal band) are staged once a
+//    block and no tile waits on a prologue.
+//
+// Order of each row's sum: ascending diagonal, one fused multiply-add per
+// in-range term in the vector type, so y is bit for bit what the first
+// version (one thread a row, `acc += v * x` contracted to an FMA) gave.
 //
 // The symmetric kernel reads the mirror term val(d, i - o) * x[i - o] as a
 // second coalesced stream shifted back by o.  A block of 256 rows touches
@@ -48,36 +82,269 @@
 // (bf16, f64).  Index arithmetic d*stride + i is 64-bit: at 245 diagonals
 // x 10M rows it passes 2^31.
 //
-// Interface.  Plain C entry points bound with ctypes; each launches on the
-// caller's stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (cudaErrorInvalidValue for a dtype pair it does not
-// instantiate).
+// Interface.  Plain C entry points bound with ctypes; each makes `device`
+// current only when it is not, launches on the caller's stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a dtype pair it does not instantiate).
 
-#include "dia_common.cuh"
+#include "dia_window.cuh"  // cp.async helpers, fma_x, store_piece
 
 namespace {
 
 using namespace sigma_dia;
 
+// -- the row-tile body of #1 and #5 ------------------------------------------
+
+constexpr int kSpmvThreads = 128;     // a block of dia_spmv: a row tile a pass
+constexpr int kResidentThreads = 64;  // a block of dia_spmv_resident: one row tile
+constexpr int kSpmvChunk = 256;       // offsets and bases staged at once: 4 KB
+constexpr int kResidentChunk = 64;    // 1 KB beside the resident kernel's window
+
+// rows a thread: one 16-byte piece of a value row
+template <typename V>
+__host__ __device__ constexpr int rows_of() {
+  return 16 / static_cast<int>(sizeof(V));
+}
+
+// diagonals whose values a thread loads before its first FMA: 128 bytes
+// in 16-byte pieces; 4 diagonals one value a load (R loads, R addresses each)
+template <bool kPieces>
+__host__ __device__ constexpr int batch_of() {
+  return kPieces ? 8 : 4;
+}
+
+// diagonals whose x a thread loads at once: 64 bytes of x, 2 to 4 (all 8
+// of a batch at once held the registers of a sixth block an SM and ran
+// the f32 stencil 5% slower)
 template <typename V, typename X>
-__global__ void __launch_bounds__(kThreads)
-    dia_spmv_kernel(const V* __restrict__ data, const X* __restrict__ x,
-                    const int64_t* __restrict__ offsets, X* __restrict__ y,
-                    int64_t D, int64_t stride, int64_t n, int64_t m) {
-  __shared__ int64_t s_off[kOffsetChunk];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  X acc = X(0);
-  for (int64_t d0 = 0; d0 < D; d0 += kOffsetChunk) {
-    const int64_t dn = D - d0 < kOffsetChunk ? D - d0 : kOffsetChunk;
-    stage_offsets(s_off, offsets, d0, dn);
-    if (i < n) {
-      for (int64_t t = 0; t < dn; ++t) {
-        const int64_t j = i + s_off[t];
-        if (j >= 0 && j < m) acc += to_x<X>(data[(d0 + t) * stride + i]) * x[j];
+__host__ __device__ constexpr int x_batch_of() {
+  constexpr int b = 64 / (rows_of<V>() * static_cast<int>(sizeof(X)));
+  return b > 4 ? 4 : b < 2 ? 2 : b;
+}
+
+template <typename V>
+struct Bits;
+template <>
+struct Bits<float> {
+  using T = unsigned;
+};
+template <>
+struct Bits<double> {
+  using T = unsigned long long;
+};
+template <>
+struct Bits<__nv_bfloat16> {
+  using T = unsigned short;
+};
+
+// A thread's R values of one diagonal, kept as raw bits (4 registers for
+// any value type) until the FMA widens them.
+template <typename V>
+union ValuePiece {
+  uint4 raw;
+  typename Bits<V>::T b[16 / sizeof(V)];
+};
+
+template <typename X>
+__device__ __forceinline__ X widen(unsigned b) {
+  return static_cast<X>(__uint_as_float(b));
+}
+template <typename X>
+__device__ __forceinline__ X widen(unsigned long long b) {
+  return static_cast<X>(__longlong_as_double(static_cast<long long>(b)));
+}
+template <typename X>
+__device__ __forceinline__ X widen(unsigned short b) {  // bf16: f32's top half, exact
+  return static_cast<X>(__uint_as_float(static_cast<unsigned>(b) << 16));
+}
+
+// rows i0 .. i0 + R - 1 of one value row; past n only in the 16-byte form,
+// whose piece lies inside the row (stride a multiple of R)
+template <typename V, bool kPieces>
+__device__ __forceinline__ void load_value_piece(ValuePiece<V>& v, const V* row, int64_t i0,
+                                                 int64_t n) {
+  if constexpr (kPieces) {
+    v.raw = __ldg(reinterpret_cast<const uint4*>(row + i0));
+  } else {
+    using B = typename Bits<V>::T;
+    const B* p = reinterpret_cast<const B*>(row) + i0;
+#pragma unroll
+    for (int q = 0; q < rows_of<V>(); ++q) v.b[q] = i0 + q < n ? __ldg(p + q) : B(0);
+  }
+}
+
+// one value or one 16-byte piece of x: from shared memory, or from device
+// memory through the read-only data path
+template <bool kShared, typename T>
+__device__ __forceinline__ T read_x(const T* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+template <bool kShared>
+__device__ __forceinline__ void read_piece(const float* p, float* r) {
+  const float4 a = read_x<kShared>(reinterpret_cast<const float4*>(p));
+  r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w;
+}
+template <bool kShared>
+__device__ __forceinline__ void read_piece(const double* p, double* r) {
+  const double2 a = read_x<kShared>(reinterpret_cast<const double2*>(p));
+  r[0] = a.x, r[1] = a.y;
+}
+
+// xr[q] = p[q], q < R, from the aligned 16-byte pieces that hold them
+template <bool kShared, typename X, int R>
+__device__ __forceinline__ void load_x(const X* p, X (&xr)[R]) {
+  constexpr int P = 16 / static_cast<int>(sizeof(X));
+  constexpr int K = R / P;
+  static_assert(R % P == 0, "a thread's rows are whole pieces of x");
+  const int s = static_cast<int>(reinterpret_cast<uintptr_t>(p) / sizeof(X)) & (P - 1);
+  const X* a = p - s;
+  X buf[R + P];
+#pragma unroll
+  for (int k = 0; k < K; ++k) read_piece<kShared>(a + k * P, buf + k * P);
+  if (s) {
+    read_piece<kShared>(a + K * P, buf + K * P);
+  } else {
+#pragma unroll
+    for (int e = 0; e < P; ++e) buf[K * P + e] = X(0);
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    X v = buf[q];
+#pragma unroll
+    for (int k = 1; k < P; ++k) v = s == k ? buf[q + k] : v;
+    xr[q] = v;
+  }
+}
+
+// The diagonals t0 .. t0 + batch - 1 (those below dn) of a staged chunk:
+// values from data + s_base[t] (+ the thread's rows), x[j] at xs[j - xlo].
+template <typename V, typename X, bool kPieces, bool kShared>
+struct Tile {
+  static constexpr int R = rows_of<V>();
+  static constexpr int kBatch = batch_of<kPieces>();
+  static constexpr int kXBatch = x_batch_of<V, X>();
+  static_assert(kBatch % kXBatch == 0, "whole x batches");
+  X acc[R];
+
+  __device__ __forceinline__ Tile() {
+#pragma unroll
+    for (int q = 0; q < R; ++q) acc[q] = X(0);
+  }
+
+  __device__ __forceinline__ void load_batch(ValuePiece<V> (&v)[kBatch], const V* data,
+                                             const int64_t* s_base, int t0, int dn, int64_t i0,
+                                             int64_t n) const {
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (t0 + b < dn) load_value_piece<V, kPieces>(v[b], data + s_base[t0 + b], i0, n);
+  }
+
+  __device__ __forceinline__ void fma_batch(const ValuePiece<V> (&v)[kBatch], const X* xs,
+                                            int64_t xlo, const int64_t* s_off, int t0, int dn,
+                                            int64_t i0, int64_t m) {
+    bool inside = true;
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (t0 + b < dn) {
+        const int64_t c = i0 + s_off[t0 + b];
+        inside = inside && c >= 0 && c + R <= m;
+      }
+    }
+    if (inside) {
+#pragma unroll
+      for (int g = 0; g < kBatch; g += kXBatch) {
+        X xr[kXBatch][R];
+#pragma unroll
+        for (int b = 0; b < kXBatch; ++b)
+          if (t0 + g + b < dn) load_x<kShared>(xs + (i0 + s_off[t0 + g + b] - xlo), xr[b]);
+#pragma unroll
+        for (int b = 0; b < kXBatch; ++b) {
+          if (t0 + g + b < dn) {
+#pragma unroll
+            for (int q = 0; q < R; ++q)
+              acc[q] = fma_x(widen<X>(v[g + b].b[q]), xr[b][q], acc[q]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (t0 + b < dn) {
+          const int64_t c = i0 + s_off[t0 + b];
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            if (c + q >= 0 && c + q < m)
+              acc[q] = fma_x(widen<X>(v[b].b[q]), read_x<kShared>(xs + (c + q - xlo)), acc[q]);
+          }
+        }
       }
     }
   }
-  if (i < n) y[i] = acc;
+
+  // diagonals t0 .. dn - 1 of the staged chunk
+  __device__ __forceinline__ void run(const V* data, const X* xs, int64_t xlo,
+                                      const int64_t* s_off, const int64_t* s_base, int t0,
+                                      int dn, int64_t i0, int64_t n, int64_t m) {
+    for (; t0 < dn; t0 += kBatch) {
+      ValuePiece<V> v[kBatch];
+      load_batch(v, data, s_base, t0, dn, i0, n);
+      fma_batch(v, xs, xlo, s_off, t0, dn, i0, m);
+    }
+  }
+
+  __device__ __forceinline__ void store(X* y, int64_t i0, int64_t n) const {
+    constexpr int P = 16 / static_cast<int>(sizeof(X));
+    if (i0 + R <= n) {
+#pragma unroll
+      for (int k = 0; k < R / P; ++k) store_piece(y + i0 + k * P, acc + k * P);
+    } else {
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (i0 + q < n) y[i0 + q] = acc[q];
+    }
+  }
+};
+
+// Stage offsets[d0 : d0 + dn] and their value-row bases (whole block).
+__device__ __forceinline__ void stage_chunk(int64_t* s_off, int64_t* s_base,
+                                            const int64_t* __restrict__ offsets, int64_t d0,
+                                            int dn, int64_t stride) {
+  __syncthreads();
+  for (int t = threadIdx.x; t < dn; t += blockDim.x) {
+    s_off[t] = offsets[d0 + t];
+    s_base[t] = (d0 + t) * stride;
+  }
+  __syncthreads();
+}
+
+// Blocks stay resident (one wave) and walk the row tiles grid-stride, so
+// offsets of at most one chunk (every stencil and the 245-diagonal band)
+// are staged once a block, not once a tile.
+template <typename V, typename X, bool kPieces>
+__global__ void __launch_bounds__(kSpmvThreads)
+    dia_spmv_kernel(const V* __restrict__ data, const X* __restrict__ x,
+                    const int64_t* __restrict__ offsets, X* __restrict__ y, int64_t D,
+                    int64_t stride, int64_t n, int64_t m) {
+  using T = Tile<V, X, kPieces, false>;
+  constexpr int64_t kTile = kSpmvThreads * T::R;
+  __shared__ int64_t s_off[kSpmvChunk], s_base[kSpmvChunk];
+  const bool one_chunk = D <= kSpmvChunk;
+  if (one_chunk) stage_chunk(s_off, s_base, offsets, 0, static_cast<int>(D), stride);
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t i0 = t * kTile + threadIdx.x * T::R;
+    T tile;
+    for (int64_t d0 = 0; d0 < D; d0 += kSpmvChunk) {
+      const int dn = static_cast<int>(D - d0 < kSpmvChunk ? D - d0 : kSpmvChunk);
+      if (!one_chunk) stage_chunk(s_off, s_base, offsets, d0, dn, stride);
+      if (i0 < n) tile.run(data, x, 0, s_off, s_base, 0, dn, i0, n, m);
+    }
+    if (i0 < n) tile.store(y, i0, n);
+  }
 }
 
 template <typename V, typename X>
@@ -106,11 +373,45 @@ __global__ void __launch_bounds__(kThreads)
   if (i < n) y[i] = acc;
 }
 
-template <typename V, typename X>
-cudaError_t launch_full(const void* data, const void* x, const void* offsets,
-                        void* y, int64_t D, int64_t stride, int64_t n,
-                        int64_t m, cudaStream_t stream) {
-  dia_spmv_kernel<V, X><<<blocks_for(n), kThreads, 0, stream>>>(
+// The 16-byte value form: data aligned and every value row a whole number
+// of a thread's pieces.
+template <typename V>
+bool value_pieces(const void* data, int64_t stride) {
+  return reinterpret_cast<uintptr_t>(data) % 16 == 0 && stride % rows_of<V>() == 0;
+}
+
+// The blocks of `kernel` (`threads` a block, no dynamic shared memory) that
+// fit on `device` at once; asked once a device, `slots` is the caller's
+// record (one a kernel instantiation).
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int device, int (&slots)[64], int* out) {
+  const bool known = device >= 0 && device < 64;
+  if (known && slots[device] > 0) {
+    *out = slots[device];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (err != cudaSuccess) return err;
+  *out = sms * (per_sm > 0 ? per_sm : 1);
+  if (known) slots[device] = *out;
+  return cudaSuccess;
+}
+
+template <typename V, typename X, bool kPieces>
+cudaError_t launch_full(const void* data, const void* x, const void* offsets, void* y,
+                        int64_t D, int64_t stride, int64_t n, int64_t m, int device,
+                        cudaStream_t stream) {
+  constexpr int64_t rows = kSpmvThreads * rows_of<V>();
+  auto kernel = dia_spmv_kernel<V, X, kPieces>;
+  static int slots[64] = {};
+  int grid = 0;
+  cudaError_t err = resident_blocks(kernel, kSpmvThreads, device, slots, &grid);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (n + rows - 1) / rows;
+  kernel<<<static_cast<unsigned>(tiles < grid ? tiles : grid), kSpmvThreads, 0, stream>>>(
       static_cast<const V*>(data), static_cast<const X*>(x),
       static_cast<const int64_t*>(offsets), static_cast<X*>(y), D, stride, n, m);
   return cudaGetLastError();
@@ -135,10 +436,19 @@ cudaError_t launch_sym(const void* data, const void* x, const void* offsets,
 // L1/L2 to shared memory, so these kernels are memory bound by the same
 // bytes and can at best match dia_spmv.
 //
-// dia_spmv_resident stages the whole x (m values) once per block and the
-// blocks walk the row tiles grid-stride, one block per SM slot, so x is
-// read from L2 once per block rather than once per tile.  It takes x of up
-// to 57,600 f32 / 28,800 f64 values (ops/spmv_dia.py STAGED_SMEM_BYTES).
+// dia_spmv_resident takes x of up to 57,600 f32 / 28,800 f64 values
+// (ops/spmv_dia.py STAGED_SMEM_BYTES), the route of the JAX package's
+// VMEM-resident body.  The first version copied the whole x into every
+// block; on this card a whole-x stage per block has no reason to exist:
+// L2 holds x, and a block reads only its window.  So each block, one row
+// tile of 64 threads x R rows, stages the columns its rows read,
+// [max(0, i0 + min offset), min(m, i0 + T + max offset)) (at most m
+// values, so it always fits where the route sends x; for a band exactly
+// the columns it needs), from the aligned 16-byte piece that holds the
+// first, in 16-byte cp.async pieces (the last one partial: the copy
+// zero-fills past m).  The block's first batch of values is prefetched
+// into L2 before it waits for the window, so the two overlap.  Then the
+// row-tile body above runs with x from shared memory.
 //
 // dia_spmv_window stages, per tile of T rows starting at row i0, the union
 // of the diagonals' x windows [i0 + o, i0 + o + T) as disjoint pieces
@@ -149,48 +459,58 @@ cudaError_t launch_sym(const void* data, const void* x, const void* offsets,
 // the TPU kernel copied, does not fit for the 3-D stencil (span 93,312 at
 // nx=216); the union does (1,200 values for T = 256).
 
-constexpr int kStagedOffsetChunk = 256;  // 2 KB of offsets beside x
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async(double* dst, const double* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// one 16-byte piece of x into shared memory, `bytes` of it read (the rest
+// zero-filled)
+__device__ __forceinline__ void copy_piece(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
 }
 
-template <typename V, typename X>
-__global__ void __launch_bounds__(kThreads)
+// (64, 8): at most 128 registers, which every instantiation fits without
+// a spill (ptxas' own pick spilled a few bytes in some)
+template <typename V, typename X, bool kPieces>
+__global__ void __launch_bounds__(kResidentThreads, 8)
     dia_spmv_resident_kernel(const V* __restrict__ data, const X* __restrict__ x,
                              const int64_t* __restrict__ offsets, X* __restrict__ y,
-                             int64_t D, int64_t stride, int64_t n, int64_t m) {
+                             int64_t D, int64_t stride, int64_t n, int64_t m, int64_t o_lo,
+                             int64_t o_hi) {
+  using T = Tile<V, X, kPieces, true>;
+  constexpr int P = 16 / static_cast<int>(sizeof(X));
+  constexpr int64_t kTile = kResidentThreads * T::R;
   extern __shared__ __align__(16) unsigned char smem[];
   X* s_x = reinterpret_cast<X*>(smem);
-  __shared__ int64_t s_off[kStagedOffsetChunk];
-  for (int64_t e = threadIdx.x; e < m; e += blockDim.x) s_x[e] = x[e];
-  // stage_offsets' first __syncthreads publishes s_x
-  const int64_t tiles = (n + kThreads - 1) / kThreads;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t i = tile * kThreads + threadIdx.x;
-    X acc = X(0);
-    for (int64_t d0 = 0; d0 < D; d0 += kStagedOffsetChunk) {
-      const int64_t dn = D - d0 < kStagedOffsetChunk ? D - d0 : kStagedOffsetChunk;
-      stage_offsets(s_off, offsets, d0, dn);
-      if (i < n) {
-        for (int64_t t = 0; t < dn; ++t) {
-          const int64_t j = i + s_off[t];
-          if (j >= 0 && j < m) acc += to_x<X>(data[(d0 + t) * stride + i]) * s_x[j];
-        }
-      }
-    }
-    if (i < n) y[i] = acc;
+  __shared__ int64_t s_off[kResidentChunk], s_base[kResidentChunk];
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t i0 = t0 + threadIdx.x * T::R;
+  // the window: columns [w0, w1), staged from xlo, the first column of the
+  // aligned piece that holds w0 (s_x[j - xlo] = x[j])
+  const int64_t w0 = t0 + o_lo > 0 ? t0 + o_lo : 0;
+  const int64_t w1 = t0 + kTile + o_hi < m ? t0 + kTile + o_hi : m;
+  const int64_t xlo = w0 - static_cast<int64_t>((reinterpret_cast<uintptr_t>(x + w0) / sizeof(X)) &
+                                                (P - 1));
+  for (int64_t c = xlo + threadIdx.x * P; c < w1; c += kResidentThreads * P) {
+    const int64_t left = w1 - c;
+    copy_piece(s_x + (c - xlo), x + c, static_cast<int>((left < P ? left : P) * sizeof(X)));
   }
+  copy_commit();
+  const bool live = i0 < n;
+  T tile;
+  int dn = static_cast<int>(D < kResidentChunk ? D : kResidentChunk);
+  stage_chunk(s_off, s_base, offsets, 0, dn, stride);
+  // the first batch's values on their way into L2 while the window lands
+  if (live) {
+    for (int t = 0; t < dn && t < T::kBatch; ++t)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(data + s_base[t] + i0));
+  }
+  copy_wait<0>();
+  __syncthreads();
+  if (live) tile.run(data, s_x, xlo, s_off, s_base, 0, dn, i0, n, m);
+  for (int64_t d0 = kResidentChunk; d0 < D; d0 += kResidentChunk) {
+    dn = static_cast<int>(D - d0 < kResidentChunk ? D - d0 : kResidentChunk);
+    stage_chunk(s_off, s_base, offsets, d0, dn, stride);
+    if (live) tile.run(data, s_x, xlo, s_off, s_base, 0, dn, i0, n, m);
+  }
+  if (live) tile.store(y, i0, n);
 }
 
 template <typename V, typename X>
@@ -212,13 +532,14 @@ __global__ void __launch_bounds__(1024)
     for (int64_t e = threadIdx.x; e < len; e += T) {
       const int64_t c = c0 + e;
       if (c >= 0 && c < m) {
-        cp_async(s_x + b + e, x + c);
+        copy_async<sizeof(X)>(s_x + b + e, x + c, true);
       } else {
         s_x[b + e] = X(0);
       }
     }
   }
-  cp_async_wait_all();
+  copy_commit();
+  copy_wait<0>();
   __syncthreads();
   const int64_t i = i0 + threadIdx.x;
   if (i >= n) return;
@@ -232,34 +553,36 @@ __global__ void __launch_bounds__(1024)
   y[i] = acc;
 }
 
-// Opt a kernel in to `bytes` of dynamic shared memory.
+// Opt a kernel in to `bytes` of dynamic shared memory on `device`, once
+// for each larger size: `done` is the caller's record (one a kernel
+// instantiation) of the largest size set so far on each device.
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+cudaError_t allow_smem(K kernel, size_t bytes, int device, size_t (&done)[64]) {
+  const bool known = device >= 0 && device < 64;
+  if (known && bytes <= done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err == cudaSuccess && known) done[device] = bytes;
+  return err;
 }
 
-template <typename V, typename X>
-cudaError_t launch_resident(const void* data, const void* x, const void* offsets,
-                            void* y, int64_t D, int64_t stride, int64_t n, int64_t m,
-                            cudaStream_t stream) {
-  auto kernel = dia_spmv_resident_kernel<V, X>;
-  const size_t bytes = static_cast<size_t>(m) * sizeof(X);
-  cudaError_t err = allow_smem(kernel, bytes);
+template <typename V, typename X, bool kPieces>
+cudaError_t launch_resident(const void* data, const void* x, const void* offsets, void* y,
+                            int64_t D, int64_t stride, int64_t n, int64_t m, int64_t o_lo,
+                            int64_t o_hi, int device, cudaStream_t stream) {
+  constexpr int64_t P = 16 / sizeof(X);
+  constexpr int64_t kTile = kResidentThreads * rows_of<V>();
+  // the longest window: at most T + span and at most m columns, from the
+  // aligned piece that holds its first, in whole pieces
+  const int64_t cols = kTile + o_hi - o_lo < m ? kTile + o_hi - o_lo : m;
+  const size_t bytes = static_cast<size_t>((cols + 2 * P - 1) / P * P) * sizeof(X);
+  auto kernel = dia_spmv_resident_kernel<V, X, kPieces>;
+  static size_t done[64] = {};
+  cudaError_t err = allow_smem(kernel, bytes, device, done);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidValue;  // x does not fit
-  const int64_t tiles = (n + kThreads - 1) / kThreads;
-  const int64_t slots = static_cast<int64_t>(per_sm) * sms;
-  const unsigned grid = static_cast<unsigned>(tiles < slots ? tiles : slots);
-  kernel<<<grid, kThreads, bytes, stream>>>(
+  kernel<<<static_cast<unsigned>((n + kTile - 1) / kTile), kResidentThreads, bytes, stream>>>(
       static_cast<const V*>(data), static_cast<const X*>(x),
-      static_cast<const int64_t*>(offsets), static_cast<X*>(y), D, stride, n, m);
+      static_cast<const int64_t*>(offsets), static_cast<X*>(y), D, stride, n, m, o_lo, o_hi);
   return cudaGetLastError();
 }
 
@@ -267,11 +590,12 @@ template <typename V, typename X>
 cudaError_t launch_window(const void* data, const void* x, const void* offsets, void* y,
                           int64_t D, int64_t stride, int64_t n, int64_t m,
                           const void* plan, int64_t pieces, int64_t tile_rows,
-                          int64_t length, cudaStream_t stream) {
+                          int64_t length, int device, cudaStream_t stream) {
   if (tile_rows < 32 || tile_rows > 1024 || tile_rows % 32) return cudaErrorInvalidValue;
   auto kernel = dia_spmv_window_kernel<V, X>;
   const size_t bytes = static_cast<size_t>(length) * sizeof(X);
-  cudaError_t err = allow_smem(kernel, bytes);
+  static size_t done[64] = {};
+  cudaError_t err = allow_smem(kernel, bytes, device, done);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((n + tile_rows - 1) / tile_rows);
   kernel<<<grid, static_cast<unsigned>(tile_rows), bytes, stream>>>(
@@ -281,60 +605,75 @@ cudaError_t launch_window(const void* data, const void* x, const void* offsets, 
   return cudaGetLastError();
 }
 
+// Make `device` current unless it is.
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return err;
+}
+
+// f(V{}, X{}) for the instantiated (value, vector) pair of the dtype codes
+template <class F>
+cudaError_t by_dtype(int vtype, int xtype, F&& f) {
+  if (xtype == kF32) {
+    if (vtype == kF32) return f(float{}, float{});
+    if (vtype == kBF16) return f(__nv_bfloat16{}, float{});
+  } else if (xtype == kF64) {
+    if (vtype == kF64) return f(double{}, double{});
+    if (vtype == kF32) return f(float{}, double{});
+    if (vtype == kBF16) return f(__nv_bfloat16{}, double{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int sigma_dia_spmv(int device, int vtype, int xtype, const void* data,
                               const void* x, const void* offsets, void* y,
                               int64_t D, int64_t stride, int64_t n, int64_t m,
                               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (xtype == kF32) {
-    if (vtype == kF32) return launch_full<float, float>(data, x, offsets, y, D, stride, n, m, s);
-    if (vtype == kBF16) return launch_full<__nv_bfloat16, float>(data, x, offsets, y, D, stride, n, m, s);
-  } else if (xtype == kF64) {
-    if (vtype == kF64) return launch_full<double, double>(data, x, offsets, y, D, stride, n, m, s);
-    if (vtype == kF32) return launch_full<float, double>(data, x, offsets, y, D, stride, n, m, s);
-    if (vtype == kBF16) return launch_full<__nv_bfloat16, double>(data, x, offsets, y, D, stride, n, m, s);
-  }
-  return cudaErrorInvalidValue;
+  return by_dtype(vtype, xtype, [&](auto v, auto xv) {
+    using V = decltype(v);
+    using X = decltype(xv);
+    return value_pieces<V>(data, stride)
+               ? launch_full<V, X, true>(data, x, offsets, y, D, stride, n, m, device, s)
+               : launch_full<V, X, false>(data, x, offsets, y, D, stride, n, m, device, s);
+  });
 }
 
 extern "C" int sigma_dia_sym_spmv(int device, int vtype, int xtype,
                                   const void* data, const void* x,
                                   const void* offsets, void* y, int64_t D,
                                   int64_t stride, int64_t n, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (xtype == kF32) {
-    if (vtype == kF32) return launch_sym<float, float>(data, x, offsets, y, D, stride, n, s);
-    if (vtype == kBF16) return launch_sym<__nv_bfloat16, float>(data, x, offsets, y, D, stride, n, s);
-  } else if (xtype == kF64) {
-    if (vtype == kF64) return launch_sym<double, double>(data, x, offsets, y, D, stride, n, s);
-    if (vtype == kF32) return launch_sym<float, double>(data, x, offsets, y, D, stride, n, s);
-    if (vtype == kBF16) return launch_sym<__nv_bfloat16, double>(data, x, offsets, y, D, stride, n, s);
-  }
-  return cudaErrorInvalidValue;
+  return by_dtype(vtype, xtype, [&](auto v, auto xv) {
+    return launch_sym<decltype(v), decltype(xv)>(data, x, offsets, y, D, stride, n, s);
+  });
 }
 
+// (..., D, stride, n, m, o_lo, o_hi: the least and greatest offset, stream)
 extern "C" int sigma_dia_spmv_resident(int device, int vtype, int xtype, const void* data,
                                        const void* x, const void* offsets, void* y,
                                        int64_t D, int64_t stride, int64_t n, int64_t m,
-                                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                       int64_t o_lo, int64_t o_hi, void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (xtype == kF32) {
-    if (vtype == kF32) return launch_resident<float, float>(data, x, offsets, y, D, stride, n, m, s);
-    if (vtype == kBF16) return launch_resident<__nv_bfloat16, float>(data, x, offsets, y, D, stride, n, m, s);
-  } else if (xtype == kF64) {
-    if (vtype == kF64) return launch_resident<double, double>(data, x, offsets, y, D, stride, n, m, s);
-    if (vtype == kF32) return launch_resident<float, double>(data, x, offsets, y, D, stride, n, m, s);
-    if (vtype == kBF16) return launch_resident<__nv_bfloat16, double>(data, x, offsets, y, D, stride, n, m, s);
-  }
-  return cudaErrorInvalidValue;
+  return by_dtype(vtype, xtype, [&](auto v, auto xv) {
+    using V = decltype(v);
+    using X = decltype(xv);
+    return value_pieces<V>(data, stride)
+               ? launch_resident<V, X, true>(data, x, offsets, y, D, stride, n, m, o_lo, o_hi,
+                                             device, s)
+               : launch_resident<V, X, false>(data, x, offsets, y, D, stride, n, m, o_lo, o_hi,
+                                              device, s);
+  });
 }
 
 extern "C" int sigma_dia_spmv_window(int device, int vtype, int xtype, const void* data,
@@ -342,16 +681,11 @@ extern "C" int sigma_dia_spmv_window(int device, int vtype, int xtype, const voi
                                      int64_t D, int64_t stride, int64_t n, int64_t m,
                                      const void* plan, int64_t pieces, int64_t tile_rows,
                                      int64_t length, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (xtype == kF32) {
-    if (vtype == kF32) return launch_window<float, float>(data, x, offsets, y, D, stride, n, m, plan, pieces, tile_rows, length, s);
-    if (vtype == kBF16) return launch_window<__nv_bfloat16, float>(data, x, offsets, y, D, stride, n, m, plan, pieces, tile_rows, length, s);
-  } else if (xtype == kF64) {
-    if (vtype == kF64) return launch_window<double, double>(data, x, offsets, y, D, stride, n, m, plan, pieces, tile_rows, length, s);
-    if (vtype == kF32) return launch_window<float, double>(data, x, offsets, y, D, stride, n, m, plan, pieces, tile_rows, length, s);
-    if (vtype == kBF16) return launch_window<__nv_bfloat16, double>(data, x, offsets, y, D, stride, n, m, plan, pieces, tile_rows, length, s);
-  }
-  return cudaErrorInvalidValue;
+  return by_dtype(vtype, xtype, [&](auto v, auto xv) {
+    return launch_window<decltype(v), decltype(xv)>(data, x, offsets, y, D, stride, n, m, plan,
+                                                    pieces, tile_rows, length, device, s);
+  });
 }

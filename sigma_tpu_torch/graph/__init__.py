@@ -14,6 +14,7 @@ from sigma_tpu_torch.graph.graph import (
     DIAGraph,
     ELLGraph,
     Graph,
+    compress_coo,
 )
 from sigma_tpu_torch.graph.permutations import (
     breadth_first_search,
@@ -36,6 +37,7 @@ __all__ = [
     "breadth_first_search_reference",
     "build_graph",
     "choose_graph_type",
+    "compress_coo",
     "convert_graph",
     "num_graph_types",
     "reverse_cuthill_mckee",

@@ -46,7 +46,7 @@ from sigma_tpu_torch.ops.spmm_dia import (
     dia_spmm_grouped,
     interleave_panels,
 )
-from sigma_tpu_torch.ops.spmv_dia import dia_spmv
+from sigma_tpu_torch.ops.spmv_dia import dia_spmv, dia_spmv_operator
 from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import (
     default_real_dtype,
@@ -146,6 +146,8 @@ class DIAMatrix(SparseMatrix):
     data: torch.Tensor  # (n_diags, stride)
     # the offsets as an int64 tensor on data's device, for the kernel
     offsets_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # data and offsets_dev checked once for the kernel: contiguous on CUDA
+    _kernel_ready: bool = dataclasses.field(init=False, repr=False)
 
     format: ClassVar[str] = "dia"
     is_get_row_fast: ClassVar[bool] = True
@@ -159,6 +161,9 @@ class DIAMatrix(SparseMatrix):
             self,
             "offsets_dev",
             torch.tensor(self.graph.offsets, dtype=index_dtype, device=self.data.device),
+        )
+        object.__setattr__(
+            self, "_kernel_ready", self.data.device.type == "cuda" and self.data.is_contiguous()
         )
 
     @classmethod
@@ -210,11 +215,18 @@ class DIAMatrix(SparseMatrix):
     def offsets(self):
         return self.graph.offsets
 
+    @property
+    def data2d(self) -> torch.Tensor:
+        """(n_diags, stride) view: ``data2d[d, i] = A[i, i + offsets[d]]``.
+        The JAX package's layout-free accessor over its (D, S, 128) tiles;
+        here ``data`` has that shape already, so it is ``data``."""
+        return self.data
+
     def matvec(self, x):
         n, m = self.shape
         if not self.graph.offsets:
             return torch.zeros(n, dtype=x.dtype, device=x.device)
-        return dia_spmv(self.data, x, self.offsets_dev, n, m)
+        return dia_spmv_operator(self.data, x, self.offsets_dev, n, m, self._kernel_ready)
 
     def _transposed_data(self):
         """(dataT, offsetsT) of A^T in DIA layout: A^T's diagonal -o holds

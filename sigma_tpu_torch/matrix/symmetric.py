@@ -72,6 +72,12 @@ class SymmetricDIAMatrix(LinearOperator):
         return self.data.device
 
     @property
+    def data2d(self) -> torch.Tensor:
+        """(n_upper_diags, stride) view: ``data2d[d, i] = A[i, i +
+        offsets[d]]``; ``data`` itself, which has that shape already."""
+        return self.data
+
+    @property
     def nnz(self) -> int:
         n = self.n
         return sum((n - o) * (1 if o == 0 else 2) for o in self.offsets)

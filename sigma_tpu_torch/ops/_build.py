@@ -131,7 +131,10 @@ def library() -> ctypes.CDLL:
     lib.sigma_dia_spmm_grouped.restype = i32
     lib.sigma_dia_spmm_grouped_config.argtypes = [i32, i32, ptr]
     lib.sigma_dia_spmm_grouped_config.restype = i32
-    lib.sigma_dia_spmv_resident.argtypes = lib.sigma_dia_spmv.argtypes
+    # (..., D, stride, n, m, least offset, greatest offset, stream)
+    lib.sigma_dia_spmv_resident.argtypes = [
+        i32, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
+    ]
     lib.sigma_dia_spmv_resident.restype = i32
     # (..., D, stride, n, m, plan, pieces, tile_rows, length, stream)
     lib.sigma_dia_spmv_window.argtypes = [

@@ -7,8 +7,8 @@ Ports of four Pallas TPU kernels (``sigma_tpu/ops/spmv_pallas.py``):
 * :func:`dia_sym_spmv` <- ``dia_sym_spmv_pallas_blocked``: y = A x from the
   upper diagonals of a symmetric matrix;
 * :func:`dia_spmv_resident` <- the VMEM-resident body of
-  ``dia_spmv_pallas``: the same y = A x with the whole x staged in each
-  block's shared memory;
+  ``dia_spmv_pallas``: the same y = A x for an x that fits one block's
+  shared memory, each block staging the columns its row tile reads;
 * :func:`dia_spmv_window` <- the manual-DMA body of ``dia_spmv_pallas``:
   the same with each row tile's x window copied into shared memory by
   asynchronous copies.
@@ -44,6 +44,7 @@ __all__ = [
     "KERNEL_DTYPES",
     "STAGED_SMEM_BYTES",
     "dia_spmv",
+    "dia_spmv_operator",
     "dia_spmv_reference",
     "dia_spmv_resident",
     "dia_spmv_staged",
@@ -118,9 +119,9 @@ def _check(data, x, offsets, n, m):
         )
 
 
-def _launch(entry, data, x, offsets, y_shape, n, *extra):
-    """Launch one kernel on the current stream; returns y of ``y_shape``
-    in x's dtype.  Raises on anything the kernel does not take."""
+def _check_kernel_operands(data, x, offsets):
+    """Raise unless the kernel takes these operands: a CUDA device, a dtype
+    pair of KERNEL_DTYPES, contiguous tensors."""
     if x.device.type != "cuda":
         raise ValueError(f"no DIA kernel for device {x.device}")
     if (data.dtype, x.dtype) not in KERNEL_DTYPES:
@@ -130,12 +131,25 @@ def _launch(entry, data, x, offsets, y_shape, n, *extra):
     for name, t in (("data", data), ("x", x), ("offsets", offsets)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    y = torch.empty(y_shape, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(entry, data, x, offsets, y_shape, n, *extra):
+    """Launch one kernel on the current stream; returns y of ``y_shape``
+    in x's dtype.  Raises on anything the kernel does not take."""
+    _check_kernel_operands(data, x, offsets)
+    return _launch_checked(entry, data, x, offsets, y_shape, n, *extra)
+
+
+def _launch_checked(entry, data, x, offsets, y_shape, n, *extra):
+    """:func:`_launch` on operands already checked."""
+    y = x.new_empty(y_shape)
+    dev = x.get_device()
     rc = getattr(_build.library(), entry)(
-        x.device.index, _CODES[data.dtype], _CODES[x.dtype],
+        dev, _CODES[data.dtype], _CODES[x.dtype],
         data.data_ptr(), x.data_ptr(), offsets.data_ptr(), y.data_ptr(),
-        data.shape[0], data.shape[1], n, *extra, stream,
+        data.shape[0], data.shape[1], n, *extra,
+        # the current stream's handle without building a Stream object
+        torch._C._cuda_getCurrentRawStream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {rc}")
@@ -146,18 +160,42 @@ def dia_spmv(data, x, offsets, n, m):
     """y = A x for the n x m DIA matrix ``data[d, i] = A[i, i + offsets[d]]``.
 
     ``data`` is (D, stride >= n), ``x`` is (m,), ``offsets`` an int64
-    tensor of D offsets on the same device; y is (n,) in x's dtype."""
+    tensor of D offsets on the same device; y is (n,) in x's dtype.
+    Checks every operand on every call (:meth:`DIAMatrix.matvec` checks
+    its fixed arrays once, at construction, and calls
+    :func:`dia_spmv_operator`)."""
     _check(data, x, offsets, n, m)
     if x.device.type == "cpu":
         return dia_spmv_reference(data, x, offsets, n, m)
+    return _spmv_launch(data, x, offsets, n, m, checked=False)
+
+
+dia_spmv.launches = 0
+
+
+def _spmv_launch(data, x, offsets, n, m, checked):
     if n == 0:
         return torch.empty(0, dtype=x.dtype, device=x.device)
-    y = _launch("sigma_dia_spmv", data, x, offsets, (n,), n, m)
+    y = (_launch_checked if checked else _launch)("sigma_dia_spmv", data, x, offsets, (n,), n, m)
     dia_spmv.launches += 1
     return y
 
 
-dia_spmv.launches = 0
+def dia_spmv_operator(data, x, offsets, n, m, kernel_ready):
+    """:func:`dia_spmv` for an operator whose ``data`` and ``offsets`` were
+    checked once (shapes, devices, offsets int64; ``kernel_ready``: both
+    contiguous on a CUDA device): checks x alone, then runs the plain
+    version for a CPU x or launches the kernel, counted in
+    ``dia_spmv.launches``."""
+    if x.ndim != 1 or x.shape[0] != m:
+        raise ValueError(f"x has shape {tuple(x.shape)}, want ({m},)")
+    dev = x.device
+    if dev != data.device:
+        raise ValueError(f"operands on different devices: data {data.device}, x {dev}")
+    if dev.type == "cpu":
+        return dia_spmv_reference(data, x, offsets, n, m)
+    checked = kernel_ready and (data.dtype, x.dtype) in KERNEL_DTYPES and x.is_contiguous()
+    return _spmv_launch(data, x, offsets, n, m, checked)
 
 
 def dia_sym_spmv(data, x, offsets, n):
@@ -179,10 +217,10 @@ dia_sym_spmv.launches = 0
 
 # -- staged-x SpMV: kernels #5 and #6 -------------------------------------
 # The shared memory one block may hold on an H100: 232,448 bytes with the
-# opt-in above 48 KB (sharedMemPerBlockOptin), less the 2,048 bytes of
-# offsets the resident kernel stages beside x.  So the resident kernel takes
-# x of up to 57,600 f32 or 28,800 f64 values; the windowed kernel a union
-# window of as many.
+# opt-in above 48 KB (sharedMemPerBlockOptin), less 2,048 bytes beside x
+# (the resident kernel's offsets and value-row bases, and its window's
+# alignment slack).  So the resident route takes x of up to 57,600 f32 or
+# 28,800 f64 values; the windowed kernel a union window of as many.
 STAGED_SMEM_BYTES = 232_448 - 2_048
 
 
@@ -239,30 +277,42 @@ def _staged_operands(offsets, tile_rows, device):
     return offs, plan, int(starts.size), int(bases[-1])
 
 
+@functools.lru_cache(maxsize=64)
+def _resident_operands(offsets, device):
+    """(offsets tensor on ``device``, least offset, greatest offset), made
+    once per offset tuple: the resident kernel's window bounds."""
+    offs = torch.tensor(offsets, dtype=torch.int64, device=device)
+    return offs, min(offsets, default=0), max(offsets, default=0)
+
+
 def _offset_tuple(offsets):
+    if type(offsets) is tuple:
+        return offsets
     if isinstance(offsets, torch.Tensor):
         return tuple(offsets.tolist())
     return tuple(int(o) for o in offsets)
 
 
 def dia_spmv_resident(data, x, offsets, n, m):
-    """y = A x as :func:`dia_spmv` computes it, by the kernel that stages
-    the whole x in each block's shared memory once and walks row tiles
-    from there.  ``offsets`` is a sequence of ints (or an int64 tensor,
-    read back once).  Raises ValueError when x does not fit
-    (``m * itemsize > STAGED_SMEM_BYTES``)."""
-    offs = _staged_operands(_offset_tuple(offsets), 256, x.device)[0]
+    """y = A x as :func:`dia_spmv` computes it, by the kernel for an x that
+    fits one block's shared memory: each block stages the columns its row
+    tile reads (at most m values) and computes from there.  ``offsets`` is
+    a sequence of ints (or an int64 tensor, read back once).  Raises
+    ValueError when x does not fit (``m * itemsize > STAGED_SMEM_BYTES``),
+    as the JAX package routes such an x away from its resident body."""
+    dev = x.device
+    offs, lo, hi = _resident_operands(_offset_tuple(offsets), dev)
     _check(data, x, offs, n, m)
     if m * x.element_size() > STAGED_SMEM_BYTES:
         raise ValueError(
             f"x of {m} {x.dtype} values ({m * x.element_size()} bytes) does not fit "
             f"one block's shared memory ({STAGED_SMEM_BYTES} bytes)"
         )
-    if x.device.type == "cpu":
+    if dev.type == "cpu":
         return dia_spmv_reference(data, x, offs, n, m)
     if n == 0:
         return torch.empty(0, dtype=x.dtype, device=x.device)
-    y = _launch("sigma_dia_spmv_resident", data, x, offs, (n,), n, m)
+    y = _launch("sigma_dia_spmv_resident", data, x, offs, (n,), n, m, lo, hi)
     dia_spmv_resident.launches += 1
     return y
 

@@ -51,21 +51,61 @@ def _tol(xdt):
     return 1e-12 if xdt == torch.float64 else 1e-5
 
 
+def _offset_view(t, k):
+    """A contiguous copy of t that starts k elements into a larger store
+    (off a 16-byte boundary for k = 1)."""
+    store = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    v = store[k:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+# dia_spmv's load forms: 16-byte value pieces (stride a multiple of 128) or
+# one value a load (an odd stride, values or x off a 16-byte boundary); n
+# not a whole number of a thread's rows, n smaller than one block, offsets
+# past +-n, and more diagonals than one staged chunk of 128
+_MANY = sorted(int(o) for o in np.random.default_rng(24).choice(np.arange(-3000, 3001), 300,
+                                                                replace=False))
+
+
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
 @pytest.mark.parametrize(
-    "n,m,offsets",
+    "n,m,offsets,form",
     [
-        (50_000, 50_000, [-2500, -300, -1, 0, 1, 300, 2500]),
-        (60_000, 45_001, [-2500, -300, 0, 4, 2500]),
-        (45_001, 60_000, [-4, -1, 0, 300, 2500]),
-        (70_000, 70_000, [0]),
+        (50_000, 50_000, [-2500, -300, -1, 0, 1, 300, 2500], "aligned"),
+        (60_000, 45_001, [-2500, -300, 0, 4, 2500], "aligned"),
+        (45_001, 60_000, [-4, -1, 0, 300, 2500], "aligned"),
+        (70_000, 70_000, [0], "aligned"),
+        (33_333, 33_333, [-300, -1, 0, 1, 2, 3, 300], "odd_stride"),
+        (50_003, 49_999, [-2500, -3, -1, 0, 1, 7, 2500], "aligned"),
+        (100, 90, [-7, -1, 0, 1, 2, 50], "aligned"),
+        (37, 41, [-5, 0, 3], "odd_stride"),
+        (20_000, 20_000, [-20_005, -20_000, -1, 0, 1, 20_000, 20_003], "aligned"),
+        (20_001, 25_000, _MANY, "aligned"),
+        (20_001, 25_000, _MANY, "odd_stride"),
+        (30_000, 30_000, [-300, -1, 0, 1, 300], "values_off_16"),
+        (30_000, 30_000, [-300, -1, 0, 1, 300], "x_off_16"),
     ],
 )
-def test_dia_spmv_kernel(cuda, pair, n, m, offsets):
+def test_dia_spmv_kernel(cuda, pair, n, m, offsets, form):
     vdt, xdt = pair
     g = torch.Generator(device=cuda).manual_seed(0)
-    data = torch.randn(len(offsets), -(-n // 128) * 128, generator=g, device=cuda).to(vdt)
+    if form == "odd_stride":
+        stride = n + 1 + n % 2
+    else:
+        stride = -(-n // 128) * 128
+    # NaN in every slot outside the matrix: an out-of-range term must be
+    # skipped, never multiplied by zero
+    data = torch.randn(len(offsets), stride, generator=g, device=cuda, dtype=torch.float64)
+    rows = torch.arange(stride, device=cuda)
+    cols = rows[None, :] + torch.tensor(offsets, device=cuda)[:, None]
+    data[~((rows[None, :] < n) & (cols >= 0) & (cols < m))] = float("nan")
+    data = data.to(vdt)
     x = torch.randn(m, generator=g, device=cuda).to(xdt)
+    if form == "values_off_16":
+        data = _offset_view(data, 1)
+    if form == "x_off_16":
+        x = _offset_view(x, 1)
     offs = torch.tensor(offsets, device=cuda)
     before = dia_spmv.launches
     y = dia_spmv(data, x, offs, n, m)
@@ -427,7 +467,9 @@ def _band(cuda, rng, n, m, offsets, vdt):
     data = np.zeros((len(offsets), -(-n // 128) * 128))
     for d, o in enumerate(offsets):
         lo, hi = max(0, -o), min(n, m - o)
-        data[d, lo:hi] = rng.standard_normal(max(hi - lo, 0))
+        v = rng.standard_normal(max(hi - lo, 0))
+        if hi > lo:  # a diagonal past the matrix (|o| >= n) has no slots
+            data[d, lo:hi] = v
     return torch.from_numpy(data).to(cuda, vdt), torch.tensor(offsets, device=cuda)
 
 
@@ -487,14 +529,19 @@ def test_dia_spmm_grouped_kernel_without_diagonals(cuda, pair, layout):
     assert not Y.any()
 
 
+# n = m: 20,001 (unaligned; x fits shared memory in f32 and f64), a
+# multigrid level's 16,384 and 28,800 (the most f64 values the resident
+# route takes), and fewer rows than one resident tile
+@pytest.mark.parametrize("n", [20_001, 16_384, 28_800, 100])
 @pytest.mark.parametrize("tile_rows", [128, 256])
-@pytest.mark.parametrize("offsets", [[-3000, -300, -1, 0, 1, 300, 3000], list(range(-122, 123))],
-                         ids=["reach_past_a_tile", "band"])
+@pytest.mark.parametrize("offsets", [[-3000, -300, -1, 0, 1, 300, 3000], list(range(-122, 123)),
+                                     [-9, -4, -1, 0, 1, 4, 9]],
+                         ids=["reach_past_a_tile", "band", "narrow_band"])
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
-def test_staged_spmv_kernels(cuda, pair, offsets, tile_rows):
+def test_staged_spmv_kernels(cuda, pair, offsets, tile_rows, n):
     vdt, xdt = pair
     rng = np.random.default_rng(22)
-    n = m = 20_001  # unaligned; x fits shared memory in f32 and f64
+    m = n
     data, offs = _band(cuda, rng, n, m, offsets, vdt)
     x = torch.from_numpy(rng.standard_normal(m)).to(cuda, xdt)
     ref = dia_spmv_reference(data, x, offs, n, m)

@@ -179,3 +179,39 @@ def test_wrapper_checks_operands():
         dia_spmv(data, x, offs, 200, 100)
     with pytest.raises(ValueError, match="no DIA kernel for device"):
         dia_spmv(data.to("meta"), x.to("meta"), offs.to("meta"), 100, 100)
+
+
+def test_matvec_checks_x_and_launches_on_a_device(monkeypatch):
+    """DIAMatrix.matvec checks x alone (its arrays were checked at
+    construction) and, on a device tensor (``meta`` stands in for CUDA),
+    launches the kernel once, counted in ``dia_spmv.launches``; the plain
+    version is never called.  The resident entry passes the offsets' least
+    and greatest value to its kernel, which stages only that window."""
+    from sigma_tpu_torch.ops import spmv_dia
+
+    launched = []
+
+    def fake_launch(entry, data, x, offsets, shape, n, *extra):
+        assert data.device == x.device == offsets.device
+        launched.append((entry, extra))
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("plain version called for a device tensor")
+
+    monkeypatch.setattr(spmv_dia, "_launch", fake_launch)
+    monkeypatch.setattr(spmv_dia, "_launch_checked", fake_launch)
+    monkeypatch.setattr(spmv_dia, "dia_spmv_reference", no_plain)
+    A = st.laplacian_3d_dia(6, torch.float32, device="cpu").to("meta")
+    n = A.shape[0]
+    before = dia_spmv.launches
+    assert A.matvec(torch.empty(n, device="meta")).shape == (n,)
+    assert dia_spmv.launches == before + 1
+    assert launched == [("sigma_dia_spmv", (n,))]
+    with pytest.raises(ValueError, match="shape"):
+        A.matvec(torch.empty(n + 1, device="meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        A.matvec(torch.empty(n))
+    launched.clear()
+    spmv_dia.dia_spmv_staged(A.data, torch.empty(n, device="meta"), A.offsets, n, n)
+    assert launched == [("sigma_dia_spmv_resident", (n, -36, 36))]
