@@ -6,12 +6,17 @@
 Builds the DIA, grouped, staged, pruned and grouped-BSR SpMV and SpMM
 kernels from ``sigma_tpu_torch/csrc/`` with nvcc (and the host library with
 g++), checks each against its plain PyTorch version on the card (every
-dtype pair; the full-storage SpMV at each of its load forms: odd strides,
-values or x off a 16-byte boundary, n not a whole number of a thread's
-rows or below one block, offsets past +-n, more diagonals than one staged
-chunk; the resident staged SpMV at a 32,768-row level and below one row
-tile; for SpMM every panel layout and k in {1, 3, 8, 16}, and the
-full-storage SpMM at k in {1, 3, 4, 5, 8, 9, 12, 16} on eight offset sets
+dtype pair; the full-storage and symmetric SpMVs at each of their load
+forms: odd strides, values or x off a 16-byte boundary, n not a whole
+number of a thread's rows or below one block, offsets at and past +-n,
+more diagonals than one staged chunk, the symmetric one with and without
+a main diagonal and launched twice for the same bits; the resident staged
+SpMV at a 32,768-row level and below one row tile; the windowed staged
+SpMV at tile_rows 32 to 1024 on a piece that starts off a 16-byte
+boundary, the stencil's far offsets, a band and below one tile, launched
+twice and bit for bit against the full-storage SpMV; for SpMM every
+panel layout and k in {1, 3, 8, 16}, and the full-storage SpMM at k in
+{1, 3, 4, 5, 8, 9, 12, 16} on eight offset sets
 and value strides with NaN in every slot outside the matrix; the grouped
 SpMM in both of its layouts at k in {1, 17, 24, 32, 33, 48} on
 five offset sets, and with no diagonals; the grouped-BSR kernel in every
@@ -255,9 +260,10 @@ SPMM_INSTANTIATIONS = 13
 # pair, column tile and load width (16-byte pieces or one value)
 BSR_KERNELS = ("bsr_wide_kernel", "bsr_narrow_kernel")
 BSR_INSTANTIATIONS = 7 * 4 + 7 * 4 * 2
-# the DIA SpMV (dia_spmv.cu) #1 and #5: one instantiation a dtype pair and
-# value-load form (16-byte pieces, or one value a load) each
-DIA_SPMV_KERNELS = ("dia_spmv_kernel", "dia_spmv_resident_kernel")
+# the DIA SpMVs (dia_spmv.cu) #1, #2, #5 and #6: one instantiation a dtype
+# pair and value-load form (16-byte pieces, or one value a load) each
+DIA_SPMV_KERNELS = ("dia_spmv_kernel", "dia_sym_spmv_kernel", "dia_spmv_resident_kernel",
+                    "dia_spmv_window_kernel")
 DIA_SPMV_INSTANTIATIONS = 5 * 2
 
 
@@ -317,7 +323,8 @@ def phase_build():
           if bsr else None,
           "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in bsr)})
     emit({"phase": "build_dia_spmv", "instantiations": dia_spmv,
-          "dynamic_smem": "dia_spmv none; dia_spmv_resident its window, at most m values"})
+          "dynamic_smem": "dia_spmv and dia_sym_spmv none; dia_spmv_resident its window, at "
+                          "most m values; dia_spmv_window its tile's aligned pieces"})
     if not spills or any(spills):
         raise AssertionError(f"ptxas spill stores per kernel: {spills}")
     for k, rows in dia_spmv.items():
@@ -400,13 +407,32 @@ def phase_kernels(device):
         ("no_main_unaligned", 33_333, [1, 130, 259]),
         ("wide_band", 40_000, sorted({abs(o) for o in band})),
     ]
+    # dia_sym_spmv's load forms (NaN in every slot outside the matrix):
+    # mirror offsets that are and are not multiples of a thread's rows, an
+    # odd stride and values or x off a 16-byte boundary, n not a whole
+    # number of a thread's rows, n below one block, offsets at and past n,
+    # no main diagonal, more diagonals than one staged chunk of 256
+    many_upper = sorted(int(o) for o in rng.choice(np.arange(0, 3001), 300, replace=False))
+    sym_form_cases = [
+        ("odd_offsets", 40_001, [0, 1, 2, 3, 5, 7, 122], "aligned"),
+        ("odd_stride", 33_333, [0, 1, 30, 259], "odd_stride"),
+        ("values_off_16", 30_000, [0, 1, 3, 300], "values_off_16"),
+        ("x_off_16", 30_000, [0, 1, 3, 300], "x_off_16"),
+        ("rows_not_whole", 50_003, [0, 1, 5, 250], "aligned"),
+        ("below_one_block", 37, [0, 1, 2, 5], "aligned"),
+        ("below_one_block_odd_stride", 37, [0, 3, 36], "odd_stride"),
+        ("at_and_past_n", 20_000, [0, 1, 19_999, 20_000, 20_003], "aligned"),
+        ("no_main", 33_333, [1, 130, 259], "aligned"),
+        ("many_diagonals", 20_001, many_upper, "aligned"),
+        ("many_diagonals_odd_stride", 20_001, many_upper, "odd_stride"),
+    ]
 
     def tol(vdt, xdt):
         # accumulation is in x's dtype; values widen exactly
         return 1e-12 if xdt == torch.float64 else 1e-5
 
     worst = {"dia_spmv": 0.0, "dia_sym_spmv": 0.0}
-    worst_form = {}
+    worst_form, worst_sym_form = {}, {}
     count = 0
     for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
         for name, n, m, offs in full_cases:
@@ -451,6 +477,23 @@ def phase_kernels(device):
                 raise AssertionError(f"dia_sym_spmv {name} {vdt}/{xdt}: rel err {e:.3e}")
             worst["dia_sym_spmv"] = max(worst["dia_sym_spmv"], e)
             count += 1
+        for name, n, offs, form in sym_form_cases:
+            stride = n + 1 + n % 2 if form == "odd_stride" else -(-n // 128) * 128
+            # slot (d, i) lies inside for i < n - o: dia_spmv's mask at m = n
+            data, off_t = nan_outside_dia(g, n, n, offs, stride, vdt, device)
+            x = torch.randn(n, generator=g, device=device, dtype=torch.float64).to(xdt)
+            if form == "values_off_16":
+                data = off_16(data)
+            elif form == "x_off_16":
+                x = off_16(x)
+            y, y2 = dia_sym_spmv(data, x, off_t, n), dia_sym_spmv(data, x, off_t, n)
+            torch.cuda.synchronize()
+            e = rel_err(y, dia_sym_spmv_reference(data, x, off_t, n))
+            if not (e <= tol(vdt, xdt) and torch.equal(y, y2)):
+                raise AssertionError(f"dia_sym_spmv {name} {vdt}/{xdt}: rel err {e:.3e}, "
+                                     f"repeat bitwise equal {torch.equal(y, y2)}")
+            worst_sym_form[name] = max(worst_sym_form.get(name, 0.0), e)
+            count += 1
     # the format layer: rmatvec of a tall matrix through the transposed
     # layout, against the same matrix on the CPU (plain version)
     n, m, offs = 60_000, 45_001, [0, 4, -300, 2500, -2500]
@@ -466,6 +509,8 @@ def phase_kernels(device):
     emit({"phase": "kernel_checks", "cases": count + 1,
           "worst_rel_err": {k: float(v) for k, v in worst.items()},
           "dia_spmv_load_forms_worst_rel_err": worst_form,
+          "dia_sym_spmv_load_forms_worst_rel_err": worst_sym_form,
+          "dia_sym_spmv_load_forms_repeat": "two launches a case, bitwise equal",
           "rmatvec_rel_err": e,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
@@ -2015,6 +2060,7 @@ def staged_checks(device, levels, stencil):
             worst[label] = max(worst.get(label, 0.0), e)
     emit({"phase": "staged_checks_resident", "worst_rel_err": worst, "dtype_pairs": 5,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
+    window_checks(device, g)
     for (label, A), dma in [(lv, False) for lv in levels] + [(stencil, True)]:
         n = A.shape[0]
         x = torch.rand(n, generator=g, device=device)
@@ -2029,6 +2075,57 @@ def staged_checks(device, levels, stencil):
     emit({"phase": "staged_checks", "max_abs_err": {k: v[0] for k, v in out.items()},
           "tolerance": "1e-5 relative (f32 vectors)"})
     return out
+
+
+# dia_spmv_window's check cases: (label, n, offsets, tile_rows); each also
+# with x off a 16-byte boundary (one value a copy)
+WINDOW_CASES = (
+    ("reach_past_a_tile", 20_001, [-3000, -300, -1, 0, 1, 300, 3000], (32, 128, 256, 1024)),
+    ("misaligned_piece", 9_999, [-301, -3, 0, 2, 5, 299], (32, 128, 1024)),
+    ("stencil_far_offsets", 100_000, [-46_656, -216, -1, 0, 1, 216, 46_656], (256, 1024)),
+    ("band", 65_536, list(range(-122, 123)), (32, 256)),
+    ("below_one_tile", 100, [-9, -4, -1, 0, 1, 4, 9], (32, 256, 1024)),
+)
+
+
+def window_checks(device, g):
+    """dia_spmv_window in every dtype pair at tile_rows 32 to 1024: a
+    piece whose first column lies off a 16-byte boundary, the stencil's
+    far offsets, a band, fewer rows than one tile, x aligned and off a
+    16-byte boundary, NaN in every slot outside the matrix.  Each launched
+    twice (bitwise equal), against its plain version, and bit for bit
+    against dia_spmv (#1) on the same operands: the same row-tile body in
+    the same order."""
+    import torch
+
+    from sigma_tpu_torch.ops import KERNEL_DTYPES, dia_spmv, dia_spmv_reference, dia_spmv_window
+
+    worst, count = {}, 0
+    for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
+        tol = 1e-12 if xdt == torch.float64 else 1e-5
+        for label, n, offs, tiles in WINDOW_CASES:
+            data, off_t = nan_outside_dia(g, n, n, offs, -(-n // 128) * 128, vdt, device)
+            for x_form in ("aligned", "x_off_16"):
+                x = torch.randn(n + 1, generator=g, device=device, dtype=torch.float64).to(xdt)
+                x = x[1:] if x_form == "x_off_16" else x[:n]
+                y1 = dia_spmv(data, x, off_t, n, n)
+                ref = dia_spmv_reference(data, x, off_t, n, n)
+                for tile_rows in tiles:
+                    y = dia_spmv_window(data, x, offs, n, n, tile_rows=tile_rows)
+                    y2 = dia_spmv_window(data, x, offs, n, n, tile_rows=tile_rows)
+                    torch.cuda.synchronize()
+                    e = rel_err(y, ref)
+                    if not (e <= tol and torch.equal(y, y2) and torch.equal(y, y1)):
+                        raise AssertionError(
+                            f"dia_spmv_window {label} {x_form} tile_rows={tile_rows} "
+                            f"{vdt}/{xdt}: rel err {e:.3e}, repeat bitwise equal "
+                            f"{torch.equal(y, y2)}, bitwise dia_spmv's {torch.equal(y, y1)}")
+                    key = f"{label}/{x_form}"
+                    worst[key] = max(worst.get(key, 0.0), e)
+                    count += 1
+    emit({"phase": "staged_checks_window", "cases": count, "worst_rel_err": worst,
+          "dtype_pairs": 5, "bitwise": "two launches equal, and equal to dia_spmv's y",
+          "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
 
 def phase_staged(device, levels, stencil, checks, band_window_row):

@@ -8,7 +8,8 @@ diagonals with offset >= 0 are stored; the lower triangle is the mirror
         + sum_{o>0}  win(data[o] * x, -o)      (mirror)
 
 Every matvec goes through
-:func:`sigma_tpu_torch.ops.spmv_dia.dia_sym_spmv` and every multi-RHS
+:func:`sigma_tpu_torch.ops.spmv_dia.dia_sym_spmv_operator` (the operator's
+arrays checked once, at construction) and every multi-RHS
 product through :func:`sigma_tpu_torch.ops.spmm_dia.dia_sym_spmm` (the
 CUDA kernel for a CUDA operand, the plain PyTorch version for a CPU
 one).  This is a :class:`LinearOperator`, not a SparseMatrix: convert
@@ -27,7 +28,7 @@ from sigma_tpu_torch.graph.graph import DIAGraph
 from sigma_tpu_torch.matrix.formats import DIAMatrix, interleaved_apply, panel_apply
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
 from sigma_tpu_torch.ops.spmm_dia import MAX_PANELS, dia_sym_spmm
-from sigma_tpu_torch.ops.spmv_dia import dia_sym_spmv
+from sigma_tpu_torch.ops.spmv_dia import dia_sym_spmv_operator
 from sigma_tpu_torch.utils.dtypes import index_dtype, round_up
 
 __all__ = ["SymmetricDIAMatrix"]
@@ -42,6 +43,8 @@ class SymmetricDIAMatrix(LinearOperator):
     n: int
     # the offsets as an int64 tensor on data's device, for the kernel
     offsets_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # data and offsets_dev checked once for the kernel: contiguous on CUDA
+    _kernel_ready: bool = dataclasses.field(init=False, repr=False)
 
     format: ClassVar[str] = "dia_sym"
 
@@ -57,6 +60,9 @@ class SymmetricDIAMatrix(LinearOperator):
             self,
             "offsets_dev",
             torch.tensor(self.offsets, dtype=index_dtype, device=self.data.device),
+        )
+        object.__setattr__(
+            self, "_kernel_ready", self.data.device.type == "cuda" and self.data.is_contiguous()
         )
 
     @property
@@ -136,7 +142,7 @@ class SymmetricDIAMatrix(LinearOperator):
 
     # -- compute ----------------------------------------------------------
     def matvec(self, x):
-        return dia_sym_spmv(self.data, x, self.offsets_dev, self.n)
+        return dia_sym_spmv_operator(self.data, x, self.offsets_dev, self.n, self._kernel_ready)
 
     rmatvec = matvec  # symmetric
 

@@ -50,6 +50,7 @@ __all__ = [
     "dia_spmv_staged",
     "dia_spmv_window",
     "dia_sym_spmv",
+    "dia_sym_spmv_operator",
     "dia_sym_spmv_reference",
     "staged_route",
     "window_plan",
@@ -187,40 +188,64 @@ def dia_spmv_operator(data, x, offsets, n, m, kernel_ready):
     contiguous on a CUDA device): checks x alone, then runs the plain
     version for a CPU x or launches the kernel, counted in
     ``dia_spmv.launches``."""
-    if x.ndim != 1 or x.shape[0] != m:
-        raise ValueError(f"x has shape {tuple(x.shape)}, want ({m},)")
-    dev = x.device
-    if dev != data.device:
-        raise ValueError(f"operands on different devices: data {data.device}, x {dev}")
-    if dev.type == "cpu":
+    if _check_x(data, x, m):
         return dia_spmv_reference(data, x, offsets, n, m)
     checked = kernel_ready and (data.dtype, x.dtype) in KERNEL_DTYPES and x.is_contiguous()
     return _spmv_launch(data, x, offsets, n, m, checked)
 
 
+def _check_x(data, x, m):
+    """Raise unless x is (m,) on data's device; True for a CPU x."""
+    if x.ndim != 1 or x.shape[0] != m:
+        raise ValueError(f"x has shape {tuple(x.shape)}, want ({m},)")
+    if x.device != data.device:
+        raise ValueError(f"operands on different devices: data {data.device}, x {x.device}")
+    return x.device.type == "cpu"
+
+
 def dia_sym_spmv(data, x, offsets, n):
     """y = A x for the symmetric n x n matrix whose upper diagonals are
     ``data[d, i] = A[i, i + offsets[d]] = A[i + offsets[d], i]`` (offsets
-    >= 0, validated by :class:`SymmetricDIAMatrix`)."""
+    >= 0, validated by :class:`SymmetricDIAMatrix`).  Checks every operand
+    on every call (:meth:`SymmetricDIAMatrix.matvec` checks its fixed
+    arrays once, at construction, and calls
+    :func:`dia_sym_spmv_operator`)."""
     _check(data, x, offsets, n, n)
     if x.device.type == "cpu":
         return dia_sym_spmv_reference(data, x, offsets, n)
+    return _sym_launch(data, x, offsets, n, checked=False)
+
+
+dia_sym_spmv.launches = 0
+
+
+def _sym_launch(data, x, offsets, n, checked):
     if n == 0:
         return torch.empty(0, dtype=x.dtype, device=x.device)
-    y = _launch("sigma_dia_sym_spmv", data, x, offsets, (n,), n)
+    y = (_launch_checked if checked else _launch)("sigma_dia_sym_spmv", data, x, offsets, (n,), n)
     dia_sym_spmv.launches += 1
     return y
 
 
-dia_sym_spmv.launches = 0
+def dia_sym_spmv_operator(data, x, offsets, n, kernel_ready):
+    """:func:`dia_sym_spmv` for an operator whose ``data`` and ``offsets``
+    were checked once (as :func:`dia_spmv_operator`'s): checks x alone,
+    then runs the plain version for a CPU x or launches the kernel, counted
+    in ``dia_sym_spmv.launches``."""
+    if _check_x(data, x, n):
+        return dia_sym_spmv_reference(data, x, offsets, n)
+    checked = kernel_ready and (data.dtype, x.dtype) in KERNEL_DTYPES and x.is_contiguous()
+    return _sym_launch(data, x, offsets, n, checked)
 
 
 # -- staged-x SpMV: kernels #5 and #6 -------------------------------------
 # The shared memory one block may hold on an H100: 232,448 bytes with the
 # opt-in above 48 KB (sharedMemPerBlockOptin), less 2,048 bytes beside x
 # (the resident kernel's offsets and value-row bases, and its window's
-# alignment slack).  So the resident route takes x of up to 57,600 f32 or
-# 28,800 f64 values; the windowed kernel a union window of as many.
+# alignment slack; the windowed kernel's offsets, row bases and window
+# places take 1,536).  So the resident route takes x of up to 57,600 f32 or
+# 28,800 f64 values; the windowed kernel a union window of as many, its
+# alignment padding counted.
 STAGED_SMEM_BYTES = 232_448 - 2_048
 
 
@@ -238,7 +263,7 @@ def staged_route(m, itemsize, allow_dma_path=False) -> str:
     return "window" if allow_dma_path else "blocked"
 
 
-def window_plan(offsets, tile_rows):
+def window_plan(offsets, tile_rows, align=1):
     """The shared-memory layout of one row tile's x window for the
     windowed kernel: ``(starts, bases, pos)`` as int64 numpy arrays.  Row
     t of a tile starting at row i0 reads diagonal d's x value
@@ -249,17 +274,24 @@ def window_plan(offsets, tile_rows):
     length).  ``pos[d]`` is where diagonal d's window begins.  A 7-point
     stencil at nx=216 gives 3 pieces for 256-row tiles (the JAX kernel's one
     window of tile + span would be 93,568 values, past a block's shared
-    memory), a band of offsets -122..122 one piece of tile_rows + 244."""
+    memory), a band of offsets -122..122 one piece of tile_rows + 244.
+
+    ``align`` (the kernel's: 16 bytes over x's item size) widens each
+    window to whole multiples of ``align`` columns, so every start and
+    base is a multiple of it and, for i0 a multiple of it, column c lies
+    at an index congruent to c modulo ``align``: the kernel copies and
+    reads x in aligned 16-byte pieces.  ``align=1`` is the plain union."""
     offs = np.asarray(offsets, dtype=np.int64)
     order = np.argsort(offs, kind="stable")
     starts, ends, piece_of = [], [], np.empty(offs.size, dtype=np.int64)
     for d in order:
         o = int(offs[d])
-        if starts and o <= ends[-1]:
-            ends[-1] = max(ends[-1], o + tile_rows)
+        lo, hi = o - o % align, o + tile_rows + (-(o + tile_rows)) % align
+        if starts and lo <= ends[-1]:
+            ends[-1] = max(ends[-1], hi)
         else:
-            starts.append(o)
-            ends.append(o + tile_rows)
+            starts.append(lo)
+            ends.append(hi)
         piece_of[d] = len(starts) - 1
     starts = np.asarray(starts, dtype=np.int64)
     bases = np.concatenate([[0], np.cumsum(np.asarray(ends, np.int64) - starts)]).astype(np.int64)
@@ -268,10 +300,11 @@ def window_plan(offsets, tile_rows):
 
 
 @functools.lru_cache(maxsize=64)
-def _staged_operands(offsets, tile_rows, device):
+def _staged_operands(offsets, tile_rows, align, device):
     """(offsets tensor, window plan tensor ``[starts, bases, pos]``, number
-    of pieces, window length) on ``device``, made once per offset tuple."""
-    starts, bases, pos = window_plan(offsets, tile_rows)
+    of pieces, window length) on ``device``, made once per offset tuple,
+    tile and alignment (:func:`window_plan`)."""
+    starts, bases, pos = window_plan(offsets, tile_rows, align)
     offs = torch.tensor(offsets, dtype=torch.int64, device=device)
     plan = torch.from_numpy(np.concatenate([starts, bases, pos])).to(device)
     return offs, plan, int(starts.size), int(bases[-1])
@@ -326,10 +359,12 @@ def dia_spmv_window(data, x, offsets, n, m, tile_rows=256):
     shared memory with asynchronous copies and computes from there.
     ``tile_rows`` is the block's row count (the JAX kernel counted its
     tile in 128-lane rows), a multiple of 32 up to 1024.  Raises
-    ValueError when the window does not fit one block's shared memory."""
+    ValueError when the window, its pieces aligned to 16 bytes, does not
+    fit one block's shared memory."""
     if tile_rows % 32 or not 32 <= tile_rows <= 1024:
         raise ValueError(f"tile_rows must be a multiple of 32 in [32, 1024], got {tile_rows}")
-    offs, plan, pieces, length = _staged_operands(_offset_tuple(offsets), tile_rows, x.device)
+    offs, plan, pieces, length = _staged_operands(_offset_tuple(offsets), tile_rows,
+                                                  16 // x.element_size(), x.device)
     _check(data, x, offs, n, m)
     if length * x.element_size() > STAGED_SMEM_BYTES:
         raise ValueError(
@@ -362,5 +397,5 @@ def dia_spmv_staged(data, x, offsets, n, m, tile_rows=256, allow_dma_path=False)
         return dia_spmv_resident(data, x, offsets, n, m)
     if route == "window":
         return dia_spmv_window(data, x, offsets, n, m, tile_rows)
-    offs = _staged_operands(_offset_tuple(offsets), tile_rows, x.device)[0]
+    offs = _resident_operands(_offset_tuple(offsets), x.device)[0]
     return dia_spmv(data, x, offs, n, m)

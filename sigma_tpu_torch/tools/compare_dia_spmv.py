@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the DIA SpMV kernels ``dia_spmv`` and ``dia_spmv_resident`` of one
-checkout.
+"""Time the DIA SpMV kernels ``dia_spmv``, ``dia_sym_spmv``,
+``dia_spmv_resident`` and ``dia_spmv_window`` of one checkout.
 
     python3 sigma_tpu_torch/tools/compare_dia_spmv.py [--repo DIR] [--nx 216]
 
@@ -9,12 +9,13 @@ holds this script), so one copy of the script times two checkouts of the
 port, for example a parent commit unpacked with ``git archive`` beside the
 working tree: run it on each in turn (parent, tree, tree, parent), one
 after the other on one card.  It uses only APIs that every version of the port
-has since the staged SpMV (``DIAMatrix.matvec``, ``dia_spmv_staged``,
-``structured_pair_amg``, ``to_banded_dia``).  Kernels are built into each
-checkout's own ``build/``.
+has since the staged SpMV (``DIAMatrix.matvec``, ``SymmetricDIAMatrix``,
+``dia_spmv_staged``, ``dia_spmv_window``, ``structured_pair_amg``,
+``to_banded_dia``).  Kernels are built into each checkout's own ``build/``.
 
-f32 vectors; each product checked once against ``dia_spmv_reference``
-(relative error at most 1e-5) before it is timed, a failed check raises.
+f32 vectors; each product checked once against its plain version
+(``dia_spmv_reference``, ``dia_sym_spmv_reference``; relative error at
+most 1e-5) before it is timed, a failed check raises.
 Three times a product, from CUDA events: ``kernel_ms``, the median of 30
 single launches (host time included where it is the longer);
 ``device_ms``, 50 back-to-back launches over 50 (median of 5 runs; still
@@ -34,7 +35,19 @@ in between (null where a call cannot be captured):
   (``irregular_mesh_laplacian(16384, 64, shift=1e-3)``, shuffled, then
   ``to_banded_dia`` and ``structured_pair_amg(D, (n,), coarse_size=4096)``,
   as phases 16-17 build it), each beside ``dia_spmv`` (``A.matvec``) on
-  the same operand.
+  the same operand;
+- ``dia_sym_spmv`` through ``SymmetricDIAMatrix.matvec``: the stencil's
+  upper diagonals (offsets 0, 1, nx, nx^2) with f32 and with bf16 values,
+  and a symmetric band of offsets 0 .. 122 over the band's rows with
+  random f32 values (its upper half);
+- ``dia_spmv_window`` through ``dia_spmv_staged(..., allow_dma_path=True)``
+  on the f32 stencil and the 245-diagonal band (x too large for one
+  block's shared memory, so the windowed route);
+- all four on the 7-point stencil at nx=32 (32,768 rows, small enough
+  that a fixed cost a launch shows against the bytes):
+  ``dia_spmv``, ``dia_sym_spmv``, ``dia_spmv_resident`` (the staged
+  route there) and ``dia_spmv_window`` (called directly), where
+  ``graph_ms`` is the device's own time.
 
 Each beside its bound (the value array, x and y over 3.35 TB/s) and
 ``torch.sparse_csr @ x`` (cuSPARSE) on the same matrix (bf16 values
@@ -177,7 +190,10 @@ def main() -> None:
     from sigma_tpu_torch import (
         DIAGraph, DIAMatrix, SymmetricDIAMatrix, laplacian_3d_dia, structured_pair_amg,
     )
-    from sigma_tpu_torch.ops import dia_spmv_reference, dia_spmv_staged, staged_route
+    from sigma_tpu_torch.ops import (
+        dia_spmv_reference, dia_spmv_staged, dia_spmv_window, dia_sym_spmv_reference,
+        staged_route,
+    )
 
     device = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -185,9 +201,16 @@ def main() -> None:
     g = torch.Generator(device=device).manual_seed(0)
 
     def timed(kernel, operator, A, run, csr=True):
+        """Check, time and print ``run`` (x -> A x); A a DIAMatrix or a
+        SymmetricDIAMatrix, ``csr`` False or the full-storage DIAMatrix
+        whose nonzeros cuSPARSE multiplies (True: A itself)."""
         n, m = A.shape
         x = torch.rand(m, generator=g, device=device)
-        y, ref = run(x), dia_spmv_reference(A.data, x, A.offsets_dev, n, m)
+        if isinstance(A, SymmetricDIAMatrix):
+            ref = dia_sym_spmv_reference(A.data, x, A.offsets_dev, n)
+        else:
+            ref = dia_spmv_reference(A.data, x, A.offsets_dev, n, m)
+        y = run(x)
         err = float((y.double() - ref.double()).abs().max()) / max(float(ref.abs().max()), 1e-300)
         del y, ref
         if not err <= 1e-5:
@@ -197,20 +220,40 @@ def main() -> None:
                "value_dtype": str(A.data.dtype).replace("torch.", ""), "rel_err": err,
                "kernel_ms": median_ms(lambda: run(x)), "device_ms": device_ms(lambda: run(x)),
                "graph_ms": graph_ms(lambda: run(x)), "bound_ms": bound_ms}
-        if csr:
-            C = csr_of(A)
+        if csr is not False:
+            C = csr_of(A if csr is True else csr)
             row["library_ms"] = median_ms(lambda: C @ x)
             row["library_device_ms"] = device_ms(lambda: C @ x)
             row["library_graph_ms"] = graph_ms(lambda: C @ x)
             del C
         print(json.dumps(row), flush=True)
 
-    # dia_spmv: the stencil (f32 and bf16 values) and the 10.1M band
+    # dia_spmv, dia_sym_spmv and dia_spmv_window (the windowed route) on
+    # the stencil (f32 and bf16 values)
     A = laplacian_3d_dia(args.nx, torch.float32, device)
+    n = A.shape[0]
     timed("dia_spmv", f"stencil_nx{args.nx}", A, A.matvec)
     Ab = DIAMatrix(graph=A.graph, data=A.data.to(torch.bfloat16))
     timed("dia_spmv", f"stencil_nx{args.nx}_bf16_values", Ab, Ab.matvec, csr=False)
     del Ab
+    S = SymmetricDIAMatrix.from_dia(A)
+    timed("dia_sym_spmv", f"stencil_nx{args.nx}", S, S.matvec, csr=A)
+    Sb = SymmetricDIAMatrix(data=S.data.to(torch.bfloat16), offsets=S.offsets, n=S.n)
+    timed("dia_sym_spmv", f"stencil_nx{args.nx}_bf16_values", Sb, Sb.matvec, csr=False)
+    del S, Sb
+    timed("dia_spmv_window", f"stencil_nx{args.nx}", A,
+          lambda x: dia_spmv_staged(A.data, x, A.offsets, n, n, allow_dma_path=True), csr=False)
+    # all four on a stencil below ~33K rows (graph replay: the device's time)
+    A32 = laplacian_3d_dia(32, torch.float32, device)
+    n32 = A32.shape[0]
+    S32 = SymmetricDIAMatrix.from_dia(A32)
+    timed("dia_spmv", "stencil_nx32", A32, A32.matvec)
+    timed("dia_sym_spmv", "stencil_nx32", S32, S32.matvec, csr=False)
+    timed("dia_spmv_resident", "stencil_nx32", A32,
+          lambda x: dia_spmv_staged(A32.data, x, A32.offsets, n32, n32), csr=False)
+    timed("dia_spmv_window", "stencil_nx32", A32,
+          lambda x: dia_spmv_window(A32.data, x, A32.offsets, n32, n32), csr=False)
+    del A32, S32
     # the stencil hierarchy's levels (bf16), whose x fits shared memory
     S = SymmetricDIAMatrix.from_dia(laplacian_3d_dia(args.nx, torch.float32, device, diag=6.0))
     levels = [(f"stencil_nx{args.nx}_level{i}", lv.A) for i, lv in enumerate(
@@ -224,7 +267,14 @@ def main() -> None:
     B = DIAMatrix(graph=graph, data=torch.rand((len(offs), graph.stride), generator=g,
                                                device=device))
     timed("dia_spmv", f"band_{hi - lo + 1}", B, B.matvec, csr=False)
+    timed("dia_spmv_window", f"band_{hi - lo + 1}", B,
+          lambda x: dia_spmv_staged(B.data, x, B.offsets, n, n, allow_dma_path=True), csr=False)
     del B
+    # the symmetric band: offsets 0 .. hi, its upper half
+    Sband = SymmetricDIAMatrix(data=torch.rand((hi + 1, graph.stride), generator=g,
+                                               device=device), offsets=tuple(range(hi + 1)), n=n)
+    timed("dia_sym_spmv", f"band_sym_{hi + 1}", Sband, Sband.matvec, csr=False)
+    del Sband
     levels += [(f"band_1m_level{i}", lv.A) for i, lv in enumerate(mesh_band_levels(device))]
     # dia_spmv_resident through the staged entry, beside dia_spmv
     for label, L in levels:

@@ -115,20 +115,57 @@ def test_dia_spmv_kernel(cuda, pair, n, m, offsets, form):
     assert rel(y, dia_spmv_reference(data, x, offs, n, m)) <= _tol(xdt)
 
 
+# dia_sym_spmv's load forms (NaN in every slot outside the matrix): 16-byte
+# value pieces, one value a load (an odd stride, values off a 16-byte
+# boundary), x off a 16-byte boundary, n not a whole number of a thread's
+# rows, n below one block, offsets at and past n, no main diagonal, more
+# diagonals than one staged chunk; mirror offsets that are and are not
+# multiples of a thread's rows
+_MANY_UPPER = sorted(int(o) for o in np.random.default_rng(25).choice(np.arange(0, 3001), 300,
+                                                                     replace=False))
+
+
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
 @pytest.mark.parametrize(
-    "n,offsets", [(50_000, [0, 1, 300, 2500]), (33_333, [1, 130, 259])]
+    "n,offsets,form",
+    [
+        (50_000, [0, 1, 300, 2500], "aligned"),
+        (33_333, [1, 130, 259], "aligned"),
+        (40_001, [0, 1, 2, 3, 5, 7, 122], "aligned"),
+        (33_333, [0, 1, 30, 259], "odd_stride"),
+        (30_000, [0, 1, 3, 300], "values_off_16"),
+        (30_000, [0, 1, 3, 300], "x_off_16"),
+        (50_003, [0, 1, 5, 250], "aligned"),
+        (37, [0, 1, 2, 5], "aligned"),
+        (37, [0, 3, 36], "odd_stride"),
+        (20_000, [0, 1, 19_999, 20_000, 20_003], "aligned"),
+        (20_001, _MANY_UPPER, "aligned"),
+        (20_001, _MANY_UPPER, "odd_stride"),
+    ],
 )
-def test_dia_sym_spmv_kernel(cuda, pair, n, offsets):
+def test_dia_sym_spmv_kernel(cuda, pair, n, offsets, form):
     vdt, xdt = pair
     g = torch.Generator(device=cuda).manual_seed(1)
-    data = torch.randn(len(offsets), -(-n // 128) * 128, generator=g, device=cuda).to(vdt)
+    stride = n + 1 + n % 2 if form == "odd_stride" else -(-n // 128) * 128
+    # NaN in every slot outside the matrix (slot (d, i) holds A[i, i + o]
+    # for i < n - o): a mirror term before row 0 is skipped, never
+    # multiplied by zero
+    data = torch.randn(len(offsets), stride, generator=g, device=cuda, dtype=torch.float64)
+    rows = torch.arange(stride, device=cuda)
+    data[~(rows[None, :] + torch.tensor(offsets, device=cuda)[:, None] < n)] = float("nan")
+    data = data.to(vdt)
     x = torch.randn(n, generator=g, device=cuda).to(xdt)
+    if form == "values_off_16":
+        data = _offset_view(data, 1)
+    if form == "x_off_16":
+        x = _offset_view(x, 1)
     offs = torch.tensor(offsets, device=cuda)
     before = dia_sym_spmv.launches
     y = dia_sym_spmv(data, x, offs, n)
+    y2 = dia_sym_spmv(data, x, offs, n)
     torch.cuda.synchronize()
-    assert dia_sym_spmv.launches == before + 1
+    assert dia_sym_spmv.launches == before + 2
+    assert torch.equal(y, y2)  # the same bits on every launch
     assert rel(y, dia_sym_spmv_reference(data, x, offs, n)) <= _tol(xdt)
 
 
@@ -533,12 +570,16 @@ def test_dia_spmm_grouped_kernel_without_diagonals(cuda, pair, layout):
 # multigrid level's 16,384 and 28,800 (the most f64 values the resident
 # route takes), and fewer rows than one resident tile
 @pytest.mark.parametrize("n", [20_001, 16_384, 28_800, 100])
-@pytest.mark.parametrize("tile_rows", [128, 256])
+@pytest.mark.parametrize("tile_rows", [32, 128, 256, 1024])
 @pytest.mark.parametrize("offsets", [[-3000, -300, -1, 0, 1, 300, 3000], list(range(-122, 123)),
-                                     [-9, -4, -1, 0, 1, 4, 9]],
-                         ids=["reach_past_a_tile", "band", "narrow_band"])
+                                     [-9, -4, -1, 0, 1, 4, 9], [-301, -3, 0, 2, 5, 299]],
+                         ids=["reach_past_a_tile", "band", "narrow_band", "misaligned_piece"])
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
 def test_staged_spmv_kernels(cuda, pair, offsets, tile_rows, n):
+    """The resident and windowed kernels against the plain version; the
+    windowed kernel (#1's row-tile body on its staged pieces, whose first
+    columns lie off a 16-byte boundary for misaligned_piece) also bit for
+    bit against dia_spmv (#1) on the same operands."""
     vdt, xdt = pair
     rng = np.random.default_rng(22)
     m = n
@@ -552,6 +593,7 @@ def test_staged_spmv_kernels(cuda, pair, offsets, tile_rows, n):
     assert (st.ops.dia_spmv_resident.launches, st.ops.dia_spmv_window.launches) == (
         before[0] + 1, before[1] + 1)
     assert rel(y_res, ref) <= _tol(xdt) and rel(y_win, ref) <= _tol(xdt)
+    assert torch.equal(y_win, dia_spmv(data, x, offs, n, m))
 
 
 def test_staged_routes_and_raises_where_x_does_not_fit(cuda):

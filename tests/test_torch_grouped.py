@@ -251,3 +251,43 @@ def test_staged_route_and_window_plan():
     # any order of offsets, pos in that order
     starts, bases, pos = st.ops.window_plan([5, -5, 0], 4)
     assert starts.tolist() == [-5, 0, 5] and pos.tolist() == [8, 0, 4]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("tile_rows", [32, 128, 256, 1024])
+@pytest.mark.parametrize(
+    "offsets",
+    [[-46_656, -216, -1, 0, 1, 216, 46_656], list(range(-122, 123)),
+     [-301, -3, 0, 2, 5, 299], [7, -5, 0, 3_001], [-20_003, -1, 0, 1, 20_005],
+     [3_000 * j + 1 for j in range(-15, 16)]],
+    ids=["stencil", "band", "misaligned", "unsorted", "far", "scattered"])
+def test_aligned_window_plan(offsets, tile_rows, itemsize):
+    """The windowed kernel's layout (window_plan with align = 16 bytes over
+    x's item size): every diagonal's window lies inside its piece, every
+    start and base is a multiple of P, so column c of a tile starting at a
+    multiple of P sits at an index congruent to c mod P; the pieces do not
+    overlap, and the length with its padding is what the wrapper holds to
+    STAGED_SMEM_BYTES.  The default layout is the plain union, pinned above."""
+    P = 16 // itemsize
+    starts, bases, pos = st.ops.window_plan(offsets, tile_rows, align=P)
+    assert (starts % P == 0).all() and (bases % P == 0).all() and bases[0] == 0
+    lengths = np.diff(bases)
+    assert (lengths > 0).all() and (starts[1:] > starts[:-1] + lengths[:-1]).all()
+    plain = st.ops.window_plan(offsets, tile_rows)
+    assert bases[-1] >= plain[1][-1] and bases[-1] <= plain[1][-1] + 2 * (P - 1) * starts.size
+    i0 = 5 * 1024  # a tile's first row: a multiple of every tile_rows and P
+    for o, p in zip(offsets, pos):
+        piece = np.searchsorted(bases, p, side="right") - 1
+        # columns i0 + o .. i0 + o + tile_rows - 1 at pos .. pos + tile_rows - 1
+        assert starts[piece] <= o and p + tile_rows <= bases[piece + 1]
+        assert p - bases[piece] == o - starts[piece]
+        assert (p - (i0 + o)) % P == 0
+    length = int(bases[-1])
+    fits = length * itemsize <= st.ops.STAGED_SMEM_BYTES
+    x = torch.zeros(10, dtype=torch.float32 if itemsize == 4 else torch.float64)
+    data = torch.zeros((len(offsets), 128), dtype=x.dtype)
+    if fits:
+        assert st.ops.dia_spmv_window(data, x, offsets, 10, 10, tile_rows).shape == (10,)
+    else:
+        with pytest.raises(ValueError, match="does not fit"):
+            st.ops.dia_spmv_window(data, x, offsets, 10, 10, tile_rows)

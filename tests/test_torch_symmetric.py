@@ -141,3 +141,45 @@ def test_from_coo_from_dense_and_memory_bytes_match_the_jax_package():
     assert D.memory_bytes() == Jd.memory_bytes()
     with pytest.raises(ValueError, match="not symmetric"):
         st.SymmetricDIAMatrix.from_dense(dense + np.triu(dense, 1) * 0.5, device="cpu")
+
+
+def test_matvec_checks_x_and_launches_on_a_device(monkeypatch):
+    """SymmetricDIAMatrix.matvec checks x alone (its arrays were checked at
+    construction) and, on a device tensor (``meta`` stands in for CUDA),
+    launches the kernel once, counted in ``dia_sym_spmv.launches``; the
+    plain version is never called.  The CPU route still gives the JAX
+    package's product."""
+    from sigma_tpu_torch.ops import spmv_dia
+
+    launched = []
+
+    def fake_launch(entry, data, x, offsets, shape, n, *extra):
+        assert data.device == x.device == offsets.device
+        launched.append((entry, shape, extra))
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("plain version called for a device tensor")
+
+    rng = np.random.default_rng(3)
+    n = 216
+    r, c, v = _sym_coo(rng, n, (0, 1, 6, 36))
+    S = st.SymmetricDIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float32, device="cpu")
+    x = rng.standard_normal(n).astype(np.float32)
+    J = JaxSym.from_coo(n, n, r, c, v, dtype=jnp.float32)
+    assert rel(S.matvec(torch.from_numpy(x)), np.asarray(J.matvec(jnp.asarray(x)))) <= 1e-5
+    monkeypatch.setattr(spmv_dia, "_launch", fake_launch)
+    monkeypatch.setattr(spmv_dia, "_launch_checked", fake_launch)
+    monkeypatch.setattr(spmv_dia, "dia_sym_spmv_reference", no_plain)
+    Sm = S.to("meta")
+    before = dia_sym_spmv.launches
+    assert Sm.matvec(torch.empty(n, device="meta")).shape == (n,)
+    assert dia_sym_spmv.launches == before + 1
+    assert launched == [("sigma_dia_sym_spmv", (n,), ())]
+    with pytest.raises(ValueError, match="shape"):
+        Sm.matvec(torch.empty(n + 1, device="meta"))
+    with pytest.raises(ValueError, match="shape"):
+        Sm.matvec(torch.empty((n, 1), device="meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        Sm.matvec(torch.empty(n))
+    assert dia_sym_spmv.launches == before + 1
