@@ -249,6 +249,11 @@ def _ptxas_entries(log):
 
 # the SpMV kernels redesigned for Hopper (pruned.cu), reported one by one
 PTXAS_REPORTED = ("pruned_spmv_kernel", "pruned_sym_spmv_kernel")
+# the pruned SpMMs #11 and #13 (pruned.cu, one template): one instantiation
+# a dtype pair, column-group count G (1 or 2 with f32 vectors; 1, 2 or 4
+# with f64, but 2 or 4 with f64 values) and kernel (full or symmetric)
+PRUNED_SPMM_KERNEL = "pruned_spmm_kernel"
+PRUNED_SPMM_INSTANTIATIONS = 2 * 12
 # the grouped SpMM (dia_spmm_grouped.cu): one instantiation a dtype pair
 GROUPED_KERNEL = "dia_spmm_grouped_kernel"
 # the SpMM (dia_spmm.cu): one instantiation a dtype pair and column-group
@@ -300,6 +305,11 @@ def phase_build():
          "static_smem_bytes": smem}
         for name, regs, st, ld, smem in entries if any(k in name for k in BSR_KERNELS)
     ]
+    pruned_spmm = [
+        {"function": name, "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
+         "static_smem_bytes": smem}
+        for name, regs, st, ld, smem in entries if PRUNED_SPMM_KERNEL in name
+    ]
     dia_spmv = {
         k: [{"function": name, "registers": regs, "spill_store_bytes": st,
              "spill_load_bytes": ld, "static_smem_bytes": smem}
@@ -322,6 +332,11 @@ def phase_build():
           "registers": [min(r["registers"] for r in bsr), max(r["registers"] for r in bsr)]
           if bsr else None,
           "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in bsr)})
+    emit({"phase": "build_pruned_spmm", "instantiations": pruned_spmm,
+          "registers": [min(r["registers"] for r in pruned_spmm),
+                        max(r["registers"] for r in pruned_spmm)] if pruned_spmm else None,
+          "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in pruned_spmm),
+          "dynamic_smem_bytes": 110592})
     emit({"phase": "build_dia_spmv", "instantiations": dia_spmv,
           "dynamic_smem": "dia_spmv and dia_sym_spmv none; dia_spmv_resident its window, at "
                           "most m values; dia_spmv_window its tile's aligned pieces"})
@@ -334,6 +349,10 @@ def phase_build():
                                  f"spills: {rows}")
     if len(reported) != 10 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in reported):
         raise AssertionError(f"want 10 pruned SpMV instantiations without spills: {reported}")
+    if len(pruned_spmm) != PRUNED_SPMM_INSTANTIATIONS or any(
+            r["spill_store_bytes"] or r["spill_load_bytes"] for r in pruned_spmm):
+        raise AssertionError(f"want {PRUNED_SPMM_INSTANTIATIONS} pruned SpMM instantiations "
+                             f"without spills: {pruned_spmm}")
     if len(grouped) != 5 or any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in grouped):
         raise AssertionError(f"want 5 grouped SpMM instantiations without spills: {grouped}")
     if len(spmm) != SPMM_INSTANTIATIONS or any(r["spill_store_bytes"] or r["spill_load_bytes"]
@@ -1133,9 +1152,13 @@ def _random_pruned(rng, n, m, band, *, lo=None, outliers=0, tile_rows=1024, grou
                              tile_rows=tile_rows, group=group, dtype=np.float64)
 
 
-# edge cases of the SpMV kernels #10 and #12 (1024-row blocks; a TMA value
-# ring and a staged x window where the tile's reach allows, plain loads
-# beyond it): (name, n, m, tile_rows, reach, sym_shift, tile left empty)
+# edge cases of the pruned kernels (1024-row SpMV blocks, 1024 / G-row
+# SpMM blocks; a TMA value ring and a staged x window where the tile's
+# reach allows, plain loads beyond it): (name, n, m, tile_rows, reach,
+# sym_shift, tile left empty); the last two only for the SpMMs: an x window
+# that does not fit at k = 16 with f64 vectors, and an operand of more
+# blocks than half the SMs (below that the SpMMs take twice the column
+# groups and half the rows a block)
 SPMV_EDGES = [
     ("n_not_a_multiple_of_the_block", 5000, 5000, 1024, 300, 0, None),
     ("tile_of_padding_only", 6000, 6000, 1024, 200, 0, 2),
@@ -1144,6 +1167,8 @@ SPMV_EDGES = [
     ("t_minus_1_beyond_the_first_block", 6144, 6144, 2048, 1500, 0, None),
     ("sym_shift_spill", 2048, 2560, 1024, 300, 128, None),
 ]
+SPMM_EDGES = SPMV_EDGES + [("window_past_its_cap_at_k16_f64", 4096, 4096, 1024, 300, 0, None),
+                           ("more_blocks_than_half_the_sms", 70_000, 70_000, 2048, 300, 0, None)]
 
 
 def _edge_plan(rng, n, m, tile_rows, reach, shift, empty):
@@ -1169,9 +1194,10 @@ def phase_pruned_kernels(device):
     """The four pruned kernels against their plain versions on the card:
     every dtype pair, both panel layouts, k in {1, 3, 8, 16}, rectangular
     and unaligned shapes, tiles of 1024 and 2048 rows, groups 3, 8 and 12,
-    and a rectangular symmetric block with sym_shift > 0 and its spill; the
-    SpMVs with the plan's active tile ends and without them (every slot
-    walked), and on the edge cases of ``SPMV_EDGES``."""
+    and a rectangular symmetric block with sym_shift > 0 and its spill;
+    each with the plan's active tile ends and without them (every slot
+    walked), the SpMMs twice for equal bits; and on the edge cases of
+    ``SPMV_EDGES`` (the SpMMs at k = 3 and 16 on ``SPMM_EDGES``)."""
     import numpy as np
     import torch
 
@@ -1195,6 +1221,10 @@ def phase_pruned_kernels(device):
     worst = dict.fromkeys(("pruned_spmv", "pruned_spmm", "pruned_sym_spmv", "pruned_sym_spmm"), 0.0)
     count = 0
 
+    def same_bits(name, key, a, b):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{key} {name}: two launches differ")
+
     def check(name, key, y, ref, xdt):
         nonlocal count
         e = rel_err(y, ref)
@@ -1217,7 +1247,7 @@ def phase_pruned_kernels(device):
              for c in full_cases]
     sym_plans = [(c, _random_pruned(rng, c[1], c[2], c[3] + c[4], lo=c[4], tile_rows=c[5], group=c[6]))
                  for c in sym_cases]
-    edge_plans = [(c, _edge_plan(rng, *c[1:])) for c in SPMV_EDGES]
+    edge_plans = [(c, _edge_plan(rng, *c[1:])) for c in SPMM_EDGES]
 
     def ends(P):
         return torch.from_numpy(P.tile_end).to(device)
@@ -1234,9 +1264,13 @@ def phase_pruned_kernels(device):
             for layout in PRUNED_LAYOUTS:
                 for k in (1, 3, 8, 16):
                     X = panels(k, m, xdt, layout)
-                    check(f"{label} {layout} k={k}", "pruned_spmm",
-                          pruned_spmm(d, X, o, tp, n, m, layout),
-                          pruned_spmm_reference(d, X, o, tp, n, m, layout), xdt)
+                    Yr = pruned_spmm_reference(d, X, o, tp, n, m, layout)
+                    for te in (ends(P), None):
+                        case = f"{label} {layout} k={k}" + (" every slot" if te is None else "")
+                        Y = pruned_spmm(d, X, o, tp, n, m, layout, tile_end=te)
+                        check(case, "pruned_spmm", Y, Yr, xdt)
+                        same_bits(case, "pruned_spmm", Y,
+                                  pruned_spmm(d, X, o, tp, n, m, layout, tile_end=te))
         for (name, n, m, _, shift, *_), P in sym_plans:
             d = torch.from_numpy(P.data).to(device, vdt)
             o, tp = torch.from_numpy(P.offsets).to(device), torch.from_numpy(P.tile_ptr).to(device)
@@ -1253,10 +1287,14 @@ def phase_pruned_kernels(device):
             for layout in PRUNED_LAYOUTS:
                 for k in (1, 3, 8, 16):
                     X = panels(k, m, xdt, layout)
-                    Y, S = pruned_sym_spmm(d, X, o, tp, n, m, layout, **kw)
                     Yr, Sr = pruned_sym_spmm_reference(d, X, o, tp, n, m, layout, **kw)
-                    check(f"{label} {layout} k={k}", "pruned_sym_spmm", Y, Yr, xdt)
-                    spill_check(label, "pruned_sym_spmm", S, Sr, float(Yr.abs().max()), xdt)
+                    for te in (ends(P), None):
+                        case = f"{label} {layout} k={k}" + (" every slot" if te is None else "")
+                        Y, S = pruned_sym_spmm(d, X, o, tp, n, m, layout, tile_end=te, **kw)
+                        check(case, "pruned_sym_spmm", Y, Yr, xdt)
+                        spill_check(case, "pruned_sym_spmm", S, Sr, float(Yr.abs().max()), xdt)
+                        same_bits(case, "pruned_sym_spmm", Y,
+                                  pruned_sym_spmm(d, X, o, tp, n, m, layout, tile_end=te, **kw)[0])
         for (name, n, m, _, _, shift, empty), P in edge_plans:
             d = torch.from_numpy(P.data).to(device, vdt)
             o, tp = torch.from_numpy(P.offsets).to(device), torch.from_numpy(P.tile_ptr).to(device)
@@ -1269,12 +1307,25 @@ def phase_pruned_kernels(device):
             if (shift > 0) != bool(sr.abs().max() > 0):
                 raise AssertionError(f"pruned_sym_spmv {label}: spill {float(sr.abs().max())}")
             for te in (ends(P), None):
-                if not shift:
-                    check(label, "pruned_spmv", pruned_spmv(d, x, o, tp, n, m, tile_end=te),
-                          pruned_matvec_reference(d, x, o, tp, n, m), xdt)
-                y, s = pruned_sym_spmv(d, x, o, tp, n, m, tile_end=te, **kw)
-                check(label, "pruned_sym_spmv", y, yr, xdt)
-                spill_check(label, "pruned_sym_spmv", s, sr, float(yr.abs().max()), xdt)
+                if any(name == c[0] for c in SPMV_EDGES):
+                    if not shift:
+                        check(label, "pruned_spmv", pruned_spmv(d, x, o, tp, n, m, tile_end=te),
+                              pruned_matvec_reference(d, x, o, tp, n, m), xdt)
+                    y, s = pruned_sym_spmv(d, x, o, tp, n, m, tile_end=te, **kw)
+                    check(label, "pruned_sym_spmv", y, yr, xdt)
+                    spill_check(label, "pruned_sym_spmv", s, sr, float(yr.abs().max()), xdt)
+                for layout in PRUNED_LAYOUTS:
+                    for k in (3, 16):
+                        X = panels(k, m, xdt, layout)
+                        case = f"{label} {layout} k={k}" + (" every slot" if te is None else "")
+                        if not shift:
+                            check(case, "pruned_spmm",
+                                  pruned_spmm(d, X, o, tp, n, m, layout, tile_end=te),
+                                  pruned_spmm_reference(d, X, o, tp, n, m, layout), xdt)
+                        Y, S = pruned_sym_spmm(d, X, o, tp, n, m, layout, tile_end=te, **kw)
+                        Yr, Sr = pruned_sym_spmm_reference(d, X, o, tp, n, m, layout, **kw)
+                        check(case, "pruned_sym_spmm", Y, Yr, xdt)
+                        spill_check(case, "pruned_sym_spmm", S, Sr, float(Yr.abs().max()), xdt)
     torch.cuda.synchronize()
     emit({"phase": "pruned_kernel_checks", "cases": count, "worst_rel_err": worst,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
@@ -1397,12 +1448,14 @@ def phase_unstructured_timing(device, U, k=8):
         X = panels[layout]
         variants += [
             ("pruned_spmm", f"full_f32_{layout}", layout,
-             partial(pruned_spmm, P.data, X, P.offsets, P.tile_ptr, n, n, layout),
+             partial(pruned_spmm, P.data, X, P.offsets, P.tile_ptr, n, n, layout,
+                     tile_end=P.tile_end),
              partial(pruned_spmm_reference, P.data, X, P.offsets, P.tile_ptr, n, n, layout,
                      group=P.group),
              P, k),
             ("pruned_sym_spmm", f"sym_f32_{layout}", layout,
-             partial(pruned_sym_spmm, S.data, X, S.offsets, S.tile_ptr, n, n, layout, **sym),
+             partial(pruned_sym_spmm, S.data, X, S.offsets, S.tile_ptr, n, n, layout,
+                     tile_end=S.tile_end, **sym),
              partial(pruned_sym_spmm_reference, S.data, X, S.offsets, S.tile_ptr, n, n, layout,
                      group=S.group, **sym),
              S, k),
@@ -1428,16 +1481,12 @@ def phase_unstructured_timing(device, U, k=8):
         panel_bytes = 2 * kk * n * x.element_size()
         slot_bytes = data.shape[1] * data.element_size()
         byts = active * slot_bytes + panel_bytes
-        # what the kernel streams: the SpMVs walk each tile's active slots
-        # (tile_end), the SpMMs every slot, padding included
-        walked = (int((A.tile_end - A.tile_ptr[:-1]).sum()) if layout is None
-                  else data.shape[0])
+        # what the kernel streams: each tile's active slots (tile_end)
+        walked = int((A.tile_end - A.tile_ptr[:-1]).sum())
         streamed = walked * slot_bytes + panel_bytes
-        extra = {}
-        if layout is None:  # the SpMV walking every slot, padding included
-            walk_all = partial(kern, tile_end=None)
-            extra = {"padding_walked_ms": median_ms(walk_all),
-                     "padding_walked_streamed_gb": (data.shape[0] * slot_bytes + panel_bytes) / 1e9}
+        # the same kernel walking every slot, padding included
+        extra = {"padding_walked_ms": median_ms(partial(kern, tile_end=None)),
+                 "padding_walked_streamed_gb": (data.shape[0] * slot_bytes + panel_bytes) / 1e9}
         bound_ms, bound_by = bound(byts, 2 * kk * nnz, x.dtype)
         row = {
             "phase": "unstructured_timing", "variant": label, "kernel": kname,

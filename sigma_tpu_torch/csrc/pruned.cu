@@ -63,21 +63,53 @@
 // symmetric one at about 80%, held by the halo re-read and the two terms'
 // work per row (its bf16-values form is not twice as fast).
 //
-// The SpMM kernels (pruned_spmm, pruned_sym_spmm).  One thread per output
-// row, as the DIA kernels (dia_spmv.cu): the block stages its tile's slot
-// offsets in shared memory (in chunks) and every thread walks the same
-// list, so there is no divergence, and neighbouring threads read
-// neighbouring values of each slot stripe and neighbouring x[i + o]: both
-// streams coalesce.  Each value, loaded once, is multiplied into K in
-// {4, 8, 16} register accumulators (runtime k <= K, touched only in
-// unrolled loops under j < k).  The slot loop is not unrolled: measured
-// with ptxas -v on sm_90a, unrolling it 2 to 16 times spills 40-284 bytes
-// over the instantiations, not unrolling it spills none.  Panels are
-// addressed with the panel-block length B of dia_spmm.cu (B = length:
-// RHS-major (k, len); B = 1: columns (len, k)).  They walk the padding
-// slots too, and the symmetric one reads each value twice (upper term at
-// row i, mirror term at row i + om, the second read from L2).
-//
+// The SpMM kernels (pruned_spmm, pruned_sym_spmm).  What bounds them is
+// device memory too: the active slots' values once for all k panels, the k
+// x panels read and the k y panels written once (at k = 8 on the
+// 10,092,544-row mesh 1.50 GB of f32 values and 0.65 GB of panels for the
+// full plan, 0.77 GB and 0.65 GB for the symmetric one).  Every FMA needs
+// its x operand from on-chip memory, k of them for each value streamed,
+// so x must cost little more than a byte of shared memory a FMA.  The
+// design is the SpMVs' block walk on dia_window.cuh's staged window and
+// register tile:
+//   - a block of 256 threads owns S::kRows = 1024 / G consecutive rows of
+//     one tile and walks tile_ptr[t] .. tile_end[t], the tile's active
+//     slots, four a ring stage: each slot's segment (for the symmetric
+//     kernel with its halo of H rows, so that the mirror term d[r - om]
+//     comes from the same stage) in 16-byte cp.async pieces from all
+//     threads, three stages, two in flight, one barrier a stage.  The
+//     full kernel's first stages fly while the block reduces its offsets.
+//     (A TMA ring with a producer warp, as the SpMVs', leaves 96 registers
+//     a thread at two blocks an SM; fed from inside a 256-thread block it
+//     streamed slower than pruned_spmv on the same slots.)
+//   - a thread holds a register tile of 4 consecutive rows x C columns (C
+//     = 8 with f32 vectors, 4 with f64), G = ceil(k / C) threads side by
+//     side on one group of rows (at least 2 with 8-byte values, whose
+//     1024-row stages would crowd out the window);
+//   - the x window [i0 + lo, i0 + kRows + hi) of all of the block's
+//     columns is staged once per block (lo .. hi the tile's offsets, for
+//     the symmetric kernel also its mirror columns sym_shift - om), zeros
+//     outside [0, m) and past k, in dia_window.cuh's padded, conflict-free
+//     window rows: from (m, k) columns by its cp.async routes, from
+//     RHS-major panels one value a cp.async, a warp covering whole window
+//     rows (stage_x);
+//   - x is carried along runs of consecutive offsets (an RCM band's active
+//     offsets come in a few such runs a tile): the tile's shift register
+//     takes one new window row a slot, 16 or 32 bytes for 4 C FMAs; a gap
+//     reloads the four rows (the symmetric kernel with f64 vectors reads
+//     each slot's four rows afresh: the shift register's registers would
+//     spill there).  The mirror term reads its four x rows afresh (its
+//     runs go the other way) and its four values one a load;
+//   - y is stored from the tile in 16-byte pieces where the layout allows
+//     (store_tile), the symmetric kernel's rows past n into the spill.
+// Tile t - 1's mirror terms, taken by the blocks within spill_rows of the
+// tile start after their own slots, come from the last Hp rows of its
+// slots and Hp rows of x, staged in the freed ring and window (a gather
+// from device memory where they do not fit).  A block whose window or halo
+// would not fit shared memory walks the same slots in the same order on
+// the same register tile with plain loads.  Two blocks an SM (128
+// registers a thread, 108 KB of shared memory) for every dtype pair and k.
+
 // Symmetric storage.  The mirror term of row i is
 //     A[i, i - om] = d_s[i - om]  times  x[i - om + sym_shift]
 // for every slot s with mirror offset om = offsets[s] - sym_shift > 0
@@ -93,9 +125,10 @@
 //
 // Order of the sums and masks.  Each row sums in slot order; the
 // symmetric kernels add, per slot, the upper term and then the mirror
-// term, then tile t - 1's mirror terms.  Skipping the padding removes only
-// + 0 * x terms.  Out-of-range terms (column outside [0, m)) are skipped,
-// never multiplied by zero.  Accumulation is in the vector type X; the five
+// term, then tile t - 1's mirror terms; one FMA a term in the vector type
+// X.  Skipping the padding removes only + 0 * x terms.  Out-of-range terms
+// (column outside [0, m), mirror source before the tile) are skipped or
+// selected away (value and x 0), never multiplied by zero.  The five
 // (value, vector) dtype pairs of the DIA kernels.
 //
 // Interface.  Plain C entry points bound with ctypes; each launches on the
@@ -105,149 +138,11 @@
 
 #include <climits>
 
-#include "dia_common.cuh"
+#include "dia_window.cuh"
 
 namespace {
 
 using namespace sigma_dia;
-
-template <typename X, int K>
-__device__ __forceinline__ void fma_panels(X (&acc)[K], X v, const X* xc,
-                                           int64_t B, int k) {
-#pragma unroll
-  for (int j = 0; j < K; ++j)
-    if (j < k) acc[j] += v * xc[j * B];
-}
-
-template <typename V, typename X, int K>
-__global__ void __launch_bounds__(kThreads)
-    pruned_spmm_kernel(const V* __restrict__ data, const X* __restrict__ x,
-                       const int64_t* __restrict__ offsets,
-                       const int64_t* __restrict__ tile_ptr, X* __restrict__ y,
-                       int64_t TR, int64_t n, int64_t m, int k, Panels px,
-                       Panels py) {
-  __shared__ int64_t s_off[kOffsetChunk];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-  const int64_t i = row0 + threadIdx.x;
-  const int64_t t = row0 / TR;  // the block's tile
-  const int64_t r = i - t * TR;
-  const int64_t s0 = tile_ptr[t], s1 = tile_ptr[t + 1];
-  X acc[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) acc[j] = X(0);
-  for (int64_t c0 = s0; c0 < s1; c0 += kOffsetChunk) {
-    const int64_t cn = s1 - c0 < kOffsetChunk ? s1 - c0 : kOffsetChunk;
-    stage_offsets(s_off, offsets, c0, cn);
-    if (i < n) {
-#pragma unroll 1
-      for (int64_t c = 0; c < cn; ++c) {
-        const int64_t col = i + s_off[c];
-        if (col >= 0 && col < m)
-          fma_panels<X, K>(acc, to_x<X>(data[(c0 + c) * TR + r]), x + px.at(col), px.B, k);
-      }
-    }
-  }
-  if (i < n) {
-    X* yi = y + py.at(i);
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-      if (j < k) yi[j * py.B] = acc[j];
-  }
-}
-
-template <typename V, typename X, int K>
-__global__ void __launch_bounds__(kThreads)
-    pruned_sym_spmm_kernel(const V* __restrict__ data, const X* __restrict__ x,
-                           const int64_t* __restrict__ offsets,
-                           const int64_t* __restrict__ tile_ptr,
-                           X* __restrict__ y, X* __restrict__ spill, int64_t TR,
-                           int64_t G, int64_t n, int64_t m, int k, Panels px,
-                           Panels py, Panels ps, int64_t sym_shift,
-                           int64_t spill_rows, int64_t rows_out) {
-  __shared__ int64_t s_off[kOffsetChunk];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-  const int64_t i = row0 + threadIdx.x;
-  const int64_t t = row0 / TR;  // the block's tile (G for spill rows past the last)
-  const int64_t r = i - t * TR;
-  X acc[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) acc[j] = X(0);
-  if (t < G) {
-    // the row's own tile: upper terms (rows < n) and mirror terms whose
-    // source row i - om lies in this tile (om <= r)
-    const int64_t s0 = tile_ptr[t], s1 = tile_ptr[t + 1];
-    for (int64_t c0 = s0; c0 < s1; c0 += kOffsetChunk) {
-      const int64_t cn = s1 - c0 < kOffsetChunk ? s1 - c0 : kOffsetChunk;
-      stage_offsets(s_off, offsets, c0, cn);
-      if (i < rows_out) {
-#pragma unroll 1
-        for (int64_t c = 0; c < cn; ++c) {
-          const int64_t o = s_off[c];
-          const V* d = data + (c0 + c) * TR;
-          const int64_t col = i + o;
-          if (i < n && col >= 0 && col < m)
-            fma_panels<X, K>(acc, to_x<X>(d[r]), x + px.at(col), px.B, k);
-          const int64_t om = o - sym_shift;
-          const int64_t src = i - om + sym_shift;
-          if (om > 0 && om <= r && src >= 0 && src < m)
-            fma_panels<X, K>(acc, to_x<X>(d[r - om]), x + px.at(src), px.B, k);
-        }
-      }
-    }
-  }
-  if (t >= 1 && t - 1 < G && row0 - t * TR < spill_rows) {
-    // the tile before: mirror terms whose source row lies there (om > r)
-    const int64_t s0 = tile_ptr[t - 1], s1 = tile_ptr[t];
-    for (int64_t c0 = s0; c0 < s1; c0 += kOffsetChunk) {
-      const int64_t cn = s1 - c0 < kOffsetChunk ? s1 - c0 : kOffsetChunk;
-      stage_offsets(s_off, offsets, c0, cn);
-      if (i < rows_out) {
-#pragma unroll 1
-        for (int64_t c = 0; c < cn; ++c) {
-          const int64_t om = s_off[c] - sym_shift;
-          const int64_t src = i - om + sym_shift;
-          if (om > r && src >= 0 && src < m)
-            fma_panels<X, K>(acc, to_x<X>(data[(c0 + c) * TR + TR + r - om]),
-                             x + px.at(src), px.B, k);
-        }
-      }
-    }
-  }
-  if (i < rows_out) {
-    X* yi = i < n ? y + py.at(i) : spill + ps.at(i - n);
-    const int64_t B = i < n ? py.B : ps.B;
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-      if (j < k) yi[j * B] = acc[j];
-  }
-}
-
-template <typename V, typename X, int K>
-cudaError_t launch_full_k(const void* data, const void* x, const void* offsets,
-                          const void* tile_ptr, void* y, int64_t TR, int64_t n,
-                          int64_t m, int k, Panels px, Panels py,
-                          cudaStream_t stream) {
-  pruned_spmm_kernel<V, X, K><<<blocks_for(n), kThreads, 0, stream>>>(
-      static_cast<const V*>(data), static_cast<const X*>(x),
-      static_cast<const int64_t*>(offsets), static_cast<const int64_t*>(tile_ptr),
-      static_cast<X*>(y), TR, n, m, k, px, py);
-  return cudaGetLastError();
-}
-
-template <typename V, typename X, int K>
-cudaError_t launch_sym_k(const void* data, const void* x, const void* offsets,
-                         const void* tile_ptr, void* y, void* spill, int64_t TR,
-                         int64_t G, int64_t n, int64_t m, int k, Panels px,
-                         Panels py, Panels ps, int64_t sym_shift,
-                         int64_t spill_rows, int64_t rows_out,
-                         cudaStream_t stream) {
-  pruned_sym_spmm_kernel<V, X, K><<<blocks_for(rows_out), kThreads, 0, stream>>>(
-      static_cast<const V*>(data), static_cast<const X*>(x),
-      static_cast<const int64_t*>(offsets), static_cast<const int64_t*>(tile_ptr),
-      static_cast<X*>(y), static_cast<X*>(spill), TR, G, n, m, k, px, py, ps,
-      sym_shift, spill_rows, rows_out);
-  return cudaGetLastError();
-}
 
 // ---- the SpMV kernels (#10, #12): TMA value ring, staged x -----------------
 
@@ -261,10 +156,6 @@ constexpr int kRingBytes = 32768;         // value stages of pruned_spmv
 constexpr int kSymRingBytes = 40960;      // of pruned_sym_spmv (with the halo)
 constexpr int kWindow = 2048;             // staged x elements
 constexpr int kFar = 1 << 30;             // bounds |column - first row| in int
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
@@ -337,6 +228,38 @@ __device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
 __device__ __forceinline__ double ld_stream(const double* p) { return __ldcs(p); }
 __device__ __forceinline__ __nv_bfloat16 ld_stream(const __nv_bfloat16* p) { return __ldcs(p); }
 
+// The least and greatest of offsets[s0, s0 + ns), in every thread of a
+// block of kThreadsB threads (s_red: three ints a warp; the warps' maxima
+// of offsets[p0, p0 + np) stay in its last third).
+template <int kThreadsB>
+__device__ __forceinline__ void offset_range(const int64_t* __restrict__ offsets, int64_t s0,
+                                             int ns, int* s_red, int& lo, int& hi,
+                                             int64_t p0 = 0, int np = 0) {
+  int a = INT_MAX, b = INT_MIN, b2 = INT_MIN;
+  for (int c = threadIdx.x; c < ns; c += kThreadsB) {
+    const int o = static_cast<int>(offsets[s0 + c]);
+    a = min(a, o);
+    b = max(b, o);
+  }
+  for (int c = threadIdx.x; c < np; c += kThreadsB) b2 = max(b2, static_cast<int>(offsets[p0 + c]));
+  a = __reduce_min_sync(0xffffffffu, a);
+  b = __reduce_max_sync(0xffffffffu, b);
+  b2 = __reduce_max_sync(0xffffffffu, b2);
+  constexpr int W = kThreadsB / 32;
+  if ((threadIdx.x & 31) == 0) {
+    s_red[threadIdx.x >> 5] = a;
+    s_red[W + (threadIdx.x >> 5)] = b;
+    s_red[2 * W + (threadIdx.x >> 5)] = b2;
+  }
+  __syncthreads();
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int w = 0; w < W; ++w) {
+    lo = min(lo, s_red[w]);
+    hi = max(hi, s_red[W + w]);
+  }
+}
+
 // Initialise the stage barriers (full: the producer's arrival and the
 // bytes; empty: one arrival per consumer warp) and return, in every thread
 // of the block, the least and greatest of offsets[s0, s0 + ns).
@@ -350,26 +273,7 @@ __device__ __forceinline__ void block_setup(const int64_t* __restrict__ offsets,
     }
     mbar_init_fence();
   }
-  int a = INT_MAX, b = INT_MIN;
-  for (int c = threadIdx.x; c < ns; c += kBlock) {
-    const int o = static_cast<int>(offsets[s0 + c]);
-    a = min(a, o);
-    b = max(b, o);
-  }
-  a = __reduce_min_sync(0xffffffffu, a);
-  b = __reduce_max_sync(0xffffffffu, b);
-  constexpr int W = kBlock / 32;
-  if ((threadIdx.x & 31) == 0) {
-    s_red[threadIdx.x >> 5] = a;
-    s_red[W + (threadIdx.x >> 5)] = b;
-  }
-  __syncthreads();
-  lo = INT_MAX;
-  hi = INT_MIN;
-  for (int w = 0; w < W; ++w) {
-    lo = min(lo, s_red[w]);
-    hi = max(hi, s_red[W + w]);
-  }
+  offset_range<kBlock>(offsets, s0, ns, s_red, lo, hi);
 }
 
 // The x window: xs[j] = x[g0 + j] for j < len (len and g0 multiples of
@@ -502,7 +406,7 @@ __global__ void __launch_bounds__(kBlock, 3)
   V* ring = reinterpret_cast<V*>(smem);
   X* xs = reinterpret_cast<X*>(smem + kRingBytes);
   __shared__ int s_off[kOffsetChunk];
-  __shared__ int s_red[2 * kBlock / 32];
+  __shared__ int s_red[3 * kBlock / 32];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
 
   const int64_t per_tile = TR / kRows;
@@ -578,7 +482,7 @@ __global__ void __launch_bounds__(kBlock, 3)
   V* ring = reinterpret_cast<V*>(smem);
   X* xs = reinterpret_cast<X*>(smem + kSymRingBytes);
   __shared__ int s_off[kOffsetChunk];
-  __shared__ int s_red[2 * kBlock / 32];
+  __shared__ int s_red[3 * kBlock / 32];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
 
   const int64_t per_tile = TR / kRows;
@@ -734,6 +638,563 @@ cudaError_t launch_sym_spmv(const void* data, const void* x, const void* offsets
   return cudaGetLastError();
 }
 
+// ---- the SpMM kernels (#11, #13): staged x window and register tile ---------
+// ---- (dia_window.cuh), cp.async value ring --------------------------------
+
+constexpr int kSpmmSmem = 110592;  // dynamic shared memory of an SpMM block: two an SM
+constexpr int kSpmmStages = 3;     // value ring stages, two in flight
+
+// An SpMM block's shape for value type V, vector type X and G column groups
+// (the members dia_window.cuh's window, tile and store read): 4 rows x C
+// columns a thread, 1024 / G rows a block; ring stages of kR = 4 slots
+// (one register-tile phase each) of kRows rows, and for the symmetric
+// kernel up to kHaloCap rows of halo before them; the window in the rest of
+// kSpmmSmem.
+template <typename V, typename X, int G, bool kSym>
+struct SpmmShape {
+  using Value = V;
+  using Vec = X;
+  static constexpr int kGroups = G;
+  static constexpr int kRows = kR * kBlockThreads / G;              // rows a block
+  static constexpr int kPiece = 16 / static_cast<int>(sizeof(X));  // x values a 16-byte piece
+  static constexpr int kC = sizeof(X) == 8 ? 4 : 8;                // columns a thread
+  static constexpr int kPieces = kC / kPiece;
+  static constexpr int kCols = G * kC;                             // columns a block
+  static constexpr int kRowBytes = kCols * static_cast<int>(sizeof(X));
+  static constexpr int kGroupBytes = kR * kRowBytes + 16 * G;      // 4 window rows + padding
+  static constexpr int kHaloCap = kSym ? (sizeof(V) == 8 ? 128 : 256) : 0;
+  // x carried along the offsets in the tile's shift register; not in the
+  // symmetric kernel with f64 vectors, whose registers it would spill
+  static constexpr bool kCarry = !(kSym && sizeof(X) == 8);
+  static constexpr int kStageValues = kR * (kRows + kHaloCap);
+  static constexpr int kRingBytes = kSpmmStages * kStageValues * static_cast<int>(sizeof(V));
+  static constexpr int kSmemBytes = kSpmmSmem;
+  static constexpr int kWindowRows = (kSmemBytes - kRingBytes) / kGroupBytes * kR;
+  static_assert(kRingBytes % 16 == 0 && kWindowRows > kRows, "ring and window");
+};
+
+// Four values v[a .. a + 3] of a ring stage (any a), widened to X: one
+// value a load.  (Two aligned 16-byte pieces shifted by selects read half
+// the shared-memory wavefronts with f32 values, but their registers made
+// ptxas spill in the symmetric kernel.)
+template <typename X, typename V>
+__device__ __forceinline__ void load_shifted(const V* v, int a, X (&out)[kR]) {
+#pragma unroll
+  for (int e = 0; e < kR; ++e) out[e] = to_x<X>(v[a + e]);
+}
+
+// Rows q of the thread += v[q] x[window row rel + q] (xw: the thread's
+// first window row and piece), each x row read afresh.
+template <class S>
+__device__ __forceinline__ void fma_rows(WindowTile<S>& tile, const typename S::Vec (&v)[kR],
+                                         const unsigned char* xw, int rel) {
+  using X = typename S::Vec;
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    const X* p = reinterpret_cast<const X*>(xw + window_row<S>(rel + q));
+#pragma unroll
+    for (int h = 0; h < S::kPieces; ++h) {
+      X piece[S::kPiece];
+      load_piece(p + h * S::kGroups * S::kPiece, piece);
+#pragma unroll
+      for (int e = 0; e < S::kPiece; ++e) {
+        X& acc = tile.acc[q][h * S::kPiece + e];
+        acc = fma_x(v[q], piece[e], acc);
+      }
+    }
+  }
+}
+
+// The mirror term of one slot from its ring stage: rows q of the thread
+// (block rows rr + q) += v[rr + q - om] x[window row mrel + q].  kMasked
+// drops the terms whose source row lies before the tile (om > r0 + rr + q:
+// tile t - 1's pass takes them) or whose column lies outside [0, m).
+template <bool kMasked, class S>
+__device__ __forceinline__ void mirror_term(WindowTile<S>& tile, const typename S::Value* v,
+                                            const unsigned char* xw, int rr, int om, int mrel,
+                                            int r0, int clo, int chi, int sym_shift) {
+  using X = typename S::Vec;
+  X mv[kR];
+  load_shifted<X>(v, rr - om, mv);
+  if (kMasked) {
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const int src = rr + q - om + sym_shift;
+      if (om > r0 + rr + q || src < clo || src >= chi) mv[q] = X(0);
+    }
+  }
+  fma_rows<S>(tile, mv, xw, mrel);
+}
+
+// The x window [w0, w0 + span) of all the block's columns from panels
+// (RHS-major x) by cp.async of single values, zeros outside [0, m) and
+// past k.  A warp covers whole window rows, lane l column l mod kCols of
+// row l / kCols, so its shared-memory writes are conflict-free.  Columns
+// (m, k) go through dia_window.cuh's routes.
+template <class S>
+__device__ __forceinline__ void stage_x(unsigned char* s_win, const typename S::Vec* __restrict__ x,
+                                        int64_t w0, int span, int64_t m, int k, Panels px,
+                                        int route, int tid) {
+  using X = typename S::Vec;
+  constexpr int kXB = static_cast<int>(sizeof(X));
+  if (route != kPanelValues) {
+    stage_window_async<S>(s_win, x, w0, span, m, k, 0, px, route, tid);
+    return;
+  }
+  for (int e = tid; e < span * S::kCols; e += kBlockThreads) {
+    const int r = e / S::kCols, j = e % S::kCols;
+    const int64_t c = w0 + r;
+    const bool valid = j < k && c >= 0 && c < m;
+    copy_async<kXB>(s_win + window_row<S>(r) + j * kXB,
+                    valid ? x + static_cast<int64_t>(j) * px.B + px.at(c) : x, valid);
+  }
+}
+
+// One ring stage: slots j0 .. j0 + cnt of the block, cnt <= 4, each its
+// rows [first, r0 + kRows) at stage row skip + ... (stride values a slot),
+// in 16-byte cp.async pieces from all threads, and their offsets.
+template <class S>
+__device__ __forceinline__ void load_stage(typename S::Value* sv, int* so,
+                                           const typename S::Value* __restrict__ src,
+                                           const int64_t* __restrict__ offsets, int64_t TR,
+                                           int j0, int cnt, int rows, int stride, int skip,
+                                           int tid) {
+  using V = typename S::Value;
+  constexpr int P = 16 / static_cast<int>(sizeof(V));  // values a piece
+  const int pieces = rows / P;
+  for (int e = tid; e < cnt * pieces; e += kBlockThreads) {
+    const int t = e / pieces, q = e - t * pieces;
+    copy_async<16>(sv + t * stride + skip + q * P, src + (j0 + t) * TR + q * P, true);
+  }
+  if (tid < cnt) so[tid] = static_cast<int>(offsets[j0 + tid]);
+}
+
+// The slots of one ring stage (sv: slot t's block row r at sv[t * stride +
+// H + r], r >= -H; so: their offsets): per slot the upper term (x carried
+// along consecutive offsets: the slot of phase t reads window rows rel ..
+// rel + 3 for rows 0 .. 3), then for the symmetric kernel the mirror term.
+// kMasked selects away the terms whose column lies outside [0, m) (clo ..
+// chi, relative to the block's first row), the upper terms of rows n and
+// past, and the mirror terms whose source lies before the tile.
+template <bool kMasked, bool kSym, class S>
+__device__ __forceinline__ void spmm_stage(WindowTile<S>& tile, const typename S::Value* sv,
+                                           const int* so, int cnt, const unsigned char* xw,
+                                           int wlo, int clo, int chi, int rr, int r0,
+                                           int upper_rows, int sym_shift, int H, int stride,
+                                           int& prev) {
+  using V = typename S::Value;
+  using X = typename S::Vec;
+#pragma unroll
+  for (int t = 0; t < kR; ++t) {  // t: the shift register's phase
+    if (t >= cnt) return;
+    const int o = so[t];
+    const int rel = o - wlo;
+    const V* v = sv + t * stride + H;
+    X vv[kR];
+    load_values<X>(v + rr, vv);
+    if (kMasked) {
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        const int col = rr + q + o;
+        if (col < clo || col >= chi || (kSym && rr + q >= upper_rows)) vv[q] = X(0);
+      }
+    }
+    if constexpr (S::kCarry) {
+      if (rel == prev + 1) {
+        // rows 0 .. 2 take rows 1 .. 3's x of the slot before
+        tile.load_row((t + kR - 1) % kR, xw, rel + kR - 1);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kR; ++q) tile.load_row((t + q) % kR, xw, rel + q);
+      }
+      prev = rel;
+      tile.fma_tile(t, vv);
+    } else {
+      fma_rows<S>(tile, vv, xw, rel);
+    }
+    if constexpr (kSym) {
+      const int om = o - sym_shift;
+      if (om > 0)
+        mirror_term<kMasked, S>(tile, v, xw, rr, om, sym_shift - om - wlo, r0, clo, chi,
+                                sym_shift);
+    }
+  }
+}
+
+// The same slots with plain loads (a block whose window or stages do not
+// fit): values from d (block row r of slot c at d[c * TR + r]), x from the
+// panels; the same terms in the same order.
+template <bool kSym, class S>
+__device__ __forceinline__ void spmm_plain(WindowTile<S>& tile,
+                                           const typename S::Value* __restrict__ d,
+                                           const typename S::Vec* __restrict__ x,
+                                           const int* s_off, int cn, int64_t TR, int64_t i0,
+                                           int clo, int chi, int rr, int r0, int upper_rows,
+                                           int sym_shift, int k, int cg, Panels px) {
+  using V = typename S::Value;
+  using X = typename S::Vec;
+  for (int c = 0; c < cn; ++c) {
+    const int o = s_off[c];
+    const V* v = d + c * TR;
+    X vv[kR];
+    load_values<X>(v + rr, vv);
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const int col = rr + q + o;
+      if (col < clo || col >= chi || (kSym && rr + q >= upper_rows)) continue;
+      const X* xc = x + px.at(i0 + col);
+#pragma unroll
+      for (int e = 0; e < S::kC; ++e) {
+        const int j = tile_column<S>(0, cg, e);
+        if (j < k) tile.acc[q][e] = fma_x(vv[q], xc[static_cast<int64_t>(j) * px.B], tile.acc[q][e]);
+      }
+    }
+    const int om = o - sym_shift;
+    if (kSym && om > 0) {
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        const int r = rr + q, src = r - om + sym_shift;
+        if (om > r0 + r || src < clo || src >= chi) continue;
+        const X mv = to_x<X>(v[r - om]);
+        const X* xc = x + px.at(i0 + src);
+#pragma unroll
+        for (int e = 0; e < S::kC; ++e) {
+          const int j = tile_column<S>(0, cg, e);
+          if (j < k) tile.acc[q][e] = fma_x(mv, xc[static_cast<int64_t>(j) * px.B], tile.acc[q][e]);
+        }
+      }
+    }
+  }
+}
+
+// Tile t - 1's mirror terms (source row before the tile, om > r0 + r): a
+// gather from device memory; d + c * TR + r - om holds tile t - 1's row
+// TR + r0 + r - om of slot c, s_om[c] its mirror offset.
+template <class S>
+__device__ __forceinline__ void spmm_prev_tile(WindowTile<S>& tile,
+                                               const typename S::Value* __restrict__ d,
+                                               const typename S::Vec* __restrict__ x,
+                                               const int* s_om, int cn, int64_t TR, int64_t i0,
+                                               int clo, int chi, int rr, int r0, int sym_shift,
+                                               int k, int cg, Panels px) {
+  using X = typename S::Vec;
+#pragma unroll 4
+  for (int c = 0; c < cn; ++c) {
+    const int om = s_om[c];
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const int r = rr + q, src = r - om + sym_shift;
+      if (om <= r0 + r || src < clo || src >= chi) continue;
+      const X mv = to_x<X>(d[c * TR + r - om]);
+      const X* xc = x + px.at(i0 + src);
+#pragma unroll
+      for (int e = 0; e < S::kC; ++e) {
+        const int j = tile_column<S>(0, cg, e);
+        if (j < k) tile.acc[q][e] = fma_x(mv, xc[static_cast<int64_t>(j) * px.B], tile.acc[q][e]);
+      }
+    }
+  }
+}
+
+// Tile t - 1's mirror terms from shared memory (a block within spill_rows
+// of the tile start, after its own slots): vbuf[c * Hp + j] holds row TR -
+// Hp + j of tile t - 1's slot c, the window rows x[i0 + sym_shift - Hp +
+// w]; s_om[c] the slot's mirror offset.  Row r takes slot c's term where
+// its source row lies before the tile (om > r0 + r).
+template <class S>
+__device__ __forceinline__ void prev_tile_staged(WindowTile<S>& tile,
+                                                 const typename S::Value* vbuf,
+                                                 const unsigned char* s_win, const int* s_om,
+                                                 int np, int Hp, int clo, int chi, int rr, int r0,
+                                                 int sym_shift, int cg) {
+  using X = typename S::Vec;
+  for (int c = 0; c < np; ++c) {
+    const int om = s_om[c];
+    if (om <= r0 + rr) continue;  // no row of this thread's takes the slot
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const int r = rr + q, src = r - om + sym_shift;
+      if (om <= r0 + r || src < clo || src >= chi) continue;
+      const X mv = to_x<X>(vbuf[c * Hp + Hp + r0 + r - om]);
+      const X* p = reinterpret_cast<const X*>(s_win + window_row<S>(Hp + r - om) + cg * 16);
+#pragma unroll
+      for (int h = 0; h < S::kPieces; ++h) {
+        X piece[S::kPiece];
+        load_piece(p + h * S::kGroups * S::kPiece, piece);
+#pragma unroll
+        for (int e = 0; e < S::kPiece; ++e) {
+          X& acc = tile.acc[q][h * S::kPiece + e];
+          acc = fma_x(mv, piece[e], acc);
+        }
+      }
+    }
+  }
+}
+
+// pruned_spmm (kSym false) and pruned_sym_spmm (kSym true): a block owns
+// rows r0 .. r0 + S::kRows of tile t (t = n_tiles: spill rows past the last
+// tile) and all k columns; route is how x is staged (XRoute).
+template <class S, bool kSym>
+__global__ void __launch_bounds__(kBlockThreads, 2)
+    pruned_spmm_kernel(const typename S::Value* __restrict__ data,
+                       const typename S::Vec* __restrict__ x,
+                       const int64_t* __restrict__ offsets, const int64_t* __restrict__ tile_ptr,
+                       const int64_t* __restrict__ tile_end, typename S::Vec* __restrict__ y,
+                       typename S::Vec* __restrict__ spill, int64_t TR, int64_t n_tiles,
+                       int64_t n, int64_t m, int k, Panels px, Panels py, Panels ps,
+                       int sym_shift, int spill_rows, int64_t rows_out, int route) {
+  using V = typename S::Value;
+  using X = typename S::Vec;
+  extern __shared__ __align__(128) unsigned char smem[];
+  V* ring = reinterpret_cast<V*>(smem);
+  unsigned char* s_win = smem + S::kRingBytes;
+  __shared__ int s_off[kOffsetChunk];
+  __shared__ int s_so[kSpmmStages * kR];
+  __shared__ int s_red[3 * kBlockThreads / 32];
+  __shared__ long long s_prev[2];  // tile t - 1's first active slot and their count
+
+  const int tid = threadIdx.x;
+  const int64_t per_tile = TR / S::kRows;
+  const int64_t t = blockIdx.x / per_tile;
+  const int r0 = static_cast<int>(blockIdx.x % per_tile) * S::kRows;  // tile-local
+  const int64_t i0 = t * TR + r0;                                      // global
+  const int64_t s0 = t < n_tiles ? tile_ptr[t] : 0;
+  const int ns = t < n_tiles ? static_cast<int>(tile_end[t] - s0) : 0;
+  // tile t - 1's active slots, whose mirror terms reach rows below
+  // spill_rows of this tile
+  const bool has_prev = kSym && t >= 1 && t - 1 < n_tiles && r0 < spill_rows;
+  const int64_t prev_p0 = has_prev ? tile_ptr[t - 1] : 0;
+  const int prev_np = has_prev ? static_cast<int>(tile_end[t - 1] - prev_p0) : 0;
+  if (tid == 0) s_prev[0] = prev_p0, s_prev[1] = prev_np;
+  const int n_stages = (ns + kR - 1) / kR;
+  // the full kernel's first ring stages fly while the offsets are reduced
+  // (its stages hold the block's rows alone)
+  if constexpr (!kSym) {
+#pragma unroll
+    for (int st = 0; st < kSpmmStages - 1; ++st) {
+      if (st < n_stages)
+        load_stage<S>(ring + st * S::kStageValues, s_so + st * kR, data + s0 * TR + r0,
+                      offsets + s0, TR, st * kR, min(kR, ns - st * kR), S::kRows, S::kRows, 0,
+                      tid);
+      copy_commit();
+    }
+  }
+  int lo, hi;
+  offset_range<kBlockThreads>(offsets, s0, ns, s_red, lo, hi, prev_p0, prev_np);
+  // the stage halo H (symmetric: the tile's largest mirror offset, rounded
+  // up to 16) and the x window [wlo, wlo + span) relative to i0: upper
+  // columns r + o and mirror sources r - om + sym_shift
+  int H = 0, wlo = 0;
+  int64_t span = 0;
+  if (ns > 0) {
+    int a = lo, b = hi;
+    if constexpr (kSym) {
+      const int hm = max(hi - sym_shift, 0);
+      H = (hm + 15) & ~15;
+      if (hm > 0) a = min(lo, sym_shift - hm), b = max(hi, sym_shift);
+    }
+    wlo = a;
+    span = static_cast<int64_t>(b) - a + S::kRows;
+  }
+  const bool staged = ns > 0 && H <= S::kHaloCap && span <= S::kWindowRows;
+  const int stride = S::kRows + H;           // values a slot in a stage
+  const int first = max(r0 - H, 0);          // rows before the tile are not copied
+  const int rows = r0 + S::kRows - first;
+  const int skip = first - (r0 - H);
+  const V* src = data + s0 * TR + first;
+  // the window (its own cp.async group) and the symmetric kernel's first
+  // ring stages
+  if (staged) {
+    stage_x<S>(s_win, x, i0 + wlo, static_cast<int>(span), m, k, px, route, tid);
+    copy_commit();
+    if constexpr (kSym) {
+#pragma unroll
+      for (int st = 0; st < kSpmmStages - 1; ++st) {
+        if (st < n_stages)
+          load_stage<S>(ring + st * S::kStageValues, s_so + st * kR, src, offsets + s0, TR,
+                        st * kR, min(kR, ns - st * kR), rows, stride, skip, tid);
+        copy_commit();
+      }
+    }
+  } else {
+    copy_wait<0>();  // the full kernel's ring stages, not read
+  }
+  const int cg = tid % S::kGroups;
+  const int rr = kR * (tid / S::kGroups);  // the thread's first row in the block
+  // the thread's first window row and first piece
+  const unsigned char* xw = s_win + (rr / kR) * S::kGroupBytes + cg * 16;
+  // column i0 + c lies in [0, m) for c in [clo, chi); rows below upper_rows
+  // take upper terms
+  const int clo = clamp_far(-i0);
+  const int chi = clamp_far(m - i0);
+  const int upper_rows = static_cast<int>(n - i0 < 0 ? 0 : n - i0 < S::kRows ? n - i0 : S::kRows);
+  const bool masked = wlo < clo || wlo + span > chi ||
+                      (kSym && (upper_rows < S::kRows || r0 < H));
+  WindowTile<S> tile;
+#pragma unroll
+  for (int q = 0; q < kR; ++q)
+#pragma unroll
+    for (int e = 0; e < S::kC; ++e) tile.acc[q][e] = tile.xr[q][e] = X(0);
+  if (staged) {
+    int prev = -2;  // the window row of the slot before (none before the first)
+    for (int st = 0; st < n_stages; ++st) {
+      // stage st landed (and at st = 0 the window: the full kernel's group
+      // after its first stages); stage st - 1's buffer is free
+      if (!kSym && st == 0) {
+        copy_wait<0>();
+      } else {
+        copy_wait<kSpmmStages - 2>();
+      }
+      __syncthreads();
+      const int nx = st + kSpmmStages - 1;
+      if (nx < n_stages)
+        load_stage<S>(ring + (nx % kSpmmStages) * S::kStageValues, s_so + (nx % kSpmmStages) * kR,
+                      src, offsets + s0, TR, nx * kR, min(kR, ns - nx * kR), rows, stride, skip,
+                      tid);
+      copy_commit();
+      const int buf = st % kSpmmStages;
+      const int cnt = min(kR, ns - st * kR);
+      if (masked) {
+        spmm_stage<true, kSym, S>(tile, ring + buf * S::kStageValues, s_so + buf * kR, cnt, xw,
+                                  wlo, clo, chi, rr, r0, upper_rows, sym_shift, H, stride, prev);
+      } else {
+        spmm_stage<false, kSym, S>(tile, ring + buf * S::kStageValues, s_so + buf * kR, cnt, xw,
+                                   wlo, clo, chi, rr, r0, upper_rows, sym_shift, H, stride, prev);
+      }
+    }
+    copy_wait<0>();
+  } else {
+    for (int c0 = 0; c0 < ns; c0 += kOffsetChunk) {
+      const int cn = min(kOffsetChunk, ns - c0);
+      __syncthreads();
+      for (int c = tid; c < cn; c += kBlockThreads) s_off[c] = static_cast<int>(offsets[s0 + c0 + c]);
+      __syncthreads();
+      spmm_plain<kSym, S>(tile, data + (s0 + c0) * TR + r0, x, s_off, cn, TR, i0, clo, chi, rr,
+                          r0, upper_rows, sym_shift, k, cg, px);
+    }
+  }
+  // tile t - 1's mirror terms: its slots' last Hp rows and the x rows
+  // [i0 + sym_shift - Hp, i0 + sym_shift) staged in the ring and the
+  // window, now free, where they fit; else a gather from device memory
+  // (its slots and offset range wait in shared memory, s_prev and s_red,
+  // so that nothing of tile t - 1 stays in registers across the slot loop)
+  int Hp = 0;
+  const int64_t p0 = s_prev[0];
+  const int np = static_cast<int>(s_prev[1]);
+  if (kSym && np > 0) {
+    int hi_prev = INT_MIN;
+    for (int w = 0; w < kBlockThreads / 32; ++w)
+      hi_prev = max(hi_prev, s_red[2 * (kBlockThreads / 32) + w]);
+    Hp = (max(hi_prev - sym_shift, 0) + 15) & ~15;
+  }
+  if (Hp > 0 && np <= kOffsetChunk && Hp <= S::kWindowRows &&
+      static_cast<int64_t>(np) * Hp * static_cast<int>(sizeof(V)) <= S::kRingBytes) {
+    __syncthreads();  // the ring, the window and s_off are read
+    constexpr int P = 16 / static_cast<int>(sizeof(V));  // values a piece
+    const V* last = data + (p0 + 1) * TR - Hp;          // slot p0's last Hp rows
+    for (int e = tid; e < np * (Hp / P); e += kBlockThreads) {
+      const int c = e / (Hp / P), q = e - c * (Hp / P);
+      copy_async<16>(ring + c * Hp + q * P, last + c * TR + q * P, true);
+    }
+    stage_x<S>(s_win, x, i0 + sym_shift - Hp, Hp, m, k, px, route, tid);
+    copy_commit();
+    for (int c = tid; c < np; c += kBlockThreads)
+      s_off[c] = static_cast<int>(offsets[p0 + c]) - sym_shift;
+    copy_wait<0>();
+    __syncthreads();
+    prev_tile_staged<S>(tile, ring, s_win, s_off, np, Hp, clo, chi, rr, r0, sym_shift, cg);
+  } else if (Hp > 0) {
+    for (int c0 = 0; c0 < np; c0 += kOffsetChunk) {
+      const int cn = min(kOffsetChunk, np - c0);
+      __syncthreads();
+      for (int c = tid; c < cn; c += kBlockThreads)
+        s_off[c] = static_cast<int>(offsets[p0 + c0 + c]) - sym_shift;
+      __syncthreads();
+      spmm_prev_tile<S>(tile, data + (p0 + c0) * TR + TR + r0, x, s_off, cn, TR, i0, clo, chi,
+                        rr, r0, sym_shift, k, cg, px);
+    }
+  }
+  const int64_t i = i0 + rr;
+  store_tile<S>(tile, y, i, n, n, k, 0, cg, py);
+  if (kSym && i + kR > n && i < rows_out) {  // rows n .. rows_out: the spill
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const int64_t r = i + q;
+      if (r < n || r >= rows_out) continue;
+#pragma unroll
+      for (int e = 0; e < S::kC; ++e) {
+        const int j = tile_column<S>(0, cg, e);
+        if (j < k) spill[ps.at(r - n) + static_cast<int64_t>(j) * ps.B] = tile.acc[q][e];
+      }
+    }
+  }
+}
+
+template <typename V, typename X, int G, bool kSym>
+cudaError_t launch_spmm_g(const void* data, const void* x, const void* offsets,
+                          const void* tile_ptr, const void* tile_end, void* y, void* spill,
+                          int64_t TR, int64_t n_tiles, int64_t n, int64_t m, int k, Panels px,
+                          Panels py, Panels ps, int sym_shift, int spill_rows, int64_t rows_out,
+                          int device, cudaStream_t stream) {
+  using S = SpmmShape<V, X, G, kSym>;
+  const int64_t blocks = (rows_out + S::kRows - 1) / S::kRows;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (blocks == 0) return cudaSuccess;
+  auto kernel = pruned_spmm_kernel<S, kSym>;
+  static bool done[64] = {};
+  cudaError_t err = allow_smem(kernel, S::kSmemBytes, device, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kBlockThreads, S::kSmemBytes, stream>>>(
+      static_cast<const V*>(data), static_cast<const X*>(x),
+      static_cast<const int64_t*>(offsets), static_cast<const int64_t*>(tile_ptr),
+      static_cast<const int64_t*>(tile_end), static_cast<X*>(y), static_cast<X*>(spill), TR,
+      n_tiles, n, m, k, px, py, ps, sym_shift, spill_rows, rows_out,
+      px.B == 1 ? pick_route<S>(x, k, px) : kPanelValues);
+  return cudaGetLastError();
+}
+
+// The device's SM count, read once per device.
+int sm_count(int device) {
+  static int counts[64] = {};
+  if (device < 0 || device >= 64) return 0;
+  if (counts[device] == 0 &&
+      cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  return counts[device];
+}
+
+// G: the fewest column groups whose tiles cover k (C columns a thread), at
+// least 2 with 8-byte values (a 1024-row ring stage of them would leave the
+// window too little shared memory); doubled where the grid would fill at
+// most half the SMs, so that a small operand's rows, x window and y spread
+// over twice the blocks (the threads past k compute zeros; each row's sum
+// is the same, in the same order).
+template <typename V, typename X, bool kSym>
+cudaError_t launch_spmm(const void* data, const void* x, const void* offsets,
+                        const void* tile_ptr, const void* tile_end, void* y, void* spill,
+                        int64_t TR, int64_t n_tiles, int64_t n, int64_t m, int k, Panels px,
+                        Panels py, Panels ps, int sym_shift, int spill_rows, int64_t rows_out,
+                        int device, cudaStream_t s) {
+  constexpr int C = sizeof(X) == 8 ? 4 : 8;
+  constexpr int kMaxG = sizeof(X) == 8 ? 4 : 2;
+  int G = sizeof(V) == 8 ? 2 : 1;
+  while (G * C < k) G *= 2;
+  const int64_t blocks = (rows_out + kR * kBlockThreads / G - 1) / (kR * kBlockThreads / G);
+  if (G < kMaxG && 2 * blocks <= sm_count(device)) G *= 2;
+#define SPMM_G(GG)                                                                              \
+  launch_spmm_g<V, X, GG, kSym>(data, x, offsets, tile_ptr, tile_end, y, spill, TR, n_tiles, n, \
+                                m, k, px, py, ps, sym_shift, spill_rows, rows_out, device, s)
+  if constexpr (sizeof(V) < 8) {
+    if (G == 1) return SPMM_G(1);
+  }
+  if (G == 2) return SPMM_G(2);
+  if constexpr (sizeof(X) == 8) {
+    if (G == 4) return SPMM_G(4);
+  }
+#undef SPMM_G
+  return cudaErrorInvalidValue;
+}
+
 // The dtype dispatch: returns CALL with V and X the instantiated (value,
 // vector) pair, else cudaErrorInvalidValue.
 #define PRUNED_DISPATCH(vtype, xtype, CALL)                                   \
@@ -745,10 +1206,6 @@ cudaError_t launch_sym_spmv(const void* data, const void* x, const void* offsets
     if (xtype == kF64 && vtype == kBF16) { using V = __nv_bfloat16; using X = double; return CALL; } \
     return cudaErrorInvalidValue;                                             \
   } while (0)
-
-// The K bound of a panel count: the smallest of {4, 8, 16} that holds k.
-#define PRUNED_BY_K(kk, LAUNCH) \
-  ((kk) <= 4 ? LAUNCH(4) : (kk) <= 8 ? LAUNCH(8) : LAUNCH(16))
 
 // Checks shared by the entry points; false for what the kernels do not take.
 bool valid(int64_t TR, int64_t G, int64_t n, int64_t k) {
@@ -777,19 +1234,19 @@ extern "C" int sigma_pruned_spmv(int device, int vtype, int xtype,
 extern "C" int sigma_pruned_spmm(int device, int vtype, int xtype,
                                  const void* data, const void* x,
                                  const void* offsets, const void* tile_ptr,
-                                 void* y, int64_t TR, int64_t G, int64_t n,
-                                 int64_t m, int64_t k, int64_t bx, int64_t by,
+                                 const void* tile_end, void* y, int64_t TR, int64_t G,
+                                 int64_t n, int64_t m, int64_t k, int64_t bx, int64_t by,
                                  void* stream) {
   Panels px, py;
-  if (!valid(TR, G, n, k) || !make_panels(bx, k, m, &px) || !make_panels(by, k, n, &py))
+  if (!valid(TR, G, n, k) || !aligned(data) || !make_panels(bx, k, m, &px) ||
+      !make_panels(by, k, n, &py))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kk = static_cast<int>(k);
-#define LAUNCH(K) launch_full_k<V, X, K>(data, x, offsets, tile_ptr, y, TR, n, m, kk, px, py, s)
-  PRUNED_DISPATCH(vtype, xtype, PRUNED_BY_K(kk, LAUNCH));
-#undef LAUNCH
+  PRUNED_DISPATCH(vtype, xtype, (launch_spmm<V, X, false>(
+      data, x, offsets, tile_ptr, tile_end, y, nullptr, TR, G, n, m, static_cast<int>(k), px, py,
+      py, 0, 0, n, device, s)));
 }
 
 extern "C" int sigma_pruned_sym_spmv(int device, int vtype, int xtype,
@@ -813,24 +1270,20 @@ extern "C" int sigma_pruned_sym_spmv(int device, int vtype, int xtype,
 extern "C" int sigma_pruned_sym_spmm(int device, int vtype, int xtype,
                                      const void* data, const void* x,
                                      const void* offsets, const void* tile_ptr,
-                                     void* y, void* spill, int64_t TR, int64_t G,
-                                     int64_t n, int64_t m, int64_t k, int64_t bx,
+                                     const void* tile_end, void* y, void* spill, int64_t TR,
+                                     int64_t G, int64_t n, int64_t m, int64_t k, int64_t bx,
                                      int64_t by, int64_t bs, int64_t sym_shift,
-                                     int64_t spill_rows, int64_t rows_out,
-                                     void* stream) {
+                                     int64_t spill_rows, int64_t rows_out, void* stream) {
   Panels px, py, ps;
-  if (!valid(TR, G, n, k) || spill_rows > TR || rows_out < n ||
-      rows_out > n + spill_rows || (rows_out > n && spill == nullptr) ||
-      !make_panels(bx, k, m, &px) || !make_panels(by, k, n, &py) ||
+  if (!valid(TR, G, n, k) || !aligned(data) || spill_rows > TR || rows_out < n ||
+      rows_out > n + spill_rows || (rows_out > n && spill == nullptr) || sym_shift < 0 ||
+      sym_shift >= kFar || !make_panels(bx, k, m, &px) || !make_panels(by, k, n, &py) ||
       !make_panels(bs, k, spill_rows, &ps))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kk = static_cast<int>(k);
-#define LAUNCH(K)                                                                 \
-  launch_sym_k<V, X, K>(data, x, offsets, tile_ptr, y, spill, TR, G, n, m, kk, px, \
-                        py, ps, sym_shift, spill_rows, rows_out, s)
-  PRUNED_DISPATCH(vtype, xtype, PRUNED_BY_K(kk, LAUNCH));
-#undef LAUNCH
+  PRUNED_DISPATCH(vtype, xtype, (launch_spmm<V, X, true>(
+      data, x, offsets, tile_ptr, tile_end, y, spill, TR, G, n, m, static_cast<int>(k), px, py,
+      ps, static_cast<int>(sym_shift), static_cast<int>(spill_rows), rows_out, device, s)));
 }

@@ -9,11 +9,15 @@ columns or, for more columns on a wide band, one
 :func:`~sigma_tpu_torch.ops.spmm_dia.dia_spmm_grouped`; each runs the CUDA
 kernel for a CUDA operand and the plain PyTorch version for a CPU one.
 
-CSR, CSC, COO and ELL products are a gather and an ``index_add_`` (ELL: a
+CSR, CSC, COO and ELL products are a gather and a segment sum (ELL: a
 row sum) in plain PyTorch on every device, as the JAX package computes
 them with an XLA gather and a segment sum outside any Pallas kernel: CSR
 is the input of :func:`~sigma_tpu_torch.matrix.banded.to_banded_dia` and
-the gather floor the band is measured against.  So are the four products
+the gather floor the band is measured against.  On the CPU the segment sum
+is an ``index_add_``; elsewhere it adds each target's terms in stored edge
+order without atomics (:func:`_ordered_sum`), so a product gives the same
+bits run after run, and the CPU's bits (``index_add_`` on a CUDA tensor
+orders its atomics differently from run to run).  So are the four products
 of the ungrouped :class:`BSRMatrix` (gather, batched block product,
 ``index_add_``); its kernel path is :meth:`BSRMatrix.grouped`, the
 :class:`~sigma_tpu_torch.ops.bsr_grouped.GroupedBSR` layout, every product
@@ -326,10 +330,65 @@ class DIAMatrix(SparseMatrix):
         return torch.zeros(min(self.shape), dtype=self.dtype, device=self.device)
 
 
-def _gather_scatter(data, X, gather, scatter, length):
+@dataclasses.dataclass(frozen=True)
+class _SumPlan:
+    """How :func:`_ordered_sum` adds edge terms into their targets: ``order``
+    sorts the edges by target, stably (None when they already are);
+    ``targets`` are the targets with at least one edge, most edges first;
+    ``first`` the sorted position of each one's first edge; ``widths[j]``
+    how many of them have more than j edges."""
+
+    order: torch.Tensor | None
+    targets: torch.Tensor
+    first: torch.Tensor
+    widths: tuple
+
+
+def _sum_plan(target, length, device) -> _SumPlan:
+    """The :class:`_SumPlan` of edges whose targets are the host array
+    ``target`` (values in [0, length))."""
+    target = np.asarray(target, dtype=np.int64)
+    order = None
+    if target.size > 1 and (target[1:] < target[:-1]).any():
+        order = np.argsort(target, kind="stable")
+        target = target[order]
+    counts = np.bincount(target, minlength=length)
+    starts = np.cumsum(counts) - counts
+    by_count = np.argsort(-counts, kind="stable")
+    # widths[j] = targets with more than j edges
+    widths = np.cumsum(np.bincount(counts)[::-1])[::-1][1:]
+    keep = by_count[: int(widths[0]) if widths.size else 0]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return _SumPlan(order=None if order is None else dev(order), targets=dev(keep),
+                    first=dev(starts[keep]), widths=tuple(int(w) for w in widths))
+
+
+def _ordered_sum(prod, plan: _SumPlan, length):
+    """out[t] = the sum of target t's rows of ``prod`` (edge terms, 1-D or
+    2-D), added one after another from zero in stored edge order, as
+    ``index_add_`` does on the CPU: one gather and one add a slot of the
+    longest target's edges, no atomics."""
+    if plan.order is not None:
+        prod = prod[plan.order]
+    acc = prod.new_zeros((plan.targets.numel(),) + tuple(prod.shape[1:]))
+    for j, w in enumerate(plan.widths):
+        acc[:w] += prod[plan.first[:w] + j]
+    out = prod.new_zeros((length,) + tuple(prod.shape[1:]))
+    out[plan.targets] = acc
+    return out
+
+
+def _gather_scatter(data, X, gather, scatter, length, plan=None):
     """out[scatter[e]] += data[e] * X[gather[e]] for 1-D or 2-D X; the
-    product's dtype follows torch's promotion of data and X."""
+    product's dtype follows torch's promotion of data and X.  On the CPU
+    an ``index_add_``; on any other device the fixed-order sum of
+    ``plan`` (a :class:`_SumPlan` of ``scatter``)."""
     prod = (data[:, None] if X.ndim == 2 else data) * X[gather]
+    if prod.device.type != "cpu":
+        return _ordered_sum(prod, plan, length)
     out = torch.zeros((length,) + tuple(X.shape[1:]), dtype=prod.dtype, device=prod.device)
     return out.index_add_(0, scatter, prod)
 
@@ -357,11 +416,24 @@ class _EdgeListMatrix(SparseMatrix):
     def _data_shape(cls, graph):
         return (graph.nnz,)
 
+    def _plan(self, side) -> _SumPlan | None:
+        """The fixed-order sum's plan into rows (side 0) or columns (1),
+        built at the first product off the CPU and kept."""
+        if self.data.device.type == "cpu":
+            return None
+        plans = self.__dict__.setdefault("_sum_plans", {})
+        if side not in plans:
+            plans[side] = _sum_plan(self.graph.edges_numpy()[side], self.shape[side],
+                                    self.data.device)
+        return plans[side]
+
     def matvec(self, x):
-        return _gather_scatter(self.data, x, self.cols_dev, self.rows_dev, self.shape[0])
+        return _gather_scatter(self.data, x, self.cols_dev, self.rows_dev, self.shape[0],
+                               self._plan(0))
 
     def rmatvec(self, x):
-        return _gather_scatter(self.data, x, self.rows_dev, self.cols_dev, self.shape[1])
+        return _gather_scatter(self.data, x, self.rows_dev, self.cols_dev, self.shape[1],
+                               self._plan(1))
 
     matmat = matvec  # the gather and scatter take (m, k) blocks as they are
     rmatmat = rmatvec
@@ -382,7 +454,7 @@ class _EdgeListMatrix(SparseMatrix):
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class CSRMatrix(_EdgeListMatrix):
     """Row-compressed matrix: matvec gathers x at the column indices,
-    multiplies, and sums by row (``index_add_`` over ``row_ids``)."""
+    multiplies, and sums by row (``_gather_scatter``)."""
 
     graph: CSRGraph
 

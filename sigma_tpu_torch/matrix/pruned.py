@@ -94,7 +94,7 @@ class PrunedDIAMatrix(LinearOperator):
     offsets[s]]`` for slot s of tile t; tile t's slots are ``tile_ptr[t]
     .. tile_ptr[t + 1]``, in offset order, padded with zero slots to a
     multiple of ``group``, and ``tile_end[t]`` ends tile t's active slots
-    (the SpMV kernels skip the padding).  ``halo`` (rows of 128) sizes the
+    (the kernels skip the padding).  ``halo`` (rows of 128) sizes the
     symmetric spill.  ``t`` optionally carries the transposed plan, built
     at set-up by :meth:`with_transpose`.
     """
@@ -253,7 +253,7 @@ class PrunedDIAMatrix(LinearOperator):
 
     def _spmm(self, X, layout):
         return pruned_spmm(self.data, X, self.offsets, self.tile_ptr, self.n, self.m, layout,
-                           group=self.group)
+                           group=self.group, tile_end=self.tile_end)
 
     def matmat(self, X):
         """A @ X for X (m, k): one SpMM launch per 16 columns, the packed
@@ -398,7 +398,8 @@ class SymmetricPrunedDIAMatrix(PrunedDIAMatrix):
 
     def _spmm(self, X, layout):
         return pruned_sym_spmm(self.data, X, self.offsets, self.tile_ptr, self.n,
-                               self.m, layout, halo=self.halo, group=self.group)
+                               self.m, layout, halo=self.halo, group=self.group,
+                               tile_end=self.tile_end)
 
     def matmat(self, X):
         return panel_apply(X, self._spmm, self.n)

@@ -149,9 +149,9 @@ def library() -> ctypes.CDLL:
     # [tile_end,] outputs..., tile_rows, n_tiles, sizes..., stream)
     pruned = {
         "sigma_pruned_spmv": (2, 2),  # tile_end, y; sizes n, m
-        "sigma_pruned_spmm": (1, 5),  # y; n, m, k, bx, by
+        "sigma_pruned_spmm": (2, 5),  # tile_end, y; n, m, k, bx, by
         "sigma_pruned_sym_spmv": (3, 5),  # tile_end, y, spill; n, m, sym_shift, spill_rows, rows_out
-        "sigma_pruned_sym_spmm": (2, 9),  # y, spill; n, m, k, bx, by, bs, sym_shift, spill_rows, rows_out
+        "sigma_pruned_sym_spmm": (3, 9),  # tile_end, y, spill; n, m, k, bx, by, bs, sym_shift, spill_rows, rows_out
     }
     for name, (n_ptr, n_sizes) in pruned.items():
         fn = getattr(lib, name)

@@ -20,8 +20,8 @@ pruned layout keeps only the active blocks:
   first-step flags; the halo ``E`` (sublane rows of 128) survives only as
   the length ``E * 128`` of the symmetric kernels' spill.
 - ``tile_end`` (G,) is the end of each tile's active slots
-  (:func:`active_tile_ends`, computed once with the plan), so the SpMV
-  kernels walk no padding slot.
+  (:func:`active_tile_ends`, computed once with the plan), so the kernels
+  walk no padding slot.
 
 Ports of the four Pallas TPU kernels of ``sigma_tpu/ops/spmv_pruned.py``:
 
@@ -348,8 +348,8 @@ def _block(layout, length):
 
 
 def _tile_end(tile_end, tile_ptr):
-    """The SpMV kernels' per-tile slot ends: the plan's active ends, or
-    every tile's last slot (``tile_ptr[1:]``) when none are given."""
+    """The kernels' per-tile slot ends: the plan's active ends, or every
+    tile's last slot (``tile_ptr[1:]``) when none are given."""
     if tile_end is None:
         return tile_ptr[1:]
     if tile_end.dtype != torch.int64 or tuple(tile_end.shape) != (tile_ptr.shape[0] - 1,):
@@ -364,9 +364,8 @@ def _tile_end(tile_end, tile_ptr):
 
 def _launch(entry, data, X, offsets, tile_ptr, outs, *sizes, tile_end=None):
     """Launch one kernel on the current stream into the preallocated
-    outputs ``outs`` (the null pointer for None); ``tile_end`` goes to the
-    SpMV kernels after ``tile_ptr``.  Raises on anything the kernel does
-    not take."""
+    outputs ``outs`` (the null pointer for None); ``tile_end`` goes after
+    ``tile_ptr``.  Raises on anything the kernel does not take."""
     if X.device.type != "cuda":
         raise ValueError(f"no pruned kernel for device {X.device}")
     if (data.dtype, X.dtype) not in KERNEL_DTYPES:
@@ -410,17 +409,19 @@ def pruned_spmv(data, x, offsets, tile_ptr, n, m, *, group=1, tile_end=None):
 pruned_spmv.launches = 0
 
 
-def pruned_spmm(data, X, offsets, tile_ptr, n, m, layout, *, group=1):
+def pruned_spmm(data, X, offsets, tile_ptr, n, m, layout, *, group=1, tile_end=None):
     """Y = A X for 1 <= k <= 16 panels X in ``layout`` (RHS-major (k, m) or
-    columns (m, k)); Y comes back in the same layout, in X's dtype."""
+    columns (m, k)); Y comes back in the same layout, in X's dtype.
+    ``group`` and ``tile_end`` as for :func:`pruned_spmv`."""
     k = _check(data, X, offsets, tile_ptr, n, m, layout)
+    tile_end = _tile_end(tile_end, tile_ptr)
     if X.device.type == "cpu":
         return pruned_spmm_reference(data, X, offsets, tile_ptr, n, m, layout, group=group)
     Y = torch.empty(_out_shape(layout, k, n), dtype=X.dtype, device=X.device)
     if n == 0:
         return Y
     _launch("sigma_pruned_spmm", data, X, offsets, tile_ptr, (Y,), n, m, k,
-            _block(layout, m), _block(layout, n))
+            _block(layout, m), _block(layout, n), tile_end=tile_end)
     _count(pruned_spmm, layout)
     return Y
 
@@ -475,12 +476,13 @@ pruned_sym_spmv.launches = 0
 
 
 def pruned_sym_spmm(data, X, offsets, tile_ptr, n, m, layout, *, halo, sym_shift=0,
-                    with_spill=False, group=1):
+                    with_spill=False, group=1, tile_end=None):
     """:func:`pruned_sym_spmv` for 1 <= k <= 16 panels X in ``layout``;
     the spill comes back in the same layout, (k, halo * 128) or
     (halo * 128, k)."""
     k = _check(data, X, offsets, tile_ptr, n, m, layout)
     _check_sym(n, m, data.shape[1], halo, sym_shift)
+    tile_end = _tile_end(tile_end, tile_ptr)
     if X.device.type == "cpu":
         return pruned_sym_spmm_reference(data, X, offsets, tile_ptr, n, m, layout,
                                          halo=halo, sym_shift=sym_shift,
@@ -495,7 +497,7 @@ def pruned_sym_spmm(data, X, offsets, tile_ptr, n, m, layout, *, halo, sym_shift
     if rows_out:
         _launch("sigma_pruned_sym_spmm", data, X, offsets, tile_ptr, (Y, spill),
                 n, m, k, _block(layout, m), _block(layout, n), _block(layout, EL),
-                sym_shift, EL, rows_out)
+                sym_shift, EL, rows_out, tile_end=tile_end)
         _count(pruned_sym_spmm, layout)
     return (Y, spill) if with_spill else Y
 

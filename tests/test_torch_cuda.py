@@ -466,6 +466,67 @@ def test_pruned_spmv_kernels_edge_cases(cuda, pair, case):
     torch.cuda.synchronize()
 
 
+# the SpMMs' edge cases: the SpMVs', a band whose x window does not fit
+# shared memory at k = 16 with f64 vectors (256-row blocks: the in-kernel
+# plain-load route) but does at k <= 4, and an operand of more blocks than
+# half an H100's SMs (the fewest column groups; the smaller ones take twice
+# as many)
+_SPMM_EDGES = {**_SPMV_EDGES, "window_past_its_cap_at_k16_f64": (4096, 4096, 1024, 300, 0, None),
+               "more_blocks_than_half_the_sms": (70_000, 70_000, 2048, 300, 0, None)}
+
+
+@pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
+@pytest.mark.parametrize("case", sorted(_SPMM_EDGES))
+def test_pruned_spmm_kernels_edge_cases(cuda, pair, case):
+    """#11 and #13 on the edge cases, both layouts, k in {1, 3, 8, 16},
+    with the plan's active tile ends and without (every slot walked),
+    spill included; two launches give the same bits."""
+    vdt, xdt = pair
+    n, m, tile_rows, reach, shift, empty = _SPMM_EDGES[case]
+    rng = np.random.default_rng(16)
+    P = _edge_plan(rng, n, m, tile_rows, reach, shift, empty)
+    assert P.tile_rows == tile_rows
+    d, o, tp = _on(cuda, P, vdt)
+    te = torch.from_numpy(P.tile_end).to(cuda)
+    kw = dict(halo=P.halo, sym_shift=shift, with_spill=True)
+    for layout in sp.PRUNED_LAYOUTS:
+        for k in (1, 3, 8, 16):
+            XT = torch.from_numpy(rng.standard_normal((k, m))).to(cuda, xdt)
+            X = XT if layout == "rhs_major" else XT.T.contiguous()
+            Yr, Sr = sp.pruned_sym_spmm_reference(d, X, o, tp, n, m, layout, **kw)
+            Fr = None if shift else sp.pruned_spmm_reference(d, X, o, tp, n, m, layout)
+            for ends in (te, None):
+                Y, S = sp.pruned_sym_spmm(d, X, o, tp, n, m, layout, tile_end=ends, **kw)
+                assert rel(Y, Yr) <= _tol(xdt), (layout, k)
+                assert float((S - Sr).abs().max()) <= _tol(xdt) * float(Yr.abs().max())
+                Y2, S2 = sp.pruned_sym_spmm(d, X, o, tp, n, m, layout, tile_end=ends, **kw)
+                assert torch.equal(Y, Y2) and torch.equal(S, S2)
+                if Fr is not None:
+                    F = sp.pruned_spmm(d, X, o, tp, n, m, layout, tile_end=ends)
+                    assert rel(F, Fr) <= _tol(xdt), (layout, k)
+                    assert torch.equal(F, sp.pruned_spmm(d, X, o, tp, n, m, layout, tile_end=ends))
+    assert (shift > 0) == bool(Sr.abs().max() > 0)
+    torch.cuda.synchronize()
+
+
+def test_edge_list_products_repeat_bit_for_bit(cuda):
+    """CSR, COO and CSC products on a shuffled mesh operator (rows of up to
+    a dozen terms in random order) give the same bits on every call, and
+    the CPU's: each target's terms are added in stored edge order."""
+    n, r, c, v = st.irregular_mesh_laplacian_coo(128, 32, rng=np.random.default_rng(0),
+                                                 shift=1e-3, shuffle=True)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    X = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32))
+    for cls in (st.CSRMatrix, st.COOMatrix, st.CSCMatrix):
+        A = cls.from_coo(n, n, r, c, v, dtype=torch.float32, device="cpu")
+        Ag = cls.from_coo(n, n, r, c, v, dtype=torch.float32, device=cuda)
+        for op, arg in (("matvec", x), ("matmat", X), ("rmatvec", x), ("rmatmat", X)):
+            ys = [getattr(Ag, op)(arg.to(cuda)) for _ in range(3)]
+            assert all(torch.equal(ys[0], y) for y in ys[1:]), (cls.__name__, op)
+            assert torch.equal(ys[0].cpu(), getattr(A, op)(arg)), (cls.__name__, op)
+
+
 def test_pruned_kernels_reject_what_they_do_not_take(cuda):
     rng = np.random.default_rng(12)
     P = _random_plan(rng, 2048, 2048, 100)
@@ -474,6 +535,9 @@ def test_pruned_kernels_reject_what_they_do_not_take(cuda):
         sp.pruned_spmv(d, torch.zeros(2048, device=cuda), o, tp, 2048, 2048)
     with pytest.raises(ValueError, match="1 to 16"):
         sp.pruned_spmm(d, torch.zeros(2048, 17, dtype=torch.float64, device=cuda), o, tp, 2048, 2048, "cols")
+    with pytest.raises(ValueError, match="tile_end"):
+        sp.pruned_spmm(d, torch.zeros(2048, 4, dtype=torch.float64, device=cuda), o, tp, 2048,
+                       2048, "cols", tile_end=tp[1:].cpu())
     with pytest.raises(ValueError, match="different devices"):
         sp.pruned_spmv(d, torch.zeros(2048, dtype=torch.float64), o, tp, 2048, 2048)
 

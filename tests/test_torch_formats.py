@@ -202,6 +202,32 @@ def test_products_match_jax(fmt, product):
     assert rel(y, (dense.T if product.startswith("r") else dense) @ x) <= TOL
 
 
+@pytest.mark.parametrize("fmt", ["csr", "coo", "csc"])
+@pytest.mark.parametrize("product", ["matvec", "rmatvec", "matmat", "rmatmat"])
+def test_fixed_order_edge_sums_match_jax(fmt, product):
+    """The edge-list products' fixed-order sum (what runs off the CPU: each
+    target's terms added in stored edge order, no atomics) gives the CPU
+    ``index_add_``'s bits, and the JAX package's product, on a shuffled
+    mesh operator."""
+    from sigma_tpu_torch.matrix.formats import _ordered_sum, _sum_plan
+
+    n, r, c, v = st.irregular_mesh_laplacian_coo(16, 8, rng=np.random.default_rng(0),
+                                                 shift=1e-3, shuffle=True)
+    dense = np.zeros((n, n))
+    dense[r, c] = v
+    Aj, At = both(fmt, dense)
+    side = 1 if product.startswith("r") else 0
+    x = np.random.default_rng(11).standard_normal(n if product.endswith("vec") else (n, 5))
+    y = getattr(At, product)(t(x))
+    edges = At.graph.edges_numpy()
+    gather = (At.cols_dev, At.rows_dev)[side]
+    prod = (At.data[:, None] if x.ndim == 2 else At.data) * t(x)[gather]
+    y_fixed = _ordered_sum(prod, _sum_plan(edges[side], n, "cpu"), n)
+    assert torch.equal(y_fixed, y)
+    assert rel(y_fixed, getattr(Aj, product)(jnp.asarray(x))) <= TOL
+    assert rel(y_fixed, (dense.T if side else dense) @ x) <= TOL
+
+
 @pytest.mark.parametrize("fmt", ["csc", "ell"])
 def test_values_equal_jax(fmt):
     dense = random_dense(11, 30, 30)

@@ -359,14 +359,14 @@ def test_cpu_routing_launches_no_kernel_and_device_tensors_go_to_the_kernel(monk
         assert rel(M.matmat(X), dense @ X.numpy()) <= 1e-12
     assert [f.launches for f in kernels] == before
 
-    launched = []
+    launched, ends = [], []
 
     def fake_launch(entry, data, X, offsets, tile_ptr, outs, *sizes, tile_end=None):
         assert data.device == X.device == offsets.device == tile_ptr.device
-        # the SpMV kernels get the matrix's active tile ends, the SpMMs none
-        assert (tile_end is None) == entry.endswith("spmm")
-        assert tile_end is None or tile_end.device == X.device
+        # every kernel, SpMV and SpMM, gets the matrix's active tile ends
+        assert tile_end is not None and tile_end.device == X.device
         launched.append(entry)
+        ends.append(tile_end)
 
     def no_plain(*args, **kw):
         raise AssertionError("plain version called for a device tensor")
@@ -381,7 +381,28 @@ def test_cpu_routing_launches_no_kernel_and_device_tensors_go_to_the_kernel(monk
     assert Sm.matvec(xm.double()).shape == (n,) and Sm.matmat(Xm.double()).shape == (n, 4)
     assert launched == ["sigma_pruned_spmv", "sigma_pruned_spmm", "sigma_pruned_sym_spmv",
                         "sigma_pruned_sym_spmm"]
+    assert [e is M.tile_end for e, M in zip(ends, (Am, Am, Sm, Sm))] == [True] * 4
     assert [f.launches - b for f, b in zip(kernels, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("fn", ["pruned_spmm", "pruned_sym_spmm"])
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
+def test_spmm_wrappers_reject_a_wrong_tile_end(fn, bad):
+    """The SpMMs check ``tile_end`` as the SpMVs do, on every device,
+    before they route."""
+    rng = np.random.default_rng(12)
+    n = 2100
+    r, c, v, _ = random_symmetric(rng, n, 9000)
+    A = (st.SymmetricPrunedDIAMatrix if fn == "pruned_sym_spmm" else st.PrunedDIAMatrix).from_coo(
+        n, n, r, c, v, tile_rows=1024, device="cpu")
+    te = {"shape": A.tile_end[1:], "dtype": A.tile_end.int(),
+          "device": A.tile_end.to("meta")}[bad]
+    kw = dict(halo=A.halo) if fn == "pruned_sym_spmm" else {}
+    X = torch.from_numpy(rng.standard_normal((n, 3)))
+    assert getattr(sp, fn)(A.data, X, A.offsets, A.tile_ptr, n, n, "cols",
+                           tile_end=A.tile_end, **kw).shape == (n, 3)
+    with pytest.raises(ValueError, match="tile_end"):
+        getattr(sp, fn)(A.data, X, A.offsets, A.tile_ptr, n, n, "cols", tile_end=te, **kw)
 
 
 def test_pruned_spmm_counts_launches_by_layout(monkeypatch):
@@ -393,7 +414,7 @@ def test_pruned_spmm_counts_launches_by_layout(monkeypatch):
     r, c, v, _ = random_symmetric(rng, n, 9000)
     A = st.PrunedDIAMatrix.from_coo(n, n, r, c, v, tile_rows=1024, device="cpu").to("meta")
     S = st.SymmetricPrunedDIAMatrix.from_coo(n, n, r, c, v, tile_rows=1024, device="cpu").to("meta")
-    monkeypatch.setattr(sp, "_launch", lambda *args: None)
+    monkeypatch.setattr(sp, "_launch", lambda *args, **kw: None)
     cols = torch.empty((n, 4), dtype=torch.float64, device="meta")
     rhs_major = torch.empty((4, n), dtype=torch.float64, device="meta").T
     for M, fn in ((A, sp.pruned_spmm), (S, sp.pruned_sym_spmm)):
