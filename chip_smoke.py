@@ -17,7 +17,9 @@ boundary, the stencil's far offsets, a band and below one tile, launched
 twice and bit for bit against the full-storage SpMV; for SpMM every
 panel layout and k in {1, 3, 8, 16}, and the full-storage SpMM at k in
 {1, 3, 4, 5, 8, 9, 12, 16} on eight offset sets
-and value strides with NaN in every slot outside the matrix; the grouped
+and value strides with NaN in every slot outside the matrix, the
+symmetric one at the same k on seven offset sets and value forms with NaN
+in every slot it must not read, launched twice for the same bits; the grouped
 SpMM in both of its layouts at k in {1, 17, 24, 32, 33, 48} on
 five offset sets, and with no diagonals; the grouped-BSR kernel in every
 form at six block shapes, three group sizes and k in {1, 2, 3, 4, 5, 8,
@@ -26,7 +28,8 @@ at the north stars' shapes beside their bound and the same product in
 cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 (10,077,696 rows, 70,263,936 nonzeros) and the shuffled irregular-mesh
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
-= 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8.  Then it
+= 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
+symmetric DIA SpMM also at k=4).  Then it
 drives eight paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
@@ -80,7 +83,8 @@ kernel with its plain version run outside the counted paths.
 
 Phases print one line each or more (JSON, or the card's name and power
 limit as nvidia-smi gives them); the line before the last is the kernels'
-summary (each SpMM in the panel layout its paths launched most), and the
+summary (each SpMM in the panel layout its paths launched most, the
+symmetric DIA SpMM at k = 4), and the
 last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits nonzero without that line.  It needs a
 CUDA device and exits nonzero without one.
@@ -98,7 +102,14 @@ import time
 from functools import partial
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one line: a string as it is, a dict as JSON; a phase's dict
+    with ``t_s``, the seconds since the script started."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 3)}
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
 
 
@@ -260,6 +271,11 @@ GROUPED_KERNEL = "dia_spmm_grouped_kernel"
 # count G (1 or 2 with f32 vectors, 1, 2 or 4 with f64)
 SPMM_KERNEL = "dia_spmm_kernel"
 SPMM_INSTANTIATIONS = 13
+# the symmetric SpMM (dia_spmm.cu) #3/#8: per dtype pair, the column
+# layout's lane-rows tile at two column counts C and the panels' tile at two
+# C in two value-load forms (16-byte pieces or one value a load)
+SYM_SPMM_KERNEL = "dia_sym_spmm_kernel"
+SYM_SPMM_INSTANTIATIONS = 5 * (2 + 2 * 2)
 # the grouped-BSR kernel (bsr_grouped.cu): the wide form per dtype pair and
 # column tile (1, 2, 4 or 8 columns a pass), the narrow form per dtype
 # pair, column tile and load width (16-byte pieces or one value)
@@ -300,6 +316,11 @@ def phase_build():
          "static_smem_bytes": smem}
         for name, regs, st, ld, smem in entries if SPMM_KERNEL in name
     ]
+    sym_spmm = [
+        {"function": name, "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
+         "static_smem_bytes": smem}
+        for name, regs, st, ld, smem in entries if SYM_SPMM_KERNEL in name
+    ]
     bsr = [
         {"function": name, "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
          "static_smem_bytes": smem}
@@ -328,6 +349,10 @@ def phase_build():
     emit({"phase": "build_grouped_spmm", "instantiations": grouped,
           "launch_by_dtype_pair": launch})
     emit({"phase": "build_spmm", "instantiations": spmm, "launch_by_dtype_pair_and_k": spmm_launch})
+    emit({"phase": "build_sym_spmm", "instantiations": sym_spmm,
+          "registers": [min(r["registers"] for r in sym_spmm),
+                        max(r["registers"] for r in sym_spmm)] if sym_spmm else None,
+          "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in sym_spmm)})
     emit({"phase": "build_bsr_grouped", "instantiations": bsr,
           "registers": [min(r["registers"] for r in bsr), max(r["registers"] for r in bsr)]
           if bsr else None,
@@ -358,6 +383,10 @@ def phase_build():
     if len(spmm) != SPMM_INSTANTIATIONS or any(r["spill_store_bytes"] or r["spill_load_bytes"]
                                                for r in spmm):
         raise AssertionError(f"want {SPMM_INSTANTIATIONS} SpMM instantiations without spills: {spmm}")
+    if len(sym_spmm) != SYM_SPMM_INSTANTIATIONS or any(
+            r["spill_store_bytes"] or r["spill_load_bytes"] for r in sym_spmm):
+        raise AssertionError(f"want {SYM_SPMM_INSTANTIATIONS} symmetric SpMM instantiations "
+                             f"without spills: {sym_spmm}")
     if len(bsr) != BSR_INSTANTIATIONS or any(r["spill_store_bytes"] or r["spill_load_bytes"]
                                              for r in bsr):
         raise AssertionError(f"want {BSR_INSTANTIATIONS} grouped-BSR instantiations without "
@@ -612,18 +641,88 @@ def dia_spmm_cases(device):
     return count, worst
 
 
+SYM_CHECK_N = 20_001  # not a multiple of a block's rows, nor of 4
+
+
+def sym_spmm_check_offsets(n, band):
+    """dia_sym_spmm's offset sets (value stride n padded to a multiple of
+    128 unless said): a stencil's {0, 1, nx, nx^2} with nx^2 past a block's
+    rows, runs of consecutive offsets as the node-major elasticity
+    operator's, no main diagonal, a 64-diagonal band, offsets at and past
+    n; the stencil's again over an odd stride (one value a load) and in a
+    value view off a 16-byte boundary."""
+    stencil = [0, 1, 70, 4900]
+    padded = -(-n // 128) * 128
+    return {
+        "stencil": (stencil, padded, 0),
+        "runs": ([0, 1, 2, 3, 4, 5, 448, 449, 450, 451, 452], padded, 0),
+        "no_main": ([1, 130, 259], padded, 0),
+        "band": (sorted({abs(o) for o in band}), padded, 0),
+        "past_n": ([0, 3, n - 1, n, n + 5], padded, 0),
+        "odd_stride": (stencil, n + 2, 0),
+        "unaligned_view": (stencil, padded, 1),
+    }
+
+
+def dia_sym_spmm_cases(device, band):
+    """dia_sym_spmm against its plain version on every SPMM_CHECK_K, offset
+    set, dtype pair and layout, NaN in every stored slot the matrix does not
+    hold (rows n - o and past of each diagonal), two launches bitwise
+    equal; returns (cases, worst rel err by set)."""
+    import torch
+
+    from sigma_tpu_torch.ops import (
+        KERNEL_DTYPES, LAYOUTS, dia_sym_spmm, dia_sym_spmm_reference, interleave_panels,
+    )
+
+    n = SYM_CHECK_N
+    g = torch.Generator(device=device).manual_seed(13)
+    worst, count = {}, 0
+    for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
+        tol = 1e-12 if xdt == torch.float64 else 1e-5
+        for label, (offs, stride, skew) in sym_spmm_check_offsets(n, band).items():
+            off_t = torch.tensor(offs, dtype=torch.int64, device=device)
+            vals = torch.randn((len(offs), stride), generator=g, device=device,
+                               dtype=torch.float64)
+            rows = torch.arange(stride, device=device)
+            vals[rows[None, :] + off_t[:, None] >= n] = float("nan")
+            store = torch.empty(vals.numel() + skew, dtype=vdt, device=device)
+            data = store[skew:].view(vals.shape)
+            data.copy_(vals)
+            for layout in LAYOUTS:
+                for k in SPMM_CHECK_K:
+                    XT = torch.randn((k, n), generator=g, device=device, dtype=xdt)
+                    X = (XT if layout == "rhs_major" else XT.T.contiguous()
+                         if layout == "cols" else interleave_panels(XT, n))
+                    # y comes from torch.empty: the comparison covers every
+                    # row, the interleaved layout's zero padding included
+                    Y = dia_sym_spmm(data, X, off_t, n, layout)
+                    Y2 = dia_sym_spmm(data, X, off_t, n, layout)
+                    torch.cuda.synchronize()
+                    ref = dia_sym_spmm_reference(data, X, off_t, n, layout)
+                    e = rel_err(Y, ref)
+                    name = f"dia_sym_spmm {label} {layout} k={k} {vdt}/{xdt}"
+                    if not (e <= tol and Y.shape == ref.shape):
+                        raise AssertionError(f"{name}: rel err {e:.3e} > {tol}")
+                    if not torch.equal(Y, Y2):
+                        raise AssertionError(f"{name}: two launches differ")
+                    worst[label] = max(worst.get(label, 0.0), e)
+                    count += 1
+    return count, worst
+
+
 def phase_spmm_kernels(device):
     """dia_spmm and dia_sym_spmm against their plain versions on the card:
-    every dtype pair, every panel layout, k in {1, 3, 8, 16}, at the odd
-    shapes of phase_kernels; dia_spmm also on dia_spmm_cases; and
-    DIAMatrix.rmatmat of a tall matrix against the CPU."""
+    dia_spmm in every dtype pair and panel layout, k in {1, 3, 8, 16}, at
+    the odd shapes of phase_kernels and on dia_spmm_cases; dia_sym_spmm on
+    dia_sym_spmm_cases; and DIAMatrix.rmatmat of a tall matrix against the
+    CPU."""
     import numpy as np
     import torch
 
     from sigma_tpu_torch import DIAGraph, DIAMatrix
     from sigma_tpu_torch.ops import (
-        KERNEL_DTYPES, LAYOUTS, dia_spmm, dia_spmm_reference, dia_sym_spmm,
-        dia_sym_spmm_reference, interleave_panels,
+        KERNEL_DTYPES, LAYOUTS, dia_spmm, dia_spmm_reference, interleave_panels,
     )
 
     rng = np.random.default_rng(1)
@@ -634,11 +733,6 @@ def phase_spmm_kernels(device):
         ("unaligned", 16_667, 16_667, [0, 1, -1, 300, -2500]),
         ("one_diag", 35_000, 35_000, [0]),
         ("band64", 20_000, 20_000, band),
-    ]
-    sym_cases = [
-        ("stencil", 25_000, [0, 1, 300, 2500]),
-        ("no_main_unaligned", 16_667, [1, 130, 259]),
-        ("wide_band", 20_000, sorted({abs(o) for o in band})),
     ]
 
     def panels(length, k, xdt, layout):
@@ -658,7 +752,7 @@ def phase_spmm_kernels(device):
             raise AssertionError(f"{name}: shape {tuple(y.shape)} != {tuple(ref.shape)}")
         return e
 
-    worst = {"dia_spmm": 0.0, "dia_sym_spmm": 0.0}
+    worst = {"dia_spmm": 0.0}
     count = 0
     for vdt, xdt in sorted(KERNEL_DTYPES, key=str):
         for layout in LAYOUTS:
@@ -675,20 +769,6 @@ def phase_spmm_kernels(device):
                               dia_spmm_reference(data, X, off_t, n, m, layout), xdt)
                     worst["dia_spmm"] = max(worst["dia_spmm"], e)
                     count += 1
-                for name, n, offs in sym_cases:
-                    stride = -(-n // 128) * 128
-                    data = np.zeros((len(offs), stride))
-                    for d, o in enumerate(offs):
-                        data[d, : n - o] = rng.standard_normal(n - o)
-                    data = torch.from_numpy(data).to(device, vdt)
-                    off_t = torch.tensor(offs, dtype=torch.int64, device=device)
-                    X = panels(n, k, xdt, layout)
-                    y = dia_sym_spmm(data, X, off_t, n, layout)
-                    torch.cuda.synchronize()
-                    e = check(f"dia_sym_spmm {name} {layout} k={k} {vdt}/{xdt}", y,
-                              dia_sym_spmm_reference(data, X, off_t, n, layout), xdt)
-                    worst["dia_sym_spmm"] = max(worst["dia_sym_spmm"], e)
-                    count += 1
     # the format layer: rmatmat of a tall matrix through the transposed
     # layout, against the same matrix on the CPU (plain version)
     n, m, offs = 30_000, 22_501, [0, 4, -300, 2500, -2500]
@@ -702,10 +782,14 @@ def phase_spmm_kernels(device):
     if not e <= 1e-12:
         raise AssertionError(f"DIAMatrix.rmatmat: rel err {e:.3e}")
     cases, worst_by_set = dia_spmm_cases(device)
-    emit({"phase": "spmm_kernel_checks", "cases": count + 1 + cases,
+    sym_cases, sym_worst_by_set = dia_sym_spmm_cases(device, band)
+    worst["dia_sym_spmm"] = max(sym_worst_by_set.values())
+    emit({"phase": "spmm_kernel_checks", "cases": count + 1 + cases + sym_cases,
           "worst_rel_err": {k: float(v) for k, v in worst.items()},
           "dia_spmm_cases": cases, "dia_spmm_k": list(SPMM_CHECK_K),
           "dia_spmm_worst_rel_err_by_offsets": worst_by_set,
+          "dia_sym_spmm_cases": sym_cases, "dia_sym_spmm_k": list(SPMM_CHECK_K),
+          "dia_sym_spmm_worst_rel_err_by_offsets": sym_worst_by_set,
           "rmatmat_rel_err": e,
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
@@ -772,10 +856,12 @@ def phase_grouped_kernels(device):
           "tolerance": "1e-12 with f64 vectors, 1e-5 with f32 vectors"})
 
 
-def phase_north_star_spmm(device, nx, k=8):
+def phase_north_star_spmm(device, nx, k=8, sym_k=4):
     """The SpMM kernels and their plain versions at the main path's shapes
-    (nx=216, k=8: bench.py's and cg3d.py's width), timed with CUDA events
-    in every panel layout; returns the rows keyed "kernel/layout"."""
+    (nx=216, k=8: bench.py's and cg3d.py's width; dia_sym_spmm also at
+    k=4, the GMG block CG's width), timed with CUDA events in every panel
+    layout; returns the rows keyed "kernel/layout" (k=8) and
+    "dia_sym_spmm/layout/k4"."""
     import torch
 
     from sigma_tpu_torch import SymmetricDIAMatrix, laplacian_3d_dia
@@ -789,28 +875,31 @@ def phase_north_star_spmm(device, nx, k=8):
     S = SymmetricDIAMatrix.from_dia(A)
     n, nnz = A.shape[0], A.nnz
     g = torch.Generator(device=device).manual_seed(0)
-    XT = torch.rand((k, n), generator=g, device=device)
-    layouts = {"rhs_major": XT, "interleaved": interleave_panels(XT, n),
-               "cols": XT.T.contiguous()}
     csr = csr_from_dia(A)
-    # cuSPARSE on the same panels: the (n, k) columns, and the RHS-major
-    # panels as the column-major (n, k) block XT.T; it has no interleaved
-    # layout, so that row is held to the columns
-    library = {"cols": (median_ms(lambda: csr @ layouts["cols"]), "X (n, k)"),
-               "rhs_major": (median_ms(lambda: csr @ XT.T), "XT.T (n, k) column-major")}
-    library["interleaved"] = library["cols"]
-    del XT, csr
+    panels, library = {}, {}
+    for kk in (k, sym_k):
+        XT = torch.rand((kk, n), generator=g, device=device)
+        panels[kk] = {"rhs_major": XT, "interleaved": interleave_panels(XT, n),
+                      "cols": XT.T.contiguous()}
+        # cuSPARSE on the same panels: the (n, k) columns, and the RHS-major
+        # panels as the column-major (n, k) block XT.T; it has no interleaved
+        # layout, so that row is held to the columns
+        cols = (median_ms(lambda: csr @ panels[kk]["cols"]), "X (n, k)")
+        library[kk] = {"cols": cols, "interleaved": cols,
+                       "rhs_major": (median_ms(lambda: csr @ XT.T), "XT.T (n, k) column-major")}
+        del XT
+    del csr
     variants = [
-        ("dia_spmm", "full_f32_interleaved", "interleaved", A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
-        ("dia_spmm", "full_f32_rhs_major", "rhs_major", A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
-        ("dia_spmm", "full_f32_cols", "cols", A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
-        ("dia_sym_spmm", "sym_f32_interleaved", "interleaved", S.data, S.offsets_dev, dia_sym_spmm, dia_sym_spmm_reference, (n,)),
-        ("dia_sym_spmm", "sym_f32_rhs_major", "rhs_major", S.data, S.offsets_dev, dia_sym_spmm, dia_sym_spmm_reference, (n,)),
-        ("dia_sym_spmm", "sym_f32_cols", "cols", S.data, S.offsets_dev, dia_sym_spmm, dia_sym_spmm_reference, (n,)),
+        ("dia_spmm", "full_f32_interleaved", "interleaved", k, A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
+        ("dia_spmm", "full_f32_rhs_major", "rhs_major", k, A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
+        ("dia_spmm", "full_f32_cols", "cols", k, A.data, A.offsets_dev, dia_spmm, dia_spmm_reference, (n, n)),
+    ] + [
+        ("dia_sym_spmm", f"sym_f32_{layout}", layout, kk, S.data, S.offsets_dev, dia_sym_spmm, dia_sym_spmm_reference, (n,))
+        for kk in (k, sym_k) for layout in ("interleaved", "rhs_major", "cols")
     ]
     rows = {}
-    for kname, label, layout, data, offs, kern, plain, dims in variants:
-        X = layouts[layout]
+    for kname, label, layout, kk, data, offs, kern, plain, dims in variants:
+        X = panels[kk][layout]
         y = kern(data, X, offs, *dims, layout)
         yr = plain(data, X, offs, *dims, layout)
         torch.cuda.synchronize()
@@ -818,33 +907,33 @@ def phase_north_star_spmm(device, nx, k=8):
         err_rel = rel_err(y, yr)
         del y, yr
         if not err_rel <= 1e-5:
-            raise AssertionError(f"{kname} {label} at nx={nx}: rel err {err_rel:.3e}")
+            raise AssertionError(f"{kname} {label} k={kk} at nx={nx}: rel err {err_rel:.3e}")
         ms = median_ms(lambda: kern(data, X, offs, *dims, layout))
         plain_ms = median_ms(lambda: plain(data, X, offs, *dims, layout), reps=10, warmup=2)
         # byte floor: stored nonzero values once + k x-panels read + k
         # y-panels written
         stored = int(torch.count_nonzero(data))
-        byts = stored * data.element_size() + 2 * k * n * X.element_size()
+        byts = stored * data.element_size() + 2 * kk * n * X.element_size()
         bound_ms, bound_by = bound(
-            data.numel() * data.element_size() + 2 * k * n * X.element_size(),
-            2 * k * nnz, X.dtype,
+            data.numel() * data.element_size() + 2 * kk * n * X.element_size(),
+            2 * kk * nnz, X.dtype,
         )
         row = {
             "phase": "north_star_spmm", "variant": label, "kernel": kname,
-            "layout": layout, "k": k, "n": n, "nnz": nnz,
+            "layout": layout, "k": kk, "n": n, "nnz": nnz,
             "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": library[layout][0],
-            "library": f"torch.sparse_csr @ {library[layout][1]} (cuSPARSE), full storage",
+            "library_ms": library[kk][layout][0],
+            "library": f"torch.sparse_csr @ {library[kk][layout][1]} (cuSPARSE), full storage",
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "k_gnnz_s": k * nnz / (ms * 1e-3) / 1e9,
-            "plain_k_gnnz_s": k * nnz / (plain_ms * 1e-3) / 1e9,
+            "k_gnnz_s": kk * nnz / (ms * 1e-3) / 1e9,
+            "plain_k_gnnz_s": kk * nnz / (plain_ms * 1e-3) / 1e9,
             "bytes_floor_mb": byts / 1e6,
             "achieved_gbs": byts / (ms * 1e-3) / 1e9,
             "stream_copy_gbs": stream_gbs,
             "max_abs_err": err_abs, "rel_err": err_rel,
         }
         emit(row)
-        rows[f"{kname}/{layout}"] = row
+        rows[f"{kname}/{layout}" + ("" if kk == k else f"/k{kk}")] = row
     return rows
 
 
@@ -1197,7 +1286,9 @@ def phase_pruned_kernels(device):
     and a rectangular symmetric block with sym_shift > 0 and its spill;
     each with the plan's active tile ends and without them (every slot
     walked), the SpMMs twice for equal bits; and on the edge cases of
-    ``SPMV_EDGES`` (the SpMMs at k = 3 and 16 on ``SPMM_EDGES``)."""
+    ``SPMV_EDGES`` (the SpMMs at k = 3 and 16 on ``SPMM_EDGES``).  Each
+    case's SpMM panels are the first k of 16, held to the first k panels
+    of one plain SpMM of all 16."""
     import numpy as np
     import torch
 
@@ -1239,9 +1330,14 @@ def phase_pruned_kernels(device):
         if not e <= (1e-12 if xdt == torch.float64 else 1e-5):
             raise AssertionError(f"{key} {name}: spill err {e:.3e}")
 
-    def panels(k, length, xdt, layout):
-        XT = torch.from_numpy(rng.standard_normal((k, length))).to(device, xdt)
-        return XT if layout == "rhs_major" else XT.T.contiguous()
+    def in_layout(T, k, layout):
+        """The first k rows of the RHS-major T (16 panels of x, or their
+        reference) in ``layout``: each panel's plain version is computed
+        alone, so the reference of 16 panels holds that of their first k."""
+        return T[:k] if layout == "rhs_major" else T[:k].T.contiguous()
+
+    def panels16(m, xdt):
+        return torch.from_numpy(rng.standard_normal((16, m))).to(device, xdt)
 
     plans = [(c, _random_pruned(rng, c[1], c[2], c[3], outliers=c[4], tile_rows=c[5], group=c[6]))
              for c in full_cases]
@@ -1261,10 +1357,11 @@ def phase_pruned_kernels(device):
             check(label, "pruned_spmv", pruned_spmv(d, x, o, tp, n, m), yr, xdt)
             check(f"{label} active ends", "pruned_spmv",
                   pruned_spmv(d, x, o, tp, n, m, tile_end=ends(P)), yr, xdt)
+            XT = panels16(m, xdt)
+            R = pruned_spmm_reference(d, XT, o, tp, n, m, "rhs_major")
             for layout in PRUNED_LAYOUTS:
                 for k in (1, 3, 8, 16):
-                    X = panels(k, m, xdt, layout)
-                    Yr = pruned_spmm_reference(d, X, o, tp, n, m, layout)
+                    X, Yr = in_layout(XT, k, layout), in_layout(R, k, layout)
                     for te in (ends(P), None):
                         case = f"{label} {layout} k={k}" + (" every slot" if te is None else "")
                         Y = pruned_spmm(d, X, o, tp, n, m, layout, tile_end=te)
@@ -1284,10 +1381,12 @@ def phase_pruned_kernels(device):
                 spill_check(label, "pruned_sym_spmv", s, sr, float(yr.abs().max()), xdt)
             if (shift > 0) != bool(sr.abs().max() > 0):
                 raise AssertionError(f"pruned_sym_spmv {label}: spill {float(sr.abs().max())}")
+            XT = panels16(m, xdt)
+            R, RS = pruned_sym_spmm_reference(d, XT, o, tp, n, m, "rhs_major", **kw)
             for layout in PRUNED_LAYOUTS:
                 for k in (1, 3, 8, 16):
-                    X = panels(k, m, xdt, layout)
-                    Yr, Sr = pruned_sym_spmm_reference(d, X, o, tp, n, m, layout, **kw)
+                    X, Yr = in_layout(XT, k, layout), in_layout(R, k, layout)
+                    Sr = in_layout(RS, k, layout)
                     for te in (ends(P), None):
                         case = f"{label} {layout} k={k}" + (" every slot" if te is None else "")
                         Y, S = pruned_sym_spmm(d, X, o, tp, n, m, layout, tile_end=te, **kw)
@@ -1306,24 +1405,28 @@ def phase_pruned_kernels(device):
             yr, sr = pruned_sym_matvec_reference(d, x, o, tp, n, m, **kw)
             if (shift > 0) != bool(sr.abs().max() > 0):
                 raise AssertionError(f"pruned_sym_spmv {label}: spill {float(sr.abs().max())}")
+            yfull = None if shift else pruned_matvec_reference(d, x, o, tp, n, m)
+            XT = panels16(m, xdt)
+            R = None if shift else pruned_spmm_reference(d, XT, o, tp, n, m, "rhs_major")
+            RY, RS = pruned_sym_spmm_reference(d, XT, o, tp, n, m, "rhs_major", **kw)
             for te in (ends(P), None):
                 if any(name == c[0] for c in SPMV_EDGES):
                     if not shift:
                         check(label, "pruned_spmv", pruned_spmv(d, x, o, tp, n, m, tile_end=te),
-                              pruned_matvec_reference(d, x, o, tp, n, m), xdt)
+                              yfull, xdt)
                     y, s = pruned_sym_spmv(d, x, o, tp, n, m, tile_end=te, **kw)
                     check(label, "pruned_sym_spmv", y, yr, xdt)
                     spill_check(label, "pruned_sym_spmv", s, sr, float(yr.abs().max()), xdt)
                 for layout in PRUNED_LAYOUTS:
                     for k in (3, 16):
-                        X = panels(k, m, xdt, layout)
+                        X = in_layout(XT, k, layout)
                         case = f"{label} {layout} k={k}" + (" every slot" if te is None else "")
                         if not shift:
                             check(case, "pruned_spmm",
                                   pruned_spmm(d, X, o, tp, n, m, layout, tile_end=te),
-                                  pruned_spmm_reference(d, X, o, tp, n, m, layout), xdt)
+                                  in_layout(R, k, layout), xdt)
                         Y, S = pruned_sym_spmm(d, X, o, tp, n, m, layout, tile_end=te, **kw)
-                        Yr, Sr = pruned_sym_spmm_reference(d, X, o, tp, n, m, layout, **kw)
+                        Yr, Sr = in_layout(RY, k, layout), in_layout(RS, k, layout)
                         check(case, "pruned_sym_spmm", Y, Yr, xdt)
                         spill_check(case, "pruned_sym_spmm", S, Sr, float(Yr.abs().max()), xdt)
     torch.cuda.synchronize()
@@ -2707,12 +2810,12 @@ def main():
     rows["bsr_grouped_spmv"] = block_rows["B3_elasticity_k1"]
     del S, variants
     # each SpMM's summary row is its timing in the panel layout its paths
-    # launched most
+    # launched most (dia_sym_spmm's at k = 4, the width its paths take)
     summary_layouts = {}
     for k in ("dia_spmm", "dia_sym_spmm", "pruned_spmm", "pruned_sym_spmm", "dia_spmm_grouped"):
         by = {lay: sum(c[1][k][lay] for c in paths) for lay in kernels[k].launches_by_layout}
         summary_layouts[k] = max(by, key=by.get)
-        rows[k] = rows[f"{k}/{summary_layouts[k]}"]
+        rows[k] = rows[f"{k}/{summary_layouts[k]}" + ("/k4" if k == "dia_sym_spmm" else "")]
 
     src = "sigma_tpu_torch/csrc/"
     pallas = "sigma_tpu/ops/spmv_pallas.py"

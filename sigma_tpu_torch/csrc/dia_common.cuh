@@ -28,15 +28,6 @@ __device__ __forceinline__ X to_x(__nv_bfloat16 v) {
   return static_cast<X>(__bfloat162float(v));
 }
 
-// Stage offsets[d0 : d0 + dn] into shared memory (whole block takes part).
-__device__ __forceinline__ void stage_offsets(int64_t* s_off,
-                                              const int64_t* __restrict__ offsets,
-                                              int64_t d0, int64_t dn) {
-  __syncthreads();
-  for (int64_t t = threadIdx.x; t < dn; t += blockDim.x) s_off[t] = offsets[d0 + t];
-  __syncthreads();
-}
-
 inline unsigned blocks_for(int64_t rows) {
   return static_cast<unsigned>((rows + kThreads - 1) / kThreads);
 }

@@ -105,7 +105,7 @@
 // synchronise, allocates nothing, and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a dtype pair it does not instantiate).
 
-#include "dia_window.cuh"  // cp.async helpers, fma_x, store_piece
+#include "dia_tile.cuh"  // the row-tile helpers (and dia_window.cuh's cp.async ones)
 
 namespace {
 
@@ -118,12 +118,6 @@ constexpr int kResidentThreads = 64;  // a block of dia_spmv_resident: one row t
 constexpr int kSpmvChunk = 256;       // offsets and bases staged at once: 4 KB
 constexpr int kResidentChunk = 64;    // 1 KB (#6: 1.5 KB) beside a staged window
 constexpr int kWindowMaxThreads = 512;  // #6: 1024 rows of f64 values, 2 a thread
-
-// rows a thread: one 16-byte piece of a value row
-template <typename V>
-__host__ __device__ constexpr int rows_of() {
-  return 16 / static_cast<int>(sizeof(V));
-}
 
 // diagonals whose values a thread loads before its first FMA: 128 bytes
 // in 16-byte pieces; 4 diagonals one value a load (R loads, R addresses each)
@@ -139,57 +133,6 @@ template <typename V, typename X>
 __host__ __device__ constexpr int x_batch_of() {
   constexpr int b = 64 / (rows_of<V>() * static_cast<int>(sizeof(X)));
   return b > 4 ? 4 : b < 2 ? 2 : b;
-}
-
-template <typename V>
-struct Bits;
-template <>
-struct Bits<float> {
-  using T = unsigned;
-};
-template <>
-struct Bits<double> {
-  using T = unsigned long long;
-};
-template <>
-struct Bits<__nv_bfloat16> {
-  using T = unsigned short;
-};
-
-// A thread's R values of one diagonal, kept as raw bits (4 registers for
-// any value type) until the FMA widens them.
-template <typename V>
-union ValuePiece {
-  uint4 raw;
-  typename Bits<V>::T b[16 / sizeof(V)];
-};
-
-template <typename X>
-__device__ __forceinline__ X widen(unsigned b) {
-  return static_cast<X>(__uint_as_float(b));
-}
-template <typename X>
-__device__ __forceinline__ X widen(unsigned long long b) {
-  return static_cast<X>(__longlong_as_double(static_cast<long long>(b)));
-}
-template <typename X>
-__device__ __forceinline__ X widen(unsigned short b) {  // bf16: f32's top half, exact
-  return static_cast<X>(__uint_as_float(static_cast<unsigned>(b) << 16));
-}
-
-// rows i0 .. i0 + R - 1 of one value row; past n only in the 16-byte form,
-// whose piece lies inside the row (stride a multiple of R)
-template <typename V, bool kPieces>
-__device__ __forceinline__ void load_value_piece(ValuePiece<V>& v, const V* row, int64_t i0,
-                                                 int64_t n) {
-  if constexpr (kPieces) {
-    v.raw = __ldg(reinterpret_cast<const uint4*>(row + i0));
-  } else {
-    using B = typename Bits<V>::T;
-    const B* p = reinterpret_cast<const B*>(row) + i0;
-#pragma unroll
-    for (int q = 0; q < rows_of<V>(); ++q) v.b[q] = i0 + q < n ? __ldg(p + q) : B(0);
-  }
 }
 
 // one value or one 16-byte piece of x: from shared memory, or from device
@@ -268,15 +211,6 @@ struct PieceX {  // x[j] at s[j + rel[t]], rel staged a chunk
   const X* s;
   const int64_t* rel;
   __device__ __forceinline__ const X* at(int64_t j, int t) const { return s + (j + rel[t]); }
-};
-
-// The R mirror values of #2 as loaded: the two aligned pieces that hold
-// val(d, j0 .. j0 + R), j0 = i0 - o (the second = the first where j0 is
-// aligned, so the load needs no branch), and one of them by element.
-template <typename V>
-union MirrorPieces {
-  uint4 raw[2];
-  typename Bits<V>::T b[2 * (16 / sizeof(V))];
 };
 
 // x[c .. c + R) as the aligned 16-byte pieces that hold them, unshifted:
@@ -526,18 +460,6 @@ struct Tile {
   }
 };
 
-// Stage offsets[d0 : d0 + dn] and their value-row bases (whole block).
-__device__ __forceinline__ void stage_chunk(int64_t* s_off, int64_t* s_base,
-                                            const int64_t* __restrict__ offsets, int64_t d0,
-                                            int dn, int64_t stride) {
-  __syncthreads();
-  for (int t = threadIdx.x; t < dn; t += blockDim.x) {
-    s_off[t] = offsets[d0 + t];
-    s_base[t] = (d0 + t) * stride;
-  }
-  __syncthreads();
-}
-
 // Blocks stay resident (one wave) and walk the row tiles grid-stride, so
 // offsets of at most one chunk (every stencil and the 245-diagonal band)
 // are staged once a block, not once a tile.
@@ -592,33 +514,6 @@ __global__ void __launch_bounds__(kSpmvThreads)
     }
     if (i0 < n) tile.store(y, i0, n);
   }
-}
-
-// The 16-byte value form: data aligned and every value row a whole number
-// of a thread's pieces.
-template <typename V>
-bool value_pieces(const void* data, int64_t stride) {
-  return reinterpret_cast<uintptr_t>(data) % 16 == 0 && stride % rows_of<V>() == 0;
-}
-
-// The blocks of `kernel` (`threads` a block, no dynamic shared memory) that
-// fit on `device` at once; asked once a device, `slots` is the caller's
-// record (one a kernel instantiation).
-template <typename K>
-cudaError_t resident_blocks(K kernel, int threads, int device, int (&slots)[64], int* out) {
-  const bool known = device >= 0 && device < 64;
-  if (known && slots[device] > 0) {
-    *out = slots[device];
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  if (err != cudaSuccess) return err;
-  *out = sms * (per_sm > 0 ? per_sm : 1);
-  if (known) slots[device] = *out;
-  return cudaSuccess;
 }
 
 template <typename V, typename X, bool kPieces>
@@ -870,28 +765,6 @@ cudaError_t launch_window(const void* data, const void* x, const void* offsets, 
       static_cast<const int64_t*>(offsets), static_cast<X*>(y),
       static_cast<const int64_t*>(plan), D, stride, n, m, pieces, tile_rows);
   return cudaGetLastError();
-}
-
-// Make `device` current unless it is.
-cudaError_t use_device(int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  return err;
-}
-
-// f(V{}, X{}) for the instantiated (value, vector) pair of the dtype codes
-template <class F>
-cudaError_t by_dtype(int vtype, int xtype, F&& f) {
-  if (xtype == kF32) {
-    if (vtype == kF32) return f(float{}, float{});
-    if (vtype == kBF16) return f(__nv_bfloat16{}, float{});
-  } else if (xtype == kF64) {
-    if (vtype == kF64) return f(double{}, double{});
-    if (vtype == kF32) return f(float{}, double{});
-    if (vtype == kBF16) return f(__nv_bfloat16{}, double{});
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

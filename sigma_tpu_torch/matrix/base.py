@@ -29,6 +29,7 @@ from sigma_tpu_torch.graph.graph import Graph
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
 from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import default_real_dtype, to_numpy, torch_dtype
+from sigma_tpu_torch.utils import ordered_sum
 
 __all__ = ["SparseMatrix"]
 
@@ -220,10 +221,23 @@ class SparseMatrix(LinearOperator):
         pos = torch.from_numpy(pos.astype(np.int64)).to(self.device)
         flat = self.data.reshape(-1).clone()
         if add:
-            flat.index_add_(0, pos, vals)
+            # repeated (i, j) pairs add in batch order on every device
+            ordered_sum.scatter_add_(flat, pos, vals)
         else:
             flat[pos] = vals
         return self._updated(flat.view(self.data.shape))
+
+    def _kept_plan(self, name, index):
+        """The fixed-order sum's plan (:mod:`sigma_tpu_torch.utils.ordered_sum`)
+        of the index array ``index()``, built at the first product off the
+        CPU and kept with the matrix; None on the CPU, which sums with
+        ``index_add_``."""
+        if not ordered_sum.fixed_order(self.data.device):
+            return None
+        plans = self.__dict__.setdefault("_sum_plans", {})
+        if name not in plans:
+            plans[name] = ordered_sum.sum_plan(index(), self.data.device)
+        return plans[name]
 
     def _with_fill_in(self, rows, cols, vals, add: bool) -> "SparseMatrix":
         # host-side rebuild: thaw the graph, add the edges, refreeze, carry

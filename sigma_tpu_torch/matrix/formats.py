@@ -13,15 +13,16 @@ CSR, CSC, COO and ELL products are a gather and a segment sum (ELL: a
 row sum) in plain PyTorch on every device, as the JAX package computes
 them with an XLA gather and a segment sum outside any Pallas kernel: CSR
 is the input of :func:`~sigma_tpu_torch.matrix.banded.to_banded_dia` and
-the gather floor the band is measured against.  On the CPU the segment sum
-is an ``index_add_``; elsewhere it adds each target's terms in stored edge
-order without atomics (:func:`_ordered_sum`), so a product gives the same
-bits run after run, and the CPU's bits (``index_add_`` on a CUDA tensor
-orders its atomics differently from run to run).  So are the four products
-of the ungrouped :class:`BSRMatrix` (gather, batched block product,
-``index_add_``); its kernel path is :meth:`BSRMatrix.grouped`, the
+the gather floor the band is measured against.  So are the four products
+of the ungrouped :class:`BSRMatrix` (gather, batched block product, sum
+over block rows); its kernel path is :meth:`BSRMatrix.grouped`, the
 :class:`~sigma_tpu_torch.ops.bsr_grouped.GroupedBSR` layout, every product
-of which on a CUDA tensor is the hand-written grouped-BSR kernel.
+of which on a CUDA tensor is the hand-written grouped-BSR kernel.  Every
+such sum, and the sum of repeated triples in ``from_coo``, is an
+``index_add_`` on the CPU and elsewhere the fixed-order sum of
+:mod:`sigma_tpu_torch.utils.ordered_sum` (each target's terms in stored
+order, no atomics, its plan kept with the matrix), so a product gives the
+same bits run after run, and the CPU's.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from sigma_tpu_torch.ops.spmm_dia import (
 )
 from sigma_tpu_torch.ops.spmv_dia import dia_spmv, dia_spmv_operator
 from sigma_tpu_torch.utils.device import resolve_device
+from sigma_tpu_torch.utils.ordered_sum import scatter_sum
 from sigma_tpu_torch.utils.dtypes import (
     default_real_dtype,
     index_dtype,
@@ -208,8 +210,7 @@ class DIAMatrix(SparseMatrix):
         del diag, c
         if sum_duplicates:
             pos, inv = torch.unique(pos, return_inverse=True)
-            v = torch.zeros(pos.numel(), dtype=torch.float64, device=device).index_add_(
-                0, inv, v.to(torch.float64))
+            v = scatter_sum(v.to(torch.float64), inv, pos.numel())
             del inv
         data = torch.zeros(graph.n_diags * graph.stride, dtype=dt, device=device)
         data[pos] = v.to(dt)
@@ -330,67 +331,14 @@ class DIAMatrix(SparseMatrix):
         return torch.zeros(min(self.shape), dtype=self.dtype, device=self.device)
 
 
-@dataclasses.dataclass(frozen=True)
-class _SumPlan:
-    """How :func:`_ordered_sum` adds edge terms into their targets: ``order``
-    sorts the edges by target, stably (None when they already are);
-    ``targets`` are the targets with at least one edge, most edges first;
-    ``first`` the sorted position of each one's first edge; ``widths[j]``
-    how many of them have more than j edges."""
-
-    order: torch.Tensor | None
-    targets: torch.Tensor
-    first: torch.Tensor
-    widths: tuple
-
-
-def _sum_plan(target, length, device) -> _SumPlan:
-    """The :class:`_SumPlan` of edges whose targets are the host array
-    ``target`` (values in [0, length))."""
-    target = np.asarray(target, dtype=np.int64)
-    order = None
-    if target.size > 1 and (target[1:] < target[:-1]).any():
-        order = np.argsort(target, kind="stable")
-        target = target[order]
-    counts = np.bincount(target, minlength=length)
-    starts = np.cumsum(counts) - counts
-    by_count = np.argsort(-counts, kind="stable")
-    # widths[j] = targets with more than j edges
-    widths = np.cumsum(np.bincount(counts)[::-1])[::-1][1:]
-    keep = by_count[: int(widths[0]) if widths.size else 0]
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return _SumPlan(order=None if order is None else dev(order), targets=dev(keep),
-                    first=dev(starts[keep]), widths=tuple(int(w) for w in widths))
-
-
-def _ordered_sum(prod, plan: _SumPlan, length):
-    """out[t] = the sum of target t's rows of ``prod`` (edge terms, 1-D or
-    2-D), added one after another from zero in stored edge order, as
-    ``index_add_`` does on the CPU: one gather and one add a slot of the
-    longest target's edges, no atomics."""
-    if plan.order is not None:
-        prod = prod[plan.order]
-    acc = prod.new_zeros((plan.targets.numel(),) + tuple(prod.shape[1:]))
-    for j, w in enumerate(plan.widths):
-        acc[:w] += prod[plan.first[:w] + j]
-    out = prod.new_zeros((length,) + tuple(prod.shape[1:]))
-    out[plan.targets] = acc
-    return out
-
-
 def _gather_scatter(data, X, gather, scatter, length, plan=None):
     """out[scatter[e]] += data[e] * X[gather[e]] for 1-D or 2-D X; the
     product's dtype follows torch's promotion of data and X.  On the CPU
     an ``index_add_``; on any other device the fixed-order sum of
-    ``plan`` (a :class:`_SumPlan` of ``scatter``)."""
+    ``plan`` (a :class:`~sigma_tpu_torch.utils.ordered_sum.SumPlan` of
+    ``scatter``)."""
     prod = (data[:, None] if X.ndim == 2 else data) * X[gather]
-    if prod.device.type != "cpu":
-        return _ordered_sum(prod, plan, length)
-    out = torch.zeros((length,) + tuple(X.shape[1:]), dtype=prod.dtype, device=prod.device)
-    return out.index_add_(0, scatter, prod)
+    return scatter_sum(prod, scatter, length, plan)
 
 
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
@@ -416,16 +364,9 @@ class _EdgeListMatrix(SparseMatrix):
     def _data_shape(cls, graph):
         return (graph.nnz,)
 
-    def _plan(self, side) -> _SumPlan | None:
-        """The fixed-order sum's plan into rows (side 0) or columns (1),
-        built at the first product off the CPU and kept."""
-        if self.data.device.type == "cpu":
-            return None
-        plans = self.__dict__.setdefault("_sum_plans", {})
-        if side not in plans:
-            plans[side] = _sum_plan(self.graph.edges_numpy()[side], self.shape[side],
-                                    self.data.device)
-        return plans[side]
+    def _plan(self, side):
+        """The fixed-order sum's plan into rows (side 0) or columns (1)."""
+        return self._kept_plan(side, lambda: self.graph.edges_numpy()[side])
 
     def matvec(self, x):
         return _gather_scatter(self.data, x, self.cols_dev, self.rows_dev, self.shape[0],
@@ -535,18 +476,21 @@ class ELLMatrix(SparseMatrix):
     def matvec(self, x):
         return (self.data * x[self.cols_dev]).sum(dim=1)
 
+    def _scatter_columns(self, prod):
+        """Sum of the slot terms ``prod`` (n * width leading rows, in slot
+        order) into their columns."""
+        cols = self.cols_dev.reshape(-1)
+        return scatter_sum(prod, cols, self.shape[1], self._kept_plan("cols", lambda: cols))
+
     def rmatvec(self, x):
-        prod = self.data * x[:, None]
-        out = torch.zeros(self.shape[1], dtype=prod.dtype, device=prod.device)
-        return out.index_add_(0, self.cols_dev.reshape(-1), prod.reshape(-1))
+        return self._scatter_columns((self.data * x[:, None]).reshape(-1))
 
     def matmat(self, X):
         return (self.data[:, :, None] * X[self.cols_dev]).sum(dim=1)
 
     def rmatmat(self, X):
         prod = self.data[:, :, None] * X[:, None, :]
-        out = torch.zeros((self.shape[1], X.shape[1]), dtype=prod.dtype, device=prod.device)
-        return out.index_add_(0, self.cols_dev.reshape(-1), prod.reshape(-1, X.shape[1]))
+        return self._scatter_columns(prod.reshape(-1, X.shape[1]))
 
 
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
@@ -556,7 +500,7 @@ class BSRMatrix(SparseMatrix):
     padding blocks.
 
     SpMV = gather of x blocks, batched block product, sum over block rows
-    (``index_add_``, whose order on CUDA changes from run to run); SpMM
+    (``index_add_`` on the CPU, the fixed-order sum elsewhere); SpMM
     contracts each block against a (bw, k) slab.  Plain PyTorch on every
     device, as the JAX package computes them in XLA.  The kernel path is
     :meth:`grouped`.  Products are computed in the values' dtype (x is
@@ -619,8 +563,7 @@ class BSRMatrix(SparseMatrix):
         keys, inv = torch.unique(_element_keys(n, m, rows, cols, device), return_inverse=True)
         v = torch.as_tensor(vals).to(device).reshape(-1)
         if sum_duplicates:
-            v = torch.zeros(keys.numel(), dtype=torch.float64, device=device).index_add_(
-                0, inv, v.to(torch.float64))
+            v = scatter_sum(v.to(torch.float64), inv, keys.numel())
         else:
             v = torch.zeros(keys.numel(), dtype=v.dtype, device=device).index_copy_(0, inv, v)
         del inv
@@ -665,8 +608,8 @@ class BSRMatrix(SparseMatrix):
         Xb = self._padded_x(X).reshape(g.nb_cols, bw, k)
         Yb = torch.bmm(self.data, Xb[g.indices].to(self.dtype))  # (nnzb_pad, bh, k)
         # one more row takes the padding blocks' sentinel block row
-        Y = torch.zeros((g.nb_rows + 1, bh, k), dtype=Yb.dtype, device=Yb.device)
-        Y.index_add_(0, g.block_rows, Yb)
+        Y = scatter_sum(Yb, g.block_rows, g.nb_rows + 1,
+                        self._kept_plan("rows", lambda: g.block_rows))
         return Y[: g.nb_rows].reshape(-1, k)[: g.shape[0]]
 
     def rmatmat(self, X):
@@ -677,6 +620,5 @@ class BSRMatrix(SparseMatrix):
         # the padding blocks' sentinel row is clamped; their values are 0
         gathered = Xp[g.block_rows.clamp(max=g.nb_rows - 1)].to(self.dtype)
         Yb = torch.bmm(self.data.transpose(1, 2), gathered)
-        Y = torch.zeros((g.nb_cols, bw, k), dtype=Yb.dtype, device=Yb.device)
-        Y.index_add_(0, g.indices, Yb)
+        Y = scatter_sum(Yb, g.indices, g.nb_cols, self._kept_plan("cols", lambda: g.indices))
         return Y.reshape(-1, k)[: g.shape[1]]

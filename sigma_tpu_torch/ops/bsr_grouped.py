@@ -41,6 +41,7 @@ import torch
 
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
 from sigma_tpu_torch.ops import _build
+from sigma_tpu_torch.utils import ordered_sum
 
 __all__ = [
     "BSR_KERNEL_DTYPES",
@@ -104,15 +105,19 @@ def bsr_grouped_spmv_reference(gdata, gcols, grow, x, nb_rows, nb_cols, block_sh
     """Plain PyTorch version of :func:`bsr_grouped_spmv`: gather the B x
     blocks of every group, one batched (bh, B*bw) @ (B*bw, k) product, and
     a sum over ``grow`` (the JAX package's XLA form).  Values are cast up
-    to x's dtype; bf16 vectors are computed in f32 and rounded once."""
+    to x's dtype; bf16 vectors are computed in f32 and rounded once.  The
+    sum adds a block row's groups in stored order on every device (off the
+    CPU without atomics, its plan kept for ``grow``), with the CPU's bits."""
     bh, bw = block_shape
     k = x.shape[1]
     ct = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
     X3 = x.to(ct).reshape(nb_cols, bw, k)
     gath = X3[gcols.long()].reshape(gdata.shape[0], B * bw, k)
     Yg = torch.einsum("ghc,gck->ghk", gdata.to(ct), gath)
-    Y = torch.zeros((nb_rows, bh, k), dtype=ct, device=x.device)
-    Y.index_add_(0, grow.long(), Yg)
+    plan = (ordered_sum.cached((grow,), ("grow", nb_rows),
+                               lambda: ordered_sum.sum_plan(grow, x.device))
+            if ordered_sum.fixed_order(x.device) else None)
+    Y = ordered_sum.scatter_sum(Yg, grow.long(), nb_rows, plan)
     return Y.reshape(nb_rows * bh, k).to(x.dtype)
 
 

@@ -21,8 +21,12 @@ The CUDA kernels live in ``sigma_tpu_torch/csrc/dia_spmm.cu`` and
 share the staged-window machinery of ``dia_window.cuh`` (the block's x
 window in shared memory, the values through a cp.async ring, a register
 tile of 4 rows x up to 8 columns a thread with x carried along the band).
-Each stored value is read once for all k panels (once per 32-column group
-in the grouped kernel).  The panels lie in one of
+:func:`dia_sym_spmm` runs the DIA SpMVs' row-tile body (``dia_tile.cuh``)
+widened to a register tile of rows x columns a thread, x and y in 16-byte
+pieces read through the read-only path (the kernel's source says how the
+column layout and the panels map rows to threads).  Each stored value is
+read from device memory about once for all k panels (once per 32-column
+group in the grouped kernel).  The panels lie in one of
 three layouts, and the kernel reads and writes each directly (the layout
 is a panel-block length B passed to the kernel, not a separate code
 path):

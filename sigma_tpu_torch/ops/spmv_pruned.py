@@ -60,6 +60,7 @@ from sigma_tpu_torch.ops.spmm_dia import (
     _to_rhs_major,
 )
 from sigma_tpu_torch.ops.spmv_dia import _CODES, KERNEL_DTYPES
+from sigma_tpu_torch.utils import ordered_sum
 
 __all__ = [
     "PRUNED_LAYOUTS",
@@ -230,23 +231,76 @@ def _slot_chunks(data, tile_ptr, group):
         yield s0, s1, slot_tile[s0:s1, None] * TR + lane[None, :]
 
 
+def _upper_plans(data, tile_ptr, group):
+    """The fixed-order sums' plans of :func:`pruned_matvec_reference`, one
+    a chunk of slots (its runs' tiles), built once a plan (off the CPU)."""
+    TR = data.shape[1]
+    return ordered_sum.cached((tile_ptr,), ("upper", *data.shape, group), lambda: [
+        ordered_sum.sum_plan(rows[::group, 0] // TR, data.device)
+        for _, _, rows in _slot_chunks(data, tile_ptr, group)
+    ])
+
+
 def pruned_matvec_reference(data, x, offsets, tile_ptr, n, m, *, group=1):
     """Plain PyTorch version of :func:`pruned_spmv`: gather ``x[row +
     offset]`` for every slot element (out-of-range columns give 0), sum
     each run of ``group`` slots, then add the runs into their tile's rows
     in order, in x's dtype.  That is the JAX package's reference order, so
     with the matrix's ``group`` the two agree bitwise; the kernel sums in
-    slot order."""
+    slot order.  Off the CPU the runs add in the same order without
+    atomics, which gives the CPU's bits."""
     TR = data.shape[1]
     G = tile_ptr.numel() - 1
     y = torch.zeros((G, TR), dtype=x.dtype, device=x.device)
-    for s0, s1, rows in _slot_chunks(data, tile_ptr, group):
+    plans = _upper_plans(data, tile_ptr, group) if ordered_sum.fixed_order(x.device) else None
+    for c, (s0, s1, rows) in enumerate(_slot_chunks(data, tile_ptr, group)):
         idx = rows + offsets[s0:s1, None]
         ok = (idx >= 0) & (idx < m)
         xg = torch.where(ok, x[idx.clamp(0, max(m - 1, 0))], 0)
         steps = (data[s0:s1].to(x.dtype) * xg).reshape(-1, group, TR).sum(1)
-        y.index_add_(0, rows[::group, 0] // TR, steps)
+        ordered_sum.scatter_add_(y, rows[::group, 0] // TR, steps,
+                                 None if plans is None else plans[c])
     return y.reshape(-1)[:n]
+
+
+def _mirror_targets(rows, om, sym_shift, n, m, EL):
+    """(x index, output row, in range) of a chunk's mirror terms: slot
+    elements at ``rows`` with mirror offsets ``om`` (one a slot)."""
+    zidx = rows + sym_shift
+    out = rows + om[:, None]
+    ok = (zidx >= 0) & (zidx < m) & (om[:, None] > 0) & (out >= 0) & (out < n + EL)
+    return zidx, out, ok
+
+
+def _mirror_plans(data, offsets, tile_ptr, n, m, group, sym_shift, EL):
+    """The fixed-order sums' plans of the mirror pass, one a chunk of
+    slots, built once a plan (off the CPU)."""
+    def build():
+        om = offsets - sym_shift
+        return [ordered_sum.sum_plan(out[ok], data.device)
+                for s0, s1, rows in _slot_chunks(data, tile_ptr, group)
+                for _, out, ok in [_mirror_targets(rows, om[s0:s1], sym_shift, n, m, EL)]]
+
+    return ordered_sum.cached((offsets, tile_ptr),
+                              ("mirror", *data.shape, group, sym_shift, n, m, EL), build)
+
+
+def _mirror_pass(data, X, offsets, tile_ptr, n, m, *, halo, sym_shift, group):
+    """The mirror terms ``y[i + om] += d[i] * x[i + sym_shift]`` of every
+    slot with mirror offset ``om = offset - sym_shift > 0``, added in slot
+    order (on every device) into zeros of n + halo * 128 rows, for x (m,)
+    or k columns X (m, k) at once (each column the same sums as alone)."""
+    EL = halo * _LANES
+    ym = torch.zeros((n + EL,) + tuple(X.shape[1:]), dtype=X.dtype, device=X.device)
+    om = offsets - sym_shift
+    plans = (_mirror_plans(data, offsets, tile_ptr, n, m, group, sym_shift, EL)
+             if ordered_sum.fixed_order(X.device) else None)
+    for c, (s0, s1, rows) in enumerate(_slot_chunks(data, tile_ptr, group)):
+        zidx, out, ok = _mirror_targets(rows, om[s0:s1], sym_shift, n, m, EL)
+        d = data[s0:s1].to(X.dtype)
+        z = (d if X.ndim == 1 else d[..., None]) * X[zidx.clamp(0, max(m - 1, 0))]
+        ordered_sum.scatter_add_(ym, out[ok], z[ok], None if plans is None else plans[c])
+    return ym
 
 
 def pruned_sym_matvec_reference(
@@ -255,19 +309,12 @@ def pruned_sym_matvec_reference(
     """Plain PyTorch version of :func:`pruned_sym_spmv`: the upper pass of
     :func:`pruned_matvec_reference` plus the mirror pass, a scatter-add
     ``y[i + om] += d[i] * x[i + sym_shift]`` for every slot with mirror
-    offset ``om = offset - sym_shift > 0``.  Returns y, or ``(y, spill)``
-    with ``spill`` (halo * 128,) the mirror terms on rows n and past."""
-    EL = halo * _LANES
+    offset ``om = offset - sym_shift > 0`` (in slot order, on every
+    device).  Returns y, or ``(y, spill)`` with ``spill`` (halo * 128,) the
+    mirror terms on rows n and past."""
     y = pruned_matvec_reference(data, x, offsets, tile_ptr, n, m, group=group)
-    ym = torch.zeros(n + EL, dtype=x.dtype, device=x.device)
-    om = offsets - sym_shift
-    for s0, s1, rows in _slot_chunks(data, tile_ptr, group):
-        zidx = rows + sym_shift
-        ok = (zidx >= 0) & (zidx < m) & (om[s0:s1, None] > 0)
-        out = rows + om[s0:s1, None]
-        ok &= (out >= 0) & (out < n + EL)
-        z = data[s0:s1].to(x.dtype) * x[zidx.clamp(0, max(m - 1, 0))]
-        ym.index_add_(0, out[ok], z[ok])
+    ym = _mirror_pass(data, x, offsets, tile_ptr, n, m, halo=halo, sym_shift=sym_shift,
+                      group=group)
     if with_spill:
         return y + ym[:n], ym[n:]
     return y + ym[:n]
@@ -289,20 +336,22 @@ def pruned_sym_spmm_reference(
     data, X, offsets, tile_ptr, n, m, layout, *, halo, sym_shift=0, with_spill=False,
     group=1,
 ):
-    """Plain PyTorch version of :func:`pruned_sym_spmm`: one
-    :func:`pruned_sym_matvec_reference` per panel; the spill comes back in
-    the panels' layout, (k, halo * 128) or (halo * 128, k)."""
+    """Plain PyTorch version of :func:`pruned_sym_spmm`: per panel what
+    :func:`pruned_sym_matvec_reference` computes, bit for bit (the upper
+    pass panel by panel, the mirror pass for all panels at once); the spill
+    comes back in the panels' layout, (k, halo * 128) or (halo * 128, k)."""
     k = _panels(X, layout, m)
     XT = _to_rhs_major(X, layout, k, m)
-    parts = [
-        pruned_sym_matvec_reference(data, XT[j], offsets, tile_ptr, n, m, halo=halo,
-                                    sym_shift=sym_shift, with_spill=True, group=group)
+    up = torch.stack([
+        pruned_matvec_reference(data, XT[j], offsets, tile_ptr, n, m, group=group)
         for j in range(k)
-    ]
-    Y = _from_rhs_major(torch.stack([p[0] for p in parts]), layout, n)
+    ])
+    ym = _mirror_pass(data, XT.T, offsets, tile_ptr, n, m, halo=halo, sym_shift=sym_shift,
+                      group=group).T
+    Y = _from_rhs_major(up + ym[:, :n], layout, n)
     if not with_spill:
         return Y
-    return Y, _from_rhs_major(torch.stack([p[1] for p in parts]), layout, halo * _LANES)
+    return Y, _from_rhs_major(ym[:, n:].contiguous(), layout, halo * _LANES)
 
 
 # -- kernel wrappers ------------------------------------------------------------

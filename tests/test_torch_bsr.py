@@ -373,3 +373,30 @@ def test_bsr_from_arrays_carries_the_jax_object():
     assert_same_graph(g, Ac.graph)
     x = torch.from_numpy(np.random.default_rng(17).standard_normal(90))
     assert torch.equal(Ac.matvec(x), At.matvec(x))
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("k", [1, 3])
+def test_reference_fixed_order_sum_gives_the_cpu_bits(k, group, monkeypatch):
+    """Off the CPU the plain version adds a block row's groups in stored
+    order without atomics (the sum that replaces ``index_add_`` there): on
+    CPU tensors that path gives the CPU's bits, its plan kept for
+    ``grow``; and the CPU's result is the bare ``index_add_``'s."""
+    from sigma_tpu_torch.utils import ordered_sum
+
+    dense, rng = _interpret_case()  # block rows of several groups
+    G = both_bsr(dense, (8, 16))[1].grouped(group=group)
+    X = G._pad_x(torch.from_numpy(rng.standard_normal((dense.shape[1], k))))
+    args = (G.gdata, G.gcols, G.grow, X, G.nb_rows, G.nb_cols, G.block_shape, G.group)
+    cpu = bg.bsr_grouped_spmv_reference(*args)
+    bh, bw = G.block_shape
+    gath = X.reshape(G.nb_cols, bw, k)[G.gcols.long()].reshape(G.gdata.shape[0], group * bw, k)
+    Yg = torch.einsum("ghc,gck->ghk", G.gdata, gath)
+    plain = torch.zeros((G.nb_rows, bh, k), dtype=X.dtype).index_add_(0, G.grow.long(), Yg)
+    assert torch.equal(cpu, plain.reshape(-1, k))
+    assert int(torch.bincount(G.grow.long()).max()) >= 3  # rows of three groups or more
+    monkeypatch.setattr(ordered_sum, "fixed_order", lambda device: True)
+    assert torch.equal(bg.bsr_grouped_spmv_reference(*args), cpu)
+    assert torch.equal(bg.bsr_grouped_spmv_reference(*args), cpu)  # from the kept plan
+    plan = ordered_sum.cached((G.grow,), ("grow", G.nb_rows), lambda: None)
+    assert isinstance(plan, ordered_sum.SumPlan)

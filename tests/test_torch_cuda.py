@@ -272,21 +272,36 @@ def test_dia_spmm_kernel_offset_sets(cuda, pair, layout, k, offsets):
     assert rel(Y, ref) <= _tol(xdt)
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
+# k: the edges of a 4- and an 8-column register tile; value forms: the
+# port's storage (16-byte pieces), a value view off a 16-byte boundary and
+# an odd stride (one value a load).  Slots the matrix does not hold (rows n
+# - o and past of each diagonal) are NaN: a term there must be selected
+# away, never multiplied by zero.
+@pytest.mark.parametrize("form", ["aligned", "unaligned_view", "odd_stride"])
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 8, 9, 12, 16])
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("pair", sorted(KERNEL_DTYPES, key=str), ids=str)
-def test_dia_sym_spmm_kernel(cuda, pair, layout, k):
+def test_dia_sym_spmm_kernel(cuda, pair, layout, k, form):
     vdt, xdt = pair
     n, offsets = 33_333, [0, 1, 130, 2500]
     g = torch.Generator(device=cuda).manual_seed(3)
-    data = torch.randn(len(offsets), -(-n // 128) * 128, generator=g, device=cuda).to(vdt)
-    X = _panels(torch.randn(k, n, generator=g, device=cuda).to(xdt), layout)
+    stride = n + 2 if form == "odd_stride" else -(-n // 128) * 128
     offs = torch.tensor(offsets, device=cuda)
+    vals = torch.randn(len(offsets), stride, generator=g, device=cuda, dtype=torch.float64)
+    rows = torch.arange(stride, device=cuda)
+    vals[rows[None, :] + offs[:, None] >= n] = float("nan")
+    data = _offset_view(vals.to(vdt), 1) if form == "unaligned_view" else vals.to(vdt)
+    X = _panels(torch.randn(k, n, generator=g, device=cuda).to(xdt), layout)
     before = dia_sym_spmm.launches
     Y = dia_sym_spmm(data, X, offs, n, layout)
+    Y2 = dia_sym_spmm(data, X, offs, n, layout)
     torch.cuda.synchronize()
-    assert dia_sym_spmm.launches == before + 1
-    assert rel(Y, dia_sym_spmm_reference(data, X, offs, n, layout)) <= _tol(xdt)
+    assert dia_sym_spmm.launches == before + 2
+    assert torch.equal(Y, Y2)  # two launches, the same bits
+    ref = dia_sym_spmm_reference(data, X, offs, n, layout)
+    assert Y.dtype == xdt and Y.shape == ref.shape
+    # every row, the interleaved layout's zero padding included
+    assert rel(Y, ref) <= _tol(xdt)
 
 
 def test_spmm_kernel_rejects_what_it_does_not_take(cuda):
@@ -525,6 +540,105 @@ def test_edge_list_products_repeat_bit_for_bit(cuda):
             ys = [getattr(Ag, op)(arg.to(cuda)) for _ in range(3)]
             assert all(torch.equal(ys[0], y) for y in ys[1:]), (cls.__name__, op)
             assert torch.equal(ys[0].cpu(), getattr(A, op)(arg)), (cls.__name__, op)
+
+
+def _sum_site(name, device):
+    """The result of one site that sums with index_add_ on the CPU and the
+    fixed-order sum elsewhere, on ``device``, from the same seeded inputs
+    (f32 values and vectors; the COO assemblies sum in f64)."""
+    from sigma_tpu_torch.ops import bsr_grouped_spmv_reference
+    from sigma_tpu_torch.matrix import factory as tmf
+
+    n, r, c, v = st.irregular_mesh_laplacian_coo(64, 32, rng=np.random.default_rng(0),
+                                                 shift=1e-3, shuffle=True)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
+    X = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32)).to(device)
+    dense = np.zeros((n, n), dtype=np.float32)
+    dense[r, c] = v
+    if name.startswith(("ell_", "bsr_")) and not name.endswith("from_coo"):
+        fmt, product = name.split("_", 1)
+        kw = dict(block_shape=(4, 4)) if fmt == "bsr" else {}
+        A = tmf.choose_matrix_type(fmt).from_dense(dense, device=device, **kw)
+        return getattr(A, product)(X if product.endswith("mat") else x)
+    if name in ("dia_from_coo", "bsr_from_coo"):
+        # each triple three times, shuffled
+        rr, cc = np.tile(r, 3), np.tile(c, 3)
+        vv = rng.standard_normal(rr.size)
+        p = rng.permutation(rr.size)
+        cls = st.DIAMatrix if name == "dia_from_coo" else st.BSRMatrix
+        return cls.from_coo(n, n, rr[p], cc[p], vv[p], dtype=torch.float32, device=device).data
+    if name == "add_values":
+        A = st.CSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float32, device=device)
+        pick = rng.integers(0, r.size, 3 * r.size)
+        for _ in range(3):
+            A = A.add_values(r[pick], c[pick], rng.standard_normal(pick.size))
+        return A.data
+    if name == "grouped_bsr":
+        G = tmf.choose_matrix_type("bsr").from_dense(dense, device=device,
+                                                     block_shape=(4, 4)).grouped(2)
+        return bsr_grouped_spmv_reference(G.gdata, G.gcols, G.grow, G._pad_x(X), G.nb_rows,
+                                          G.nb_cols, G.block_shape, G.group)
+    S = st.SymmetricPrunedDIAMatrix.from_coo(n, n, r, c, v, tile_rows=1024, device=device,
+                                             dtype=torch.float32)
+    if name == "pruned":
+        return sp.pruned_matvec_reference(S.data, x, S.offsets, S.tile_ptr, n, n, group=S.group)
+    return sp.pruned_sym_matvec_reference(S.data, x, S.offsets, S.tile_ptr, n, n, halo=S.halo,
+                                          group=S.group)
+
+
+def _card_block_terms(name, device):
+    """The block products that a BSR or grouped-BSR site sums, computed on
+    the card as the site computes them, with their targets and the number
+    of target rows."""
+    from sigma_tpu_torch.matrix import factory as tmf
+
+    n, r, c, v = st.irregular_mesh_laplacian_coo(64, 32, rng=np.random.default_rng(0),
+                                                 shift=1e-3, shuffle=True)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
+    X = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32)).to(device)
+    dense = np.zeros((n, n), dtype=np.float32)
+    dense[r, c] = v
+    A = tmf.choose_matrix_type("bsr").from_dense(dense, device=device, block_shape=(4, 4))
+    g = A.graph
+    if name == "grouped_bsr":
+        G = A.grouped(2)
+        bw, k = G.block_shape[1], X.shape[1]
+        gath = G._pad_x(X).reshape(G.nb_cols, bw, k)[G.gcols.long()]
+        terms = torch.einsum("ghc,gck->ghk", G.gdata,
+                             gath.reshape(G.gdata.shape[0], G.group * bw, k))
+        return terms, G.grow.long(), G.nb_rows
+    Xk = X if name.endswith("mat") else x[:, None]
+    if name.startswith("bsr_r"):
+        Xp = A._padded(Xk, g.nb_rows * 4).reshape(g.nb_rows, 4, -1)
+        terms = torch.bmm(A.data.transpose(1, 2), Xp[g.block_rows.clamp(max=g.nb_rows - 1)])
+        return terms, g.indices, g.nb_cols
+    terms = torch.bmm(A.data, A._padded_x(Xk).reshape(g.nb_cols, 4, -1)[g.indices])
+    return terms, g.block_rows, g.nb_rows + 1
+
+
+@pytest.mark.parametrize("site", ["ell_rmatvec", "ell_rmatmat", "bsr_matvec", "bsr_matmat",
+                                  "bsr_rmatvec", "bsr_rmatmat", "dia_from_coo", "bsr_from_coo",
+                                  "add_values", "grouped_bsr", "pruned", "pruned_sym"])
+def test_fixed_order_sums_repeat_bit_for_bit(cuda, site):
+    """Each site that summed with index_add_ gives the same bits on two
+    calls on the card, and the CPU's sum.  The BSR products' block terms
+    come from cuBLAS (bmm, einsum), whose last bits differ from the CPU's
+    matrix products, so there the sum is held to the CPU ``index_add_`` of
+    the card's own terms."""
+    a, b = _sum_site(site, cuda), _sum_site(site, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    if site.startswith(("bsr_m", "bsr_r", "grouped")):
+        terms, index, rows = _card_block_terms(site, cuda)
+        want = torch.zeros((rows,) + tuple(terms.shape[1:])).index_add_(
+            0, index.cpu(), terms.cpu())
+        n = a.shape[0]
+        want = want.reshape(-1, terms.shape[-1])[:n]
+        assert torch.equal(a.cpu(), want if a.ndim == 2 else want[:, 0])
+    else:
+        assert torch.equal(a.cpu(), _sum_site(site, "cpu"))
 
 
 def test_pruned_kernels_reject_what_they_do_not_take(cuda):

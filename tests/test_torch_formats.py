@@ -20,6 +20,7 @@ from sigma_tpu.graph import factory as jgf
 from sigma_tpu.matrix import factory as jmf
 from sigma_tpu_torch.graph import factory as tgf
 from sigma_tpu_torch.matrix import factory as tmf
+from sigma_tpu_torch.utils import ordered_sum
 
 torch.set_num_threads(1)
 
@@ -209,7 +210,7 @@ def test_fixed_order_edge_sums_match_jax(fmt, product):
     target's terms added in stored edge order, no atomics) gives the CPU
     ``index_add_``'s bits, and the JAX package's product, on a shuffled
     mesh operator."""
-    from sigma_tpu_torch.matrix.formats import _ordered_sum, _sum_plan
+    from sigma_tpu_torch.utils.ordered_sum import ordered_sum, sum_plan
 
     n, r, c, v = st.irregular_mesh_laplacian_coo(16, 8, rng=np.random.default_rng(0),
                                                  shift=1e-3, shuffle=True)
@@ -222,7 +223,7 @@ def test_fixed_order_edge_sums_match_jax(fmt, product):
     edges = At.graph.edges_numpy()
     gather = (At.cols_dev, At.rows_dev)[side]
     prod = (At.data[:, None] if x.ndim == 2 else At.data) * t(x)[gather]
-    y_fixed = _ordered_sum(prod, _sum_plan(edges[side], n, "cpu"), n)
+    y_fixed = ordered_sum(prod, sum_plan(edges[side], "cpu"), n)
     assert torch.equal(y_fixed, y)
     assert rel(y_fixed, getattr(Aj, product)(jnp.asarray(x))) <= TOL
     assert rel(y_fixed, (dense.T if side else dense) @ x) <= TOL
@@ -346,3 +347,177 @@ def test_from_graph_shares_and_coerces():
         assert np.array_equal(B.set_values(r, c, dense[r, c]).to_dense(), dense)
     gb = st.BSRGraph.from_coo(16, 16, r, c, block_shape=(4, 4), device="cpu")
     assert st.BSRMatrix.from_graph(gb, device="cpu").graph is gb
+
+
+# -- the fixed-order sums that replace index_add_ off the CPU ---------------
+# Each site's sum, run on CPU tensors once as the CPU runs it (index_add_)
+# and once through the fixed-order path that every other device takes
+# (``ordered_sum.fixed_order`` forced true), must give the same bits; and
+# the CPU's own result must be what the plain index_add_ gives.
+
+
+def _mesh_case(seed=0):
+    """A shuffled mesh operator (rows of ~7 terms) as dense, and x."""
+    n, r, c, v = st.irregular_mesh_laplacian_coo(16, 8, rng=np.random.default_rng(seed),
+                                                 shift=1e-3, shuffle=True)
+    dense = np.zeros((n, n))
+    dense[r, c] = v
+    return dense
+
+
+def _duplicate_triples(rng, n):
+    """Triples with each (row, col) pair up to four times, in shuffled
+    order, off a 7-diagonal band."""
+    r = rng.integers(0, n, 6 * n)
+    c = np.clip(r + rng.integers(-3, 4, r.size), 0, n - 1)
+    r, c = np.concatenate([r, r[: 2 * n], r[: n]]), np.concatenate([c, c[: 2 * n], c[: n]])
+    p = rng.permutation(r.size)
+    return r[p], c[p], rng.standard_normal(r.size)
+
+
+def _site(name):
+    """(run, plain): the site's computation through the port, and the
+    same computation with a bare CPU index_add_ as the port had it."""
+    rng = np.random.default_rng(31)
+    dense = _mesh_case()
+    n = dense.shape[0]
+    ell = tmf.choose_matrix_type("ell").from_dense(dense, device="cpu")
+    bsr = tmf.choose_matrix_type("bsr").from_dense(dense, device="cpu", block_shape=(4, 4))
+    x, X = t(rng.standard_normal(n)), t(rng.standard_normal((n, 5)))
+
+    def ell_cols(prod):
+        return torch.zeros((n,) + tuple(prod.shape[2:]), dtype=prod.dtype).index_add_(
+            0, ell.cols_dev.reshape(-1), prod.reshape((-1,) + tuple(prod.shape[2:])))
+
+    def bsr_plain(A, Xk, transpose):
+        g = A.graph
+        bh, bw = g.block_shape
+        k = Xk.shape[1]
+        if transpose:
+            Xp = A._padded(Xk, g.nb_rows * bh).reshape(g.nb_rows, bh, k)
+            Yb = torch.bmm(A.data.transpose(1, 2), Xp[g.block_rows.clamp(max=g.nb_rows - 1)])
+            Y = torch.zeros((g.nb_cols, bw, k), dtype=Yb.dtype).index_add_(0, g.indices, Yb)
+            return Y.reshape(-1, k)[: g.shape[1]]
+        Xb = A._padded_x(Xk).reshape(g.nb_cols, bw, k)
+        Yb = torch.bmm(A.data, Xb[g.indices])
+        Y = torch.zeros((g.nb_rows + 1, bh, k), dtype=Yb.dtype).index_add_(0, g.block_rows, Yb)
+        return Y[: g.nb_rows].reshape(-1, k)[: g.shape[0]]
+
+    if name == "ell_rmatvec":
+        return lambda: ell.rmatvec(x), lambda: ell_cols(ell.data * x[:, None])
+    if name == "ell_rmatmat":
+        return (lambda: ell.rmatmat(X),
+                lambda: ell_cols(ell.data[:, :, None] * X[:, None, :]))
+    if name.startswith("bsr_") and not name.endswith("from_coo"):
+        product = name[4:]
+        Xk = X if product.endswith("mat") else x[:, None]
+
+        def plain():
+            Y = bsr_plain(bsr, Xk, product.startswith("r"))
+            return Y if product.endswith("mat") else Y[:, 0]
+
+        return lambda: getattr(bsr, product)(X if product.endswith("mat") else x), plain
+    if name in ("dia_from_coo", "bsr_from_coo"):
+        r, c, v = _duplicate_triples(rng, n)
+        if name == "dia_from_coo":
+            def plain():
+                A = st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu",
+                                          sum_duplicates=False)
+                offs = torch.tensor(A.graph.offsets)
+                pos = torch.searchsorted(offs, torch.from_numpy(c - r)) * A.data.shape[1]
+                pos, inv = torch.unique(pos + torch.from_numpy(r), return_inverse=True)
+                A.data.view(-1)[pos] = torch.zeros(pos.numel(), dtype=torch.float64).index_add_(
+                    0, inv, t(v))
+                return A.data
+
+            return lambda: st.DIAMatrix.from_coo(n, n, r, c, v, dtype=torch.float64,
+                                                   device="cpu").data, plain
+
+        def plain():
+            keys, inv = torch.unique(torch.from_numpy(r * n + c), return_inverse=True)
+            s = torch.zeros(keys.numel(), dtype=torch.float64).index_add_(0, inv, t(v))
+            A = st.BSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu", block_shape=(4, 4),
+                                      sum_duplicates=False)
+            A.data.view(-1)[A.graph.positions_torch(keys // n, keys % n)] = s
+            return A.data
+
+        return (lambda: st.BSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu",
+                                              block_shape=(4, 4)).data, plain)
+    # repeated add_values / add_block into non-zero storage, each batch
+    # naming its pairs several times
+    A = tmf.choose_matrix_type("csr").from_dense(dense, device="cpu")
+    rows, cols = np.nonzero(dense)
+    pick = rng.integers(0, rows.size, 3 * rows.size)
+    batches = [(rows[pick], cols[pick], rng.standard_normal(pick.size)) for _ in range(3)]
+    if name == "add_block":
+        blk = np.unique(rows[:6])
+        block_batches = [(blk, blk, rng.standard_normal((blk.size, blk.size))) for _ in range(3)]
+
+        def run():
+            B = A
+            for args in block_batches:
+                B = B.add_block(*args)
+            return B.data
+
+        def plain():
+            flat = A.data.clone()
+            for br, bc, bv in block_batches:
+                rr, cc = np.repeat(br, bc.size), np.tile(bc, br.size)
+                pos = torch.from_numpy(A.graph.edge_positions(rr, cc).astype(np.int64))
+                flat.index_add_(0, pos, t(bv.reshape(-1)))
+            return flat
+
+        return run, plain
+
+    def run():
+        B = A
+        for args in batches:
+            B = B.add_values(*args)
+        return B.data
+
+    def plain():
+        flat = A.data.clone()
+        for br, bc, bv in batches:
+            pos = torch.from_numpy(A.graph.edge_positions(br, bc).astype(np.int64))
+            flat.index_add_(0, pos, t(bv))
+        return flat
+
+    return run, plain
+
+
+SUM_SITES = ["ell_rmatvec", "ell_rmatmat", "bsr_matvec", "bsr_matmat", "bsr_rmatvec",
+             "bsr_rmatmat", "dia_from_coo", "bsr_from_coo", "add_values", "add_block"]
+
+
+@pytest.mark.parametrize("site", SUM_SITES)
+def test_fixed_order_sum_gives_the_cpu_bits(site, monkeypatch):
+    run, _ = _site(site)
+    cpu = run()
+    monkeypatch.setattr(ordered_sum, "fixed_order", lambda device: True)
+    fixed = run()
+    assert torch.equal(fixed, cpu)
+    assert torch.equal(run(), cpu)  # again, from the kept plan where there is one
+
+
+@pytest.mark.parametrize("site", SUM_SITES)
+def test_repaired_sums_on_the_cpu_are_index_add(site):
+    run, plain = _site(site)
+    assert torch.equal(run(), plain())
+
+
+def test_products_keep_their_sum_plans(monkeypatch):
+    """Off the CPU a product builds its plan once and keeps it with the
+    matrix; on the CPU it builds none."""
+    dense = _mesh_case()
+    x = t(np.ones(dense.shape[0]))
+    ell = tmf.choose_matrix_type("ell").from_dense(dense, device="cpu")
+    bsr = tmf.choose_matrix_type("bsr").from_dense(dense, device="cpu", block_shape=(4, 4))
+    ell.rmatvec(x), bsr.matvec(x)
+    assert "_sum_plans" not in ell.__dict__ and "_sum_plans" not in bsr.__dict__
+    monkeypatch.setattr(ordered_sum, "fixed_order", lambda device: True)
+    ell.rmatvec(x), bsr.matvec(x), bsr.rmatvec(x)
+    plans = (ell.__dict__["_sum_plans"]["cols"], bsr.__dict__["_sum_plans"]["rows"])
+    ell.rmatmat(x[:, None]), bsr.matmat(x[:, None])
+    assert ell.__dict__["_sum_plans"]["cols"] is plans[0]
+    assert bsr.__dict__["_sum_plans"]["rows"] is plans[1]
+    assert set(bsr.__dict__["_sum_plans"]) == {"rows", "cols"}

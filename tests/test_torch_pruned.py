@@ -424,3 +424,120 @@ def test_pruned_spmm_counts_launches_by_layout(monkeypatch):
                 assert M.matmat(X).shape == (n, 4)
         assert {k: fn.launches_by_layout[k] - before[k] for k in before} == {
             "rhs_major": 1, "cols": 2}
+
+
+# -- the plain versions' sums off the CPU --------------------------------------
+def _index_add_versions(data, x, offsets, tile_ptr, n, m, group, halo=None, sym_shift=0):
+    """The plain versions as they summed before the fixed-order sums: bare
+    CPU ``index_add_`` over the same chunks (y, and for a symmetric plan
+    the mirror rows with the spill)."""
+    TR = data.shape[1]
+    y = torch.zeros((tile_ptr.numel() - 1, TR), dtype=x.dtype)
+    for s0, s1, rows in sp._slot_chunks(data, tile_ptr, group):
+        idx = rows + offsets[s0:s1, None]
+        ok = (idx >= 0) & (idx < m)
+        xg = torch.where(ok, x[idx.clamp(0, max(m - 1, 0))], 0)
+        steps = (data[s0:s1].to(x.dtype) * xg).reshape(-1, group, TR).sum(1)
+        y.index_add_(0, rows[::group, 0] // TR, steps)
+    y = y.reshape(-1)[:n]
+    if halo is None:
+        return y
+    ym = torch.zeros(n + halo * 128, dtype=x.dtype)
+    om = offsets - sym_shift
+    for s0, s1, rows in sp._slot_chunks(data, tile_ptr, group):
+        zidx = rows + sym_shift
+        ok = (zidx >= 0) & (zidx < m) & (om[s0:s1, None] > 0)
+        out = rows + om[s0:s1, None]
+        ok &= (out >= 0) & (out < n + halo * 128)
+        z = data[s0:s1].to(x.dtype) * x[zidx.clamp(0, max(m - 1, 0))]
+        ym.index_add_(0, out[ok], z[ok])
+    return y + ym[:n], ym[n:]
+
+
+def _plain_case(case):
+    """(plan arrays, x, keyword arguments) of a full, a symmetric and a
+    shifted symmetric (spill) plan, f64."""
+    rng = np.random.default_rng(41)
+    n, m, shift = 5000, 5000, 0
+    if case == "full":
+        r, c, v, _ = random_banded(rng, n, m, 40000, band=300, outliers=30)
+    elif case == "sym":
+        r, c, v, _ = random_symmetric(rng, n, 30000, band=300)
+        up = c >= r
+        r, c, v = r[up], c[up], v[up]
+    else:
+        n, m, shift = 2048, 2048 + 512, 128
+        r, c, v, _ = random_banded(rng, n, m, 9000, band=shift + 300, outliers=0, lo=shift)
+    P = sp.build_pruned_plan(n, m, r, c, v, tile_rows=1024, group=3, dtype=np.float64)
+    arrays = (torch.from_numpy(P.data), torch.from_numpy(P.offsets), torch.from_numpy(P.tile_ptr))
+    kw = {} if case == "full" else dict(halo=P.halo, sym_shift=shift)
+    return arrays, torch.from_numpy(rng.standard_normal(m)), n, m, kw
+
+
+@pytest.mark.parametrize("case", ["full", "sym", "sym_shift"])
+def test_plain_versions_fixed_order_gives_the_cpu_bits(case, monkeypatch):
+    """Off the CPU the plain versions add the runs into their tiles and the
+    mirror terms into their rows in stored order without atomics, chunk
+    after chunk from the running sums: on CPU tensors that path gives
+    ``index_add_``'s bits, with each chunk's plan built once a plan."""
+    from sigma_tpu_torch.utils import ordered_sum
+
+    (data, offsets, tile_ptr), x, n, m, kw = _plain_case(case)
+    # chunks of 2 groups of 3 slots: several chunks add into the same tiles
+    monkeypatch.setattr(sp, "_PLAIN_CHUNK_ELEMS", 1024 * 6)
+    assert len(list(sp._slot_chunks(data, tile_ptr, 3))) > 4
+
+    def run():
+        if case == "full":
+            return (sp.pruned_matvec_reference(data, x, offsets, tile_ptr, n, m, group=3),)
+        return sp.pruned_sym_matvec_reference(data, x, offsets, tile_ptr, n, m, group=3,
+                                              with_spill=True, **kw)
+
+    cpu = run()
+    monkeypatch.setattr(ordered_sum, "fixed_order", lambda device: True)
+    fixed = run()
+    assert all(torch.equal(a, b) for a, b in zip(fixed, cpu))
+    assert sp._upper_plans(data, tile_ptr, 3) is sp._upper_plans(data, tile_ptr, 3)
+    if case != "full":
+        args = (data, offsets, tile_ptr, n, m, 3, kw["sym_shift"], kw["halo"] * 128)
+        assert sp._mirror_plans(*args) is sp._mirror_plans(*args)
+        assert float(cpu[0].abs().max()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(run(), cpu))  # from the kept plans
+
+
+@pytest.mark.parametrize("case", ["full", "sym", "sym_shift"])
+def test_plain_versions_on_the_cpu_are_index_add(case, monkeypatch):
+    (data, offsets, tile_ptr), x, n, m, kw = _plain_case(case)
+    monkeypatch.setattr(sp, "_PLAIN_CHUNK_ELEMS", 1024 * 6)
+    want = _index_add_versions(data, x, offsets, tile_ptr, n, m, 3, **kw)
+    if case == "full":
+        assert torch.equal(sp.pruned_matvec_reference(data, x, offsets, tile_ptr, n, m, group=3),
+                           want)
+    else:
+        got = sp.pruned_sym_matvec_reference(data, x, offsets, tile_ptr, n, m, group=3,
+                                             with_spill=True, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("fixed", [False, True], ids=["cpu", "fixed_order"])
+@pytest.mark.parametrize("layout", ["rhs_major", "cols"])
+@pytest.mark.parametrize("case", ["sym", "sym_shift"])
+def test_sym_spmm_plain_version_is_the_matvec_per_panel(case, layout, fixed, monkeypatch):
+    """The symmetric plain SpMM sums every panel's mirror terms in one pass:
+    each panel's y and spill are what the plain SpMV gives for it, bit for
+    bit, on the CPU and through the fixed-order sums."""
+    from sigma_tpu_torch.utils import ordered_sum
+
+    (data, offsets, tile_ptr), _, n, m, kw = _plain_case(case)
+    monkeypatch.setattr(sp, "_PLAIN_CHUNK_ELEMS", 1024 * 6)
+    if fixed:
+        monkeypatch.setattr(ordered_sum, "fixed_order", lambda device: True)
+    XT = torch.from_numpy(np.random.default_rng(42).standard_normal((5, m)))
+    X = XT if layout == "rhs_major" else XT.T.contiguous()
+    Y, S = sp.pruned_sym_spmm_reference(data, X, offsets, tile_ptr, n, m, layout, group=3,
+                                        with_spill=True, **kw)
+    for j in range(5):
+        y, s = sp.pruned_sym_matvec_reference(data, XT[j], offsets, tile_ptr, n, m, group=3,
+                                              with_spill=True, **kw)
+        got = (Y[j], S[j]) if layout == "rhs_major" else (Y[:, j], S[:, j])
+        assert torch.equal(got[0], y) and torch.equal(got[1], s)

@@ -124,25 +124,44 @@ def test_dia_spmm_plain_matches_jax_kernel(kernel, k, case, monkeypatch):
     assert rel(rhs_major(Y, kernel, k, n), Yj) <= 1e-5
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
-@pytest.mark.parametrize("kernel", ["rhs_major", "interleaved"])
-def test_dia_sym_spmm_plain_matches_jax_kernel(kernel, k):
-    n = N_UNALIGNED
+# (n, offsets) of the symmetric SpMM: the first set; the stencil's
+# {0, 1, nx, nx^2} at nx = 24, nx^2 = 576 past one CUDA block's 512 rows;
+# runs of consecutive offsets, as the elasticity operator's 0..5 and
+# 448..452; no main diagonal with n unaligned
+SYM_CASES = {
+    "default": (N_UNALIGNED, SYM_OFFSETS),
+    "stencil": (24 ** 3, (0, 1, 24, 576)),
+    "runs": (N_UNALIGNED, (0, 1, 2, 3, 4, 5, 448, 449, 450, 451, 452)),
+    "no_main": (N_UNALIGNED, (1, 2, 130, 259)),
+}
+# k: the edges of a 4- and an 8-column register tile; the first set keeps
+# its ids of one parameter pair
+SYM_PARAMS = [
+    pytest.param(kernel, k, case, id=f"{kernel}-{k}" + ("" if case == "default" else f"-{case}"))
+    for case in SYM_CASES
+    for k in (1, 3, 4, 5, 8, 9, 12, 16)
+    for kernel in ("rhs_major", "interleaved")
+]
+
+
+@pytest.mark.parametrize("kernel,k,case", SYM_PARAMS)
+def test_dia_sym_spmm_plain_matches_jax_kernel(kernel, k, case):
+    n, offsets = SYM_CASES[case]
     rng = np.random.default_rng(200 + k)
-    data = sym_data(rng, n, SYM_OFFSETS)
+    data = sym_data(rng, n, offsets)
     XT = rng.standard_normal((k, n)).astype(np.float32)
     with mock.patch.object(sp, "_sym_spmm_tile_pick", _small_tiles):
         if kernel == "rhs_major":
             Yj = sp.dia_sym_spmm_rhs_major(
-                jnp.asarray(data), jnp.asarray(XT), SYM_OFFSETS, n, interpret=True
+                jnp.asarray(data), jnp.asarray(XT), offsets, n, interpret=True
             )
         else:
             YI = sp.dia_sym_spmm_interleaved(
                 jnp.asarray(data), sp.interleave_panels(jnp.asarray(XT), n),
-                SYM_OFFSETS, n, interpret=True,
+                offsets, n, interpret=True,
             )
             Yj = sp.deinterleave_panels(YI, k, n)
-    offs = torch.tensor(SYM_OFFSETS)
+    offs = torch.tensor(offsets)
     Y = dia_sym_spmm(torch.from_numpy(data), in_layout(XT, kernel), offs, n, kernel)
     assert rel(rhs_major(Y, kernel, k, n), Yj) <= 1e-5
 
