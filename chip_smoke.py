@@ -30,7 +30,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives eight paths through the package's public entry points:
+drives eleven paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -75,7 +75,26 @@ drives eight paths through the package's public entry points:
   ``BlockMatrix`` of 9 DIA blocks, the node-major DIA band in full and
   symmetric storage, the grouped BSR): parity of A x, SpMV and SpMM
   (k = 4) times, and the Jacobi-CG solve against the manufactured
-  solution, with equal iteration counts.
+  solution, with equal iteration counts;
+- the nonsymmetric stencil (phase 23): ``benchmarks/adv3d.py``'s upwinded
+  advection-diffusion operator at nx=216 (beta 10, f32), BiCG-stab with
+  ``jacobi()`` and with ``structured_amg(...).setup(A)``, GMRES(32), and
+  100 CGLS steps whose rmatvec runs the DIA SpMV on the transposed layout;
+- the nonsymmetric mesh (phase 24): ``benchmarks/unstructured_nonsym.py``'s
+  skew-perturbed shuffled mesh at 1,048,576 rows in pruned storage, its
+  skew statistic and route, plain and pruned-multigrid BiCG-stab, and
+  FGMRES(32) with a 4-step inner BiCG-stab given as a lambda and through
+  ``attach_solver`` (equal counts);
+- the refinement question (phase 25): on the Dirichlet Poisson stencil at
+  nx=216 to a relative residual of 1e-10, f64 CG + GMG against
+  ``refined_solve`` with an f32 inner GMG-CG (f32, then bf16 operator
+  values) and f64 MINRES with the same M.
+
+Each solve prints its iterations beside the JAX package's recorded TPU
+count where there is one, its warm seconds, seconds per iteration, the
+recomputed true relative residual and the error against the manufactured
+solution; a solve that does not converge, or whose true residual is above
+twice its target, fails the run.
 
 The kernels' launch counts are zeroed before each path and read after it,
 and each path must have launched its kernels; launches that compare a
@@ -2683,6 +2702,246 @@ def phase_block(device, S, variants, checks):
     return rows
 
 
+# -- the nonsymmetric paths and the refinement ladder ------------------------
+# the JAX package's recorded iteration counts (TPU, f32, rtol 1e-6): the
+# upwinded stencil at nx=216, beta 10 (BENCHMARKS.md:644-660), and the
+# skewed 1M-row mesh (BENCHMARKS.md:839-845, :947-970; FGMRES: outer steps)
+JAX_ADV3D_COUNTS = {"bicgstab_jacobi": 77, "bicgstab_gmg": 12, "gmres32": 119}
+JAX_NONSYM_MESH_COUNTS = {"bicgstab": 156, "bicgstab_pruned_gmg": 225, "fgmres_bicgstab4": 40}
+NONSYM_RTOL = 1e-6
+# the one exception to the limit of twice the target: BiCG-stab + pruned
+# multigrid on the skewed mesh stops on its recursive residual at 1e-6
+# after ~220 f32 iterations, and its true residual lies above it by f32
+# rounding alone: 2.11e-6 in the JAX package's own f32 solve of this system
+# (CPU, 230 iterations), 2.31e-6 in this port's on an H100 and 2.82e-6 on
+# the CPU (215), 2.05e-6 with an f64-accumulated matvec (``PYTHONPATH=.
+# python tests/test_torch_nonsym.py 16384`` gives the CPU numbers).  It is
+# held to 3x; a wrong kernel, which solves another operator, misses by O(1).
+NONSYM_GMG_TRUE_LIMIT = 3.0
+# the refinement path's relative-residual target in f64
+REFINE_RTOL = 1e-10
+
+
+def _check_solve(label, info, rel, target, limit=2.0):
+    """Raise unless the solve converged and its recomputed true relative
+    residual is within ``limit`` (twice) times its target."""
+    if not (info.converged and rel <= limit * target):
+        raise AssertionError(f"{label}: {info}, true relative residual {rel:.3e} "
+                             f"(target {target:.1e})")
+
+
+def phase_nonsym_stencil(device, nx, beta=10.0):
+    """benchmarks/adv3d.py's configuration: the upwinded advection-diffusion
+    stencil at nx^3 (f32, beta 10, rtol 1e-6, maxiter 2000, full-storage
+    DIA) against the manufactured solution from default_rng(0):
+    BiCG-stab + jacobi(), BiCG-stab + structured_amg(pairs_per_level=3),
+    GMRES(32); then 100 CGLS steps, whose rmatvec runs #1 on the transposed
+    layout (CGLS squares the condition number: only the drop in ||A^T r||
+    is held)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        advection_diffusion_dia, bicgstab_solve, cgls_solve, gmres_solve, jacobi,
+        structured_amg,
+    )
+    from sigma_tpu_torch.ops import dia_spmv_reference
+
+    A = advection_diffusion_dia(nx, beta, torch.float32, device)
+    n = A.shape[0]
+    xstar = torch.from_numpy(
+        np.random.default_rng(0).standard_normal(n).astype(np.float32)).to(device)
+    # b from the plain version, so a solve is not held only to the kernel
+    b = dia_spmv_reference(A.data, xstar, A.offsets_dev, n, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Mg = structured_amg((nx, nx, nx), pairs_per_level=3).setup(A)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    kw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=2000)
+    for label, run, extra in (
+        ("bicgstab_jacobi", lambda: bicgstab_solve(A, b, M=jacobi().setup(A), **kw), {}),
+        ("bicgstab_gmg", lambda: bicgstab_solve(A, b, M=Mg, **kw),
+         {"setup_s": setup, "levels": len(Mg.levels) + 1}),
+        ("gmres32", lambda: gmres_solve(A, b, restart=32, **kw), {"restart": 32}),
+    ):
+        (x, info), warm = _timed(run)
+        rel = _true_rel_residual(A, b, x)
+        emit({"phase": "nonsym_stencil", "run": label, "n": n, "beta": beta, **extra,
+              "iterations": info.iterations, "tpu_iterations": JAX_ADV3D_COUNTS[label],
+              "converged": info.converged, "relative_residual": rel,
+              "max_err_vs_xstar": float((x - xstar).abs().max()), "wall_s_warm": warm,
+              "s_per_iteration": warm / max(info.iterations, 1)})
+        _check_solve(label, info, rel, NONSYM_RTOL)
+        del x
+    atb = float(torch.linalg.vector_norm(A.rmatvec(b)))
+    (x, info), warm = _timed(lambda: cgls_solve(A, b, tol=0.0, rtol=NONSYM_RTOL, maxiter=100))
+    drop = float(info.residual_norm) / atb
+    emit({"phase": "nonsym_stencil", "run": "cgls", "n": n, "iterations": info.iterations,
+          "converged": info.converged, "normal_residual_drop": drop,
+          "relative_residual": _true_rel_residual(A, b, x),
+          "max_err_vs_xstar": float((x - xstar).abs().max()), "wall_s_warm": warm,
+          "s_per_iteration": warm / max(info.iterations, 1)})
+    if not drop < 1.0:
+        raise AssertionError(f"CGLS did not lower ||A^T r||: {drop:.3e} of its start")
+
+
+def phase_nonsym_unstructured(device, height=16_384, width=64, seed=0, beta=0.3,
+                              shift=1e-3):
+    """benchmarks/unstructured_nonsym.py's defaults: the skew-perturbed,
+    shuffled 1,048,576-row mesh, RCM, full pruned storage (f32), xstar_i =
+    sin(0.001 i); the skew statistic and auto_pruned_preconditioner's
+    route, then (rtol 1e-6, maxiter 500) plain BiCG-stab, BiCG-stab +
+    pruned_pair_amg (Jacobi smoother, coarse 4096), and FGMRES(32) with a
+    4-step inner BiCG-stab as a lambda and through attach_solver, which
+    must take the lambda's count."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        PrunedDIAMatrix, attach_solver, auto_pruned_preconditioner, bicgstab, bicgstab_solve,
+        fgmres_solve, pruned_pair_amg, reorder_triples_rcm, skew_dominance, skewed_mesh_coo,
+    )
+    from sigma_tpu_torch.ops import pruned_matvec_reference
+
+    secs = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    n, rows, cols, vals = step("generate_s", lambda: skewed_mesh_coo(
+        height, width, seed, beta, shift, dtype=np.float32))
+    pr, pc, vals, p = step("rcm_s", lambda: reorder_triples_rcm(n, rows, cols, vals))
+    del rows, cols
+    vals = vals.astype(np.float32)
+    P = step("pack_s", lambda: PrunedDIAMatrix.from_coo(
+        n, n, pr, pc, vals, assume_unique=True, device=device))
+    s_dom = step("skew_s", lambda: skew_dominance(pr, pc, vals))
+    amg = dict(coarse_size=4096, smoother="jacobi", fine_A=P)
+    _, route = step("route_s", lambda: auto_pruned_preconditioner(n, pr, pc, vals, **amg))
+    Mg = step("gmg_s", lambda: pruned_pair_amg(n, pr, pc, vals, **amg))
+    emit({"phase": "nonsym_unstructured_setup", "n": n, "nnz": int(pr.size), "beta": beta,
+          "skew_dominance": s_dom, "route": route["route"], "levels": len(Mg.levels) + 1,
+          "stored_slots": P.stored_slots, "seconds": secs})
+    del pr, pc, vals
+    xstar = np.sin(np.arange(n) * 0.001).astype(np.float32)
+    xp = np.empty_like(xstar)
+    xp[p] = xstar
+    # b from the plain version, so a solve is not held only to the kernel
+    b = pruned_matvec_reference(P.data, torch.from_numpy(xp).to(device), P.offsets,
+                                P.tile_ptr, P.n, P.m, group=P.group)
+
+    def inner(v):
+        return bicgstab_solve(P, v, tol=0.0, rtol=0.0, maxiter=4)[0]
+
+    attached = attach_solver(P, bicgstab(tolerance=0.0, maxiter=4))
+    kw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=500)
+    iters = {}
+    for label, tpu, run in (
+        ("bicgstab", "bicgstab", lambda: bicgstab_solve(P, b, **kw)),
+        ("bicgstab_pruned_gmg", "bicgstab_pruned_gmg", lambda: bicgstab_solve(P, b, M=Mg, **kw)),
+        ("fgmres_lambda", "fgmres_bicgstab4", lambda: fgmres_solve(P, b, restart=32, M=inner,
+                                                                     **kw)),
+        ("fgmres_attached", "fgmres_bicgstab4",
+         lambda: fgmres_solve(P, b, restart=32, M=attached, **kw)),
+    ):
+        (x, info), warm = _timed(run)
+        rel = _true_rel_residual(P, b, x)
+        iters[label] = info.iterations
+        limit = NONSYM_GMG_TRUE_LIMIT if label == "bicgstab_pruned_gmg" else 2.0
+        emit({"phase": "nonsym_unstructured", "run": label, "n": n,
+              "iterations": info.iterations, "tpu_iterations": JAX_NONSYM_MESH_COUNTS[tpu],
+              "converged": info.converged, "relative_residual": rel,
+              "residual_limit": limit * NONSYM_RTOL,
+              "max_err_vs_xstar": float(np.abs(x.cpu().numpy()[p] - xstar).max()),
+              "wall_s_warm": warm, "s_per_iteration": warm / max(info.iterations, 1)})
+        _check_solve(label, info, rel, NONSYM_RTOL, limit)
+        del x
+    if iters["fgmres_attached"] != iters["fgmres_lambda"]:
+        raise AssertionError(f"attach_solver's FGMRES took another count: {iters}")
+
+
+def phase_refinement(device, nx):
+    """Does plain f64 CG beat the refinement ladder on a card with native
+    f64?  The Dirichlet Poisson stencil of phase 10 at nx^3, symmetric
+    storage, relative-residual target 1e-10 in f64, xstar from
+    default_rng(0): (a) f64 CG + Chebyshev GMG in f64; (b) refined_solve
+    with an f32 inner GMG-CG (f32 operator and levels); (c) as (b) with the
+    inner operator's values in bf16 (exact for this stencil); (d) MINRES
+    in f64 with (a)'s M."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        SymmetricDIAMatrix, cg_solve, laplacian_3d_dia, minres_solve, refined_solve,
+        structured_pair_amg,
+    )
+    from sigma_tpu_torch.ops import dia_sym_spmv_reference
+
+    S = SymmetricDIAMatrix.from_dia(laplacian_3d_dia(nx, torch.float64, device, diag=6.0))
+    n = S.shape[0]
+
+    def cast(dtype):
+        return SymmetricDIAMatrix(data=S.data.to(dtype), offsets=S.offsets, n=S.n)
+
+    S32, Sbf = cast(torch.float32), cast(torch.bfloat16)
+
+    def timed_setup(op):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M = structured_pair_amg(op, (nx, nx, nx), pairs_per_level=3, smoother="chebyshev",
+                                n_smooth=4)
+        torch.cuda.synchronize()
+        return M, time.perf_counter() - t0
+
+    (M64, setup64), (M32, setup32) = timed_setup(S), timed_setup(S32)
+    xstar = torch.from_numpy(np.random.default_rng(0).standard_normal(n)).to(device)
+    b = dia_sym_spmv_reference(S.data, xstar, S.offsets_dev, n)
+    inner = []
+
+    def counted_cg(A, r, **kw):
+        x, info = cg_solve(A, r, **kw)
+        inner.append(info.iterations)
+        return x, info
+
+    runs = (
+        ("a_cg_f64", lambda: cg_solve(S, b, tol=0.0, rtol=REFINE_RTOL, maxiter=3000, M=M64)),
+        ("b_refined_f32", lambda: refined_solve(S, b, tol=0.0, rtol=REFINE_RTOL, A_lo=S32,
+                                                M_lo=M32, inner_solver=counted_cg)),
+        ("c_refined_bf16_values", lambda: refined_solve(S, b, tol=0.0, rtol=REFINE_RTOL,
+                                                        A_lo=Sbf, M_lo=M32,
+                                                        inner_solver=counted_cg)),
+        ("d_minres_f64", lambda: minres_solve(S, b, tol=0.0, rtol=REFINE_RTOL, maxiter=3000,
+                                              M=M64)),
+    )
+    iters, walls = {}, {}
+    for label, run in runs:
+        inner.clear()
+        (x, info), warm = _timed(run)
+        refined = label.startswith(("b_", "c_"))
+        # _timed ran the solve twice: the inner counts of the second run
+        inner_total = sum(inner[len(inner) // 2:]) if refined else None
+        rel = _true_rel_residual(S, b, x)
+        iters[label], walls[label] = info.iterations, warm
+        emit({"phase": "refinement", "run": label, "n": n,
+              "outer_sweeps": info.iterations if refined else None,
+              "inner_iterations": inner_total,
+              "iterations": info.iterations, "converged": info.converged,
+              "relative_residual": rel, "max_err_vs_xstar": float((x - xstar).abs().max()),
+              "setup_s": setup32 if refined else setup64, "wall_s_warm": warm,
+              "s_per_iteration": warm / max(inner_total or info.iterations, 1)})
+        _check_solve(label, info, rel, REFINE_RTOL)
+        del x
+    if abs(iters["d_minres_f64"] - iters["a_cg_f64"]) > 3:
+        raise AssertionError(f"MINRES and CG with the same M differ by more than 3: {iters}")
+    emit({"phase": "refinement", "fastest": min(walls, key=walls.get), "wall_s_warm": walls})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
@@ -2809,6 +3068,16 @@ def main():
     # elasticity operator's matvec
     rows["bsr_grouped_spmv"] = block_rows["B3_elasticity_k1"]
     del S, variants
+    # the nonsymmetric paths and the refinement ladder
+    zero_counts()
+    phase_nonsym_stencil(device, args.nx)                   # phase 23
+    paths.append(read_counts("nonsym_stencil", ("dia_spmv",)))
+    zero_counts()
+    phase_nonsym_unstructured(device)                       # phase 24
+    paths.append(read_counts("nonsym_unstructured", ("pruned_spmv",)))
+    zero_counts()
+    phase_refinement(device, args.nx)                       # phase 25
+    paths.append(read_counts("refinement", ("dia_sym_spmv", "dia_spmv")))
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most (dia_sym_spmm's at k = 4, the width its paths take)
     summary_layouts = {}

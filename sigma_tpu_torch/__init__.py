@@ -3,8 +3,12 @@
 A second package beside the JAX one, held against it by the tests.  It
 holds the stencil main path: DIA storage (full and symmetric), the
 hand-written DIA SpMV and SpMM kernels for Hopper that every matvec and
-multi-RHS product runs on a CUDA device, the operator algebra, CG, fused
-CG, BiCG-stab and block CG, the structured pair-aggregation multigrid
+multi-RHS product runs on a CUDA device, the operator algebra, the Krylov
+solvers (CG, fused CG, BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS,
+the stationary iteration, block CG), the solver objects and factories
+(``cg()``, ``bicgstab()``, ``gmres()``, ``cgls()``, ``jacobi()``,
+``structured_amg()``) with ``attach_solver`` and the ``solve`` facade,
+iterative refinement, the structured pair-aggregation multigrid
 preconditioner, and the LOBPCG eigensolver.  And the unstructured path:
 the irregular-mesh generator, RCM and BFS reordering and the pruned
 block-DIA pack (host C++ built by g++), pruned storage (full and
@@ -73,13 +77,16 @@ from sigma_tpu_torch.operators import (
     IdentityOperator,
     LinearOperator,
     MatvecOperator,
+    OperatorWithSolver,
     ProductOperator,
     ScaledOperator,
     SumOperator,
     aslinearoperator,
+    attach_solver,
 )
 from sigma_tpu_torch.ops import GroupedBSR, cuda_available
 from sigma_tpu_torch.problems import (
+    advection_diffusion_dia,
     block_banded_grouped_bsr,
     elasticity_field_blocked,
     elasticity_jacobi,
@@ -87,21 +94,42 @@ from sigma_tpu_torch.problems import (
     elasticity_node_major_dia,
     elasticity_permutation,
     laplacian_3d_dia,
+    skewed_mesh_coo,
 )
 from sigma_tpu_torch.solvers import (
+    BiCGStabSolver,
+    CGLSSolver,
+    CGSolver,
     ChebyshevSmoother,
+    GMRESSolver,
+    JacobiSolver,
+    LinearSolver,
     SolveInfo,
+    StructuredAMGFactory,
     StructuredAMGPreconditioner,
     auto_pruned_preconditioner,
+    bicgstab,
     bicgstab_solve,
     block_cg_solve,
+    cg,
     cg_fused_solve,
     cg_solve,
+    cgls,
+    cgls_solve,
     chebyshev,
     estimate_lmax,
+    fgmres_solve,
+    gmres,
+    gmres_solve,
+    jacobi,
+    minres_solve,
+    prepare_preconditioner,
     pruned_pair_amg,
+    refined_solve,
     refined_solve_fixed,
     skew_dominance,
+    stationary_solve,
+    structured_amg,
     structured_pair_amg,
 )
 

@@ -30,7 +30,9 @@ __all__ = [
     "DiagonalOperator",
     "DenseOperator",
     "MatvecOperator",
+    "OperatorWithSolver",
     "aslinearoperator",
+    "attach_solver",
     "move_to",
 ]
 
@@ -153,6 +155,24 @@ class LinearOperator:
         return AdjointOperator(self)
 
     adjoint = T
+
+    # -- solve facade ----------------------------------------------------------
+    def solve(self, b: torch.Tensor, solver=None, preconditioner=None, **kw):
+        """Solve A x = b with ``solver`` (anything with ``solve(A, b,
+        M=...)``, see :mod:`sigma_tpu_torch.solvers`), CG by default.
+        ``**kw`` configures the default CG only: passing it with an
+        explicit ``solver`` raises ``TypeError`` (dropping ``tol=`` or
+        ``maxiter=`` silently would return an under-converged x)."""
+        if solver is None:
+            from sigma_tpu_torch.solvers.base import cg
+
+            solver = cg(**kw)
+        elif kw:
+            raise TypeError(
+                f"solver parameters {sorted(kw)} must be set on the passed solver "
+                "object (they configure the default CG only)"
+            )
+        return solver.solve(self, b, M=preconditioner)
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(shape={self.shape})"
@@ -394,6 +414,42 @@ class MatvecOperator(LinearOperator):
         if self.rmv is None:
             raise NotImplementedError("no rmatvec supplied")
         return self.rmv(self.params, x)
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class OperatorWithSolver(LinearOperator):
+    """An operator with an attached solver and preconditioner: products
+    are the operator's, :meth:`solve` runs the attached solver on it."""
+
+    op: LinearOperator
+    solver: Any
+    preconditioner: Any = None
+
+    # explicit-disable sentinel: preconditioner=None means "solve
+    # unpreconditioned", not "fall back to the attached one"
+    _UNSET = object()
+
+    @property
+    def shape(self):
+        return self.op.shape
+
+    def matvec(self, x):
+        return self.op.matvec(x)
+
+    def rmatvec(self, x):
+        return self.op.rmatvec(x)
+
+    def matmat(self, X):
+        return self.op.matmat(X)
+
+    def solve(self, b, solver=None, preconditioner=_UNSET):
+        # no **kw: solver parameters live on the attached solver object
+        M = self.preconditioner if preconditioner is OperatorWithSolver._UNSET else preconditioner
+        return (self.solver if solver is None else solver).solve(self.op, b, M=M)
+
+
+def attach_solver(op: LinearOperator, solver, preconditioner=None) -> OperatorWithSolver:
+    return OperatorWithSolver(op=op, solver=solver, preconditioner=preconditioner)
 
 
 def aslinearoperator(A) -> LinearOperator:

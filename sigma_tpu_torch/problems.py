@@ -2,6 +2,11 @@
 
 * :func:`laplacian_3d_dia`, port of ``bench.laplacian_3d_dia``: the
   7-point 3-D Laplacian with analytic boundary masks, no COO sort.
+* :func:`advection_diffusion_dia`, the upwinded 3-D advection-diffusion
+  stencil of ``benchmarks/adv3d.py`` (the nonsymmetric north star), built
+  the same way.
+* :func:`skewed_mesh_coo`, the skew-perturbed, shuffled irregular mesh of
+  ``benchmarks/unstructured_nonsym.py`` as host COO triples.
 * :func:`block_banded_grouped_bsr`, the block-banded synthetic operator of
   the JAX package's benchmark (``bench.py``, the grouped-BSR row): dense
   (8, 128) blocks near the block diagonal, made as a ``GroupedBSR``
@@ -39,6 +44,7 @@ from sigma_tpu_torch.utils.dtypes import round_up
 
 __all__ = [
     "ELASTICITY_COUPLING",
+    "advection_diffusion_dia",
     "block_banded_grouped_bsr",
     "elasticity_field_blocked",
     "elasticity_jacobi",
@@ -47,6 +53,7 @@ __all__ = [
     "elasticity_node_major_dia",
     "elasticity_permutation",
     "laplacian_3d_dia",
+    "skewed_mesh_coo",
 ]
 
 # the dense SPD coupling of the three fields (Lame-like cross terms)
@@ -81,6 +88,61 @@ def laplacian_3d_dia(nx, dtype=torch.float32, device=None, diag=7.0) -> DIAMatri
     nnz = int(torch.count_nonzero(data))
     graph = DIAGraph(offsets=offsets, shape=(n, n), nnz=nnz)
     return DIAMatrix(graph=graph, data=data)
+
+
+def advection_diffusion_dia(nx, beta=10.0, dtype=torch.float32, device=None) -> DIAMatrix:
+    """-div(grad u) + beta . grad u on an nx^3 grid with first-order
+    upwinding, the velocity (beta, beta, beta) h: the 7-point Laplacian
+    whose upwind (negative-direction) neighbours carry -(1 + beta h) and
+    whose diagonal is 6 + 3 beta h, h = 1 / (nx + 1); row-wise diagonally
+    dominant and nonsymmetric.  Entry for entry the matrix of
+    ``benchmarks/adv3d.py``'s ``advection_diffusion_dia`` (which builds it
+    in f32).  ``device=None`` builds on CUDA and raises without a card."""
+    device = resolve_device(device)
+    n = nx * nx * nx
+    offsets = (-nx * nx, -nx, -1, 0, 1, nx, nx * nx)
+    bh = float(beta) / (nx + 1)
+    i = torch.arange(n, device=device)
+    iz = i % nx
+    iy = (i // nx) % nx
+    ix = i // (nx * nx)
+    data = torch.zeros((7, round_up(n, 128)), dtype=dtype, device=device)
+    data[3, :n] = 6.0 + 3.0 * bh
+    for d, keep, v in (
+        (2, iz > 0, -(1.0 + bh)),
+        (4, iz < nx - 1, -1.0),
+        (1, iy > 0, -(1.0 + bh)),
+        (5, iy < nx - 1, -1.0),
+        (0, ix > 0, -(1.0 + bh)),
+        (6, ix < nx - 1, -1.0),
+    ):
+        data[d, :n].masked_fill_(keep, v)
+    nnz = int(torch.count_nonzero(data))
+    graph = DIAGraph(offsets=offsets, shape=(n, n), nnz=nnz)
+    return DIAMatrix(graph=graph, data=data)
+
+
+def skewed_mesh_coo(height=16_384, width=64, seed=0, beta=0.3, shift=1e-3,
+                    dtype=np.float64):
+    """``(n, rows, cols, vals)``: the nonsymmetric unstructured operator of
+    ``benchmarks/unstructured_nonsym.py`` (defaults: 1,048,576 rows), as
+    host triples in shuffled labels.  The mesh Laplacian of
+    :func:`~sigma_tpu_torch.apps.generators.irregular_mesh_laplacian_coo`
+    (H x W, ``shift``) from ``default_rng(seed)``, its values rounded to
+    ``dtype`` (the benchmark builds it in float32), then the skew
+    perturbation ``v + beta * sign(col - row) * |v|`` along the stored
+    edges (diagonally dominant for |beta| < 1), then the vertices relabelled
+    by the next ``rng.permutation(n)``.  RCM-reorder the triples
+    (:func:`~sigma_tpu_torch.matrix.banded.reorder_triples_rcm`) before
+    packing them in pruned storage."""
+    from sigma_tpu_torch.apps.generators import irregular_mesh_laplacian_coo
+
+    rng = np.random.default_rng(seed)
+    n, rows, cols, vals = irregular_mesh_laplacian_coo(height, width, rng=rng, shift=shift)
+    vals = vals.astype(dtype)
+    vals = vals + beta * np.sign(cols - rows) * np.abs(vals)
+    sh = rng.permutation(n)
+    return n, sh[rows], sh[cols], vals
 
 
 def block_banded_grouped_bsr(nb_rows=8192, block_shape=(8, 128), group=8, seed=1,

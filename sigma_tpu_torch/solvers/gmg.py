@@ -48,10 +48,12 @@ from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import round_up, to_numpy, torch_dtype
 
 __all__ = [
+    "StructuredAMGFactory",
     "StructuredAMGPreconditioner",
     "auto_pruned_preconditioner",
     "pruned_pair_amg",
     "skew_dominance",
+    "structured_amg",
     "structured_pair_amg",
 ]
 
@@ -715,3 +717,22 @@ def pruned_pair_amg(
         levels=tuple(levels), coarse_inv=dev(cinv), n_smooth=n_smooth,
         smoother=smoother,
     )
+
+
+class StructuredAMGFactory:
+    """The solver-factory idiom (``cg()``, ``jacobi()``: objects with
+    ``setup(A)``) for the structured multigrid:
+    ``structured_amg(dims).setup(A)`` builds the V-cycle preconditioner."""
+
+    def __init__(self, dims, **kwargs):
+        self.dims = tuple(int(d) for d in dims)
+        self.kwargs = kwargs
+
+    def setup(self, A) -> StructuredAMGPreconditioner:
+        return structured_pair_amg(A, self.dims, **self.kwargs)
+
+
+def structured_amg(dims, **kwargs) -> StructuredAMGFactory:
+    """``M = structured_amg((nx, ny, nz), pairs_per_level=3).setup(A)``; the
+    keyword options are :func:`structured_pair_amg`'s."""
+    return StructuredAMGFactory(dims, **kwargs)

@@ -975,3 +975,74 @@ def test_block_path_on_card_matches_cpu(cuda):
         x, info = st.cg_solve(op, rhs, tol=0.0, rtol=1e-6, maxiter=150, M=M)
         assert info.converged and abs(info.iterations - i_cpu.iterations) <= 1
         assert float(((x[perm] if node else x) - xstar).abs().max()) < 1e-4
+
+
+def _dominant_dia(rng, n, offsets, shift=0.5):
+    """A nonsymmetric, row-wise diagonally dominant DIA operator (f64)."""
+    data = np.zeros((len(offsets), -(-n // 128) * 128))
+    for d, o in enumerate(offsets):
+        if o != 0:
+            lo, hi = max(0, -o), min(n, n - o)
+            data[d, lo:hi] = -rng.random(hi - lo)
+    data[offsets.index(0), :n] = np.abs(data).sum(0)[:n] + shift
+    nnz = int(np.count_nonzero(data))
+    return st.DIAMatrix(graph=st.DIAGraph(offsets=tuple(offsets), shape=(n, n), nnz=nnz),
+                        data=torch.from_numpy(data))
+
+
+def _twice_on_card(run):
+    """Two runs on the card: the same count and the same bits."""
+    (x1, i1), (x2, i2) = run(), run()
+    assert i1.iterations == i2.iterations and torch.equal(x1, x2)
+    return x1, i1
+
+
+def test_nonsymmetric_solvers_on_card_match_cpu(cuda):
+    """GMRES(32) plain and with jacobi(), FGMRES with an inner 4-step
+    BiCG-stab, and CGLS (rmatvec through the transposed layout) on a
+    nonsymmetric DIA operator: equal iteration counts on the card and the
+    CPU in f64, two card runs bit for bit equal."""
+    A = st.advection_diffusion_dia(20, 10.0, torch.float64, device="cpu")
+    Ag = A.to(cuda)
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal(A.shape[0]))
+    bg = b.to(cuda)
+    kw = dict(tol=0.0, rtol=1e-10, restart=32, maxiter=2000)
+    for M, Mg in ((None, None), (st.jacobi().setup(A), st.jacobi().setup(Ag))):
+        x_cpu, i_cpu = st.gmres_solve(A, b, M=M, **kw)
+        x_gpu, i_gpu = _twice_on_card(lambda: st.gmres_solve(Ag, bg, M=Mg, **kw))
+        assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations > 32
+        assert rel(x_gpu, x_cpu) <= 1e-9
+    x_cpu, i_cpu = st.fgmres_solve(
+        A, b, M=lambda v: st.bicgstab_solve(A, v, tol=0.0, rtol=0.0, maxiter=4)[0], **kw)
+    x_gpu, i_gpu = _twice_on_card(lambda: st.fgmres_solve(
+        Ag, bg, M=st.attach_solver(Ag, st.bicgstab(tolerance=0.0, maxiter=4)), **kw))
+    assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations
+    assert rel(x_gpu, x_cpu) <= 1e-9
+    C = _dominant_dia(np.random.default_rng(8), 50_000, [-300, -1, 0, 1, 300])
+    Cg = C.to(cuda)
+    c = torch.from_numpy(np.random.default_rng(9).standard_normal(50_000))
+    x_cpu, i_cpu = st.cgls_solve(C, c, tol=0.0, rtol=1e-10)
+    x_gpu, i_gpu = _twice_on_card(lambda: st.cgls_solve(Cg, c.to(cuda), tol=0.0, rtol=1e-10))
+    assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations
+    assert rel(x_gpu, x_cpu) <= 1e-9
+
+
+def test_minres_and_refinement_on_card_match_cpu(cuda):
+    """MINRES + GMG on the Dirichlet Poisson stencil in symmetric storage
+    and refined_solve with an f64 inner GMG-CG: equal counts on the card
+    and the CPU in f64, two card runs bit for bit equal."""
+    nx = 24
+    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float64, diag=6.0, device="cpu"))
+    M = st.structured_pair_amg(A, (nx, nx, nx), pairs_per_level=3, smoother="chebyshev",
+                               n_smooth=4)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(A.shape[0]))
+    Ag, Mg, bg = A.to(cuda), M.to(cuda), b.to(cuda)
+    x_cpu, i_cpu = st.minres_solve(A, b, tol=0.0, rtol=1e-10, M=M)
+    x_gpu, i_gpu = _twice_on_card(lambda: st.minres_solve(Ag, bg, tol=0.0, rtol=1e-10, M=Mg))
+    assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations
+    assert rel(x_gpu, x_cpu) <= 1e-9
+    kw = dict(tol=0.0, rtol=1e-12, inner_dtype=torch.float64, inner_tol=1e-4)
+    x_cpu, i_cpu = st.refined_solve(A, b, A_lo=A, M_lo=M, **kw)
+    x_gpu, i_gpu = _twice_on_card(lambda: st.refined_solve(Ag, bg, A_lo=Ag, M_lo=Mg, **kw))
+    assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations
+    assert rel(x_gpu, x_cpu) <= 1e-9

@@ -80,3 +80,60 @@ def test_symmetric_dia_data2d_matches_jax():
     assert tuple(St.data2d.shape) == tuple(Sj.data2d.shape)
     np.testing.assert_array_equal(St.data2d.numpy(), np.asarray(Sj.data2d))
     assert St.data2d.data_ptr() == St.data.data_ptr()
+
+
+# the names of sigma_tpu.solvers that wait for the generic AMG and ILDU
+# (ROADMAP queue 1, item 4)
+AMG_ILDU = {
+    "AMGPreconditioner", "amg_solve", "smoothed_aggregation_amg",
+    "ILDUPreconditioner", "LDUSolver", "TriangularLevels", "ildu0_factorize",
+    "incomplete_cholesky", "ldu",
+}
+SOLVER_LAYER = (
+    "minres_solve", "gmres_solve", "fgmres_solve", "cgls_solve", "stationary_solve",
+    "LinearSolver", "CGSolver", "BiCGStabSolver", "GMRESSolver", "CGLSSolver", "JacobiSolver",
+    "cg", "bicgstab", "gmres", "cgls", "jacobi", "prepare_preconditioner", "refined_solve",
+    "structured_amg",
+)
+
+
+@pytest.mark.parametrize("name", SOLVER_LAYER)
+def test_solver_layer_exported_where_jax_exports_it(name):
+    import sigma_tpu.solvers
+    import sigma_tpu_torch.solvers
+
+    assert name in sigma_tpu.solvers.__all__
+    assert name in sigma_tpu_torch.solvers.__all__
+    assert getattr(st.solvers, name) is getattr(st, name)
+    if hasattr(sigma_tpu, name):
+        assert getattr(st, name) is getattr(st.solvers, name)
+
+
+@pytest.mark.parametrize("name", ["OperatorWithSolver", "attach_solver"])
+def test_attach_solver_exported_where_jax_exports_it(name):
+    import sigma_tpu.operators
+    import sigma_tpu_torch.operators
+
+    assert name in sigma_tpu.operators.__all__ and hasattr(sigma_tpu, name)
+    assert name in sigma_tpu_torch.operators.__all__
+    assert getattr(st, name) is getattr(sigma_tpu_torch.operators, name)
+
+
+def test_every_operator_name_is_exported():
+    import sigma_tpu.operators
+    import sigma_tpu_torch.operators
+
+    assert set(sigma_tpu.operators.__all__) <= set(sigma_tpu_torch.operators.__all__)
+    for name in sigma_tpu.operators.__all__:
+        if hasattr(sigma_tpu, name):
+            assert hasattr(st, name), name
+
+
+def test_missing_solver_names_are_the_amg_and_ildu_ones():
+    import sigma_tpu.solvers
+    import sigma_tpu_torch.solvers
+
+    missing = set(sigma_tpu.solvers.__all__) - set(sigma_tpu_torch.solvers.__all__)
+    assert missing == AMG_ILDU
+    for name in sigma_tpu_torch.solvers.__all__:
+        assert hasattr(sigma_tpu_torch.solvers, name), name
