@@ -30,7 +30,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives eleven paths through the package's public entry points:
+drives twelve paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -88,7 +88,15 @@ drives eleven paths through the package's public entry points:
 - the refinement question (phase 25): on the Dirichlet Poisson stencil at
   nx=216 to a relative residual of 1e-10, f64 CG + GMG against
   ``refined_solve`` with an f32 inner GMG-CG (f32, then bf16 operator
-  values) and f64 MINRES with the same M.
+  values) and f64 MINRES with the same M;
+- the eigen path (phases 26-29): ``refine_eigenpairs`` on phase 12's f32
+  LOBPCG block over the f64 stencil (``benchmarks/eigen3d.py
+  --inverse-step``), inverse generalized Lanczos on the 27-point Q1 FEM
+  pencil at nx=102 with a GMG-CG-solved stiffness and f64 Rayleigh
+  quotients (``benchmarks/geneigen3d.py``), and on phase 15's 1M-row mesh
+  inverse Lanczos with pruned-GMG-CG and shift-invert Lanczos with its f64
+  recurrence on the card (``benchmarks/eigen_unstructured.py --refine``),
+  against the analytic spectra and the shift.
 
 Each solve prints its iterations beside the JAX package's recorded TPU
 count where there is one, its warm seconds, seconds per iteration, the
@@ -1207,7 +1215,8 @@ def phase_lobpcg(device, nx, m=4):
     pure Dirichlet Laplacian, as benchmarks/eigen3d.py runs it (full
     storage, pairs_per_level=3, tol 1e-4, maxiter 120, X0 from
     np.random.default_rng(0)), in f32 and in f64 (values, vectors, levels),
-    against the analytic spectrum."""
+    against the analytic spectrum.  Returns the f32 run's eigenvector block
+    and hierarchy, which phase 26 refines."""
     import numpy as np
     import torch
 
@@ -1216,6 +1225,7 @@ def phase_lobpcg(device, nx, m=4):
     exact = analytic_lowest(nx, m)
     X0 = np.random.default_rng(0).standard_normal((nx**3, m))
     rtol = LOBPCG_RTOL
+    kept = None
     for dtype in (torch.float32, torch.float64):
         # values made on the host and pushed once, as eigen3d.py does;
         # host_data spares the hierarchy's device-to-host copy
@@ -1241,7 +1251,10 @@ def phase_lobpcg(device, nx, m=4):
               "s_per_iteration": warm / max(res.iterations, 1)})
         if not (np.isfinite(lam).all() and rel.max() <= rtol):
             raise AssertionError(f"LOBPCG {dtype}: eigenvalue rel err {rel} > {rtol}")
+        if kept is None:
+            kept = (res.eigenvectors, M)
         del A, M, x0, res
+    return kept
 
 
 # -- the unstructured pruned path ------------------------------------------
@@ -1757,8 +1770,8 @@ def phase_unstructured_lobpcg(device, height=16_384, width=64, m=8):
     """LOBPCG + pruned multigrid at benchmarks/eigen_unstructured.py's
     settings (the 1M-row mesh, m=8, tol 1e-5, maxiter 60, X0 from the
     mesh's generator), on full and on symmetric storage.  Returns the
-    full-storage eigenvalues and the RCM permutation, which the full-band
-    LOBPCG is held to."""
+    full-storage eigenvalues, which the full-band LOBPCG is held to, and
+    the set-up (its RCM permutation too), which phases 28-29 reuse."""
     import numpy as np
     import torch
 
@@ -1789,7 +1802,7 @@ def phase_unstructured_lobpcg(device, height=16_384, width=64, m=8):
           "tolerance": LOBPCG_STORAGE_RTOL})
     if not apart.max() <= LOBPCG_STORAGE_RTOL:
         raise AssertionError(f"unstructured LOBPCG: full and symmetric eigenvalues {apart} apart")
-    return eigs["full"], U["p"]
+    return eigs["full"], U
 
 
 # -- the full-band path ------------------------------------------------------
@@ -2942,6 +2955,248 @@ def phase_refinement(device, nx):
     emit({"phase": "refinement", "fastest": min(walls, key=walls.get), "wall_s_warm": walls})
 
 
+# -- the eigen path ----------------------------------------------------------
+# refined eigenvalues against the analytic spectrum at nx=216: the JAX
+# package recorded 2.7e-5 to 1.4e-4 relative after its own refinement step
+# (benchmarks/eigen3d.py --inverse-step)
+REFINE_EIG_RTOL = 1e-4
+# the FEM pencil's f64 Rayleigh quotients against the analytic spectrum
+# (the JAX package's record: 8.5e-8 for mu_1, 2.8e-8 and 8.2e-8 for mu_2)
+FEM_RTOL = 1e-5
+# inverse Lanczos on the 1M-row mesh: lambda_1 is the shift 1e-3 (the
+# Laplacian's constant null vector) and the f32 Ritz residual norms (the
+# JAX package's record: 5e-5 to 3e-4)
+INVLANCZOS_LAMBDA1_RTOL = 1e-3
+INVLANCZOS_RESIDUAL = 1e-3
+# shift-invert Lanczos there: tests/test_eigensolver.py holds its residuals
+# to 1e-9 (the JAX package reached 1.9e-12 to 1.0e-11 at this size)
+SHIFT_INVERT_RESIDUAL = 1e-9
+SHIFT_INVERT_LAMBDA1_RTOL = 1e-6
+
+
+def _counted_solver(solver):
+    """A solver object that runs ``solver`` and records each solve's
+    iteration count and convergence in ``.runs``."""
+    from sigma_tpu_torch import LinearSolver
+
+    class Counted(LinearSolver):
+        def __init__(self):
+            self.runs = []
+
+        def solve_info(self, A, b, x0=None, M=None):
+            x, info = solver.solve_info(A, b, x0=x0, M=M)
+            self.runs.append((info.iterations, info.converged))
+            return x, info
+
+    return Counted()
+
+
+def _inner_totals(runs):
+    return {"inner_solves": len(runs), "inner_iterations": sum(r[0] for r in runs),
+            "inner_unconverged": sum(not r[1] for r in runs)}
+
+
+def phase_refine_stencil(device, nx, V, M):
+    """benchmarks/eigen3d.py --inverse-step: ``refine_eigenpairs`` with
+    defaults (3 sweeps of inner rtol 1e-6, maxiter 300, f32 inner
+    GMG-CG) on phase 12's f32 LOBPCG block and hierarchy over the f64
+    Dirichlet Poisson stencil, against the analytic spectrum; the inner
+    iterations are counted from the V-cycles (one a CG iteration, one more
+    a solve)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import MatvecOperator, laplacian_3d_dia
+    from sigma_tpu_torch.eigen import refine_eigenpairs
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A64 = laplacian_3d_dia(nx, torch.float64, device, diag=6.0)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    vcycles = []
+
+    def cycle(M_, r):
+        vcycles.append(1)
+        return M_.matvec(r)
+
+    Mc = MatvecOperator(params=M, mv=cycle, rmv=None, shape=M.shape)
+    m = V.shape[1]
+    exact = analytic_lowest(nx, m)
+    ref, warm = _timed(lambda: (vcycles.clear(), refine_eigenpairs(A64, V, M_lo=Mc))[1])
+    sweeps, solves = 3, 3 * m
+    cycles = len(vcycles)  # the warm run's
+    lam, before = ref.eigenvalues, ref.rayleigh_before
+    rel, rel_before = np.abs(lam - exact) / exact, np.abs(before - exact) / exact
+    Vr = ref.eigenvectors
+    resid = torch.linalg.vector_norm(A64.matmat(Vr) - Vr * torch.from_numpy(lam).to(device),
+                                     dim=0).cpu().numpy()
+    emit({"phase": "eigen", "solve": "refine_stencil", "n": A64.shape[0], "m": m,
+          "sweeps": sweeps, "inner_solves": solves, "inner_iterations": cycles - solves,
+          "eigenvalues": lam.tolist(), "rayleigh_before": before.tolist(),
+          "analytic": exact.tolist(), "rel_err": rel.tolist(),
+          "rel_err_before": rel_before.tolist(), "residual_norms": resid.tolist(),
+          "tolerance": REFINE_EIG_RTOL, "setup_s": setup, "wall_s_warm": warm})
+    if not (np.isfinite(lam).all() and (rel <= rel_before).all()
+            and rel.max() <= REFINE_EIG_RTOL):
+        raise AssertionError(f"refine_eigenpairs: rel err {rel} (input block {rel_before})")
+
+
+def phase_geneigen_fem3d(device, nx=102, k=30, want=3):
+    """benchmarks/geneigen3d.py defaults: the 27-point Q1 pencil at nx=102
+    (1,061,208 rows), inverse generalized Lanczos on (M, K) with K solved
+    by structured-GMG-CG to a relative 1e-7 (M is h^3-scaled), then the
+    f64 Rayleigh quotients v'Kv / v'Mv of the top Ritz vectors on the card,
+    against the analytic generalized spectrum."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import attach_solver, cg, generalized_lanczos, structured_pair_amg
+    from sigma_tpu_torch.fem import (
+        fem3d_generalized_spectrum, fem3d_pencil_dia, fem3d_stiffness_mass_dia,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = fem3d_stiffness_mass_dia(nx)
+    K, M = fem3d_pencil_dia(*arrays, dtype=torch.float32, device=device)
+    K64, M64 = fem3d_pencil_dia(*arrays, dtype=torch.float64, device=device)
+    del arrays
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Mg = structured_pair_amg(K, (nx, nx, nx), coarse_size=4096)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    n = K.shape[0]
+    solver = _counted_solver(cg(tolerance=0.0, rtol=1e-7))
+    Ks = attach_solver(K, solver, preconditioner=Mg)
+    v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(np.float32)).to(device)
+    res, warm = _timed(lambda: (solver.runs.clear(), generalized_lanczos(M, Ks, k, v0))[1])
+    runs = solver.runs
+    theta, Q = np.linalg.eigh(res.tridiagonal().double().cpu().numpy())
+    order = np.argsort(theta)[::-1][:want]
+    mu_ritz, mu64 = [], []
+    for j in order:
+        v = (res.V @ torch.from_numpy(Q[:, j]).to(device, torch.float32)).double()
+        mu_ritz.append(1.0 / float(theta[j]))
+        mu64.append(float(torch.dot(v, K64.matvec(v)) / torch.dot(v, M64.matvec(v))))
+    mu64, mu_ritz = np.sort(mu64), np.sort(mu_ritz)
+    exact = fem3d_generalized_spectrum(nx, 10)
+    nearest = np.array([exact[np.argmin(np.abs(exact - mu))] for mu in mu64])
+    rel_nearest = np.abs(mu64 - nearest) / nearest
+    rel_mu1 = abs(mu64[0] - exact[0]) / exact[0]
+    emit({"phase": "eigen", "solve": "geneigen_fem3d", "n": n, "lanczos_steps": k,
+          "levels": len(Mg.levels) + 1, **_inner_totals(runs),
+          "mu_refined_f64": mu64.tolist(), "mu_ritz_f32": mu_ritz.tolist(),
+          "mu_exact": exact[:want].tolist(), "nearest_exact": nearest.tolist(),
+          "rel_err_nearest": rel_nearest.tolist(), "rel_err_mu1": rel_mu1,
+          "tolerance": FEM_RTOL, "build_s": build, "setup_s": setup, "wall_s_warm": warm})
+    if not (np.isfinite(mu64).all() and rel_mu1 <= FEM_RTOL and rel_nearest.max() <= FEM_RTOL):
+        raise AssertionError(f"FEM pencil: mu {mu64}, nearest exact {nearest}")
+
+
+def phase_inverse_lanczos_mesh(device, U, lobpcg_eigs, k=24):
+    """benchmarks/eigen_unstructured.py:113-153 on phase 15's 1M-row mesh:
+    generalized Lanczos on the pencil (I, P) with P solved by pruned-GMG-CG
+    to a relative 1e-7, so the Krylov space targets the lowest eigenvalues
+    (pencil values 1/theta), then the Rayleigh quotients and residual norms
+    of the top Ritz vectors (f64 vectors, f32 matvec).  Returns the lowest
+    pencil value."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import IdentityOperator, attach_solver, cg, generalized_lanczos
+
+    P, Mg, n = U["P"], U["Mf"], U["n"]
+    solver = _counted_solver(cg(tolerance=0.0, rtol=1e-7))
+    Ps = attach_solver(P, solver, preconditioner=Mg)
+    v0 = torch.from_numpy(U["rng"].standard_normal(n).astype(np.float32)).to(device)
+    res, warm = _timed(lambda: (solver.runs.clear(),
+                                generalized_lanczos(IdentityOperator(n=n), Ps, k, v0))[1])
+    runs = solver.runs
+    theta, Q = np.linalg.eigh(res.tridiagonal().double().cpu().numpy())
+    mus = np.sort(1.0 / theta[theta > 0])[:3]
+    V64 = res.V.double()
+    rq, resid = [], []
+    for j in np.argsort(-theta)[:3]:
+        v = V64 @ torch.from_numpy(Q[:, j]).to(device)
+        v = v / torch.linalg.vector_norm(v)
+        Av = P.matvec(v.float()).double()
+        lam = float(torch.dot(v, Av))
+        rq.append(lam)
+        resid.append(float(torch.linalg.vector_norm(Av - lam * v)))
+    lam1_err = abs(mus[0] - MESH_SHIFT) / MESH_SHIFT
+    vs_lobpcg = np.abs(mus - lobpcg_eigs[:3]) / lobpcg_eigs[:3]
+    emit({"phase": "eigen", "solve": "inverse_lanczos_mesh", "n": n, "lanczos_steps": k,
+          **_inner_totals(runs), "lowest3_pencil": mus.tolist(), "lowest3_rayleigh": rq,
+          "residual_norms": resid, "lambda1_rel_err_vs_shift": lam1_err,
+          "lobpcg_phase15": lobpcg_eigs[:3].tolist(), "vs_lobpcg_rel": vs_lobpcg.tolist(),
+          "within_lobpcg_storage_rtol": bool(vs_lobpcg.max() <= LOBPCG_STORAGE_RTOL),
+          "tolerances": {"lambda1": INVLANCZOS_LAMBDA1_RTOL, "residual": INVLANCZOS_RESIDUAL,
+                         "vs_lobpcg": LOBPCG_STORAGE_RTOL},
+          "wall_s_warm": warm})
+    if not (np.isfinite(mus).all() and lam1_err <= INVLANCZOS_LAMBDA1_RTOL
+            and max(resid) <= INVLANCZOS_RESIDUAL):
+        raise AssertionError(f"inverse Lanczos: lambda_1 err {lam1_err:.3e}, residuals {resid}")
+    return float(mus[0])
+
+
+def phase_shift_invert_mesh(device, U, mu1, k=84):
+    """eigen_unstructured.py --refine: shift-invert Lanczos at sigma =
+    0.9 mu_1 (phase 28's lowest pencil value) on the 1M-row mesh, its f64
+    recurrence, basis and CSR matvecs on the card, each resolvent applied
+    by 3 ladder sweeps of f32 pruned-GMG-CG (rtol 1e-6, maxiter 400) over
+    the shifted f32 operator with phase 15's unshifted hierarchy; run once,
+    cold."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import PrunedDIAMatrix, cg_solve
+    from sigma_tpu_torch.eigen import shift_invert_lanczos
+
+    n, pr, pc, Mg = U["n"], U["pr"], U["pc"], U["Mf"]
+    vals64 = U["vals"].astype(np.float64)
+    sigma = 0.9 * mu1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals_sig = vals64.copy()
+    vals_sig[pr == pc] -= sigma
+    P_sig = PrunedDIAMatrix.from_coo(n, n, pr, pc, vals_sig.astype(np.float32), tile_rows=16384,
+                                     group=8, assume_unique=True, device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    runs, inner_s = [], []
+
+    def inner(r32):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x, info = cg_solve(P_sig, r32, tol=0.0, rtol=1e-6, maxiter=400, M=Mg)
+        torch.cuda.synchronize()
+        inner_s.append(time.perf_counter() - t)
+        runs.append((info.iterations, info.converged))
+        return x
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = shift_invert_lanczos(n, pr, pc, vals64, sigma=sigma, m=3, k=k, sweeps=3,
+                               inner_solve=inner, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lam, resid = res.eigenvalues, res.residuals
+    lam1_err = abs(lam[0] - MESH_SHIFT) / MESH_SHIFT
+    emit({"phase": "eigen", "solve": "shift_invert_mesh", "n": n, "sigma": sigma,
+          "lanczos_steps": res.steps, **_inner_totals(runs),
+          "eigenvalues": lam.tolist(), "ritz_residuals": resid.tolist(),
+          "lambda1_rel_err_vs_shift": lam1_err, "basis_f64_bytes": k * n * 8,
+          "tolerances": {"residual": SHIFT_INVERT_RESIDUAL, "lambda1": SHIFT_INVERT_LAMBDA1_RTOL},
+          "setup_s": setup, "wall_s_cold": wall, "inner_solve_s": sum(inner_s),
+          "recurrence_s": wall - sum(inner_s)})
+    if not (np.isfinite(lam).all() and resid.max() <= SHIFT_INVERT_RESIDUAL
+            and lam1_err <= SHIFT_INVERT_LAMBDA1_RTOL):
+        raise AssertionError(f"shift-invert Lanczos: residuals {resid}, lambda_1 err {lam1_err:.3e}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
@@ -3007,7 +3262,7 @@ def main():
     # the stencil multi-RHS path
     zero_counts()
     phase_block_cg(device, args.nx)                         # phase 11
-    phase_lobpcg(device, args.nx)                           # phase 12
+    V12, M12 = phase_lobpcg(device, args.nx)                # phase 12
     # (the GMG levels here are bf16 full storage: dia_spmv, not dia_sym_spmv)
     paths.append(read_counts("multi_rhs", ("dia_spmv", "dia_spmm", "dia_sym_spmm")))
     if dia_spmm.launches_by_layout["cols"] + dia_spmm.launches_by_layout["rhs_major"] <= 0:
@@ -3021,7 +3276,7 @@ def main():
     phase_unstructured_block(device, U)                     # phase 14
     T = {k: U[k] for k in ("n", "pr", "pc", "vals")}  # the 10.1M triples, for phase 19
     del U
-    eigs15, p15 = phase_unstructured_lobpcg(device)         # phase 15
+    eigs15, U15 = phase_unstructured_lobpcg(device)         # phase 15
     paths.append(read_counts("unstructured_multi_rhs",
                              ("pruned_spmv", "pruned_spmm", "pruned_sym_spmv", "pruned_sym_spmm")))
     # the full-band path at 1M rows
@@ -3030,7 +3285,7 @@ def main():
     zero_counts()
     Mband = phase_full_band_solves(device, B1, B3)          # phase 17
     del B1
-    phase_full_band_lobpcg(device, B3, eigs15, p15)         # phase 18
+    phase_full_band_lobpcg(device, B3, eigs15, U15["p"])    # phase 18
     paths.append(read_counts("full_band",
                              ("dia_spmv", "dia_sym_spmv", "dia_spmm", "dia_spmm_grouped")))
     rows.update(phase_full_band_grouped(device, B3))        # phase 18b
@@ -3078,6 +3333,16 @@ def main():
     zero_counts()
     phase_refinement(device, args.nx)                       # phase 25
     paths.append(read_counts("refinement", ("dia_sym_spmv", "dia_spmv")))
+    # the eigen path: refinement of phase 12's block, the FEM pencil, and
+    # inverse and shift-invert Lanczos on phase 15's mesh
+    zero_counts()
+    phase_refine_stencil(device, args.nx, V12, M12)         # phase 26
+    del V12, M12
+    phase_geneigen_fem3d(device)                            # phase 27
+    mu1 = phase_inverse_lanczos_mesh(device, U15, eigs15)   # phase 28
+    phase_shift_invert_mesh(device, U15, mu1)               # phase 29
+    paths.append(read_counts("eigen", ("dia_spmv", "dia_spmm", "pruned_spmv")))
+    del U15
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most (dia_sym_spmm's at k = 4, the width its paths take)
     summary_layouts = {}

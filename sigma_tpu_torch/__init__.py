@@ -4,35 +4,47 @@ A second package beside the JAX one, held against it by the tests.  It
 holds the stencil main path: DIA storage (full and symmetric), the
 hand-written DIA SpMV and SpMM kernels for Hopper that every matvec and
 multi-RHS product runs on a CUDA device, the operator algebra, the Krylov
-solvers (CG, fused CG, BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS,
-the stationary iteration, block CG), the solver objects and factories
+solvers (CG, fused CG, BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS, the
+stationary iteration, block CG), the solver objects and factories
 (``cg()``, ``bicgstab()``, ``gmres()``, ``cgls()``, ``jacobi()``,
 ``structured_amg()``) with ``attach_solver`` and the ``solve`` facade,
 iterative refinement, the structured pair-aggregation multigrid
-preconditioner, and the LOBPCG eigensolver.  And the unstructured path:
-the irregular-mesh generator, RCM and BFS reordering and the pruned
-block-DIA pack (host C++ built by g++), pruned storage (full and
-symmetric) on its four hand-written SpMV/SpMM kernels, and the pruned
-pair multigrid.  And
-the full-band path: CSR and COO matrices, ``to_banded_dia`` (every diagonal
-of an RCM band in DIA storage, assembled on the device), the grouped SpMM
-kernel for k > 16 columns, the staged-x SpMV entry ``dia_spmv_staged`` and
-its two kernels, Chebyshev preconditioning and fixed-sweep refinement.
-And the block / multi-DOF path: BSR matrices (assembled on the device) and
-their grouped layout ``GroupedBSR`` on the hand-written grouped-BSR kernel,
-``BlockMatrix`` (a matrix of matrices), the CSC and ELL formats, the graph
-builder, the format factories and the ``set_values``/``add_values`` API.
+preconditioner, and the eigensolvers: LOBPCG, Lanczos and generalized
+Lanczos (the ``eigen`` subpackage also holds shift-invert Lanczos and
+eigenpair refinement), with the 3-D Q1 FEM pencil in ``fem``.  And the
+unstructured path: the irregular-mesh generator, RCM and BFS reordering
+and the pruned block-DIA pack (host C++ built by g++), pruned storage
+(full and symmetric) on its four hand-written SpMV/SpMM kernels, and the
+pruned pair multigrid.  And the full-band path: CSR and COO matrices,
+``to_banded_dia`` (every diagonal of an RCM band in DIA storage, assembled
+on the device), the grouped SpMM kernel for k > 16 columns, the staged-x
+SpMV entry ``dia_spmv_staged`` and its two kernels, Chebyshev
+preconditioning and fixed-sweep refinement.  And the block / multi-DOF
+path: BSR matrices (assembled on the device) and their grouped layout
+``GroupedBSR`` on the hand-written grouped-BSR kernel, ``BlockMatrix`` (a
+matrix of matrices), the CSC and ELL formats, the graph builder, the
+format factories and the ``set_values``/``add_values`` API.
 
-The package imports torch and numpy only (never JAX) and is importable on
-a machine with no GPU; the kernels are compiled by nvcc at first use on a
-CUDA tensor.  Constructors that build from host data (COO triples, numpy
-arrays, a grid size) build on CUDA unless given ``device=`` (the tests pass
-``device="cpu"``, which runs the kernels' plain versions); everything
-else makes its tensors on the device of the operand it derives from.
+The package imports torch and numpy (and scipy's dense ``eigh`` in
+eigenpair refinement), never JAX, and is importable on a machine with no
+GPU; the kernels are compiled by nvcc at first use on a CUDA tensor.
+Constructors that build from host data (COO triples, numpy arrays, a grid
+size) build on CUDA unless given ``device=`` (the tests pass
+``device="cpu"``, which runs the kernels' plain versions); everything else
+makes its tensors on the device of the operand it derives from.
 """
 
 from sigma_tpu_torch.apps import irregular_mesh_laplacian, irregular_mesh_laplacian_coo
-from sigma_tpu_torch.eigen import LOBPCGResult, lobpcg
+from sigma_tpu_torch import fem
+from sigma_tpu_torch.eigen import (
+    LOBPCGResult,
+    LanczosResult,
+    eigensolve,
+    generalized_eigensolve,
+    generalized_lanczos,
+    lanczos,
+    lobpcg,
+)
 from sigma_tpu_torch.graph import (
     BSRGraph,
     COOGraph,

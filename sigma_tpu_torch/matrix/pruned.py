@@ -111,6 +111,8 @@ class PrunedDIAMatrix(LinearOperator):
     t: Optional["PrunedDIAMatrix"] = None
 
     format: ClassVar[str] = "dia_pruned"
+    is_get_row_fast: ClassVar[bool] = False
+    is_get_column_fast: ClassVar[bool] = False
 
     @property
     def shape(self) -> Tuple[int, int]:

@@ -137,3 +137,38 @@ def test_missing_solver_names_are_the_amg_and_ildu_ones():
     assert missing == AMG_ILDU
     for name in sigma_tpu_torch.solvers.__all__:
         assert hasattr(sigma_tpu_torch.solvers, name), name
+
+
+@pytest.mark.parametrize("cls", ["PrunedDIAMatrix", "SymmetricPrunedDIAMatrix"])
+@pytest.mark.parametrize("flag", ["is_get_row_fast", "is_get_column_fast"])
+def test_pruned_capability_flags_match_jax(cls, flag):
+    import sigma_tpu.matrix.pruned
+
+    want = getattr(getattr(sigma_tpu.matrix.pruned, cls), flag)
+    assert want is False
+    assert getattr(getattr(st, cls), flag) is want
+
+
+def test_every_eigen_name_is_exported():
+    import sigma_tpu.eigen
+    import sigma_tpu_torch.eigen
+
+    assert set(sigma_tpu_torch.eigen.__all__) == set(sigma_tpu.eigen.__all__)
+    for name in sigma_tpu_torch.eigen.__all__:
+        assert hasattr(sigma_tpu_torch.eigen, name), name
+
+
+@pytest.mark.parametrize(
+    "name", ["lanczos", "generalized_lanczos", "eigensolve", "generalized_eigensolve",
+             "LanczosResult"])
+def test_lanczos_names_at_the_top_level(name):
+    import sigma_tpu_torch.eigen
+
+    assert hasattr(sigma_tpu, name)
+    assert getattr(st, name) is getattr(sigma_tpu_torch.eigen, name)
+
+
+@pytest.mark.parametrize("name", ["fem3d_stiffness_mass_dia", "fem3d_generalized_spectrum"])
+def test_fem_module_at_the_top_level(name):
+    assert name in sigma_tpu.fem.__all__ and name in st.fem.__all__
+    assert callable(getattr(st.fem, name))
