@@ -30,7 +30,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives twelve paths through the package's public entry points:
+drives thirteen paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -96,7 +96,17 @@ drives twelve paths through the package's public entry points:
   quotients (``benchmarks/geneigen3d.py``), and on phase 15's 1M-row mesh
   inverse Lanczos with pruned-GMG-CG and shift-invert Lanczos with its f64
   recurrence on the card (``benchmarks/eigen_unstructured.py --refine``),
-  against the analytic spectra and the shift.
+  against the analytic spectra and the shift;
+- the preconditioners (phases 30-31): ``benchmarks/ildu3d.py`` at nx=100
+  (1M rows of Laplacian + I, f32 PCG on the DIA operator to rtol 1e-6)
+  with Jacobi, Chebyshev(4), structured GMG, ILDU(0), ILU(1) and ILDU(0)
+  after a greedy colour ordering, each ILDU apply held against the same
+  operator on the CPU and repeated for equal bits, one traced apply each;
+  then smoothed-aggregation AMG, the VMB hierarchy on that operator and
+  the greedy one on ``benchmarks/amg_setup_probe.py``'s 262,144-row CSR
+  Laplacian + I (each also on pure Poisson, where CG + AMG must take a
+  quarter of plain CG's iterations), set-up split by step, CG + AMG and
+  ``amg_solve``, and the algebra's device plans held to its host products.
 
 Each solve prints its iterations beside the JAX package's recorded TPU
 count where there is one, its warm seconds, seconds per iteration, the
@@ -3197,6 +3207,340 @@ def phase_shift_invert_mesh(device, U, mu1, k=84):
         raise AssertionError(f"shift-invert Lanczos: residuals {resid}, lambda_1 err {lam1_err:.3e}")
 
 
+# -- the preconditioner comparison and the generic AMG ----------------------
+# benchmarks/ildu3d.py's configuration: the 7-point Laplacian + I at nx=100
+# (1,000,000 rows, 6,940,000 nonzeros), f32 PCG to rtol 1e-6, maxiter 200.
+# The JAX package's recorded iteration counts there (one TPU v5e chip:
+# BENCHMARKS.md:410-430; its wall times are not the port's)
+JAX_ILDU3D_COUNTS = {"jacobi": 18, "chebyshev4": 9, "gmg": 8, "ildu0": 6}
+PRECOND_RTOL = 1e-6
+# an ILDU apply on the card against the same operator moved to the CPU
+# (f32; the sweeps' few-term row sums may add in another order)
+ILDU_CPU_RTOL = 1e-5
+# the algebra's device plans against its host products (f64)
+PLAN_RTOL = 1e-12
+
+
+def _ildu_row(label, M, A, b, extra, setup):
+    """One preconditioner row of phase 30: PCG on the DIA operator A with M,
+    its apply's CUDA-event time and the recomputed true residual."""
+    import torch
+
+    from sigma_tpu_torch import cg_solve
+
+    flexible = label == "chebyshev4"
+    apply_ms = median_ms(lambda: M.matvec(b), reps=10, warmup=2)
+    (x, info), warm = _timed(lambda: cg_solve(A, b, tol=0.0, rtol=PRECOND_RTOL, maxiter=200, M=M,
+                                              flexible=flexible))
+    rel = _true_rel_residual(A, b, x)
+    row = {"phase": "ildu3d", "run": label, "n": A.shape[0], **extra,
+           "iterations": info.iterations, "tpu_iterations": JAX_ILDU3D_COUNTS.get(label),
+           "converged": info.converged, "relative_residual": rel, "apply_ms": apply_ms,
+           "setup_s": setup, "wall_s_warm": warm,
+           "s_per_iteration": warm / max(info.iterations, 1)}
+    emit(row)
+    _check_solve(label, info, rel, PRECOND_RTOL)
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ildu_checks(label, M):
+    """An ILDU operator's matvec and rmatvec on the card: twice for equal
+    bits, and against the same operator moved to the CPU."""
+    import torch
+
+    r = torch.sin(torch.arange(M.shape[0], dtype=torch.float32, device=M.dinv.device) * 0.37)
+    cpu = M.to("cpu")
+    out = {}
+    for name in ("matvec", "rmatvec"):
+        y, y2 = getattr(M, name)(r), getattr(M, name)(r)
+        if not torch.equal(y, y2):
+            raise AssertionError(f"{label}: two {name} applies on the card differ")
+        out[name] = rel_err(y.cpu(), getattr(cpu, name)(r.cpu()))
+        if not out[name] <= ILDU_CPU_RTOL:
+            raise AssertionError(f"{label}: {name} on the card vs the CPU {out[name]:.3e}")
+    out["rmatvec_ms"] = median_ms(lambda: M.rmatvec(r), reps=5, warmup=1)
+    return out
+
+
+def _timed_setup(make):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M = make()
+    torch.cuda.synchronize()
+    return M, time.perf_counter() - t0
+
+
+def phase_ildu3d(device, nx=100):
+    """benchmarks/ildu3d.py at its default nx=100: 1M rows of 7-point
+    Laplacian + I in f32 DIA storage, b = A x*, x*_i = sin(0.001 i), PCG to
+    rtol 1e-6 (maxiter 200) on the DIA operator with Jacobi, Chebyshev(4)
+    (lmax 13, lmin 0.4, flexible CG), structured GMG (coarse_size 4096),
+    ILDU(0) set up on the operator's CSR copy (its nonzeros), ILU(1), and
+    ILDU(0) after a greedy colour ordering (factored on the reordered CSR
+    copy and applied through the permutation, so this PCG too runs on the
+    DIA operator).  Returns the operator and the ILDU operators."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        CSRMatrix, MatvecOperator, chebyshev, greedy_color_ordering, jacobi, laplacian_3d_dia,
+        ldu, structured_pair_amg,
+    )
+
+    A = laplacian_3d_dia(nx, torch.float32, device)
+    n = A.shape[0]
+    xstar = torch.sin(torch.arange(n, dtype=torch.float32, device=device) * 0.001)
+    b = A.matvec(xstar)
+    r, c, v = A.entries()
+    keep = v != 0
+    r, c, v = r[keep], c[keep], v[keep]
+    Acsr, csr_s = _timed_setup(lambda: CSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float32,
+                                                           device=device))
+    if Acsr.nnz != 7 * n - 6 * nx * nx:
+        raise AssertionError(f"the CSR copy holds {Acsr.nnz} nonzeros")
+    emit({"phase": "ildu3d_setup", "n": n, "nnz": Acsr.nnz, "csr_copy_s": csr_s})
+
+    rows, ildu = {}, {}
+    M, s = _timed_setup(lambda: jacobi().setup(A))
+    rows["jacobi"] = _ildu_row("jacobi", M, A, b, {}, s)
+    M, s = _timed_setup(lambda: chebyshev(A, degree=4, lmax=13.0, lmin=0.4))
+    rows["chebyshev4"] = _ildu_row("chebyshev4", M, A, b, {"flexible": True}, s)
+    M, s = _timed_setup(lambda: structured_pair_amg(A, (nx, nx, nx), coarse_size=4096))
+    rows["gmg"] = _ildu_row("gmg", M, A, b, {"levels": len(M.levels) + 1}, s)
+    del M
+    for label, level in (("ildu0", 0), ("ilu1", 1)):
+        M, s = _timed_setup(lambda: ldu(level=level).setup(Acsr))
+        ildu[label] = M
+        rows[label] = _ildu_row(label, M, A, b, {
+            "levels_fwd_bwd": [M.lower.nlev, M.upper.nlev],
+            # stored strict entries (a pad slot points at its own row) + D
+            "factor_nnz": n + sum(int((T.cols != T.rows[:, None]).sum())
+                                  for T in (M.lower, M.upper)),
+        }, s)
+    if [ildu["ildu0"].lower.nlev, ildu["ildu0"].upper.nlev] != [3 * nx - 2, 3 * nx - 2]:
+        raise AssertionError(f"ILDU(0) levels {ildu['ildu0'].lower.nlev}, "
+                             f"{ildu['ildu0'].upper.nlev}, want {3 * nx - 2} each")
+
+    def colored():
+        p, ptr = greedy_color_ordering(Acsr.graph)
+        Ap = CSRMatrix.from_coo(n, n, p[r], p[c], v, dtype=torch.float32, device=device)
+        pt = torch.from_numpy(p).to(device)
+        inv = torch.argsort(pt)
+        Mc = ldu().setup(Ap)
+        # M = P^T Mc P: r in new labels is r[inv], z back in old labels z[p]
+        return MatvecOperator(params=(Mc, pt, inv), mv=lambda q, x: q[0].matvec(x[q[2]])[q[1]],
+                              rmv=lambda q, x: q[0].rmatvec(x[q[2]])[q[1]],
+                              shape=A.shape), ptr.size - 1
+
+    (M, colours), s = _timed_setup(colored)
+    Mc = M.params[0]
+    ildu["ildu0_colored"] = Mc
+    rows["ildu0_colored"] = _ildu_row("ildu0_colored", M, A, b, {
+        "colours": colours, "levels_fwd_bwd": [Mc.lower.nlev, Mc.upper.nlev],
+    }, s)
+    if colours != 2 or [Mc.lower.nlev, Mc.upper.nlev] != [2, 2]:
+        raise AssertionError(f"colour ordering: {colours} colours, levels "
+                             f"{Mc.lower.nlev} + {Mc.upper.nlev}, want 2 and 2 + 2")
+    del M
+    checks = {label: _ildu_checks(label, M) for label, M in ildu.items()}
+    emit({"phase": "ildu3d_checks", "vs_cpu_rel_err_and_rmatvec_ms": checks,
+          "tolerance": ILDU_CPU_RTOL, "bitwise_repeat": True})
+    fastest = min(rows, key=lambda k: rows[k]["wall_s_warm"])
+    emit({"phase": "ildu3d", "fastest": fastest,
+          "wall_s_warm": {k: rw["wall_s_warm"] for k, rw in rows.items()}})
+    return A, b, ildu
+
+
+def _amg_setup_split(A, aggregate):
+    """``smoothed_aggregation_amg(A, aggregate=aggregate)`` and its set-up
+    seconds split into aggregation, prolongator smoothing, PtAP, the
+    coarse inverse and the rest (tentative P, the diagonal read), by timing
+    the module's steps in place for this one call."""
+    import torch
+
+    from sigma_tpu_torch.solvers import amg
+
+    split = dict.fromkeys(("aggregation", "prolongator_smoothing", "ptap", "coarse_inverse"), 0.0)
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    steps = {"_smoothed_prolongator": "prolongator_smoothing", "ptap": "ptap",
+             "_coarse_inverse": "coarse_inverse"}
+    saved = {name: getattr(amg, name) for name in steps}
+    try:
+        for name, key in steps.items():
+            setattr(amg, name, timed(key, saved[name]))
+        M, total = _timed_setup(
+            lambda: amg.smoothed_aggregation_amg(A, aggregate=timed("aggregation", aggregate)))
+    finally:
+        for name, fn in saved.items():
+            setattr(amg, name, fn)
+    split = {f"{k}_s": v for k, v in split.items()}
+    split["other_s"] = total - sum(split.values())
+    return M, total, split
+
+
+def _amg_rows(label, A, b, aggregate, poisson, stationary):
+    """Phase 31's rows for one hierarchy: set-up split, levels, strict
+    coarsening, plain CG and CG + AMG (rtol 1e-6), ``amg_solve`` to
+    1e-6 ||b||, the V-cycle's apply time and two V-cycles bit for bit."""
+    import torch
+
+    from sigma_tpu_torch import amg_solve, cg_solve
+
+    M, total, split = _amg_setup_split(A, aggregate)
+    levels = [[lvl.A.shape[0], lvl.A.nnz] for lvl in M.levels] + [[M.coarse_inv.shape[0], None]]
+    for lvl in M.levels:
+        if not lvl.P.shape[1] < lvl.P.shape[0]:
+            raise AssertionError(f"{label}: a level does not coarsen: P {lvl.P.shape}")
+    z = M.matvec(b)
+    if not torch.equal(z, M.matvec(b)):
+        raise AssertionError(f"{label}: two V-cycles on the card differ")
+    vcycle_ms = median_ms(lambda: M.matvec(b), reps=10, warmup=2)
+    (_, plain), _ = _timed(lambda: cg_solve(A, b, tol=0.0, rtol=PRECOND_RTOL, maxiter=2000))
+    (x, info), warm = _timed(lambda: cg_solve(A, b, tol=0.0, rtol=PRECOND_RTOL, maxiter=200, M=M))
+    rel = _true_rel_residual(A, b, x)
+    row = {"phase": "amg", "run": label, "n": A.shape[0], "nnz": A.nnz, "setup_s": total, **split,
+           "levels_rows_nnz": levels, "vcycle_ms": vcycle_ms, "plain_cg_iterations":
+           plain.iterations, "iterations": info.iterations, "converged": info.converged,
+           "relative_residual": rel, "wall_s_warm": warm,
+           "s_per_iteration": warm / max(info.iterations, 1)}
+    _check_solve(label, info, rel, PRECOND_RTOL)
+    # the quarter holds where plain CG is slow: on pure Poisson (on
+    # Laplacian + I, condition number ~13, plain CG takes ~20 iterations)
+    limit = 0.25 if poisson else 1.0
+    if not info.iterations <= limit * plain.iterations or info.iterations >= plain.iterations:
+        raise AssertionError(f"{label}: CG + AMG {info.iterations} iterations, plain CG "
+                             f"{plain.iterations}")
+    if stationary:
+        tol = PRECOND_RTOL * float(torch.linalg.vector_norm(b))
+        (x, st_info), st_warm = _timed(lambda: amg_solve(A, b, M, tol=tol, maxiter=200))
+        st_rel = _true_rel_residual(A, b, x)
+        row.update(amg_solve_iterations=st_info.iterations, amg_solve_converged=st_info.converged,
+                   amg_solve_relative_residual=st_rel, amg_solve_wall_s_warm=st_warm)
+        if not st_info.converged:
+            raise AssertionError(f"{label}: amg_solve did not converge: {st_info}")
+    emit(row)
+    return M
+
+
+def _plan_check(device, nx=32):
+    """The algebra's device half against its host half: on the f64 CSR
+    Laplacian + I at nx^3 with P the first smoothed prolongator of its
+    greedy hierarchy, plan_ptap(A, P)(A, P) against ptap(A, P),
+    plan_sparse_matmul against sparse_matmul (A P), and plan_sparse_add
+    against sparse_add (P - 2/3 A P, beta a tensor); each plan's CUDA-event
+    time beside the host product's seconds."""
+    import torch
+
+    from sigma_tpu_torch import (
+        CSRMatrix, laplacian_3d_dia, plan_ptap, plan_sparse_add, plan_sparse_matmul, ptap,
+        smoothed_aggregation_amg, sparse_add, sparse_matmul,
+    )
+
+    r, c, v = laplacian_3d_dia(nx, torch.float64, device).entries()
+    keep = v != 0
+    n = nx ** 3
+    A = CSRMatrix.from_coo(n, n, r[keep], c[keep], v[keep], dtype=torch.float64, device=device)
+    P = smoothed_aggregation_amg(A).levels[0].P
+    AP = sparse_matmul(A, P)
+    beta = torch.tensor(-2.0 / 3.0, dtype=torch.float64, device=device)
+    cases = {
+        "ptap": (lambda: ptap(A, P), lambda: plan_ptap(A, P), lambda pl: pl(A, P)),
+        "sparse_matmul": (lambda: sparse_matmul(A, P), lambda: plan_sparse_matmul(A, P),
+                          lambda pl: pl(A, P)),
+        "sparse_add": (lambda: sparse_add(P, AP, 1.0, -2.0 / 3.0),
+                       lambda: plan_sparse_add(P, AP), lambda pl: pl(P, AP, 1.0, beta)),
+    }
+    out = {}
+    for name, (host, make, run) in cases.items():
+        want, host_s = _timed_setup(host)
+        plan, plan_s = _timed_setup(make)
+        got = run(plan)
+        if not (got.nnz == want.nnz and (got.graph.indptr == want.graph.indptr).all()
+                and (got.graph.indices == want.graph.indices).all()):
+            raise AssertionError(f"{name}: the plan's sparsity differs from the host product's")
+        err = rel_err(got.data, want.data)
+        out[name] = {"rel_err": err, "nnz": want.nnz, "host_s": host_s, "plan_setup_s": plan_s,
+                     "plan_ms": median_ms(lambda: run(plan), reps=10, warmup=2),
+                     "bitwise_repeat": bool(torch.equal(run(plan).data, got.data))}
+        if not (err <= PLAN_RTOL and out[name]["bitwise_repeat"]):
+            raise AssertionError(f"{name}: plan vs host {err:.3e}, {out[name]}")
+    emit({"phase": "amg_plan_check", "n": n, "P_shape": list(P.shape), "checks": out,
+          "tolerance": PLAN_RTOL})
+
+
+def phase_amg(device, A, nx_greedy=64):
+    """The generic smoothed-aggregation AMG: the VMB hierarchy on phase
+    30's 1M-row DIA operator (its level 0 smooths with #1) and the default
+    greedy hierarchy on benchmarks/amg_setup_probe.py's CSR f32 Laplacian +
+    I at nx=64 (262,144 rows), each with ``amg_solve`` on the VMB one; each
+    also on pure Poisson at the same size, where plain CG is slow enough to
+    hold CG + AMG to a quarter of its iterations; then the plan check."""
+    import torch
+
+    from sigma_tpu_torch import CSRMatrix, laplacian_3d_dia
+    from sigma_tpu_torch.solvers import greedy_aggregate, vmb_aggregate
+
+    nx = round(A.shape[0] ** (1 / 3))
+    for label, diag in (("vmb", 7.0), ("vmb_poisson", 6.0)):
+        Ad = A if diag == 7.0 else laplacian_3d_dia(nx, torch.float32, device, diag=diag)
+        xstar = torch.sin(torch.arange(Ad.shape[0], dtype=torch.float32, device=device) * 0.001)
+        _amg_rows(label, Ad, Ad.matvec(xstar), vmb_aggregate, diag == 6.0, diag == 7.0)
+    for label, diag in (("greedy", 7.0), ("greedy_poisson", 6.0)):
+        r, c, v = laplacian_3d_dia(nx_greedy, torch.float32, device, diag=diag).entries()
+        keep = v != 0
+        n = nx_greedy ** 3
+        Ac = CSRMatrix.from_coo(n, n, r[keep], c[keep], v[keep], dtype=torch.float32,
+                                device=device)
+        xstar = torch.sin(torch.arange(n, dtype=torch.float32, device=device) * 0.001)
+        _amg_rows(label, Ac, Ac.matvec(xstar), greedy_aggregate, diag == 6.0, False)
+    _plan_check(device)
+
+
+def phase_ildu_trace(b, ildu):
+    """One matvec of each ILDU operator under torch.profiler: the kernels
+    and copies it launches and their device time against its wall (after
+    every timing of the path: a traced run can leave the profiler's hooks
+    behind; tracing the rmatvecs too, ~29,000 more events, took ~30 s)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    out = {}
+    for label, M in ildu.items():
+        M.matvec(b)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            M.matvec(b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if not ev:
+            raise RuntimeError(f"{label}: the profiler recorded no device time")
+        busy, end = 0.0, float("-inf")
+        for s, e in ev:
+            if e > end:
+                busy += e - max(s, end)
+                end = e
+        out[label] = {"levels": M.lower.nlev + M.upper.nlev, "device_ops": len(ev),
+                      "device_busy_ms": busy / 1e3, "traced_wall_ms": wall * 1e3}
+    emit({"phase": "ildu_trace", "matvec": out})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
@@ -3343,6 +3687,16 @@ def main():
     phase_shift_invert_mesh(device, U15, mu1)               # phase 29
     paths.append(read_counts("eigen", ("dia_spmv", "dia_spmm", "pruned_spmv")))
     del U15
+    # the preconditioner comparison of benchmarks/ildu3d.py and the generic
+    # AMG (host algebra, V-cycles on #1 and CSR transfers)
+    zero_counts()
+    t_path = time.perf_counter()
+    A30, b30, ildu = phase_ildu3d(device)                   # phase 30
+    phase_amg(device, A30)                                  # phase 31
+    phase_ildu_trace(b30, ildu)
+    paths.append(read_counts("preconditioners", ("dia_spmv",)))
+    emit({"phase": "preconditioners_path", "seconds": time.perf_counter() - t_path})
+    del A30, b30, ildu
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most (dia_sym_spmm's at k = 4, the width its paths take)
     summary_layouts = {}

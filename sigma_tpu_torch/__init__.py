@@ -58,6 +58,8 @@ from sigma_tpu_torch.graph import (
     build_graph,
     choose_graph_type,
     convert_graph,
+    greedy_color_ordering,
+    greedy_coloring,
     num_graph_types,
     reverse_cuthill_mckee,
 )
@@ -70,7 +72,10 @@ from sigma_tpu_torch.matrix import (
     DIAMatrix,
     ELLMatrix,
     PrunedDIAMatrix,
+    PtAPPlan,
     SparseMatrix,
+    SparseSumPlan,
+    SpGEMMPlan,
     SymmetricDIAMatrix,
     SymmetricPrunedDIAMatrix,
     band_occupancy,
@@ -78,7 +83,15 @@ from sigma_tpu_torch.matrix import (
     choose_matrix_type,
     convert_matrix,
     num_matrix_types,
+    plan_ptap,
+    plan_rart,
+    plan_sparse_add,
+    plan_sparse_matmul,
+    ptap,
+    rart,
     reorder_triples_rcm,
+    sparse_add,
+    sparse_matmul,
     to_banded_dia,
     to_pruned_dia,
 )
@@ -109,16 +122,21 @@ from sigma_tpu_torch.problems import (
     skewed_mesh_coo,
 )
 from sigma_tpu_torch.solvers import (
+    AMGPreconditioner,
     BiCGStabSolver,
     CGLSSolver,
     CGSolver,
     ChebyshevSmoother,
     GMRESSolver,
+    ILDUPreconditioner,
     JacobiSolver,
+    LDUSolver,
     LinearSolver,
     SolveInfo,
     StructuredAMGFactory,
     StructuredAMGPreconditioner,
+    TriangularLevels,
+    amg_solve,
     auto_pruned_preconditioner,
     bicgstab,
     bicgstab_solve,
@@ -133,13 +151,17 @@ from sigma_tpu_torch.solvers import (
     fgmres_solve,
     gmres,
     gmres_solve,
+    ildu0_factorize,
+    incomplete_cholesky,
     jacobi,
+    ldu,
     minres_solve,
     prepare_preconditioner,
     pruned_pair_amg,
     refined_solve,
     refined_solve_fixed,
     skew_dominance,
+    smoothed_aggregation_amg,
     stationary_solve,
     structured_amg,
     structured_pair_amg,

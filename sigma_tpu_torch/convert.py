@@ -16,7 +16,11 @@ the padding is cut off; so do CSC matrices.  ELL matrices arrive as the
 (n, width) neighbour and value arrays.  BSR matrices arrive as their block
 arrays, padding included, because the port keeps that padding; a grouped
 BSR as its three arrays.  A block matrix is put together from leaves that
-were converted one by one.
+were converted one by one.  A generic AMG hierarchy arrives as each
+level's A and P in CSR arrays, and an ILDU factorization as its two packed
+level systems, which the JAX package pads to the widest level with
+sentinel rows; the port packs them without (see
+:mod:`sigma_tpu_torch.solvers.ildu`).
 """
 
 from __future__ import annotations
@@ -47,10 +51,13 @@ from sigma_tpu_torch.ops.bsr_grouped import GroupedBSR
 from sigma_tpu_torch.ops.spmv_pruned import active_tile_ends
 from sigma_tpu_torch.matrix.pruned import PrunedDIAMatrix, SymmetricPrunedDIAMatrix
 from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
+from sigma_tpu_torch.solvers.amg import AMGPreconditioner, _Level
 from sigma_tpu_torch.solvers.gmg import StructuredAMGPreconditioner, _SLevel
+from sigma_tpu_torch.solvers.ildu import ILDUPreconditioner, TriangularLevels
 from sigma_tpu_torch.utils.device import resolve_device
 
 __all__ = [
+    "amg_from_arrays",
     "block_matrix_from_blocks",
     "bsr_from_arrays",
     "coo_from_arrays",
@@ -59,6 +66,7 @@ __all__ = [
     "dia_from_arrays",
     "ell_from_arrays",
     "grouped_bsr_from_arrays",
+    "ildu_from_arrays",
     "pruned_amg_from_arrays",
     "pruned_from_arrays",
     "structured_amg_from_arrays",
@@ -263,4 +271,49 @@ def pruned_amg_from_arrays(levels: Sequence[Mapping], coarse_inv, n_smooth=1,
     return StructuredAMGPreconditioner(
         levels=tuple(out), coarse_inv=_tensor(coarse_inv, device),
         n_smooth=int(n_smooth), smoother=smoother,
+    )
+
+
+def amg_from_arrays(levels: Sequence[Mapping], coarse_inv, n_smooth=1,
+                    device=None) -> AMGPreconditioner:
+    """AMGPreconditioner from per-level dicts with keys ``A`` and ``P``
+    (each ``(indptr, indices, data, shape)`` of a CSR matrix, as
+    :func:`csr_from_arrays` takes it), ``dinv`` and ``omega``, plus the
+    dense ``coarse_inv``."""
+    device = resolve_device(device)
+    out = [
+        _Level(A=csr_from_arrays(*lv["A"], device=device),
+               P=csr_from_arrays(*lv["P"], device=device),
+               dinv=_tensor(lv["dinv"], device), omega=float(lv["omega"]))
+        for lv in levels
+    ]
+    return AMGPreconditioner(levels=tuple(out), coarse_inv=_tensor(coarse_inv, device),
+                             n_smooth=int(n_smooth))
+
+
+def _levels_from_arrays(rows, cols, vals, n, device) -> TriangularLevels:
+    """The port's packing of a JAX ``TriangularLevels``: its (nlev,
+    max_rows) rows with sentinel n dropped, level by level, and each kept
+    row's pad slots (column 0, value 0) pointed at the row itself."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals)
+    keep = rows < int(n)
+    level_ptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    r, c, v = rows[keep], cols[keep], vals[keep]
+    pad = (c == 0) & (v == 0)
+    c = np.where(pad, r[:, None], c)
+    return TriangularLevels(rows=torch.from_numpy(r).to(device),
+                            cols=torch.from_numpy(c).to(device), vals=_tensor(v, device),
+                            level_ptr=tuple(int(p) for p in level_ptr), n=int(n))
+
+
+def ildu_from_arrays(lower: Mapping, dinv, upper: Mapping, device=None) -> ILDUPreconditioner:
+    """ILDUPreconditioner from the JAX package's two ``TriangularLevels``,
+    each a dict with ``rows``, ``cols``, ``vals`` and ``n``, and ``dinv``."""
+    device = resolve_device(device)
+    return ILDUPreconditioner(
+        lower=_levels_from_arrays(lower["rows"], lower["cols"], lower["vals"], lower["n"], device),
+        dinv=_tensor(dinv, device),
+        upper=_levels_from_arrays(upper["rows"], upper["cols"], upper["vals"], upper["n"], device),
     )

@@ -19,6 +19,9 @@ from sigma_tpu_torch.graph.graph import (
 from sigma_tpu_torch.graph.permutations import (
     breadth_first_search,
     breadth_first_search_reference,
+    greedy_color_ordering,
+    greedy_coloring,
+    greedy_coloring_reference,
     reverse_cuthill_mckee,
     reverse_cuthill_mckee_reference,
 )
@@ -39,6 +42,9 @@ __all__ = [
     "choose_graph_type",
     "compress_coo",
     "convert_graph",
+    "greedy_color_ordering",
+    "greedy_coloring",
+    "greedy_coloring_reference",
     "num_graph_types",
     "reverse_cuthill_mckee",
     "reverse_cuthill_mckee_reference",

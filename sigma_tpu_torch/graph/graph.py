@@ -75,6 +75,19 @@ def _indptr(rows: np.ndarray, n: int) -> np.ndarray:
     return indptr
 
 
+def host_csr(rows, cols, n: int, *carry):
+    """Row-major host CSR view of COO edges: ``(indptr, cols sorted within
+    each row, *carry)``, each carried array reordered with them (no
+    dedup).  The JAX package's ``graph.host_csr``, which its colouring,
+    algebra and factorizations share, as the port's do."""
+    rows = np.asarray(rows, dtype=np.int64).ravel()
+    cols = np.asarray(cols, dtype=np.int64).ravel()
+    order = np.lexsort((cols, rows))
+    return (_indptr(rows[order], n), cols[order]) + tuple(
+        np.asarray(c).ravel()[order] for c in carry
+    )
+
+
 def _sorted_positions(keys: np.ndarray, q: np.ndarray, in_range) -> np.ndarray:
     """Positions of the query keys ``q`` in the ascending ``keys``; -1 for
     a key that is absent or out of range."""

@@ -1,14 +1,21 @@
-"""Bandwidth-reducing vertex orderings (host, set-up time).
+"""Vertex orderings and colourings (host, set-up time).
 
-Port of ``breadth_first_search`` and ``reverse_cuthill_mckee`` of
-:mod:`sigma_tpu.graph.permutations`: each takes any square graph of
+Port of :mod:`sigma_tpu.graph.permutations`: ``breadth_first_search``,
+``reverse_cuthill_mckee``, ``greedy_coloring`` and
+``greedy_color_ordering``, each on any square graph of
 :mod:`sigma_tpu_torch.graph.graph`, as the reference does.  Every
 permutation is in scatter form: ``p[i]`` is the new label of old vertex
-``i``.  The orderings run in the port's host library on CSR adjacency
-arrays (``native.bfs_order`` and :func:`_rcm_arrays`, which the banded
-conversion calls directly); :func:`breadth_first_search_reference` and
-:func:`reverse_cuthill_mckee_reference` are their plain numpy versions on
-the same arrays, which the tests hold them to.
+``i``.  The orderings and the colouring run in the port's host library on
+CSR adjacency arrays (``native.bfs_order`` and :func:`_rcm_arrays`, which
+the banded conversion calls directly, and ``native.greedy_coloring``);
+:func:`breadth_first_search_reference`,
+:func:`reverse_cuthill_mckee_reference` and
+:func:`greedy_coloring_reference` are their plain numpy versions on the
+same arrays, which the tests hold them to.
+
+A colour ordering is the reference's remedy for the strictly sequential
+triangular sweeps of incomplete factorization: after it, a sweep's
+dependency levels are at most the colours (:mod:`sigma_tpu_torch.solvers.ildu`).
 """
 
 from __future__ import annotations
@@ -19,11 +26,14 @@ from typing import Tuple
 import numpy as np
 
 from sigma_tpu_torch import native
-from sigma_tpu_torch.graph.graph import CSRGraph, Graph
+from sigma_tpu_torch.graph.graph import CSRGraph, Graph, host_csr
 
 __all__ = [
     "breadth_first_search",
     "breadth_first_search_reference",
+    "greedy_color_ordering",
+    "greedy_coloring",
+    "greedy_coloring_reference",
     "reverse_cuthill_mckee",
     "reverse_cuthill_mckee_reference",
 ]
@@ -120,3 +130,54 @@ def reverse_cuthill_mckee_reference(indptr, indices) -> np.ndarray:
                     rank += 1
                     q.append(int(v))
     return (n - 1) - p
+
+
+def _symmetric_adjacency(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR ``(indptr, indices)`` of a square graph's stored pattern and its
+    transpose together (an edge in either direction is a neighbour)."""
+    n, m = g.shape
+    if n != m:
+        raise ValueError("coloring requires a square graph")
+    r, c = g.edges_numpy()
+    return host_csr(np.concatenate([r, c]), np.concatenate([c, r]), n)
+
+
+def greedy_coloring(g: Graph) -> Tuple[np.ndarray, int]:
+    """Greedy first-fit vertex colouring of the square graph ``g`` (any
+    format), in vertex order: ``(colors, num_colors)`` with colours in
+    ``0 .. num_colors - 1`` such that no stored edge (i, j), i != j, joins
+    two vertices of one colour.  The pattern is symmetrized first, so this
+    holds in both directions for a nonsymmetric pattern too (a triangular
+    factor, the multicolour-ILDU case)."""
+    return native.greedy_coloring(*_symmetric_adjacency(g))
+
+
+def greedy_coloring_reference(indptr, indices) -> Tuple[np.ndarray, int]:
+    """Plain numpy version of :func:`greedy_coloring` on a (symmetrized)
+    CSR adjacency (a Python loop over the vertices: for small graphs and
+    tests)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    n = indptr.size - 1
+    colors = np.full(n, -1, dtype=np.int64)
+    for u in range(n):
+        nbr_colors = set(colors[indices[indptr[u] : indptr[u + 1]]].tolist())
+        c = 0
+        while c in nbr_colors:
+            c += 1
+        colors[u] = c
+    return colors, int(colors.max()) + 1 if n else 0
+
+
+def greedy_color_ordering(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
+    """Colour-block permutation of :func:`greedy_coloring`: ``(p, ptr)``,
+    ``p`` relabelling the vertices so that colour c holds the contiguous
+    new labels ``ptr[c] .. ptr[c + 1] - 1`` (old order kept within a
+    colour).  No two vertices of one colour are joined by an edge."""
+    colors, nc = greedy_coloring(g)
+    ptr = np.zeros(nc + 1, dtype=np.int64)
+    np.cumsum(np.bincount(colors, minlength=nc), out=ptr[1:])
+    order = np.argsort(colors, kind="stable")  # new -> old
+    p = np.empty(g.shape[0], dtype=np.int64)
+    p[order] = np.arange(g.shape[0])
+    return p, ptr

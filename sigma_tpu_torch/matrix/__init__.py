@@ -1,3 +1,16 @@
+from sigma_tpu_torch.matrix.algebra import (
+    PtAPPlan,
+    SparseSumPlan,
+    SpGEMMPlan,
+    plan_ptap,
+    plan_rart,
+    plan_sparse_add,
+    plan_sparse_matmul,
+    ptap,
+    rart,
+    sparse_add,
+    sparse_matmul,
+)
 from sigma_tpu_torch.matrix.banded import (
     band_occupancy,
     bandwidth,
@@ -38,7 +51,10 @@ __all__ = [
     "ELLMatrix",
     "MATRIX_FORMATS",
     "PrunedDIAMatrix",
+    "PtAPPlan",
+    "SpGEMMPlan",
     "SparseMatrix",
+    "SparseSumPlan",
     "SymmetricDIAMatrix",
     "SymmetricPrunedDIAMatrix",
     "band_occupancy",
@@ -47,7 +63,15 @@ __all__ = [
     "choose_matrix_type",
     "convert_matrix",
     "num_matrix_types",
+    "plan_ptap",
+    "plan_rart",
+    "plan_sparse_add",
+    "plan_sparse_matmul",
+    "ptap",
+    "rart",
     "reorder_triples_rcm",
+    "sparse_add",
+    "sparse_matmul",
     "to_banded_dia",
     "to_pruned_dia",
 ]

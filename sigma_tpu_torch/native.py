@@ -1,18 +1,22 @@
-"""ctypes binding of the port's host library (``csrc/host/pruned_host.cpp``).
+"""ctypes binding of the port's host library (``csrc/host/pruned_host.cpp``
+and ``csrc/host/sparse_host.cpp``).
 
-The library holds the host set-up of the unstructured pruned path:
-adjacency, the breadth-first and reverse Cuthill-McKee orderings, the
-pruned block-DIA pack and the multigrid's 1-D pair coarsening.  It is the port's own copy of those
-functions of the JAX package's host core, so the port never loads that
-package.
+The library holds the host set-up of the unstructured pruned path
+(adjacency, the breadth-first and reverse Cuthill-McKee orderings, the
+pruned block-DIA pack and the multigrid's 1-D pair coarsening) and of the
+generic sparse paths (greedy colouring; the dependency levels, ILU(0) and
+ILU(k) factorizations and level pack of the ILDU preconditioner; the two
+AMG aggregations; the one-shot CSR SpGEMM, sum and transpose).  It is the
+port's own copy of those functions of the JAX package's host core, so the
+port never loads that package.
 
-The host C++ compiler (``g++``, or ``$CXX``) builds it at first use into
-``build/sigma_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and the flags.  A build writes a temporary file and renames it
-into place under a file lock, so processes that start together (test
-workers) build it once and never load a partial file.  Without a compiler
-the first call raises: there is no silent fallback (the numpy forms are
-the tests' plain versions).
+The host C++ compiler (``g++``, or ``$CXX``) builds both sources into one
+library at first use, into ``build/sigma_tpu_torch/`` at the root of the
+checkout, named by a hash of the sources and the flags.  A build writes a
+temporary file and renames it into place under a file lock, so processes
+that start together (test workers) build it once and never load a
+partial file.  Without a compiler the first call raises: there is no
+silent fallback (the numpy forms are the tests' plain versions).
 """
 
 from __future__ import annotations
@@ -33,18 +37,29 @@ __all__ = [
     "adjacency_from_coo",
     "bfs_order",
     "coarsen_pair",
+    "csr_add",
+    "csr_transpose",
+    "greedy_aggregate",
+    "greedy_coloring",
+    "ilu0_factorize",
+    "iluk_symbolic",
     "library",
+    "pack_levels",
     "pack_pruned",
     "rcm_order",
+    "spgemm",
+    "triangular_levels",
+    "vmb_aggregate",
 ]
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "host" / "pruned_host.cpp"
+SOURCES = tuple(_PKG / "csrc" / "host" / f for f in ("pruned_host.cpp", "sparse_host.cpp"))
 BUILD_DIR = _PKG.parent / "build" / "sigma_tpu_torch"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-# the pack and the coarsening are two-call protocols over static C++
-# buffers, and ctypes releases the GIL during each call
+# the pruned pack, the coarsening and the fused SpGEMM are two-call
+# protocols over static C++ buffers, and ctypes releases the GIL during
+# each call
 _TWO_CALL_LOCK = threading.Lock()
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
@@ -55,16 +70,18 @@ def _compiler() -> str:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
         raise RuntimeError(
-            f"no host C++ compiler (g++ or $CXX) to build {SOURCE.name}; the "
-            "unstructured set-up needs it"
+            "no host C++ compiler (g++ or $CXX) to build the host library "
+            f"({', '.join(s.name for s in SOURCES)}); the host set-up needs it"
         )
     return cxx
 
 
 def build() -> Path:
-    """The built library, compiled unless one of this source and these
+    """The built library, compiled unless one of these sources and these
     flags exists; raises with the compiler's output on failure."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes())
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     out = BUILD_DIR / f"libsigma_torch_host-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
@@ -74,12 +91,12 @@ def build() -> Path:
         if not out.exists():
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             p = subprocess.run(
-                [_compiler(), *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+                [_compiler(), *CXX_FLAGS, *map(str, SOURCES), "-o", str(tmp)],
                 capture_output=True, text=True,
             )
             if p.returncode != 0:
                 raise RuntimeError(
-                    f"building {SOURCE.name} failed ({p.returncode}):\n{p.stdout}{p.stderr}"
+                    f"building the host library failed ({p.returncode}):\n{p.stdout}{p.stderr}"
                 )
             os.replace(tmp, out)
     return out
@@ -106,6 +123,32 @@ def library() -> ctypes.CDLL:
     lib.coarsen_pair_count.argtypes = [i64, _i64p, _i64p, _f64p, i64]
     lib.coarsen_pair_fetch.restype = None
     lib.coarsen_pair_fetch.argtypes = [i64, i64, _i64p, _i64p, _f64p]
+    lib.greedy_coloring.restype = i64
+    lib.greedy_coloring.argtypes = [i64, _i64p, _i64p, _i64p]
+    lib.triangular_levels.restype = i64
+    lib.triangular_levels.argtypes = [i64, _i64p, _i64p, i64, _i64p]
+    lib.ilu0_factorize.restype = i64
+    lib.ilu0_factorize.argtypes = [i64, _i64p, _i64p, _f64p, _f64p]
+    lib.pack_levels.restype = None
+    lib.pack_levels.argtypes = [i64, _i64p, _i64p, _f64p, _i64p, i64, _i64p, i64, _i64p,
+                                _i64p, _f64p]
+    lib.greedy_aggregate.restype = i64
+    lib.greedy_aggregate.argtypes = [i64, _i64p, _i64p, _i64p]
+    lib.vmb_aggregate.restype = i64
+    lib.vmb_aggregate.argtypes = [i64, _i64p, _i64p, _i64p]
+    lib.iluk_symbolic.restype = i64
+    lib.iluk_symbolic.argtypes = [i64, _i64p, _i64p, i64, i64, _i64p, _i64p]
+    lib.spgemm_fused.restype = i64
+    lib.spgemm_fused.argtypes = [i64, i64, _i64p, _i64p, _f64p, _i64p, _i64p, _f64p, _i64p]
+    lib.spgemm_fetch.restype = None
+    lib.spgemm_fetch.argtypes = [i64, _i64p, _f64p]
+    lib.csr_add_symbolic.restype = i64
+    lib.csr_add_symbolic.argtypes = [i64, _i64p, _i64p, _i64p, _i64p, _i64p]
+    lib.csr_add_numeric.restype = None
+    lib.csr_add_numeric.argtypes = [i64, ctypes.c_double, ctypes.c_double, _i64p, _i64p, _f64p,
+                                    _i64p, _i64p, _f64p, _i64p, _i64p, _f64p]
+    lib.csr_transpose.restype = None
+    lib.csr_transpose.argtypes = [i64, i64, _i64p, _i64p, _f64p, _i64p, _i64p, _f64p]
     return lib
 
 
@@ -191,3 +234,137 @@ def coarsen_pair(rows, cols, vals, nc: int):
         out_v = np.empty(n_out, dtype=np.float64)
         lib.coarsen_pair_fetch(n_out, int(nc), out_r, out_c, out_v)
     return out_r, out_c, out_v
+
+
+# -- the generic sparse paths ------------------------------------------------
+def greedy_coloring(indptr, indices):
+    """First-fit colouring of a CSR adjacency in vertex order: ``(colors,
+    number of colours)``."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    n = indptr.size - 1
+    colors = np.empty(n, dtype=np.int64)
+    nc = library().greedy_coloring(n, indptr, indices, colors)
+    return colors, int(nc)
+
+
+def triangular_levels(indptr, indices, reverse: bool = False):
+    """Dependency levels of a strict lower (``reverse=False``) or upper
+    triangular CSR pattern: ``(level of each row, number of levels)``."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    n = indptr.size - 1
+    lvl = np.empty(n, dtype=np.int64)
+    nl = library().triangular_levels(n, indptr, indices, int(bool(reverse)), lvl)
+    return lvl, int(nl)
+
+
+def ilu0_factorize(indptr, indices, data):
+    """ILU(0) of a sorted CSR matrix on its own pattern: ``(lu, diag)``, lu
+    holding L left of the diagonal, D on it and the rows of D U right of it.
+    Raises ZeroDivisionError on a zero or missing pivot."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    n = indptr.size - 1
+    lu = _cf64(data).copy()
+    diag = np.empty(n, dtype=np.float64)
+    bad = library().ilu0_factorize(n, indptr, indices, lu, diag)
+    if bad:
+        raise ZeroDivisionError(
+            f"zero or missing pivot at row {int(bad) - 1} in ILDU(0) factorization")
+    return lu, diag
+
+
+def pack_levels(indptr, indices, data, level, nlev: int, width: int):
+    """A strict triangular CSR system packed by dependency level: ``(rows,
+    cols, vals, level_ptr)``, level l's rows at ``rows[level_ptr[l] :
+    level_ptr[l + 1]]`` in ascending order, each row's entries in its
+    ``width`` slots of ``cols`` / ``vals`` (n, width), padded with the row's
+    own index and 0."""
+    indptr, indices, level = _c64(indptr), _c64(indices), _c64(level)
+    n = indptr.size - 1
+    level_ptr = np.zeros(int(nlev) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(level, minlength=int(nlev)), out=level_ptr[1:])
+    rows = np.empty(n, dtype=np.int64)
+    cols = np.empty((n, int(width)), dtype=np.int64)
+    vals = np.empty((n, int(width)), dtype=np.float64)
+    library().pack_levels(n, indptr, indices, _cf64(data), level, int(nlev), level_ptr,
+                          int(width), rows, cols.reshape(-1), vals.reshape(-1))
+    return rows, cols, vals, level_ptr
+
+
+def greedy_aggregate(indptr, indices):
+    """Greedy AMG aggregation of a CSR adjacency: ``(aggregate ids,
+    number of aggregates)``."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    agg = np.empty(indptr.size - 1, dtype=np.int64)
+    na = library().greedy_aggregate(agg.size, indptr, indices, agg)
+    return agg, int(na)
+
+
+def vmb_aggregate(indptr, indices):
+    """VMB three-phase aggregation of a CSR adjacency: ``(aggregate ids,
+    number of aggregates)``."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    agg = np.empty(indptr.size - 1, dtype=np.int64)
+    na = library().vmb_aggregate(agg.size, indptr, indices, agg)
+    return agg, int(na)
+
+
+def iluk_symbolic(indptr, indices, k: int):
+    """Level-of-fill ILU(k) pattern (L + diag + U, sorted CSR) of a sorted
+    CSR pattern: ``(indptr, cols)``.  A first guess of the capacity, and one
+    retry at the exact size the library reports when it is too small."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    n = indptr.size - 1
+    cap = max(int(indptr[-1]) * (int(k) + 2), 16)
+    for _ in range(2):
+        fptr = np.empty(n + 1, dtype=np.int64)
+        fcol = np.empty(cap, dtype=np.int64)
+        got = library().iluk_symbolic(n, indptr, indices, int(k), cap, fptr, fcol)
+        if got >= 0:
+            return fptr, fcol[:got]
+        cap = -got
+    raise AssertionError("iluk_symbolic capacity retry failed")
+
+
+def spgemm(aptr, acol, aval, bptr, bcol, bval, m: int):
+    """C = A @ B of row-sorted host CSR operands in O(nnz(C)) memory
+    (Gustavson): ``(indptr, cols, vals)`` of C, rows sorted, vals float64."""
+    aptr, acol, aval = _c64(aptr), _c64(acol), _cf64(aval)
+    bptr, bcol, bval = _c64(bptr), _c64(bcol), _cf64(bval)
+    n = aptr.size - 1
+    cptr = np.empty(n + 1, dtype=np.int64)
+    lib = library()
+    with _TWO_CALL_LOCK:
+        nnz = lib.spgemm_fused(n, int(m), aptr, acol, aval, bptr, bcol, bval, cptr)
+        ccol = np.empty(nnz, dtype=np.int64)
+        cval = np.empty(nnz, dtype=np.float64)
+        lib.spgemm_fetch(nnz, ccol, cval)
+    return cptr, ccol, cval
+
+
+def csr_add(aptr, acol, aval, bptr, bcol, bval, alpha: float = 1.0, beta: float = 1.0):
+    """C = alpha A + beta B on the union sparsity of row-sorted host CSR
+    operands: ``(indptr, cols, vals)``."""
+    aptr, acol, aval = _c64(aptr), _c64(acol), _cf64(aval)
+    bptr, bcol, bval = _c64(bptr), _c64(bcol), _cf64(bval)
+    n = aptr.size - 1
+    cptr = np.empty(n + 1, dtype=np.int64)
+    lib = library()
+    nnz = lib.csr_add_symbolic(n, aptr, acol, bptr, bcol, cptr)
+    ccol = np.empty(nnz, dtype=np.int64)
+    cval = np.empty(nnz, dtype=np.float64)
+    lib.csr_add_numeric(n, float(alpha), float(beta), aptr, acol, aval, bptr, bcol, bval,
+                        cptr, ccol, cval)
+    return cptr, ccol, cval
+
+
+def csr_transpose(aptr, acol, aval, m: int):
+    """T = A^T of an (n x m) row-sorted host CSR: ``(indptr, cols, vals)``
+    of T, rows sorted."""
+    aptr, acol, aval = _c64(aptr), _c64(acol), _cf64(aval)
+    n = aptr.size - 1
+    ne = int(aptr[-1])
+    tptr = np.empty(int(m) + 1, dtype=np.int64)
+    tcol = np.empty(ne, dtype=np.int64)
+    tval = np.empty(ne, dtype=np.float64)
+    library().csr_transpose(n, int(m), aptr, acol, aval, tptr, tcol, tval)
+    return tptr, tcol, tval

@@ -1,7 +1,8 @@
 """Public names and accessors of the port held against the JAX package:
 ``compress_coo`` from the graph subpackage, ``num_graph_types`` and
-``num_matrix_types`` at the top level, and the ``data2d`` view of full and
-symmetric DIA storage.  Inputs are made once in numpy and go to both
+``num_matrix_types`` at the top level, every solver name, the algebra and
+colouring names where the JAX package exports them, and the ``data2d``
+view of full and symmetric DIA storage.  Inputs are made once in numpy and go to both
 packages on the CPU in f64."""
 
 import jax.numpy as jnp
@@ -82,13 +83,16 @@ def test_symmetric_dia_data2d_matches_jax():
     assert St.data2d.data_ptr() == St.data.data_ptr()
 
 
-# the names of sigma_tpu.solvers that wait for the generic AMG and ILDU
-# (ROADMAP queue 1, item 4)
-AMG_ILDU = {
+# the names of sigma_tpu.solvers that the generic AMG and ILDU brought
+AMG_ILDU = (
     "AMGPreconditioner", "amg_solve", "smoothed_aggregation_amg",
     "ILDUPreconditioner", "LDUSolver", "TriangularLevels", "ildu0_factorize",
     "incomplete_cholesky", "ldu",
-}
+)
+ALGEBRA = (
+    "sparse_add", "sparse_matmul", "ptap", "rart", "plan_sparse_add", "plan_sparse_matmul",
+    "plan_ptap", "plan_rart", "SparseSumPlan", "SpGEMMPlan", "PtAPPlan",
+)
 SOLVER_LAYER = (
     "minres_solve", "gmres_solve", "fgmres_solve", "cgls_solve", "stationary_solve",
     "LinearSolver", "CGSolver", "BiCGStabSolver", "GMRESSolver", "CGLSSolver", "JacobiSolver",
@@ -130,13 +134,50 @@ def test_every_operator_name_is_exported():
 
 
 def test_missing_solver_names_are_the_amg_and_ildu_ones():
+    """No solver name of the JAX package is missing any more."""
     import sigma_tpu.solvers
     import sigma_tpu_torch.solvers
 
     missing = set(sigma_tpu.solvers.__all__) - set(sigma_tpu_torch.solvers.__all__)
-    assert missing == AMG_ILDU
+    assert missing == set()
     for name in sigma_tpu_torch.solvers.__all__:
         assert hasattr(sigma_tpu_torch.solvers, name), name
+
+
+@pytest.mark.parametrize("name", AMG_ILDU)
+def test_amg_and_ildu_exported_where_jax_exports_them(name):
+    import sigma_tpu.solvers
+    import sigma_tpu_torch.solvers
+
+    assert name in sigma_tpu.solvers.__all__
+    assert name in sigma_tpu_torch.solvers.__all__
+    # the port exports its solvers at the top level too
+    assert getattr(st, name) is getattr(sigma_tpu_torch.solvers, name)
+
+
+@pytest.mark.parametrize("name", ALGEBRA)
+def test_algebra_exported_where_jax_exports_it(name):
+    import sigma_tpu.matrix
+    import sigma_tpu.matrix.algebra
+    import sigma_tpu_torch.matrix
+    import sigma_tpu_torch.matrix.algebra
+
+    assert name in sigma_tpu.matrix.__all__ and hasattr(sigma_tpu, name)
+    assert name in sigma_tpu_torch.matrix.__all__
+    assert name in sigma_tpu_torch.matrix.algebra.__all__
+    assert getattr(st, name) is getattr(sigma_tpu_torch.matrix.algebra, name)
+    assert getattr(sigma_tpu_torch.matrix, name) is getattr(st, name)
+
+
+@pytest.mark.parametrize("name", ["greedy_coloring", "greedy_color_ordering"])
+def test_coloring_exported_where_jax_exports_it(name):
+    import sigma_tpu.graph
+    import sigma_tpu_torch.graph.permutations
+
+    assert name in sigma_tpu.graph.__all__ and hasattr(sigma_tpu, name)
+    assert name in sigma_tpu_torch.graph.__all__
+    assert getattr(st, name) is getattr(sigma_tpu_torch.graph, name)
+    assert getattr(st, name) is getattr(sigma_tpu_torch.graph.permutations, name)
 
 
 @pytest.mark.parametrize("cls", ["PrunedDIAMatrix", "SymmetricPrunedDIAMatrix"])

@@ -2,7 +2,10 @@
 same permutation from the host library and from the plain numpy version,
 on the cases of the reference's own tests (a random symmetric graph, a
 path graph, a disconnected graph, a start vertex > 0) and on every graph
-format."""
+format.  Then the greedy colouring and colour ordering: the same colours
+and permutation as the JAX package's on a nonsymmetric random graph of
+every format and on the 7-point stencil, and the host colouring equal to
+its plain numpy version."""
 
 import numpy as np
 import pytest
@@ -86,3 +89,56 @@ def test_bfs_of_a_graph_of_any_format_is_the_jax_packages(fmt):
         st.breadth_first_search(getattr(st, fmt).from_coo(n, n + 1, rows, cols))
     with pytest.raises(ValueError, match="out of range"):
         st.breadth_first_search(csr, n)
+
+
+# -- greedy colouring (tests/test_solvers.py:382's ordering) -----------------
+from sigma_tpu.graph.permutations import greedy_color_ordering as jax_color_ordering  # noqa: E402
+from sigma_tpu.graph.permutations import greedy_coloring as jax_coloring  # noqa: E402
+from sigma_tpu_torch.graph.permutations import greedy_coloring_reference  # noqa: E402
+
+
+def _valid_coloring(g, colors):
+    r, c = g.edges_numpy()
+    off = r != c
+    return not np.any(colors[r[off]] == colors[c[off]])
+
+
+@pytest.mark.parametrize("fmt", ["CSRGraph", "COOGraph", "CSCGraph", "ELLGraph"])
+def test_coloring_of_a_random_graph_is_the_jax_packages(fmt):
+    rng = np.random.default_rng(4)
+    n, k = 200, 700
+    rows, cols = rng.integers(0, n, k), rng.integers(0, n, k)  # nonsymmetric
+    g = getattr(st, fmt).from_coo(n, n, rows, cols)
+    colors, nc = st.greedy_coloring(g)
+    want, ncj = jax_coloring(getattr(jax_graph, fmt).from_coo(n, n, rows, cols))
+    assert nc == ncj and np.array_equal(colors, want)
+    assert colors.max() + 1 == nc and _valid_coloring(g, colors)
+    sym = st.CSRGraph.from_coo(n, n, np.r_[rows, cols], np.r_[cols, rows])
+    assert np.array_equal(native.greedy_coloring(sym.indptr, sym.indices)[0],
+                          greedy_coloring_reference(sym.indptr, sym.indices)[0])
+
+
+@pytest.mark.parametrize("nx", [5, 8])
+def test_stencil_takes_two_colours_and_the_ordering_blocks_them(nx):
+    """The 7-point stencil's nonzeros form a bipartite graph: first fit in
+    natural order gives the checkerboard, and the ordering puts each colour
+    in one block.  (DIA storage's graph also joins the zero slots where a
+    +-1 diagonal wraps to the next grid line, which at even nx joins two
+    cells of one colour: the stencil is coloured on its nonzeros.)"""
+    r, c, v = st.laplacian_3d_dia(nx, device="cpu").entries()
+    keep = v != 0
+    n = nx ** 3
+    g = st.CSRGraph.from_coo(n, n, r[keep], c[keep])
+    colors, nc = st.greedy_coloring(g)
+    assert nc == 2 and _valid_coloring(g, colors)
+    p, ptr = st.greedy_color_ordering(g)
+    pj, ptrj = jax_color_ordering(jax_graph.CSRGraph.from_coo(n, n, r[keep], c[keep]))
+    assert np.array_equal(p, pj) and np.array_equal(ptr, ptrj)
+    assert np.array_equal(np.sort(p), np.arange(n))
+    assert np.array_equal(ptr, [0, np.sum(colors == 0), n])
+    assert np.all(colors[np.argsort(p)][: ptr[1]] == 0)
+
+
+def test_coloring_needs_a_square_graph():
+    with pytest.raises(ValueError, match="square"):
+        st.greedy_coloring(st.CSRGraph.from_coo(3, 4, [0, 1], [1, 3]))

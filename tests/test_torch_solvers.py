@@ -115,9 +115,9 @@ def test_gmres_matches_jax_and_dense_solve(rng, entry, restart):
 
 
 def test_gmres_advection_diffusion_with_jacobi():
-    """tests/test_solvers.py:102 runs GMRES(64) with ldu(), which the port
-    does not have yet; here the same operator (n = 128, so that Jacobi-
-    preconditioned GMRES(64) converges) is held with jacobi()."""
+    """The operator of tests/test_solvers.py:102 at n = 128 (where Jacobi-
+    preconditioned GMRES(64) converges) with jacobi(); the ldu() case
+    follows."""
     n, c = 128, 0.5
     dense, dx = laplacian_1d(n, c)
     Aj, At = csr_both(dense)
@@ -128,6 +128,23 @@ def test_gmres_advection_diffusion_with_jacobi():
     grid = np.arange(1, n + 1) * dx
     exact = 2.0 * (grid - (np.exp(c * grid) - 1) / (np.exp(c) - 1)) / c
     assert np.abs(x - exact).max() < 1e-4  # the discretisation error at n = 128
+
+
+def test_gmres_advection_diffusion_with_ldu():
+    """tests/test_solvers.py:102: GMRES(64) + ldu() at n = 1024; ILDU(0) is
+    exact for the tridiagonal operator, so a couple of Arnoldi steps
+    solve it."""
+    n, c = 1024, 0.5
+    dense, dx = laplacian_1d(n, c)
+    Aj, At = csr_both(dense)
+    f = np.full(n, 2.0 * dx**2)
+    xj, ij = js.gmres(1e-12, restart=64).solve_info(Aj, jnp.asarray(f), M=js.ldu())
+    xt, it = st.gmres(1e-12, restart=64).solve_info(At, torch.from_numpy(f), M=st.ldu())
+    x = same(xj, ij, xt, it)
+    assert it.iterations <= 3
+    grid = np.arange(1, n + 1) * dx
+    exact = 2.0 * (grid - (np.exp(c * grid) - 1) / (np.exp(c) - 1)) / c
+    assert np.abs(x - exact).max() < 1e-8
 
 
 def test_gmres_stops_at_maxiter_and_on_zero_rhs():
