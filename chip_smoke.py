@@ -106,17 +106,35 @@ drives thirteen paths through the package's public entry points:
   the greedy one on ``benchmarks/amg_setup_probe.py``'s 262,144-row CSR
   Laplacian + I (each also on pure Poisson, where CG + AMG must take a
   quarter of plain CG's iterations), set-up split by step, CG + AMG and
-  ``amg_solve``, and the algebra's device plans held to its host products.
+  ``amg_solve``, and the algebra's device plans held to its host products;
+- the apps (phases 32-33, no ported kernel: ELL gathers): the multicolour
+  Metropolis Ising model on torus(4096, 4096) (16,777,216 sites), a cold
+  start at beta = 0.6 against Onsager's spontaneous magnetization 0.97361
+  and a hot start at beta = 0.3 against 0, each within 0.005; 10,000
+  self-avoiding walks on torus(512, 512), whose mean trapping length must
+  be within 3 of 70.7; and the two command-line drivers at their default
+  sizes;
+- the support modules (phase 34): the 2-D P1 Poisson solve on the unit
+  square at nx = 512, 1024 and 2048 (4,198,401 nodes; f64 DIA on #1, held
+  against its plain version on each operator with an f64 x), its
+  max-norm error falling at least 3.5x per halving of h; npz, Matrix
+  Market and checkpoint round trips bit for bit (a CG stopped at 200
+  iterations resumed to rtol 1e-10); ``checked_solve`` and
+  ``validate_matrix`` clean and raising on a NaN and on a nonzero padded
+  slot; ``spmv_throughput`` of the nx=216 stencil beside phase 5's #1
+  rate; and a two-field BlockVector through CG.
 
 Each solve prints its iterations beside the JAX package's recorded TPU
 count where there is one, its warm seconds, seconds per iteration, the
 recomputed true relative residual and the error against the manufactured
 solution; a solve that does not converge, or whose true residual is above
-twice its target, fails the run.
+twice its target (the 2-D FEM solves: above their rtol plus f64 CG's
+rounding estimate), fails the run.
 
 The kernels' launch counts are zeroed before each path and read after it,
 and each path must have launched its kernels; launches that compare a
-kernel with its plain version run outside the counted paths.
+kernel with its plain version run outside the counted paths, or (phase
+34) are taken back out of the count.
 
 Phases print one line each or more (JSON, or the card's name and power
 limit as nvidia-smi gives them); the line before the last is the kernels'
@@ -130,7 +148,9 @@ CUDA device and exits nonzero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3355,37 +3375,46 @@ def phase_ildu3d(device, nx=100):
     return A, b, ildu
 
 
+def _timed_call(split, key, fn):
+    """``fn`` timed (device synchronised) into ``split[key]`` at each call."""
+    def run(*args, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def _timed_steps(module, steps, split):
+    """While active, each function ``name`` of ``module`` in ``steps`` is
+    timed in place into ``split[steps[name]]``."""
+    saved = {name: getattr(module, name) for name in steps}
+    try:
+        for name, key in steps.items():
+            setattr(module, name, _timed_call(split, key, saved[name]))
+        yield split
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def _amg_setup_split(A, aggregate):
     """``smoothed_aggregation_amg(A, aggregate=aggregate)`` and its set-up
     seconds split into aggregation, prolongator smoothing, PtAP, the
     coarse inverse and the rest (tentative P, the diagonal read), by timing
     the module's steps in place for this one call."""
-    import torch
-
     from sigma_tpu_torch.solvers import amg
 
     split = dict.fromkeys(("aggregation", "prolongator_smoothing", "ptap", "coarse_inverse"), 0.0)
-
-    def timed(key, fn):
-        def run(*args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            split[key] += time.perf_counter() - t0
-            return out
-        return run
-
     steps = {"_smoothed_prolongator": "prolongator_smoothing", "ptap": "ptap",
              "_coarse_inverse": "coarse_inverse"}
-    saved = {name: getattr(amg, name) for name in steps}
-    try:
-        for name, key in steps.items():
-            setattr(amg, name, timed(key, saved[name]))
-        M, total = _timed_setup(
-            lambda: amg.smoothed_aggregation_amg(A, aggregate=timed("aggregation", aggregate)))
-    finally:
-        for name, fn in saved.items():
-            setattr(amg, name, fn)
+    with _timed_steps(amg, steps, split):
+        M, total = _timed_setup(lambda: amg.smoothed_aggregation_amg(
+            A, aggregate=_timed_call(split, "aggregation", aggregate)))
     split = {f"{k}_s": v for k, v in split.items()}
     split["other_s"] = total - sum(split.values())
     return M, total, split
@@ -3539,6 +3568,380 @@ def phase_ildu_trace(b, ildu):
         out[label] = {"levels": M.lower.nlev + M.upper.nlev, "device_ops": len(ev),
                       "device_busy_ms": busy / 1e3, "traced_wall_ms": wall * 1e3}
     emit({"phase": "ildu_trace", "matvec": out})
+
+
+# the apps path (phases 32-33): limits from the physics, not tuning
+ISING_SIDE = 4096  # torus(4096, 4096): 16,777,216 sites, 2 colours
+# Onsager's spontaneous magnetization (1 - sinh(2 beta)^-4)^(1/8) at beta = 0.6
+ONSAGER_M_06 = (1.0 - math.sinh(1.2) ** -4) ** 0.125
+ISING_M_TOL = 0.005
+SAW_SIDE = 512
+SAW_WALKERS = 10_000
+# the mean trapping length of the self-avoiding walk on the square lattice
+# (Hemmer & Hemmer, J. Chem. Phys. 81, 584, 1984); std ~49 a walk, so the
+# standard error at 10,000 walkers is ~0.5
+SAW_MEAN_LENGTH = 70.7
+SAW_MEAN_TOL = 3.0
+
+
+def phase_ising(device):
+    """Phase 32: the multicolour Metropolis Ising model on torus(4096,
+    4096) in ELL storage: a cold start at beta = 0.6 for 200 sweeps,
+    whose mean magnetization over sweeps 101-200 must be Onsager's 0.97361
+    within 0.005, and a hot start at beta = 0.3 (above the critical
+    temperature) for 100 sweeps, whose mean over sweeps 51-100 must be
+    within 0.005 of 0.  Set-up split into the generator, the colouring and
+    the ELL build (timed in place inside ``ising_metropolis``); sweeps/s
+    and site updates/s from the sweeps' own seconds."""
+    import numpy as np
+
+    from sigma_tpu_torch.apps import ising as ising_mod
+    from sigma_tpu_torch.apps import ising_metropolis, torus
+
+    t0 = time.perf_counter()
+    g = torus(ISING_SIDE, ISING_SIDE, frmt="ell")
+    gen_s = time.perf_counter() - t0
+    n = g.shape[0]
+    out = {}
+    for label, beta, sweeps, hot, seed, window in (("cold_beta0.6", 0.6, 200, False, 0, 100),
+                                                   ("hot_beta0.3", 0.3, 100, True, 1, 50)):
+        split = {}
+        steps = {"greedy_coloring": "colouring", "_ones_ell": "ell_build", "_run": "sweeps"}
+        with _timed_steps(ising_mod, steps, split):
+            t0 = time.perf_counter()
+            res = ising_metropolis(g, beta=beta, sweeps=sweeps, seed=seed, hot_start=hot,
+                                   device=device)
+            mags = res.magnetization.cpu().numpy()
+            wall = time.perf_counter() - t0
+        m = float(np.mean(mags[window:]))
+        spins = res.spins
+        row = {"phase": "ising", "run": label, "sites": n, "colours": res.num_colors,
+               "beta": beta, "sweeps": sweeps, "hot_start": hot,
+               "setup_s": {"generator": gen_s, "colouring": split["colouring"],
+                           "ell_build": split["ell_build"]},
+               "sweeps_s": split["sweeps"], "wall_s": wall,
+               "sweeps_per_s": sweeps / split["sweeps"],
+               "site_updates_per_s": n * sweeps / split["sweeps"],
+               f"mean_m_sweeps_{window + 1}_{sweeps}": m, "final_m": float(mags[-1])}
+        if label.startswith("cold"):
+            row.update(onsager_m=ONSAGER_M_06, error=abs(m - ONSAGER_M_06))
+            ok = abs(m - ONSAGER_M_06) <= ISING_M_TOL
+        else:
+            ok = abs(m) < ISING_M_TOL
+        emit(row)
+        if not (ok and res.num_colors == 2 and bool(((spins == 1) | (spins == -1)).all())
+                and mags.shape == (sweeps,)):
+            raise AssertionError(f"ising {label}: mean m {m:.6f}, colours {res.num_colors}")
+        out[label] = row
+        del res, spins
+    return out
+
+
+def phase_saw(device):
+    """Phase 33: 10,000 self-avoiding walks on torus(512, 512) at once (a
+    (walkers, n) visited mask of 2.6 GB on the card): the mean trapping
+    length must be within 3 of 70.7, every walk at least one step, and the
+    histogram must count every walker."""
+    import torch
+
+    from sigma_tpu_torch.apps import saw as saw_mod
+    from sigma_tpu_torch.apps import self_avoiding_walks, torus
+
+    g = torus(SAW_SIDE, SAW_SIDE, frmt="ell")
+    walkers = SAW_WALKERS
+    split = {}
+    with _timed_steps(saw_mod, {"_run": "walk"}, split):
+        t0 = time.perf_counter()
+        res = self_avoiding_walks(g, walkers=walkers, seed=0, device=device)
+        lengths = res.lengths.cpu().numpy()
+        wall = time.perf_counter() - t0
+    mean = float(lengths.mean())
+    row = {"phase": "saw", "vertices": g.shape[0], "walkers": walkers,
+           "visited_mask_bytes": walkers * g.shape[0],
+           "steps": int(lengths.max()) + 1,  # the last step finds every walker stuck
+           "walk_s": split["walk"], "wall_s": wall, "mean_length": mean,
+           "std_length": float(lengths.std()), "max_length": int(lengths.max()),
+           "reference_mean": SAW_MEAN_LENGTH, "lengths_dtype": str(res.lengths.dtype)}
+    emit(row)
+    if not (abs(mean - SAW_MEAN_LENGTH) <= SAW_MEAN_TOL and int(res.histogram.sum()) == walkers
+            and int(lengths.min()) >= 1 and res.lengths.device.type == torch.device(device).type
+            and res.lengths.dtype == torch.int32):
+        raise AssertionError(f"saw: mean length {mean:.3f}, {row}")
+    return row
+
+
+def phase_app_tools():
+    """The two command-line drivers once each at their default sizes on
+    the card (in-process, CUDA by default): the line formats of the JAX
+    package's scripts."""
+    import contextlib
+    import io
+    import re
+
+    from sigma_tpu_torch.tools import ising as ising_tool
+    from sigma_tpu_torch.tools import self_avoiding_walk as saw_tool
+
+    out = {}
+    for name, tool in (("ising", ising_tool), ("self_avoiding_walk", saw_tool)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tool.main([])
+        lines = buf.getvalue().splitlines()
+        out[name] = {"seconds": time.perf_counter() - t0, "lines": len(lines),
+                     "first": lines[0], "last": lines[-1]}
+    ising_lines = out["ising"]
+    if not (ising_lines["lines"] == 21 and re.fullmatch(r"final magnetization: -?\d\.\d{6}",
+                                                        ising_lines["last"])):
+        raise AssertionError(f"the ising tool's output: {ising_lines}")
+    if not re.fullmatch(r"walks: 10000  mean length: \d+\.\d\d  max: \d+",
+                        out["self_avoiding_walk"]["first"]):
+        raise AssertionError(f"the walk tool's output: {out['self_avoiding_walk']}")
+    emit({"phase": "app_tools", **out})
+
+
+FEM2D_NX = (512, 1024, 2048)
+FEM2D_RTOL = 1e-10
+FEM2D_MIN_RATIO = 3.5  # O(h^2): 4x per halving of h
+IO_DIR = "build/chip_smoke_io"
+SUPPORT_NX_MM = 256  # the Matrix Market round trip (text I/O of 29M triples takes minutes)
+SUPPORT_NX_CHECKS = 512  # checked_solve and the BlockVector solve
+SUPPORT_NX_STENCIL = 216  # spmv_throughput on phase 5's 3-D stencil
+
+
+def _fem2d_system(device, nx):
+    """The unit square's P1 Poisson system at nx in f64 DIA storage:
+    stiffness and mass assembled on the card, b = M (2 pi^2 u) for u =
+    sin(pi x) sin(pi y), restricted to the interior nodes.  Returns (Aii,
+    bi, u, boundary mask, assembly seconds)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import DIAMatrix
+    from sigma_tpu_torch.fem import interior_dirichlet, mass_2d, stiffness_2d, unit_square_mesh
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coords, ele = unit_square_mesh(nx)
+    K = stiffness_2d(coords, ele, cls=DIAMatrix, dtype=torch.float64, device=device)
+    M = mass_2d(coords, ele, cls=DIAMatrix, dtype=torch.float64, device=device)
+    xs, ys = coords[:, 0], coords[:, 1]
+    u = np.sin(np.pi * xs) * np.sin(np.pi * ys)
+    b = M.matvec(torch.from_numpy(2 * np.pi ** 2 * u).to(device))
+    bdry = (xs == 0) | (xs == 1) | (ys == 0) | (ys == 1)
+    Aii, bi = interior_dirichlet(K, b, bdry)
+    torch.cuda.synchronize()
+    return Aii, bi, u, bdry, time.perf_counter() - t0
+
+
+def _fem2d_true_target(A, b, x, iterations):
+    """The true relative residual f64 CG can reach on the FEM systems:
+    FEM2D_RTOL, which its recursive residual meets, plus the rounding the
+    recursion leaves behind, eps sqrt(k) ||A||_inf ||x|| / ||b|| after k
+    iterations (errors of size eps ||A|| ||x|| a step, adding up as a
+    random walk).  b = M f is O(h^2) a node, so ||x|| / ||b|| grows 4x and
+    sqrt(k) ~1.4x per halving of h: the estimate ~5.5x, the readings 1.2x,
+    3.3x and then 5.4x as the floor passes FEM2D_RTOL.  The port, the JAX
+    package and a textbook CG on scipy's CSR product reach the same true
+    residual to 3 digits on the CPU, 0.84 / 0.19 / 0.11 / 0.11 of this at
+    nx = 256 / 512 / 1024 / 2048 (``PYTHONPATH=. python
+    tests/test_torch_fem2d.py 256 512 1024 2048``), and the card the
+    same to 3 digits: rounding in CG, not the card."""
+    import torch
+
+    a_inf = float(A.data.abs().sum(0).max())  # padded slots hold 0
+    ratio = float(torch.linalg.vector_norm(x) / torch.linalg.vector_norm(b))
+    return FEM2D_RTOL + torch.finfo(torch.float64).eps * iterations ** 0.5 * a_inf * ratio
+
+
+def _check_dia_spmv_f64(A, seed):
+    """#1 held against its plain version on a FEM operator's own arrays
+    with a random f64 x (relative 1e-12, as phase 2's f64 cases); the
+    comparison's launch is taken back out of the path's count."""
+    import torch
+
+    from sigma_tpu_torch.ops import dia_spmv, dia_spmv_reference
+
+    n, m = A.shape
+    g = torch.Generator(device=A.data.device).manual_seed(seed)
+    x = torch.randn(m, generator=g, device=A.data.device, dtype=torch.float64)
+    before = dia_spmv.launches
+    y = dia_spmv(A.data, x, A.offsets_dev, n, m)
+    dia_spmv.launches = before
+    ref = dia_spmv_reference(A.data, x, A.offsets_dev, n, m)
+    err = {"max_abs_err": float((y - ref).abs().max()), "rel_err": rel_err(y, ref)}
+    if not err["rel_err"] <= 1e-12:
+        raise AssertionError(f"dia_spmv on the FEM operator, n={n}: {err}")
+    return err
+
+
+def phase_fem2d(device):
+    """Phase 34a: the manufactured Poisson solve on unit_square_mesh(nx)
+    for nx = 512, 1024, 2048 (4,198,401 nodes), CG to rtol 1e-10 on the
+    interior operator (7 diagonals: #1); the max-norm error must fall at
+    least 3.5x per halving of h, and gradient_2d of a linear field must be
+    exact to 1e-10.  Returns the nx = 2048 system."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import cg_solve
+    from sigma_tpu_torch.fem import gradient_2d, unit_square_mesh
+
+    errs, out = [], None
+    for nx in FEM2D_NX:
+        Aii, bi, u, bdry, setup_s = _fem2d_system(device, nx)
+        spmv_check = _check_dia_spmv_f64(Aii, nx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = cg_solve(Aii, bi, tol=0.0, rtol=FEM2D_RTOL)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        rel = _true_rel_residual(Aii, bi, x)
+        target = _fem2d_true_target(Aii, bi, x, info.iterations)
+        full = np.zeros(u.size)
+        full[~bdry] = x.cpu().numpy()
+        err = float(np.abs(full - u).max())
+        errs.append(err)
+        emit({"phase": "fem2d", "nx": nx, "nodes": u.size, "interior": Aii.shape[0],
+              "offsets": list(Aii.offsets), "iterations": info.iterations,
+              "converged": info.converged, "relative_residual": rel,
+              "relative_residual_target": target, "max_error": err,
+              "error_ratio": errs[-2] / err if len(errs) > 1 else None,
+              "assembly_s": setup_s, "solve_s": solve_s,
+              "ms_per_iteration": 1e3 * solve_s / max(info.iterations, 1),
+              "dia_spmv_f64_check": spmv_check})
+        _check_solve(f"fem2d nx={nx}", info, rel, target, limit=1.0)
+        out = (Aii, bi)
+        del x
+    ratios = [a / b for a, b in zip(errs, errs[1:])]
+    if not all(r >= FEM2D_MIN_RATIO for r in ratios):
+        raise AssertionError(f"fem2d: error ratios {ratios} below {FEM2D_MIN_RATIO}")
+    coords, ele = unit_square_mesh(FEM2D_NX[0])
+    grad = gradient_2d(coords, ele, 4.0 * coords[:, 0] + 7.0 * coords[:, 1] - 2.0)
+    grad_err = float(np.abs(grad - np.array([4.0, 7.0])).max())
+    emit({"phase": "fem2d_gradient", "nx": FEM2D_NX[0], "elements": ele.shape[0],
+          "max_error": grad_err, "error_ratios": ratios})
+    if not grad_err <= 1e-10:
+        raise AssertionError(f"gradient_2d of a linear field: error {grad_err:.3e}")
+    return out
+
+
+def phase_support(device, A, b, spmv_row):
+    """Phase 34b: the support modules on the card.  I/O: npz of the nx =
+    2048 interior operator and Matrix Market at nx = 256 read back bit for
+    bit, and a checkpoint of CG stopped at 200 iterations reloaded bit for
+    bit and resumed to rtol 1e-10.  Checks: ``checked_solve`` of CG clean,
+    and raising FloatingPointError with a NaN among the stored values;
+    ``validate_matrix`` of the operator clean, and raising once a padded
+    slot is 1.0.  Profiling: ``spmv_throughput`` of the nx = 216 stencil
+    (f32) beside phase 5's #1 rate, at most 5% past 3.35 TB/s.  A 2-field
+    BlockVector through CG via ``.values``, bitwise the plain solve."""
+    import os
+
+    import torch
+
+    from sigma_tpu_torch import (
+        BlockVector, cg_solve, checked_solve, laplacian_3d_dia, validate_matrix,
+    )
+    from sigma_tpu_torch import io as sio
+    from sigma_tpu_torch.utils.profiling import spmv_throughput
+
+    os.makedirs(IO_DIR, exist_ok=True)
+    row = {"phase": "support", "n": A.shape[0]}
+    # npz of the nx = 2048 operator
+    path = os.path.join(IO_DIR, "fem2048.npz")
+    t0 = time.perf_counter()
+    sio.save_matrix_npz(A, path)
+    row["npz_save_s"] = time.perf_counter() - t0
+    row["npz_bytes"] = os.path.getsize(path)
+    t0 = time.perf_counter()
+    B = sio.load_matrix_npz(path, device=device)
+    row["npz_load_s"] = time.perf_counter() - t0
+    if not (B.offsets == A.offsets and B.dtype == A.dtype and torch.equal(B.data, A.data)):
+        raise AssertionError("npz round trip of the nx=2048 operator is not bitwise")
+    del B
+    os.remove(path)
+    # Matrix Market at nx = 256
+    Am, _, _, _, _ = _fem2d_system(device, SUPPORT_NX_MM)
+    path = os.path.join(IO_DIR, "fem256.mtx")
+    t0 = time.perf_counter()
+    sio.write_matrix_market(Am, path, comment="P1 Poisson, unit square, nx=256, interior")
+    Bm = sio.read_matrix_market(path, frmt="dia", dtype=torch.float64, device=device)
+    row["mtx_round_trip_s"] = time.perf_counter() - t0
+    row["mtx_entries"] = int(Am.entries()[0].size)
+    if not (Bm.offsets == Am.offsets and torch.equal(Bm.data, Am.data)):
+        raise AssertionError("Matrix Market round trip at nx=256 is not bitwise")
+    os.remove(path)
+    # checkpoint of CG stopped at 200 iterations, reloaded and resumed
+    x200, info200 = cg_solve(A, b, tol=0.0, maxiter=200)
+    path = os.path.join(IO_DIR, "cg200.npz")
+    sio.save_checkpoint(path, x200, iteration=info200.iterations,
+                        residual=float(info200.residual_norm))
+    x0, meta, _ = sio.load_checkpoint(path, device=device)
+    os.remove(path)
+    if not (torch.equal(x0, x200) and meta["iteration"] == 200 and not info200.converged):
+        raise AssertionError(f"the checkpoint did not reload bitwise (or CG had converged "
+                             f"within 200 iterations): {meta}, {info200}")
+    t0 = time.perf_counter()
+    x, info = cg_solve(A, b, x0=x0, tol=0.0, rtol=FEM2D_RTOL)
+    torch.cuda.synchronize()
+    rel = _true_rel_residual(A, b, x)
+    target = _fem2d_true_target(A, b, x, info200.iterations + info.iterations)
+    row.update(resumed_iterations=info.iterations, resumed_relative_residual=rel,
+               resumed_relative_residual_target=target, resume_s=time.perf_counter() - t0)
+    _check_solve("resumed CG", info, rel, target, limit=1.0)
+    del x, x0, x200
+    # float checks and validation
+    As, bs, _, _, _ = _fem2d_system(device, SUPPORT_NX_CHECKS)
+    t0 = time.perf_counter()
+    xs, info = checked_solve(cg_solve, As, bs, tol=0.0, rtol=FEM2D_RTOL)
+    row["checked_solve"] = {"n": As.shape[0], "iterations": info.iterations,
+                            "seconds": time.perf_counter() - t0}
+    xp, _ = cg_solve(As, bs, tol=0.0, rtol=FEM2D_RTOL)
+    if not (info.converged and torch.equal(xs, xp)):
+        raise AssertionError("checked_solve: not converged, or not the plain solve's result")
+    data = As.data.clone()
+    data[As.offsets.index(0), 17] = float("nan")
+    try:
+        checked_solve(cg_solve, As.with_data(data), bs, tol=0.0, rtol=FEM2D_RTOL, maxiter=5)
+    except FloatingPointError as e:
+        row["checked_solve_nan"] = str(e)
+    else:
+        raise AssertionError("checked_solve did not raise on a NaN in the matrix")
+    t0 = time.perf_counter()
+    validate_matrix(A)
+    row["validate_s"] = time.perf_counter() - t0
+    data = A.data.clone()
+    n = A.shape[0]
+    data[A.offsets.index(1), n - 1] = 1.0  # A[n-1, n]: outside the matrix
+    try:
+        validate_matrix(A.with_data(data))
+    except ValueError as e:
+        row["validate_padded"] = str(e)
+    else:
+        raise AssertionError("validate_matrix passed a nonzero padded slot")
+    del data
+    # BlockVector through CG
+    k = As.shape[0] // 3
+    bv = BlockVector.from_flat(bs, (k, As.shape[0] - k))
+    xv, infov = cg_solve(As, bv.values, tol=0.0, rtol=FEM2D_RTOL)
+    sol = BlockVector.from_flat(xv, bv.field_sizes)
+    if not (bv.values is bs and torch.equal(sol.values, xp) and infov.iterations == info.iterations
+            and torch.equal(sol.field(1), xp[k:])):
+        raise AssertionError("a BlockVector through CG differs from the plain solve")
+    row["block_vector_iterations"] = infov.iterations
+    # SpMV throughput of the stencil
+    S = laplacian_3d_dia(SUPPORT_NX_STENCIL, torch.float32, device)
+    rate = spmv_throughput(S)
+    byts = S.data.numel() * S.data.element_size() + 2 * S.shape[0] * 4
+    bps = byts * rate / S.nnz
+    row.update(spmv_throughput_gnnz_s=rate / 1e9, spmv_throughput_bytes_per_s=bps,
+               phase5_dia_spmv_gnnz_s=spmv_row["gnnz_s"],
+               phase5_dia_spmv_device_gnnz_s=S.nnz / (spmv_row["device_ms"] * 1e-3) / 1e9)
+    emit(row)
+    if not (rate > 0 and bps <= 1.05 * PEAK_BYTES_PER_S):
+        raise AssertionError(f"spmv_throughput {rate:.4e} nnz/s, {bps:.4e} B/s")
+    return row
 
 
 def main():
@@ -3697,6 +4100,22 @@ def main():
     paths.append(read_counts("preconditioners", ("dia_spmv",)))
     emit({"phase": "preconditioners_path", "seconds": time.perf_counter() - t_path})
     del A30, b30, ildu
+    # the apps: Ising and self-avoiding walks (ELL gathers, no ported kernel)
+    zero_counts()
+    t_path = time.perf_counter()
+    phase_ising(device)                                     # phase 32
+    phase_saw(device)                                       # phase 33
+    phase_app_tools()
+    paths.append(read_counts("apps", ()))
+    emit({"phase": "apps_path", "seconds": time.perf_counter() - t_path})
+    # the support modules: 2-D FEM on #1, I/O, checks, profiling, BlockVector
+    zero_counts()
+    t_path = time.perf_counter()
+    A34, b34 = phase_fem2d(device)                          # phase 34
+    phase_support(device, A34, b34, rows["dia_spmv"])
+    paths.append(read_counts("support", ("dia_spmv",)))
+    emit({"phase": "support_path", "seconds": time.perf_counter() - t_path})
+    del A34, b34
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most (dia_sym_spmm's at k = 4, the width its paths take)
     summary_layouts = {}

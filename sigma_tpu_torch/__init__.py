@@ -23,7 +23,13 @@ preconditioning and fixed-sweep refinement.  And the block / multi-DOF
 path: BSR matrices (assembled on the device) and their grouped layout
 ``GroupedBSR`` on the hand-written grouped-BSR kernel, ``BlockMatrix`` (a
 matrix of matrices), the CSC and ELL formats, the graph builder, the
-format factories and the ``set_values``/``add_values`` API.
+format factories and the ``set_values``/``add_values`` API.  And the
+apps and support modules: the graph generators, the multicolour Ising
+model and batched self-avoiding walks (``apps``; their command-line
+drivers in ``tools``), block vectors, the 2-D P1 finite elements in
+``fem``, file I/O and checkpoints (``io``), NaN/Inf checks and matrix
+validation, timers and the utilities of ``utils``.  The distributed layer
+is not ported yet.
 
 The package imports torch and numpy (and scipy's dense ``eigh`` in
 eigenpair refinement), never JAX, and is importable on a machine with no
@@ -35,7 +41,7 @@ makes its tensors on the device of the operand it derives from.
 """
 
 from sigma_tpu_torch.apps import irregular_mesh_laplacian, irregular_mesh_laplacian_coo
-from sigma_tpu_torch import fem
+from sigma_tpu_torch import fem, io
 from sigma_tpu_torch.eigen import (
     LOBPCGResult,
     LanczosResult,
@@ -166,5 +172,8 @@ from sigma_tpu_torch.solvers import (
     structured_amg,
     structured_pair_amg,
 )
+from sigma_tpu_torch.utils.checks import checked, checked_solve, debug_nans, validate_matrix
+from sigma_tpu_torch.utils.util import determinant, init_seed, order
+from sigma_tpu_torch.vectors import BlockVector
 
 __version__ = "0.1.0"

@@ -20,7 +20,9 @@ were converted one by one.  A generic AMG hierarchy arrives as each
 level's A and P in CSR arrays, and an ILDU factorization as its two packed
 level systems, which the JAX package pads to the widest level with
 sentinel rows; the port packs them without (see
-:mod:`sigma_tpu_torch.solvers.ildu`).
+:mod:`sigma_tpu_torch.solvers.ildu`).  A block vector arrives as its flat
+values and field sizes.  Files written by either package's ``io`` are the
+other way state crosses.
 """
 
 from __future__ import annotations
@@ -55,10 +57,12 @@ from sigma_tpu_torch.solvers.amg import AMGPreconditioner, _Level
 from sigma_tpu_torch.solvers.gmg import StructuredAMGPreconditioner, _SLevel
 from sigma_tpu_torch.solvers.ildu import ILDUPreconditioner, TriangularLevels
 from sigma_tpu_torch.utils.device import resolve_device
+from sigma_tpu_torch.vectors import BlockVector
 
 __all__ = [
     "amg_from_arrays",
     "block_matrix_from_blocks",
+    "block_vector_from_arrays",
     "bsr_from_arrays",
     "coo_from_arrays",
     "csc_from_arrays",
@@ -174,6 +178,11 @@ def block_matrix_from_blocks(blocks) -> BlockMatrix:
     one of this module's functions from the arrays of the JAX block in its
     place) and ``None`` for the absent blocks."""
     return BlockMatrix.from_blocks(blocks)
+
+
+def block_vector_from_arrays(values, field_sizes, device=None) -> BlockVector:
+    """BlockVector from the JAX package's flat values and field sizes."""
+    return BlockVector.from_flat(_tensor(values, device), field_sizes)
 
 
 def sym_dia_from_arrays(offsets, data, n, device=None) -> SymmetricDIAMatrix:

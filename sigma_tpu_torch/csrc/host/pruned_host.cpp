@@ -1,11 +1,12 @@
 // Host-side set-up of the unstructured pruned path: adjacency, the
-// breadth-first and reverse Cuthill-McKee orderings, the pruned block-DIA
-// pack and the 1-D pair coarsening of the multigrid hierarchy.
+// breadth-first, reverse Cuthill-McKee and Sloan orderings, the pruned
+// block-DIA pack and the 1-D pair coarsening of the multigrid hierarchy.
 //
-// The port's own copy of five function families of the JAX package's host
+// The port's own copy of six function families of the JAX package's host
 // core (native/sigma_host.cpp: adjacency_from_coo, bfs_order, rcm_order,
-// pack_pruned_count/active/fill, coarsen_pair_count/fetch), so that the
-// port never loads that package.  The algorithms, and so the results, are
+// sloan_order, pack_pruned_count/active/fill, coarsen_pair_count/fetch),
+// so that the port never loads that package.  The algorithms, and so the
+// results, are
 // the same; the pack's fill writes the port's layout (one signed offset
 // per slot and per-tile slot ranges instead of the TPU's window positions
 // and first-step flags) in float32 or float64 from the same sorted pass.
@@ -18,6 +19,8 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <queue>
+#include <utility>
 #include <vector>
 
 using i64 = long long;
@@ -128,6 +131,84 @@ void rcm_order(i64 n, const i64* indptr, const i64* indices, i64* perm) {
         }
     }
     for (i64 v = 0; v < n; ++v) perm[v] = n - 1 - perm[v];
+}
+
+// Sloan profile / wavefront-minimizing ordering (Sloan 1986), scatter form
+// (perm[v] = new label of v).  Per component: a pseudo-peripheral pair
+// (s, e) from three breadth-first sweeps, distances to e, then a max-
+// priority frontier walk with priority W2 * distance - W1 * current degree,
+// a vertex's priority rising by W1 when it joins the wavefront and by W1
+// for each numbered neighbour.  Status: 0 inactive, 1 preactive, 2 active,
+// 3 numbered.
+void sloan_order(i64 n, const i64* indptr, const i64* indices, i64* perm) {
+    std::vector<i64> q;
+    q.reserve(static_cast<size_t>(n));
+    auto bfs_dist = [&](i64 start, std::vector<i64>& dist) -> i64 {
+        std::fill(dist.begin(), dist.end(), (i64)-1);
+        q.clear();
+        q.push_back(start);
+        dist[start] = 0;
+        i64 last = start;
+        for (size_t h = 0; h < q.size(); ++h) {
+            i64 v = q[h];
+            last = v;
+            for (i64 k = indptr[v]; k < indptr[v + 1]; ++k) {
+                i64 u = indices[k];
+                if (dist[u] < 0) {
+                    dist[u] = dist[v] + 1;
+                    q.push_back(u);
+                }
+            }
+        }
+        return last;
+    };
+    std::vector<i64> dist(static_cast<size_t>(n));
+    std::vector<char> status(static_cast<size_t>(n), 0);
+    std::vector<i64> pri(static_cast<size_t>(n));
+    const i64 W1 = 1, W2 = 2;
+    i64 rank = 0;
+    for (i64 s0 = 0; s0 < n; ++s0) {
+        if (status[s0] == 3) continue;
+        i64 s = s0;
+        i64 e = bfs_dist(s, dist);
+        for (int it = 0; it < 2; ++it) {
+            i64 e2 = bfs_dist(e, dist);
+            s = e;
+            e = e2;
+        }
+        bfs_dist(e, dist);  // distances to the end vertex
+        for (i64 v = 0; v < n; ++v)
+            if (dist[v] >= 0 && status[v] != 3)
+                pri[v] = W2 * dist[v] - W1 * (indptr[v + 1] - indptr[v]);
+        // lazy max-heap of (priority, vertex): an entry whose priority is
+        // stale is skipped when popped
+        std::priority_queue<std::pair<i64, i64>> heap;
+        heap.push({pri[s], s});
+        status[s] = 1;
+        while (!heap.empty()) {
+            i64 v = heap.top().second;
+            i64 pv = heap.top().first;
+            heap.pop();
+            if (status[v] == 3 || pv != pri[v]) continue;
+            perm[v] = rank++;
+            status[v] = 3;
+            for (i64 k = indptr[v]; k < indptr[v + 1]; ++k) {
+                i64 u = indices[k];
+                if (status[u] == 3) continue;
+                if (status[u] == 0) {
+                    status[u] = 1;
+                    heap.push({pri[u], u});
+                }
+                if (status[u] == 1) {
+                    status[u] = 2;
+                    pri[u] += W1;
+                    heap.push({pri[u], u});
+                }
+                pri[u] += W1;
+                heap.push({pri[u], u});
+            }
+        }
+    }
 }
 
 // Pruned pack, first call: a stable LSD radix sort of the entries by

@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 
 from sigma_tpu_torch import native
-from sigma_tpu_torch.graph.graph import CSRGraph, Graph, host_csr
+from sigma_tpu_torch.graph.graph import CSRGraph, Graph
 
 __all__ = [
     "breadth_first_search",
@@ -133,13 +133,17 @@ def reverse_cuthill_mckee_reference(indptr, indices) -> np.ndarray:
 
 
 def _symmetric_adjacency(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
-    """CSR ``(indptr, indices)`` of a square graph's stored pattern and its
-    transpose together (an edge in either direction is a neighbour)."""
+    """``(indptr, indices)`` of a square graph's stored pattern and its
+    transpose together (an edge in either direction is a neighbour),
+    grouped by row with a counting sort: within a row the neighbours stay
+    in edge order, repeats included, which first-fit colouring does not
+    depend on."""
     n, m = g.shape
     if n != m:
         raise ValueError("coloring requires a square graph")
     r, c = g.edges_numpy()
-    return host_csr(np.concatenate([r, c]), np.concatenate([c, r]), n)
+    indices, indptr = native.adjacency_from_coo(n, np.concatenate([r, c]), np.concatenate([c, r]))
+    return indptr, indices
 
 
 def greedy_coloring(g: Graph) -> Tuple[np.ndarray, int]:

@@ -2,7 +2,7 @@
 and ``csrc/host/sparse_host.cpp``).
 
 The library holds the host set-up of the unstructured pruned path
-(adjacency, the breadth-first and reverse Cuthill-McKee orderings, the
+(adjacency, the breadth-first, reverse Cuthill-McKee and Sloan orderings, the
 pruned block-DIA pack and the multigrid's 1-D pair coarsening) and of the
 generic sparse paths (greedy colouring; the dependency levels, ILU(0) and
 ILU(k) factorizations and level pack of the ILDU preconditioner; the two
@@ -47,6 +47,7 @@ __all__ = [
     "pack_levels",
     "pack_pruned",
     "rcm_order",
+    "sloan_order",
     "spgemm",
     "triangular_levels",
     "vmb_aggregate",
@@ -113,6 +114,8 @@ def library() -> ctypes.CDLL:
     lib.bfs_order.argtypes = [i64, _i64p, _i64p, i64, _i64p]
     lib.rcm_order.restype = None
     lib.rcm_order.argtypes = [i64, _i64p, _i64p, _i64p]
+    lib.sloan_order.restype = None
+    lib.sloan_order.argtypes = [i64, _i64p, _i64p, _i64p]
     lib.pack_pruned_count.restype = i64
     lib.pack_pruned_count.argtypes = [i64, _i64p, _i64p, _f64p, i64, i64, i64, i64]
     lib.pack_pruned_active.restype = i64
@@ -190,6 +193,17 @@ def rcm_order(indptr, indices) -> np.ndarray:
     indptr, indices = _c64(indptr), _c64(indices)
     perm = np.empty(indptr.size - 1, dtype=np.int64)
     library().rcm_order(indptr.size - 1, indptr, indices, perm)
+    return perm
+
+
+def sloan_order(indptr, indices) -> np.ndarray:
+    """Sloan wavefront-minimizing permutation of a CSR adjacency, scatter
+    form (``p[v]`` is the new label of v).  The wavefront is a row's local
+    bandwidth, which is what sets the pruned layout's active diagonals a
+    row tile."""
+    indptr, indices = _c64(indptr), _c64(indices)
+    perm = np.empty(indptr.size - 1, dtype=np.int64)
+    library().sloan_order(indptr.size - 1, indptr, indices, perm)
     return perm
 
 

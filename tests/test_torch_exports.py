@@ -213,3 +213,67 @@ def test_lanczos_names_at_the_top_level(name):
 def test_fem_module_at_the_top_level(name):
     assert name in sigma_tpu.fem.__all__ and name in st.fem.__all__
     assert callable(getattr(st.fem, name))
+
+
+# The distributed layer is ported in a slice of its own (ROADMAP.md,
+# queue 1 item 6); until then these are the only names of the JAX
+# package's top level the port lacks.
+NOT_YET_PORTED = {"parallel", "make_mesh", "DistributedMatrix", "distribute_matrix",
+                  "distribute_vector", "undistribute_vector"}
+
+
+def _top_level_names():
+    """The JAX package's public names: what its ``__init__`` binds, and its
+    subpackages and modules (listed from the package directory, so every
+    test worker collects the same names whatever it imported first)."""
+    import pkgutil
+    import types
+
+    bound = {n for n in dir(sigma_tpu)
+             if not n.startswith("_") and not isinstance(getattr(sigma_tpu, n), types.ModuleType)}
+    return sorted(bound | {m.name for m in pkgutil.iter_modules(sigma_tpu.__path__)})
+
+
+@pytest.mark.parametrize("name", _top_level_names())
+def test_every_top_level_name_is_in_the_port(name):
+    import importlib
+
+    if name in NOT_YET_PORTED:
+        assert not hasattr(st, name)
+        return
+    if not hasattr(sigma_tpu, name) or isinstance(getattr(sigma_tpu, name), type(sigma_tpu)):
+        importlib.import_module(f"sigma_tpu_torch.{name}")
+    assert hasattr(st, name), name
+
+
+@pytest.mark.parametrize("module", ["apps", "fem"])
+def test_every_apps_and_fem_name_is_in_the_port(module):
+    import importlib
+
+    jmod = importlib.import_module(f"sigma_tpu.{module}")
+    tmod = importlib.import_module(f"sigma_tpu_torch.{module}")
+    missing = [n for n in jmod.__all__ if not hasattr(tmod, n)]
+    assert missing == []
+    assert set(jmod.__all__) <= set(tmod.__all__)
+
+
+@pytest.mark.parametrize("name,where", [
+    ("BlockVector", "vectors"), ("order", "utils.util"), ("determinant", "utils.util"),
+    ("init_seed", "utils.util"), ("checked", "utils.checks"), ("checked_solve", "utils.checks"),
+    ("debug_nans", "utils.checks"), ("validate_matrix", "utils.checks"),
+])
+def test_support_names_at_the_same_place_as_in_jax(name, where):
+    import importlib
+
+    assert getattr(importlib.import_module(f"sigma_tpu.{where}"), name) is getattr(sigma_tpu, name)
+    assert getattr(importlib.import_module(f"sigma_tpu_torch.{where}"), name) is getattr(st, name)
+
+
+@pytest.mark.parametrize("module", ["io", "utils.profiling", "vectors", "utils.checks",
+                                    "utils.util"])
+def test_support_module_names_match_jax(module):
+    import importlib
+
+    jmod = importlib.import_module(f"sigma_tpu.{module}")
+    tmod = importlib.import_module(f"sigma_tpu_torch.{module}")
+    assert set(jmod.__all__) == set(tmod.__all__)

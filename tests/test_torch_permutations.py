@@ -142,3 +142,36 @@ def test_stencil_takes_two_colours_and_the_ordering_blocks_them(nx):
 def test_coloring_needs_a_square_graph():
     with pytest.raises(ValueError, match="square"):
         st.greedy_coloring(st.CSRGraph.from_coo(3, 4, [0, 1], [1, 3]))
+
+
+def _mesh_graph(seed):
+    n, r, c, _ = st.irregular_mesh_laplacian_coo(9, 13, rng=np.random.default_rng(seed),
+                                                 shuffle=True)
+    return st.CSRGraph.from_coo(n, n, r, c)
+
+
+def _components_graph():
+    """A path, a 4-cycle, an isolated vertex and a small torus, interleaved
+    in the labels."""
+    g = st.apps.torus(3, 4)
+    rt, ct = g.edges_numpy()
+    rows = [np.r_[0, 1, 1, 2], np.r_[3, 4, 5, 6, 4, 5, 6, 3], rt + 8]
+    cols = [np.r_[1, 0, 2, 1], np.r_[4, 5, 6, 3, 3, 4, 5, 6], ct + 8]
+    n = 8 + 12
+    shuffle = np.random.default_rng(5).permutation(n)
+    r, c = shuffle[np.concatenate(rows)], shuffle[np.concatenate(cols)]
+    return st.CSRGraph.from_coo(n, n, r, c)
+
+
+@pytest.mark.parametrize("make", [lambda: st.apps.torus(9, 7), lambda: st.apps.torus(16, 16),
+                                  lambda: _mesh_graph(0), lambda: _mesh_graph(1),
+                                  _components_graph],
+                         ids=["torus9x7", "torus16", "mesh0", "mesh1", "components"])
+def test_sloan_order_is_the_jax_packages(make):
+    import sigma_tpu.native as jax_native
+
+    g = make()
+    ip, ix = g.indptr, g.indices[: g.nnz]
+    p = native.sloan_order(ip, ix)
+    assert np.array_equal(p, jax_native.sloan_order(ip, ix))
+    assert np.array_equal(np.sort(p), np.arange(g.shape[0]))
