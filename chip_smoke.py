@@ -3944,6 +3944,371 @@ def phase_support(device, A, b, spmv_row):
     return row
 
 
+# -- the distributed path ----------------------------------------------------------
+# shards of the distributed path, all on one card (the JAX package's dry
+# run takes 8 virtual devices; D = 4 divides nx = 216 and keeps each shard
+# of the 1M-row mesh a power of two)
+DIST_SHARDS = 4
+# distributed against one-shard iterates in f64: the JAX dry run's bound
+DIST_PARITY_RTOL = 1e-10
+# the same in f32, where a shard's halo and spill adds round in another
+# order than the single-device kernel's in-tile sums: both solves stop at
+# rtol 1e-6 on operators of condition number ~13 (ildu3d) and ~1e3 (the
+# mesh under multigrid), so their iterates agree to about 1e-6 times that;
+# 1e-3 fails a wrong halo, which solves another operator
+DIST_F32_PARITY_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def _uncounted(*kernels):
+    """Take the launches made inside the block (a kernel held against its
+    plain version) back out of the kernels' counts."""
+    saved = [(k, k.launches, dict(getattr(k, "launches_by_layout", {}))) for k in kernels]
+    try:
+        yield
+    finally:
+        for k, n, by in saved:
+            k.launches = n
+            if by:
+                k.launches_by_layout = by
+
+
+def _kernel_tol(dtype):
+    import torch
+
+    return 1e-12 if dtype == torch.float64 else 1e-5
+
+
+def _dist_dia_checks(Ad, x):
+    """#1 on every shard's ring-0 block and received ring blocks (the
+    operands a distributed matvec gives it) against its plain version;
+    returns the worst relative error."""
+    from sigma_tpu_torch.ops import dia_spmv, dia_spmv_reference
+    from sigma_tpu_torch.parallel.dist import _ring_shift, _shards
+
+    D, nb = Ad.n_shards, Ad.block
+    X = _shards(x, D)
+    worst, cases = 0.0, 0
+    with _uncounted(dia_spmv):
+        for k, a, b, lo in Ad._rings:
+            Xk = X if k == 0 else _ring_shift(X, k)
+            for d in range(D):
+                y = dia_spmv(Ad.data[d, a:b], Xk[d], lo, nb, nb)
+                e = rel_err(y, dia_spmv_reference(Ad.data[d, a:b], Xk[d], lo, nb, nb))
+                worst, cases = max(worst, e), cases + 1
+    if not worst <= _kernel_tol(x.dtype):
+        raise AssertionError(f"dia_spmv on the distributed shards ({x.dtype}): rel err {worst:.3e}")
+    return {"dia_spmv": worst, "cases": cases}
+
+
+def _dist_pruned_checks(A, x, X):
+    """#10 (#12 with symmetric storage, its y and mirror spill) on every
+    shard's halo-extended buffer [left | x_d | right] and #11 (#13) on its
+    (block + 2 Hw, k) columns, against their plain versions; #10 also on
+    the transposed plans.  Returns the worst relative errors."""
+    from sigma_tpu_torch.ops import (
+        pruned_matvec_reference, pruned_spmm, pruned_spmm_reference, pruned_spmv,
+        pruned_sym_matvec_reference, pruned_sym_spmm, pruned_sym_spmm_reference,
+        pruned_sym_spmv,
+    )
+    from sigma_tpu_torch.parallel.dist import _shards
+    from sigma_tpu_torch.parallel.pruned import _exchange_halos
+
+    D, Hw, blk = A.n_shards, A.halo_words, A.block
+    m = blk + 2 * Hw
+    ext = _exchange_halos(x, D, Hw, forward_only=A.symmetric)
+    Ext = _exchange_halos(X, D, Hw, forward_only=A.symmetric)
+    tol = _kernel_tol(x.dtype)
+    worst = {}
+
+    def check(key, y, ref, scale=None):
+        e = (rel_err(y, ref) if scale is None
+             else float((y.double() - ref.double()).abs().max()) / max(scale, 1e-300))
+        if not e <= tol:
+            raise AssertionError(f"{key} on a distributed shard ({x.dtype}): rel err {e:.3e}")
+        worst[key] = max(worst.get(key, 0.0), e)
+
+    with _uncounted(pruned_spmv, pruned_spmm, pruned_sym_spmv, pruned_sym_spmm):
+        for d, s in enumerate(A.shards):
+            kw = dict(group=s.group, tile_end=s.tile_end)
+            args = (s.data, ext[d], s.offsets, s.tile_ptr, blk, m)
+            cargs = (s.data, Ext[d], s.offsets, s.tile_ptr, blk, m, "cols")
+            if A.symmetric:
+                sk = dict(halo=s.halo, sym_shift=Hw, with_spill=True)
+                y, sp = pruned_sym_spmv(*args, **sk, **kw)
+                yr, spr = pruned_sym_matvec_reference(*args, **sk, group=s.group)
+                scale = float(yr.double().abs().max())
+                check("pruned_sym_spmv", y, yr)
+                check("pruned_sym_spmv_spill", sp, spr, scale)
+                Y, SP = pruned_sym_spmm(*cargs, **sk, **kw)
+                Yr, SPr = pruned_sym_spmm_reference(*cargs, **sk, group=s.group)
+                check("pruned_sym_spmm", Y, Yr)
+                check("pruned_sym_spmm_spill", SP, SPr, float(Yr.double().abs().max()))
+            else:
+                check("pruned_spmv", pruned_spmv(*args, **kw),
+                      pruned_matvec_reference(*args, group=s.group))
+                check("pruned_spmm", pruned_spmm(*cargs, **kw),
+                      pruned_spmm_reference(*cargs, group=s.group))
+                if s.t is not None:
+                    t, xd = s.t, _shards(x, D)[d]
+                    targs = (t.data, xd, t.offsets, t.tile_ptr, m, blk)
+                    check("pruned_spmv_transposed", pruned_spmv(*targs, group=t.group,
+                                                                tile_end=t.tile_end),
+                          pruned_matvec_reference(*targs, group=t.group))
+    return worst
+
+
+def _per_matvec(A, x, kernels):
+    """Each kernel's launches in one ``A.matvec(x)``."""
+    before = {k: fn.launches for k, fn in kernels.items()}
+    A.matvec(x)
+    return {k: fn.launches - before[k] for k, fn in kernels.items() if fn.launches > before[k]}
+
+
+def _cast_levels(M, dtype):
+    """A structured hierarchy (single-device or distributed) with its
+    level operators, dinv and coarse inverse cast to ``dtype``."""
+    import dataclasses
+
+    return dataclasses.replace(
+        M, coarse_inv=M.coarse_inv.to(dtype),
+        levels=tuple(dataclasses.replace(lv, A=lv.A.astype(dtype), dinv=lv.dinv.to(dtype))
+                     for lv in M.levels))
+
+
+def _parity(label, info_d, x_d, info_1, x_1, rtol):
+    """Raise unless the distributed solve took the one-shard solve's
+    iteration count with iterates within ``rtol``; returns their error."""
+    err = rel_err(x_d, x_1)
+    if not (info_d.iterations == info_1.iterations and err <= rtol):
+        raise AssertionError(f"{label}: distributed {info_d.iterations} iterations, one shard "
+                             f"{info_1.iterations}, iterates {err:.3e} apart (limit {rtol:.0e})")
+    return err
+
+
+def phase_dist_dryrun(device, shards=DIST_SHARDS):
+    """Phase 35a: the port's dry run (``tools/dryrun_multichip.py``) on the
+    card in f64: every distributed path against its one-shard twin."""
+    from sigma_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(shards, device, verbose=False)
+    emit({"phase": "dist_dryrun", "shards": shards, "paths": out,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_dist_stencil(device, nx, kernels, shards=DIST_SHARDS):
+    """Phase 35b: the 7-point Poisson operator at nx (pure Dirichlet, f64)
+    under structured pair multigrid with axis 0 frozen, slab-sharded over
+    ``shards`` shards (DistributedDIAMatrix levels, #1 a shard and ring).
+    #1 is held against its plain version on the shards' operands; CG + GMG
+    on the mesh must take the one-shard solve's iteration count with
+    iterates within 1e-10.  Then the same in f32 (the f64 hierarchy cast),
+    timed: seconds an iteration, one matvec's time, halo bytes and launches."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import cg_solve, laplacian_3d_dia, structured_pair_amg
+    from sigma_tpu_torch.ops import dia_spmv_reference
+    from sigma_tpu_torch.parallel import (
+        distribute_matrix_dia, distribute_structured_amg, make_mesh,
+    )
+
+    mesh = make_mesh(shards, device=device)
+    A = laplacian_3d_dia(nx, torch.float64, device, diag=6.0)
+    n = A.shape[0]
+    M, setup = _timed_setup(lambda: structured_pair_amg(A, (nx,) * 3, freeze_axes=(0,)))
+    (Ad, Md), dist_setup = _timed_setup(lambda: (distribute_matrix_dia(A, mesh),
+                                                  distribute_structured_amg(M, mesh)))
+    g = torch.Generator(device=device).manual_seed(35)
+    xstar = torch.randn(n, generator=g, dtype=torch.float64, device=device)
+    b = dia_spmv_reference(A.data, xstar, A.offsets_dev, n, n)  # the plain version's b
+    checks = {"f64": _dist_dia_checks(Ad, xstar), "f32": _dist_dia_checks(
+        Ad.astype(torch.float32), xstar.float())}
+    kw = dict(tol=0.0, rtol=1e-8, maxiter=300)
+    x1, i1 = cg_solve(A, b, M=M, **kw)
+    xd, i_d = cg_solve(Ad, b, M=Md, **kw)
+    err = _parity("dist_stencil f64", i_d, xd, i1, x1, DIST_PARITY_RTOL)
+    rel = _true_rel_residual(A, b, xd)
+    _check_solve("dist_stencil f64", i_d, rel, 1e-8)
+    row = {"phase": "dist_stencil", "n": n, "shards": shards, "block": Ad.block,
+           "terms": Ad.terms, "levels": len(Md.levels) + 1, "setup_s": setup,
+           "dist_setup_s": dist_setup, "kernel_checks": checks,
+           "f64": {"iterations": i_d.iterations, "one_shard_iterations": i1.iterations,
+                   "iterate_rel_err": err, "relative_residual": rel}}
+    del x1, xd
+    # f32: the same hierarchy cast, timed against the single-device solve
+    A32, M32 = A.astype(torch.float32), _cast_levels(M, torch.float32)
+    Ad32, Md32 = Ad.astype(torch.float32), _cast_levels(Md, torch.float32)
+    b32 = b.float()
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=300)
+    (x1, i1), w1 = _timed(lambda: cg_solve(A32, b32, M=M32, **kw))
+    (xd, i_d), wd = _timed(lambda: cg_solve(Ad32, b32, M=Md32, **kw))
+    rel = _true_rel_residual(A32, b32, xd)
+    _check_solve("dist_stencil f32", i_d, rel, 1e-6)
+    rings = sorted({k for k, _ in Ad.terms if k != 0})
+    x32 = xstar.float()
+    row["f32"] = {
+        "iterations": i_d.iterations, "one_shard_iterations": i1.iterations,
+        "relative_residual": rel, "wall_s_warm": wd, "one_shard_wall_s_warm": w1,
+        "s_per_iteration": wd / max(i_d.iterations, 1),
+        "one_shard_s_per_iteration": w1 / max(i1.iterations, 1),
+        "iterate_rel_err": rel_err(xd, x1),
+        "matvec_ms": median_ms(lambda: Ad32.matvec(x32), reps=20),
+        "one_shard_matvec_ms": median_ms(lambda: A32.matvec(x32), reps=20),
+        "matvec_device_ms": device_ms(lambda: Ad32.matvec(x32), launches=20),
+        "one_shard_matvec_device_ms": device_ms(lambda: A32.matvec(x32), launches=20),
+        "vcycle_ms": median_ms(lambda: Md32.matvec(x32), reps=10, warmup=2),
+        "one_shard_vcycle_ms": median_ms(lambda: M32.matvec(x32), reps=10, warmup=2),
+        "halo_bytes_per_matvec": len(rings) * shards * Ad.block * 4,
+        "launches_per_matvec": _per_matvec(Ad32, x32, kernels),
+        "one_shard_launches_per_matvec": _per_matvec(A32, x32, kernels),
+    }
+    emit(row)
+    return row
+
+
+def phase_dist_mesh(device, U, kernels, shards=DIST_SHARDS):
+    """Phase 35c: phase 15's 1,048,576-row mesh (f32, RCM) through
+    distribute_pruned, full storage (with the transposed plans) and
+    symmetric, each with distributed_pruned_pair_amg; the four pruned
+    kernels held against their plain versions on the shards'
+    halo-extended operands (f32, and f64 on the cast plans); CG + pruned
+    multigrid against the single-device twin (n_pad = n, so U's hierarchy
+    is the twin) with equal iteration counts; 8-RHS block CG (#11, #13)
+    and 30 CGLS steps through the transposed plans (rmatvec)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import block_cg_solve, cg_solve, cgls_solve
+    from sigma_tpu_torch.parallel import (
+        distribute_pruned, distributed_pruned_pair_amg, make_mesh,
+    )
+
+    mesh = make_mesh(shards, device=device)
+    n, pr, pc, vals = U["n"], U["pr"], U["pc"], U["vals"]
+    (Af, As), setup = _timed_setup(lambda: (
+        distribute_pruned(n, pr, pc, vals, mesh, tile_rows=16384, group=8, assume_unique=True,
+                          with_transpose=True),
+        distribute_pruned(n, pr, pc, vals, mesh, tile_rows=16384, group=12, assume_unique=True,
+                          symmetric=True, validate=False)))
+    (Mf, Ms), gmg_setup = _timed_setup(lambda: (
+        distributed_pruned_pair_amg(n, pr, pc, vals, mesh, coarse_size=4096,
+                                    smoother="chebyshev", group=8, fine_A=Af),
+        distributed_pruned_pair_amg(n, pr, pc, vals, mesh, coarse_size=4096,
+                                    smoother="chebyshev", group=12, fine_A=As, symmetric=True)))
+    if Af.n_pad != n or len(Mf.levels) != len(U["Mf"].levels):
+        raise AssertionError(f"the mesh pads to {Af.n_pad} rows, {len(Mf.levels)} levels")
+    g = torch.Generator(device=device).manual_seed(36)
+    x = torch.randn(n, generator=g, device=device)
+    X8 = torch.randn((n, 8), generator=g, device=device)
+    checks = {}
+    for tag, A in (("full", Af), ("sym", As)):
+        checks[tag] = {"f32": _dist_pruned_checks(A, x, X8),
+                       "f64": _dist_pruned_checks(A.astype(torch.float64), x.double(),
+                                                  X8.double())}
+    # the whole distributed product against the single-device one
+    checks["matvec_vs_one_shard"] = {"full": rel_err(Af.matvec(x), U["P"].matvec(x)),
+                                     "sym": rel_err(As.matvec(x), U["S"].matvec(x)),
+                                     "rmatvec_vs_matvec": rel_err(Af.rmatvec(x), Af.matvec(x)),
+                                     "matmat_full": rel_err(Af.matmat(X8), U["P"].matmat(X8)),
+                                     "matmat_sym": rel_err(As.matmat(X8), U["S"].matmat(X8))}
+    if not max(checks["matvec_vs_one_shard"].values()) <= 1e-5:
+        raise AssertionError(f"distributed mesh products: {checks['matvec_vs_one_shard']}")
+    xstar, _, b = _manufactured(U)
+    row = {"phase": "dist_mesh", "n": n, "shards": shards, "block": Af.block,
+           "halo_words": Af.halo_words, "halo_E": As.halo_E, "setup_s": setup,
+           "gmg_setup_s": gmg_setup, "levels": len(Mf.levels) + 1, "kernel_checks": checks,
+           "halo_bytes_per_matvec": {"full": 2 * (shards - 1) * Af.halo_words * 4,
+                                     "sym": (shards - 1) * (As.halo_words + As.halo_E * 128) * 4},
+           "steps_per_shard": {"full": [s.n_steps for s in Af.shards],
+                               "sym": [s.n_steps for s in As.shards]}}
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=300)
+    for tag, A, M, A1, M1 in (("full", Af, Mf, U["P"], U["Mf"]), ("sym", As, Ms, U["S"], U["Ms"])):
+        (xd, i_d), wd = _timed(lambda: cg_solve(A, b, M=M, **kw))
+        (x1, i1), w1 = _timed(lambda: cg_solve(A1, b, M=M1, **kw))
+        _parity(f"dist_mesh {tag}", i_d, xd, i1, x1, DIST_F32_PARITY_RTOL)
+        rel = _true_rel_residual(A1, b, xd)
+        _check_solve(f"dist_mesh {tag}", i_d, rel, 1e-6)
+        row[f"gmg_cg_{tag}"] = {
+            "iterations": i_d.iterations, "one_shard_iterations": i1.iterations,
+            "relative_residual": rel, "iterate_rel_err": rel_err(xd, x1),
+            "max_err_vs_xstar": float(np.abs(xd.cpu().numpy()[U["p"]] - xstar).max()),
+            "s_per_iteration": wd / max(i_d.iterations, 1),
+            "one_shard_s_per_iteration": w1 / max(i1.iterations, 1),
+            "launches_per_matvec": _per_matvec(A, x, kernels)}
+        # 8 right-hand sides: #11 (#13) for the block products
+        B = A1.matmat(X8)
+        (Xd, ib), wb = _timed(lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=300, M=M))
+        fro = float(torch.linalg.vector_norm(B - A1.matmat(Xd)) / torch.linalg.vector_norm(B))
+        row[f"block_cg_{tag}"] = {"rhs": 8, "iterations": ib.iterations, "converged": ib.converged,
+                                  "fro_relative_residual": fro,
+                                  "s_per_iteration": wb / max(ib.iterations, 1)}
+        if not (ib.converged and fro <= BLOCK_CG_FRO_RTOL):
+            raise AssertionError(f"dist_mesh block CG ({tag}): {ib}, {fro:.3e}")
+        del xd, x1, Xd, B
+    # CGLS: one matvec and one rmatvec (the transposed plans) a step
+    (xl, il), wl = _timed(lambda: cgls_solve(Af, b, tol=0.0, maxiter=30, history=True))
+    drop = float(il.history[-1] / il.history[0])
+    row["cgls"] = {"iterations": il.iterations, "normal_residual_drop": drop,
+                   "s_per_iteration": wl / max(il.iterations, 1)}
+    if not (torch.isfinite(xl).all() and drop < 1.0):
+        raise AssertionError(f"dist_mesh CGLS: {il}")
+    emit(row)
+    return row
+
+
+def phase_dist_ildu3d(device, A30, b, shards=DIST_SHARDS):
+    """Phase 35d: phase 30's operator (benchmarks/ildu3d.py, nx=100, 1M rows
+    of Laplacian + I, f32) as its CSR copy (the nonzeros: the DIA layout's
+    zero slots would chain every row of ILDU's dependency levels) through
+    distribute_matrix (ELL ring blocks): CG + distributed_amg (VMB
+    aggregation) against CG + the same hierarchy on the CSR operator on
+    the single device, equal counts; CG + distributed block ILDU(0) (no
+    single-device twin: the shards' blocks)."""
+    import torch
+
+    from sigma_tpu_torch import CSRMatrix, cg_solve, smoothed_aggregation_amg
+    from sigma_tpu_torch.parallel import (
+        distribute_matrix, distributed_amg, distributed_block_ildu, make_mesh,
+    )
+    from sigma_tpu_torch.solvers import vmb_aggregate
+
+    mesh = make_mesh(shards, device=device)
+    n = A30.shape[0]
+    r, c, v = A30.entries()
+    keep = v != 0
+    A = CSRMatrix.from_coo(n, n, r[keep], c[keep], v[keep], dtype=torch.float32, device=device)
+    del r, c, v, keep
+    Ad, dist_s = _timed_setup(lambda: distribute_matrix(A, mesh))
+    Md, amg_s = _timed_setup(lambda: distributed_amg(A, mesh, aggregate=vmb_aggregate))
+    M1, amg1_s = _timed_setup(lambda: smoothed_aggregation_amg(A, aggregate=vmb_aggregate))
+    Mb, ildu_s = _timed_setup(lambda: distributed_block_ildu(A, mesh))
+    kw = dict(tol=0.0, rtol=PRECOND_RTOL, maxiter=200)
+    row = {"phase": "dist_ildu3d", "n": A.shape[0], "shards": shards, "offsets": Ad.offsets,
+           "widths": [v.shape[2] for v in Ad.vals], "distribute_s": dist_s,
+           "dist_amg_setup_s": amg_s, "one_shard_amg_setup_s": amg1_s, "block_ildu_setup_s": ildu_s}
+    (xd, i_d), wd = _timed(lambda: cg_solve(Ad, b, M=Md, **kw))
+    (x1, i1), w1 = _timed(lambda: cg_solve(A, b, M=M1, **kw))
+    _parity("dist_ildu3d amg", i_d, xd, i1, x1, DIST_F32_PARITY_RTOL)
+    rel = _true_rel_residual(A, b, xd)
+    _check_solve("dist_ildu3d amg", i_d, rel, PRECOND_RTOL)
+    row["amg"] = {"iterations": i_d.iterations, "one_shard_iterations": i1.iterations,
+                  "relative_residual": rel, "iterate_rel_err": rel_err(xd, x1),
+                  "s_per_iteration": wd / max(i_d.iterations, 1),
+                  "one_shard_s_per_iteration": w1 / max(i1.iterations, 1),
+                  "levels": len(Md.levels) + 1}
+    (xb, ib), wb = _timed(lambda: cg_solve(Ad, b, M=Mb, **kw))
+    rel = _true_rel_residual(A, b, xb)
+    _check_solve("dist_ildu3d block_ildu", ib, rel, PRECOND_RTOL)
+    row["block_ildu"] = {"iterations": ib.iterations, "relative_residual": rel,
+                         "levels_fwd_bwd": [Mb.lower.nlev, Mb.upper.nlev],
+                         "apply_ms": median_ms(lambda: Mb.matvec(b), reps=5, warmup=1),
+                         "s_per_iteration": wb / max(ib.iterations, 1)}
+    emit(row)
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
@@ -4089,7 +4454,6 @@ def main():
     mu1 = phase_inverse_lanczos_mesh(device, U15, eigs15)   # phase 28
     phase_shift_invert_mesh(device, U15, mu1)               # phase 29
     paths.append(read_counts("eigen", ("dia_spmv", "dia_spmm", "pruned_spmv")))
-    del U15
     # the preconditioner comparison of benchmarks/ildu3d.py and the generic
     # AMG (host algebra, V-cycles on #1 and CSR transfers)
     zero_counts()
@@ -4099,7 +4463,7 @@ def main():
     phase_ildu_trace(b30, ildu)
     paths.append(read_counts("preconditioners", ("dia_spmv",)))
     emit({"phase": "preconditioners_path", "seconds": time.perf_counter() - t_path})
-    del A30, b30, ildu
+    del ildu
     # the apps: Ising and self-avoiding walks (ELL gathers, no ported kernel)
     zero_counts()
     t_path = time.perf_counter()
@@ -4116,6 +4480,18 @@ def main():
     paths.append(read_counts("support", ("dia_spmv",)))
     emit({"phase": "support_path", "seconds": time.perf_counter() - t_path})
     del A34, b34
+    # the distributed layer: a mesh of 4 shards on the one card (the dry
+    # run, the nx=216 stencil, phase 15's mesh, phase 30's operator)
+    zero_counts()
+    t_path = time.perf_counter()
+    phase_dist_dryrun(device)                               # phase 35a
+    phase_dist_stencil(device, args.nx, kernels)            # phase 35b
+    phase_dist_mesh(device, U15, kernels)                   # phase 35c
+    phase_dist_ildu3d(device, A30, b30)                     # phase 35d
+    paths.append(read_counts("distributed", ("dia_spmv", "pruned_spmv", "pruned_spmm",
+                                             "pruned_sym_spmv", "pruned_sym_spmm")))
+    emit({"phase": "distributed_path", "seconds": time.perf_counter() - t_path})
+    del U15, A30, b30
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most (dia_sym_spmm's at k = 4, the width its paths take)
     summary_layouts = {}

@@ -28,8 +28,11 @@ apps and support modules: the graph generators, the multicolour Ising
 model and batched self-avoiding walks (``apps``; their command-line
 drivers in ``tools``), block vectors, the 2-D P1 finite elements in
 ``fem``, file I/O and checkpoints (``io``), NaN/Inf checks and matrix
-validation, timers and the utilities of ``utils``.  The distributed layer
-is not ported yet.
+validation, timers and the utilities of ``utils``.  And the distributed
+layer (``parallel``): row-partitioned ELL, DIA and pruned operators on a
+mesh of shards that share one device, their halo copies and per-shard
+kernels, distributed AMG, structured and pruned pair multigrid, and
+block-Jacobi ILDU.
 
 The package imports torch and numpy (and scipy's dense ``eigh`` in
 eigenpair refinement), never JAX, and is importable on a machine with no
@@ -171,6 +174,13 @@ from sigma_tpu_torch.solvers import (
     stationary_solve,
     structured_amg,
     structured_pair_amg,
+)
+from sigma_tpu_torch.parallel import (
+    DistributedMatrix,
+    distribute_matrix,
+    distribute_vector,
+    make_mesh,
+    undistribute_vector,
 )
 from sigma_tpu_torch.utils.checks import checked, checked_solve, debug_nans, validate_matrix
 from sigma_tpu_torch.utils.util import determinant, init_seed, order

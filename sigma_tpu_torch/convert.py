@@ -21,7 +21,13 @@ level's A and P in CSR arrays, and an ILDU factorization as its two packed
 level systems, which the JAX package pads to the widest level with
 sentinel rows; the port packs them without (see
 :mod:`sigma_tpu_torch.solvers.ildu`).  A block vector arrives as its flat
-values and field sizes.  Files written by either package's ``io`` are the
+values and field sizes.  A distributed operator arrives as its global
+arrays, which the JAX package shards along their leading axis, and its
+static fields: an ELL or DIA layout's arrays get the port's leading shard
+axis by a reshape, and a pruned layout's plan is cut into the shards'
+slices, each carried across as a pruned plan (the JAX package pads every
+shard to a common step count; the padding steps become zero slots of
+offset 0 at the end of the shard's last tile).  Files written by either package's ``io`` are the
 other way state crosses.
 """
 
@@ -68,6 +74,9 @@ __all__ = [
     "csc_from_arrays",
     "csr_from_arrays",
     "dia_from_arrays",
+    "distributed_dia_from_arrays",
+    "distributed_matrix_from_arrays",
+    "distributed_pruned_from_arrays",
     "ell_from_arrays",
     "grouped_bsr_from_arrays",
     "ildu_from_arrays",
@@ -325,4 +334,84 @@ def ildu_from_arrays(lower: Mapping, dinv, upper: Mapping, device=None) -> ILDUP
         lower=_levels_from_arrays(lower["rows"], lower["cols"], lower["vals"], lower["n"], device),
         dinv=_tensor(dinv, device),
         upper=_levels_from_arrays(upper["rows"], upper["cols"], upper["vals"], upper["n"], device),
+    )
+
+
+def distributed_matrix_from_arrays(nodes: Sequence, vals: Sequence, offsets, n, m, block,
+                                   block_cols, n_shards, device=None, axis="rows"):
+    """DistributedMatrix from the JAX package's per-offset (n_pad, width)
+    ``nodes`` and ``vals`` and its static fields, on a mesh of
+    ``n_shards`` shards on ``device``."""
+    from sigma_tpu_torch.parallel.dist import DistributedMatrix, make_mesh
+
+    mesh = make_mesh(n_shards, axis, device=device)
+    D = int(n_shards)
+
+    def shard(a, dtype=None):
+        a = np.array(a)  # a writable copy of the JAX package's read-only array
+        t = torch.from_numpy(a.reshape(D, -1, a.shape[1]))
+        return t.to(mesh.device) if dtype is None else t.to(device=mesh.device, dtype=dtype)
+
+    return DistributedMatrix(
+        nodes=tuple(shard(a, torch.int64) for a in nodes), vals=tuple(shard(a) for a in vals),
+        offsets=tuple(int(k) for k in offsets), mesh=mesh, axis=axis, n=int(n), m=int(m),
+        block=int(block), block_cols=None if block_cols is None else int(block_cols),
+    )
+
+
+def distributed_dia_from_arrays(vals: Sequence, terms, n, block, n_shards, device=None,
+                                axis="rows"):
+    """DistributedDIAMatrix from the JAX package's per-term (n_pad,)
+    diagonals ``vals``, its ``terms`` and static fields."""
+    from sigma_tpu_torch.parallel.dist import DistributedDIAMatrix, make_mesh
+
+    mesh = make_mesh(n_shards, axis, device=device)
+    D, T = int(n_shards), len(terms)
+    data = np.stack([np.asarray(v) for v in vals]).reshape(T, D, int(block)).transpose(1, 0, 2)
+    return DistributedDIAMatrix(
+        data=torch.from_numpy(np.ascontiguousarray(data)).to(mesh.device),
+        terms=tuple((int(k), int(lo)) for k, lo in terms), mesh=mesh, axis=axis, n=int(n),
+        block=int(block),
+    )
+
+
+def _pruned_shards(plan: Mapping, n_shards, n, m, halo, device):
+    """The shards' plans of the JAX package's padded global plan arrays
+    (``data`` (D * L, C, T, 128), ``tile``, ``first`` (D * L,),
+    ``rowoff``, ``laneoff`` (D * L * C,))."""
+    D = int(n_shards)
+    data = np.asarray(plan["data"])
+    L, C = data.shape[0] // D, data.shape[1]
+    out = []
+    for d in range(D):
+        step, slot = slice(d * L, (d + 1) * L), slice(d * L * C, (d + 1) * L * C)
+        sd = data[step]
+        out.append(pruned_from_arrays(
+            sd, np.asarray(plan["tile"])[step], np.asarray(plan["first"])[step],
+            np.asarray(plan["rowoff"])[slot], np.asarray(plan["laneoff"])[slot], n, m, halo,
+            int(np.count_nonzero(sd)), device=device))
+    return out
+
+
+def distributed_pruned_from_arrays(plan: Mapping, n, block, halo_words, halo_E, nnz, n_shards,
+                                   symmetric=False, transpose: Mapping | None = None,
+                                   t_halo_E=0, device=None, axis="rows"):
+    """DistributedPrunedMatrix from the JAX package's plan arrays (a dict
+    with ``data``, ``tile``, ``first``, ``rowoff`` and ``laneoff``), its
+    static fields and, for ``rmatvec``, the transposed plan's arrays in
+    ``transpose`` with its halo ``t_halo_E``."""
+    import dataclasses
+
+    from sigma_tpu_torch.parallel.dist import make_mesh
+    from sigma_tpu_torch.parallel.pruned import DistributedPrunedMatrix
+
+    mesh = make_mesh(n_shards, axis, device=device)
+    blk, Hw = int(block), int(halo_words)
+    shards = _pruned_shards(plan, n_shards, blk, blk + 2 * Hw, halo_E, mesh.device)
+    if transpose is not None:
+        tshards = _pruned_shards(transpose, n_shards, blk + 2 * Hw, blk, t_halo_E, mesh.device)
+        shards = [dataclasses.replace(s, t=t) for s, t in zip(shards, tshards)]
+    return DistributedPrunedMatrix(
+        shards=tuple(shards), mesh=mesh, axis=axis, n=int(n), block=blk, halo_words=Hw,
+        nnz=int(nnz), symmetric=bool(symmetric),
     )

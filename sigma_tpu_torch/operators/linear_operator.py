@@ -39,9 +39,12 @@ __all__ = [
 
 def move_to(value, device):
     """``value`` with every tensor inside it on ``device``: tensors, tuples
-    and (frozen) dataclass instances, recursively; anything else as is."""
+    and (frozen) dataclass instances, recursively, and a device field (a
+    distributed operator's mesh) set to ``device``; anything else as is."""
     if isinstance(value, torch.Tensor):
         return value.to(device)
+    if isinstance(value, torch.device):
+        return device
     if isinstance(value, tuple):
         return tuple(move_to(v, device) for v in value)
     if dataclasses.is_dataclass(value) and not isinstance(value, type):

@@ -139,15 +139,17 @@ def _pick_halo(T: int, hrows: int):
     return None
 
 
-def _geometry(n, rows, cols, tile_rows):
+def _geometry(n, rows, cols, tile_rows, min_reach=0):
     """(reach, tile rows, halo, tile count) of a plan.  The tile widens
     (doubling, as the JAX package's) until the band's reach fits one
     tile: the symmetric kernel's mirror terms then come from the row's own
-    tile or the one before it."""
+    tile or the one before it.  ``min_reach`` raises the reach the tile and
+    halo are sized for (a distributed layout gives every shard's plan the
+    same geometry)."""
     if tile_rows % 1024:
         raise ValueError("tile_rows must be a multiple of 1024")
     offs = cols - rows
-    reach = int(max(offs.max(initial=0), -offs.min(initial=0)))
+    reach = max(int(max(offs.max(initial=0), -offs.min(initial=0))), int(min_reach))
     hrows = reach // _LANES + 2
     T = tile_rows // _LANES
     while _pick_halo(T, hrows) is None:
@@ -165,7 +167,7 @@ def _coo(n, m, rows, cols, vals):
 
 
 def build_pruned_plan(
-    n, m, rows, cols, vals, *, tile_rows=16384, group=8, dtype=np.float32,
+    n, m, rows, cols, vals, *, tile_rows=16384, group=8, dtype=np.float32, min_reach=0,
 ) -> PrunedPlan:
     """Pack COO entries into the pruned layout (module docstring) with the
     port's host library: a radix sort by (tile, offset) and one fill pass,
@@ -173,9 +175,10 @@ def build_pruned_plan(
 
     ``tile_rows`` is the pruning granularity (a multiple of 1024; widened
     when the band's reach exceeds it), ``group`` the padding multiple of
-    each tile's slot count."""
+    each tile's slot count, ``min_reach`` a least reach to size the tile
+    and halo for (see :func:`_geometry`)."""
     n, m, rows, cols, vals = _coo(n, m, rows, cols, vals)
-    reach, TR, E, G = _geometry(n, rows, cols, tile_rows)
+    reach, TR, E, G = _geometry(n, rows, cols, tile_rows, min_reach)
     data, offsets, tile_ptr, n_active = native.pack_pruned(
         rows, cols, vals, tile_rows=TR, group=int(group), reach=reach,
         n_tiles=G, dtype=dtype,

@@ -20,8 +20,10 @@ import sigma_tpu.matrix.algebra as ja
 import sigma_tpu_torch as st
 from sigma_tpu_torch import native
 from sigma_tpu_torch.utils import ordered_sum
+from test_torch_jax_host import jax_host_library
 
 torch.set_num_threads(1)
+jax_host_library()  # the bit-for-bit checks need the JAX host library, not its fallback
 
 FORMATS = ["csr", "csc", "coo", "ell", "bsr"]
 JAX_CLS = {"csr": sj.CSRMatrix, "csc": sj.CSCMatrix, "coo": sj.COOMatrix, "ell": sj.ELLMatrix,

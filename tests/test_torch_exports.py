@@ -215,13 +215,6 @@ def test_fem_module_at_the_top_level(name):
     assert callable(getattr(st.fem, name))
 
 
-# The distributed layer is ported in a slice of its own (ROADMAP.md,
-# queue 1 item 6); until then these are the only names of the JAX
-# package's top level the port lacks.
-NOT_YET_PORTED = {"parallel", "make_mesh", "DistributedMatrix", "distribute_matrix",
-                  "distribute_vector", "undistribute_vector"}
-
-
 def _top_level_names():
     """The JAX package's public names: what its ``__init__`` binds, and its
     subpackages and modules (listed from the package directory, so every
@@ -238,9 +231,6 @@ def _top_level_names():
 def test_every_top_level_name_is_in_the_port(name):
     import importlib
 
-    if name in NOT_YET_PORTED:
-        assert not hasattr(st, name)
-        return
     if not hasattr(sigma_tpu, name) or isinstance(getattr(sigma_tpu, name), type(sigma_tpu)):
         importlib.import_module(f"sigma_tpu_torch.{name}")
     assert hasattr(st, name), name
@@ -255,6 +245,14 @@ def test_every_apps_and_fem_name_is_in_the_port(module):
     missing = [n for n in jmod.__all__ if not hasattr(tmod, n)]
     assert missing == []
     assert set(jmod.__all__) <= set(tmod.__all__)
+
+
+def test_parallel_names_are_the_jax_packages():
+    import sigma_tpu.parallel
+    import sigma_tpu_torch.parallel
+
+    assert sigma_tpu_torch.parallel.__all__ == sigma_tpu.parallel.__all__
+    assert all(hasattr(sigma_tpu_torch.parallel, n) for n in sigma_tpu.parallel.__all__)
 
 
 @pytest.mark.parametrize("name,where", [

@@ -27,8 +27,10 @@ from sigma_tpu_torch.solvers import ildu as tildu
 from sigma_tpu_torch.utils import ordered_sum
 
 from conftest import laplacian_2d
+from test_torch_jax_host import jax_host_library
 
 torch.set_num_threads(1)
+jax_host_library()  # the bit-for-bit checks need the JAX host library, not its fallback
 
 TOL = 1e-12
 

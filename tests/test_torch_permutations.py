@@ -18,6 +18,10 @@ import sigma_tpu_torch as st
 from sigma_tpu_torch import native
 from sigma_tpu_torch.graph.permutations import breadth_first_search_reference
 
+from test_torch_jax_host import jax_host_library
+
+jax_host_library()  # the bit-for-bit checks need the JAX host library, not its fallback
+
 
 def both_graphs(n, edges):
     """The port's and the JAX package's CSR graphs of an edge list."""
