@@ -30,7 +30,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives thirteen paths through the package's public entry points:
+drives seventeen paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -122,7 +122,19 @@ drives thirteen paths through the package's public entry points:
   iterations resumed to rtol 1e-10); ``checked_solve`` and
   ``validate_matrix`` clean and raising on a NaN and on a nonzero padded
   slot; ``spmv_throughput`` of the nx=216 stencil beside phase 5's #1
-  rate; and a two-field BlockVector through CG.
+  rate; and a two-field BlockVector through CG;
+- the distributed layer (phase 35): a mesh of 4 shards on the card, the
+  dry run, the nx=216 stencil under structured multigrid, phase 15's mesh
+  in pruned storage and phase 30's operator as ELL ring blocks, each
+  against its one-shard twin;
+- the examples (phase 36): the 14 example mains of
+  ``sigma_tpu_torch/examples/`` and ``tools/entry.py``'s ``entry()`` run
+  on the CPU first, recording the DIA and pruned operators their products
+  use; each of those operands is held to its kernel (#1, #2, #10, #12) on
+  the card; then each main runs on the card and its returned numbers are
+  held against the CPU's (integers equal, the f32 examples' counts within
+  2, errors within a factor 2, other floats to 1e-6), and
+  ``solver_example_4`` runs again at 1,048,576 rows.
 
 Each solve prints its iterations beside the JAX package's recorded TPU
 count where there is one, its warm seconds, seconds per iteration, the
@@ -4309,6 +4321,229 @@ def phase_dist_ildu3d(device, A30, b, shards=DIST_SHARDS):
     return row
 
 
+# the examples in f32: their counts may differ from the CPU's by the
+# summation order of the kernels (the bound is stated in PERF.md)
+EXAMPLES_F32 = ("solvers.solver_example_4", "solvers.solver_example_5",
+                "solvers.solver_example_6")
+EXAMPLES_F32_COUNT_TOL = 2
+EXAMPLES_ERR_FACTOR = 2.0  # a solve's error on the card against the CPU's
+EXAMPLES_ROUNDING = 1e-12  # rounding-level quantities: both below this
+EXAMPLES_VALUE_RTOL = 1e-6  # every other float: eigenvalues, FEM errors, ratios
+EXAMPLE4_LARGE = {"height": 16_384, "width": 64}  # benchmarks/unstructured.py's mesh
+EXAMPLE4_LARGE_ERR = 1e-3
+ENTRY_RTOL = 1e-4
+
+
+def _leaves(d, path=()):
+    """(path, value) of every non-dict, non-list leaf of a nested result."""
+    if isinstance(d, dict):
+        for k, v in d.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(d, (list, tuple)):
+        for i, v in enumerate(d):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, d
+
+
+def _example_mismatches(name, card, cpu):
+    """The leaves where an example's card result disagrees with its CPU
+    result: strings, bools and integers equal (the f32 examples' iteration
+    counts within EXAMPLES_F32_COUNT_TOL), a solve error and a rounding-level
+    difference within a factor EXAMPLES_ERR_FACTOR of the CPU's or both
+    below EXAMPLES_ROUNDING, every other float to EXAMPLES_VALUE_RTOL.  The
+    kernel route is the card's own and is not compared."""
+    cpu_leaves = dict(_leaves(cpu))
+    bad = []
+    for path, c in _leaves(card):
+        key = next(k for k in reversed(path) if isinstance(k, str))
+        if key == "kernel_route":
+            continue
+        h = cpu_leaves[path]
+        if isinstance(h, (str, bool)):
+            ok = c == h
+        elif isinstance(h, int):
+            tol = EXAMPLES_F32_COUNT_TOL if name in EXAMPLES_F32 and "iterations" in key else 0
+            ok = abs(c - h) <= tol
+        elif key.endswith("err") or key in ("sum_lazy_vs_explicit", "prod_lazy_vs_explicit",
+                                             "adjoint_check"):
+            ok = (max(c, h) <= EXAMPLES_ROUNDING
+                  or max(c, h) <= EXAMPLES_ERR_FACTOR * min(c, h))
+        else:
+            ok = abs(c - h) <= EXAMPLES_VALUE_RTOL * abs(h)
+        if not ok:
+            bad.append({"path": list(path), "card": c, "cpu": h})
+    return bad
+
+
+@contextlib.contextmanager
+def _recording_operators(seen):
+    """Record, into the dict ``seen`` (id -> operator), every DIA, symmetric
+    DIA, pruned and symmetric pruned matrix whose matvec runs inside the
+    block: the operands the examples give the kernels."""
+    from sigma_tpu_torch.matrix.formats import DIAMatrix
+    from sigma_tpu_torch.matrix.pruned import PrunedDIAMatrix, SymmetricPrunedDIAMatrix
+    from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
+
+    saved = []
+    for cls in (DIAMatrix, SymmetricDIAMatrix, PrunedDIAMatrix, SymmetricPrunedDIAMatrix):
+        orig = cls.__dict__["matvec"]
+
+        def matvec(self, x, _orig=orig):
+            seen.setdefault(id(self), self)
+            return _orig(self, x)
+
+        saved.append((cls, orig))
+        cls.matvec = matvec
+    try:
+        yield seen
+    finally:
+        for cls, orig in saved:
+            cls.matvec = orig
+
+
+def _example_kernel_checks(ops, device, worst):
+    """Each operator's kernel (#1, #2, #10 or #12 by its storage) held
+    against its plain version on the card with a random x in the
+    operator's dtype; the comparisons are not counted.  Adds each
+    kernel's case count and worst relative error to ``worst``."""
+    import torch
+
+    from sigma_tpu_torch.matrix.formats import DIAMatrix
+    from sigma_tpu_torch.matrix.pruned import SymmetricPrunedDIAMatrix
+    from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
+    from sigma_tpu_torch.ops import (
+        dia_spmv, dia_spmv_reference, dia_sym_spmv, dia_sym_spmv_reference,
+        pruned_matvec_reference, pruned_spmv, pruned_sym_matvec_reference, pruned_sym_spmv,
+    )
+
+    g = torch.Generator(device=device).manual_seed(0)
+    with _uncounted(dia_spmv, dia_sym_spmv, pruned_spmv, pruned_sym_spmv):
+        for A in ops:
+            A = A.to(device)
+            n, m = A.shape
+            x = torch.randn(m, generator=g, device=device, dtype=A.data.dtype)
+            if isinstance(A, DIAMatrix):
+                key = "dia_spmv"
+                y = dia_spmv(A.data, x, A.offsets_dev, n, m)
+                ref = dia_spmv_reference(A.data, x, A.offsets_dev, n, m)
+            elif isinstance(A, SymmetricDIAMatrix):
+                key = "dia_sym_spmv"
+                y = dia_sym_spmv(A.data, x, A.offsets_dev, n)
+                ref = dia_sym_spmv_reference(A.data, x, A.offsets_dev, n)
+            elif isinstance(A, SymmetricPrunedDIAMatrix):
+                key = "pruned_sym_spmv"
+                args = (A.data, x, A.offsets, A.tile_ptr, n, m)
+                y = pruned_sym_spmv(*args, halo=A.halo, group=A.group, tile_end=A.tile_end)
+                ref = pruned_sym_matvec_reference(*args, halo=A.halo, group=A.group)
+            else:
+                key = "pruned_spmv"
+                args = (A.data, x, A.offsets, A.tile_ptr, n, m)
+                y = pruned_spmv(*args, group=A.group, tile_end=A.tile_end)
+                ref = pruned_matvec_reference(*args, group=A.group)
+            e = rel_err(y, ref)
+            if not e <= _kernel_tol(x.dtype):
+                raise AssertionError(f"{key} on an example's operand (n={n}, {x.dtype}): "
+                                     f"rel err {e:.3e}")
+            w = worst.setdefault(key, {"cases": 0, "worst_rel_err": 0.0, "rows": []})
+            w["cases"] += 1
+            w["worst_rel_err"] = max(w["worst_rel_err"], e)
+            w["rows"] = sorted(set(w["rows"]) | {n})
+
+
+def _run_example(main, **kw):
+    """(result, printed lines, seconds) of one example's main."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(**kw)
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def examples_setup(device):
+    """The examples path's set-up, outside the counted path: each of the 14
+    example mains (``sigma_tpu_torch/examples/``) and ``entry()`` run once
+    on the CPU (the plain versions), recording the DIA and pruned operators
+    their products use; those operands are moved to the card, where each
+    one's kernel is held against its plain version.  solver_example_2's
+    LOBPCG gets one start block, the CPU default draw, on both devices.
+    Returns the CPU results and the start block."""
+    import importlib
+
+    import torch
+
+    from sigma_tpu_torch.examples import EXAMPLES
+    from sigma_tpu_torch.tools.entry import entry
+
+    x0 = torch.randn((1024, 4), generator=torch.Generator().manual_seed(0),
+                     dtype=torch.float64).numpy()
+    cpu, ops = {}, {}
+    with _recording_operators(ops):
+        for name in EXAMPLES:
+            main = importlib.import_module(f"sigma_tpu_torch.examples.{name}").main
+            kw = {"X0": x0} if name == "solvers.solver_example_2" else {}
+            cpu[name] = _run_example(main, device="cpu", **kw)
+        fn, (A, b) = entry(device="cpu")
+        cpu["entry"] = (fn(A, b), [], 0.0)
+    worst = {}
+    _example_kernel_checks(list(ops.values()), device, worst)
+    emit({"phase": "examples_checks", "operators": len(ops), "kernels": worst,
+          "cpu_seconds": {k: v[2] for k, v in cpu.items()}})
+    return cpu, x0
+
+
+def phase_examples(device, cpu, x0):
+    """Phase 36: the 14 example mains and ``entry()``'s CG step on the card,
+    each held against its CPU run (``_example_mismatches``;
+    entry's x to ENTRY_RTOL), then solver_example_4 again at
+    ``benchmarks/unstructured.py``'s 1,048,576-row mesh (card only: its
+    two CG solves converge, agree in count to EXAMPLES_F32_COUNT_TOL and
+    reach EXAMPLE4_LARGE_ERR against x*)."""
+    import importlib
+
+    from sigma_tpu_torch.examples import EXAMPLES
+    from sigma_tpu_torch.tools.entry import entry
+
+    rows = {}
+    for name in EXAMPLES:
+        module = importlib.import_module(f"sigma_tpu_torch.examples.{name}")
+        kw = {"X0": x0} if name == "solvers.solver_example_2" else {}
+        out, lines, secs = _run_example(module.main, device=device, **kw)
+        bad = _example_mismatches(name, out, cpu[name][0])
+        row = {"phase": "examples", "example": name, "seconds": secs,
+               "cpu_seconds": cpu[name][2], "result": out, "lines": lines, "mismatches": bad}
+        emit(row)
+        if bad:
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {bad}")
+        rows[name] = row
+    route = rows["solvers.solver_example_4"]["result"]["kernel_route"]
+    if route.startswith("plain"):
+        raise AssertionError(f"solver_example_4's band on the card runs the {route}")
+    t0 = time.perf_counter()
+    fn, (A, b) = entry(device)
+    x = fn(A, b)
+    secs = time.perf_counter() - t0
+    err = rel_err(x.cpu(), cpu["entry"][0])
+    emit({"phase": "examples", "example": "entry", "seconds": secs, "n": A.shape[0],
+          "offsets": A.offsets, "x_rel_err_vs_cpu": err})
+    if not err <= ENTRY_RTOL:
+        raise AssertionError(f"entry(): x on the card {err:.3e} from the CPU's")
+    from sigma_tpu_torch.examples.solvers import solver_example_4
+
+    out, lines, secs = _run_example(solver_example_4.main, device=device, **EXAMPLE4_LARGE)
+    row = {"phase": "examples", "example": "solvers.solver_example_4", **EXAMPLE4_LARGE,
+           "seconds": secs, "result": out, "lines": lines}
+    emit(row)
+    its = (out["banded"]["iterations"], out["symmetric"]["iterations"])
+    if not (abs(its[0] - its[1]) <= EXAMPLES_F32_COUNT_TOL
+            and max(out["banded"]["err"], out["symmetric"]["err"]) <= EXAMPLE4_LARGE_ERR):
+        raise AssertionError(f"solver_example_4 at 1M rows: {out}")
+    rows["solver_example_4_large"] = row
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
@@ -4492,6 +4727,16 @@ def main():
                                              "pruned_sym_spmv", "pruned_sym_spmm")))
     emit({"phase": "distributed_path", "seconds": time.perf_counter() - t_path})
     del U15, A30, b30
+    # the examples: each main and entry() on the card against its CPU run,
+    # the kernels checked first on the operands the CPU runs recorded
+    t_path = time.perf_counter()
+    cpu_examples, x0 = examples_setup(device)
+    zero_counts()
+    phase_examples(device, cpu_examples, x0)                # phase 36
+    paths.append(read_counts("examples", ("dia_spmv", "dia_sym_spmv", "pruned_spmv",
+                                          "pruned_sym_spmv")))
+    emit({"phase": "examples_path", "seconds": time.perf_counter() - t_path})
+    del cpu_examples
     # each SpMM's summary row is its timing in the panel layout its paths
     # launched most (dia_sym_spmm's at k = 4, the width its paths take)
     summary_layouts = {}

@@ -1,11 +1,12 @@
-// Host-side set-up of the generic sparse paths: greedy colouring, the
+// Host-side set-up of the generic sparse paths: the sorted, deduplicated
+// CSR of COO edges, greedy colouring, the
 // dependency levels, ILU(0) / ILU(k) factorization and level pack of the
 // ILDU preconditioner, the two aggregations of smoothed-aggregation AMG,
 // and the one-shot CSR algebra (Gustavson SpGEMM, the sorted-row sum and
 // the transpose) that builds the AMG hierarchy.
 //
 // The port's own copy of these functions of the JAX package's host core
-// (native/sigma_host.cpp: greedy_coloring, triangular_levels,
+// (native/sigma_host.cpp: csr_from_coo, greedy_coloring, triangular_levels,
 // ilu0_factorize, pack_levels, greedy_aggregate, vmb_aggregate,
 // iluk_symbolic, spgemm_fused/fetch, csr_add_symbolic/numeric,
 // csr_transpose), so that the port never loads that package.  The
@@ -36,6 +37,50 @@ std::vector<double> g_spgemm_cval;
 }  // namespace
 
 extern "C" {
+
+// Sorted, deduplicated CSR of COO edges: an LSD radix sort of the keys
+// row * m + col in 16-bit digits (as many passes as n * m needs), then
+// one pass that drops repeats and counts rows.  Writes the w unique
+// (row, col) pairs and indptr (n + 1); returns w.
+i64 csr_from_coo(i64 n, i64 m, i64 ne, const i64* rows, const i64* cols,
+                 i64* out_rows, i64* out_cols, i64* indptr) {
+    using u64 = unsigned long long;
+    std::vector<u64> keys(static_cast<size_t>(ne));
+    for (i64 e = 0; e < ne; ++e)
+        keys[e] = static_cast<u64>(rows[e]) * static_cast<u64>(m) + static_cast<u64>(cols[e]);
+    u64 max_key = n > 0 ? static_cast<u64>(n) * static_cast<u64>(m) : 0;
+    std::vector<u64> buf(static_cast<size_t>(ne));
+    constexpr int RADIX_BITS = 16;
+    constexpr size_t BUCKETS = 1u << RADIX_BITS;
+    std::vector<i64> count(BUCKETS);
+    u64* src = keys.data();
+    u64* dst = buf.data();
+    for (int shift = 0; shift < 64 && (max_key >> shift) != 0; shift += RADIX_BITS) {
+        std::fill(count.begin(), count.end(), 0);
+        for (i64 e = 0; e < ne; ++e) count[(src[e] >> shift) & (BUCKETS - 1)]++;
+        i64 sum = 0;
+        for (size_t b = 0; b < BUCKETS; ++b) {
+            i64 c = count[b];
+            count[b] = sum;
+            sum += c;
+        }
+        for (i64 e = 0; e < ne; ++e) dst[count[(src[e] >> shift) & (BUCKETS - 1)]++] = src[e];
+        std::swap(src, dst);
+    }
+    std::vector<i64> rcnt(static_cast<size_t>(n) + 1, 0);
+    i64 w = 0;
+    for (i64 e = 0; e < ne; ++e) {
+        if (e > 0 && src[e] == src[e - 1]) continue;
+        i64 r = static_cast<i64>(src[e] / static_cast<u64>(m));
+        out_rows[w] = r;
+        out_cols[w] = static_cast<i64>(src[e] % static_cast<u64>(m));
+        rcnt[r + 1]++;
+        ++w;
+    }
+    indptr[0] = 0;
+    for (i64 i = 0; i < n; ++i) indptr[i + 1] = indptr[i] + rcnt[i + 1];
+    return w;
+}
 
 // Greedy first-fit colouring in vertex order; returns the number of
 // colours.

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
+from sigma_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "LanczosResult",
@@ -73,7 +74,9 @@ def _setup(A, ops, k, v0, generator):
     """(k, v_start): the step count checked against n and the start
     vector in the working dtype on the operators' device.  The dtype is
     A's, else a given v0's, else float64; the device the first operator's
-    that holds a tensor, else v0's, else the CPU."""
+    that holds a tensor, else v0's, else the generator's, else CUDA
+    (``resolve_device``: a matrix-free operator runs on the card unless
+    given a start vector or a generator on another device)."""
     n = A.shape[0]
     if k is None:
         k = n
@@ -83,7 +86,8 @@ def _setup(A, ops, k, v0, generator):
     if v0 is not None:
         v0 = torch.as_tensor(v0)
         device = v0.device if device is None else device
-    device = torch.device("cpu") if device is None else device
+    if device is None:
+        device = generator.device if generator is not None else resolve_device(None)
     dtype = getattr(A, "dtype", None)
     if dtype is None:
         dtype = v0.dtype if v0 is not None and v0.is_floating_point() else torch.float64

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
+from sigma_tpu_torch.utils.device import resolve_device
 
 __all__ = ["LOBPCGResult", "lobpcg"]
 
@@ -56,7 +57,9 @@ def lobpcg(
 
     ``X0`` (n, m) is the starting block (its width sets m); without it the
     block is drawn from a normal distribution with ``generator`` (default:
-    a generator on A's device seeded with 0), in A's dtype on A's device.
+    a generator on A's device seeded with 0), in A's dtype on A's device;
+    a matrix-free A (no tensor) draws on the generator's device, else on
+    CUDA (``resolve_device``).
 
     Check ``result.converged``: without soft locking the basic iteration
     stagnates near residual ~1e-8 in float64 (converged columns make the
@@ -67,8 +70,10 @@ def lobpcg(
     if X0 is None:
         dtype = getattr(A, "dtype", torch.float64)
         device = A.device
+        if device is None:
+            device = generator.device if generator is not None else resolve_device(None)
         if generator is None:
-            generator = torch.Generator(device=device or "cpu").manual_seed(0)
+            generator = torch.Generator(device=device).manual_seed(0)
         X0 = torch.randn((n, m), generator=generator, dtype=dtype, device=device)
     else:
         X0 = torch.as_tensor(X0, device=A.device)

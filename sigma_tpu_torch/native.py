@@ -4,7 +4,7 @@ and ``csrc/host/sparse_host.cpp``).
 The library holds the host set-up of the unstructured pruned path
 (adjacency, the breadth-first, reverse Cuthill-McKee and Sloan orderings, the
 pruned block-DIA pack and the multigrid's 1-D pair coarsening) and of the
-generic sparse paths (greedy colouring; the dependency levels, ILU(0) and
+generic sparse paths (the sorted CSR of COO edges; greedy colouring; the dependency levels, ILU(0) and
 ILU(k) factorizations and level pack of the ILDU preconditioner; the two
 AMG aggregations; the one-shot CSR SpGEMM, sum and transpose).  It is the
 port's own copy of those functions of the JAX package's host core, so the
@@ -35,9 +35,11 @@ import numpy as np
 
 __all__ = [
     "adjacency_from_coo",
+    "available",
     "bfs_order",
     "coarsen_pair",
     "csr_add",
+    "csr_from_coo",
     "csr_transpose",
     "greedy_aggregate",
     "greedy_coloring",
@@ -108,6 +110,8 @@ def library() -> ctypes.CDLL:
     """The loaded host library (built on first call), argument types set."""
     lib = ctypes.CDLL(str(build()))
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    lib.csr_from_coo.restype = i64
+    lib.csr_from_coo.argtypes = [i64, i64, i64, _i64p, _i64p, _i64p, _i64p, _i64p]
     lib.adjacency_from_coo.restype = None
     lib.adjacency_from_coo.argtypes = [i64, i64, _i64p, _i64p, _i64p, _i64p]
     lib.bfs_order.restype = None
@@ -155,12 +159,39 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the host library builds (at the first call) and loads."""
+    try:
+        library()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _c64(a) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(a, dtype=np.int64))
 
 
 def _cf64(a) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(a, dtype=np.float64))
+
+
+def csr_from_coo(n: int, m: int, rows, cols):
+    """Sorted, deduplicated ``(rows, cols, indptr)`` of COO edges in an
+    (n, m) pattern: a radix sort of the keys ``row * m + col``.  The graph
+    formats sort with numpy instead, which is faster; this is the JAX
+    package's native counterpart, kept for callers of that name."""
+    n, m = int(n), int(m)
+    rows, cols = _c64(rows), _c64(cols)
+    if rows.size != cols.size:
+        raise ValueError(f"rows ({rows.size}) and cols ({cols.size}) differ in length")
+    if rows.size and (rows.min() < 0 or rows.max() >= n or cols.min() < 0 or cols.max() >= m):
+        raise ValueError(f"COO index out of range for shape ({n}, {m})")
+    out_r = np.empty(rows.size, dtype=np.int64)
+    out_c = np.empty(rows.size, dtype=np.int64)
+    indptr = np.empty(n + 1, dtype=np.int64)
+    w = library().csr_from_coo(n, m, rows.size, rows, cols, out_r, out_c, indptr)
+    return out_r[:w], out_c[:w], indptr
 
 
 def adjacency_from_coo(n: int, rows, cols):

@@ -511,3 +511,55 @@ def test_shift_invert_lanczos_breakdown_and_missing_diag(rng):
     assert res2.steps == res2_j.steps
     assert np.abs(res2.eigenvalues - w_ref[:3]).max() < 1e-8
     assert np.abs(res2.eigenvalues - res2_j.eigenvalues).max() < 1e-8
+
+
+def _matrix_free_laplacian(n):
+    """The 1-D Dirichlet Laplacian as a MatvecOperator that holds no
+    tensor: its device is None, so only the start vector can place it."""
+    def mv(_, x):
+        y = 2 * x
+        y[1:] -= x[:-1]
+        y[:-1] -= x[1:]
+        return y
+
+    return st.MatvecOperator(params=(), mv=mv, rmv=mv, shape=(n, n))
+
+
+def _laplacian_1d_dia(n):
+    i = np.arange(n)
+    return st.DIAMatrix.from_coo(n, n, np.r_[i, i[:-1], i[1:]], np.r_[i, i[1:], i[:-1]],
+                                 np.r_[np.full(n, 2.0), -np.ones(2 * (n - 1))], dtype=F64,
+                                 device=CPU)
+
+
+def test_matrix_free_lanczos_and_lobpcg_run_on_a_given_cpu_start():
+    """A matrix-free operator with an explicit CPU start vector (block)
+    runs on the CPU: Lanczos equal to the same recurrence on the DIA
+    matrix, LOBPCG on the analytic spectrum."""
+    n = 120
+    op, A = _matrix_free_laplacian(n), _laplacian_1d_dia(n)
+    assert op.device is None
+    v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(n))
+    res, ref = st.lanczos(op, 30, v0=v0), st.lanczos(A, 30, v0=v0)
+    assert res.V.device.type == CPU
+    np.testing.assert_allclose(res.alpha.numpy(), ref.alpha.numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(res.beta.numpy(), ref.beta.numpy(), rtol=1e-12, atol=1e-12)
+    X0 = torch.from_numpy(np.random.default_rng(1).standard_normal((n, 3)))
+    eig = st.lobpcg(op, X0, tol=1e-8, maxiter=500)
+    exact = 2 - 2 * np.cos(np.pi * np.arange(1, 4) / (n + 1))
+    assert eig.eigenvectors.device.type == CPU
+    np.testing.assert_allclose(np.sort(eig.eigenvalues.numpy()), exact, rtol=1e-6)
+    gen = torch.Generator().manual_seed(3)  # a CPU generator places the draw too
+    assert st.lanczos(op, 10, generator=gen).V.device.type == CPU
+
+
+@pytest.mark.parametrize("call", [lambda op: st.lanczos(op, 10), lambda op: st.eigensolve(op, 10),
+                                  lambda op: st.lobpcg(op, m=2)],
+                         ids=["lanczos", "eigensolve", "lobpcg"])
+def test_matrix_free_default_start_asks_resolve_device(call, monkeypatch):
+    """With no tensor, start vector or generator to place it, the start is
+    drawn on the card (``resolve_device``), not on the CPU: without a card
+    that raises resolve_device's error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(_matrix_free_laplacian(64))

@@ -275,3 +275,17 @@ def test_support_module_names_match_jax(module):
     jmod = importlib.import_module(f"sigma_tpu.{module}")
     tmod = importlib.import_module(f"sigma_tpu_torch.{module}")
     assert set(jmod.__all__) == set(tmod.__all__)
+
+
+# the JAX package's host names the port leaves out on purpose (ROADMAP §3):
+# the graphs' own edge_positions serves every lookup in the port
+NATIVE_LEFT_OUT = {"edge_positions"}
+
+
+def test_native_names_cover_the_jax_packages():
+    import sigma_tpu.native
+    import sigma_tpu_torch.native
+
+    missing = set(sigma_tpu.native.__all__) - set(sigma_tpu_torch.native.__all__)
+    assert missing == NATIVE_LEFT_OUT
+    assert all(hasattr(sigma_tpu_torch.native, n) for n in sigma_tpu_torch.native.__all__)

@@ -179,3 +179,28 @@ def test_sloan_order_is_the_jax_packages(make):
     p = native.sloan_order(ip, ix)
     assert np.array_equal(p, jax_native.sloan_order(ip, ix))
     assert np.array_equal(np.sort(p), np.arange(g.shape[0]))
+
+
+@pytest.mark.parametrize("n,m,ne,dups", [(37, 53, 400, 60), (1, 1, 5, 5), (300, 7, 2000, 0),
+                                         (70000, 70000, 5000, 100), (5, 9, 0, 0)],
+                         ids=["random", "one_cell", "tall", "two_digit_keys", "empty"])
+def test_csr_from_coo_is_the_jax_packages(n, m, ne, dups):
+    """The radix sort of the port's host library against the JAX package's,
+    bit for bit, also with keys past 2^16 (two passes) and repeats."""
+    import sigma_tpu.native as jax_native
+
+    rng = np.random.default_rng(n + ne)
+    rows, cols = rng.integers(0, n, ne), rng.integers(0, m, ne)
+    rows, cols = np.r_[rows, rows[:dups]], np.r_[cols, cols[:dups]]
+    got = native.csr_from_coo(n, m, rows, cols)
+    want = jax_native.csr_from_coo(n, m, rows, cols)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    keys = np.unique(rows * m + cols)
+    assert np.array_equal(got[0] * m + got[1], keys)
+    assert got[2][-1] == keys.size
+
+
+def test_native_available_says_the_library_loads():
+    assert native.available() is True
+    assert native.library() is not None
