@@ -126,7 +126,10 @@ drives seventeen paths through the package's public entry points:
 - the distributed layer (phase 35): a mesh of 4 shards on the card, the
   dry run, the nx=216 stencil under structured multigrid, phase 15's mesh
   in pruned storage and phase 30's operator as ELL ring blocks, each
-  against its one-shard twin;
+  against its one-shard twin; then (phase 35e) its rank form, 4 gloo
+  ranks sharing the card and an NCCL group of one rank a card, on the
+  stencil's and the mesh's multigrid CG at the shard mesh's counts, the
+  ranks' launches counted with the path's;
 - the examples (phase 36): the 14 example mains of
   ``sigma_tpu_torch/examples/`` and ``tools/entry.py``'s ``entry()`` run
   on the CPU first, recording the DIA and pruned operators their products
@@ -3992,19 +3995,19 @@ def _kernel_tol(dtype):
 
 
 def _dist_dia_checks(Ad, x):
-    """#1 on every shard's ring-0 block and received ring blocks (the
-    operands a distributed matvec gives it) against its plain version;
-    returns the worst relative error."""
+    """#1 on every shard's (a rank's: its own) ring-0 block and received
+    ring blocks (the operands a distributed matvec gives it) against its
+    plain version; returns the worst relative error."""
     from sigma_tpu_torch.ops import dia_spmv, dia_spmv_reference
-    from sigma_tpu_torch.parallel.dist import _ring_shift, _shards
 
-    D, nb = Ad.n_shards, Ad.block
-    X = _shards(x, D)
+    nb = Ad.block
+    X = Ad.mesh.blocks(x)
+    recv = Ad.mesh.ring_shift(X, [k for k, *_ in Ad._rings if k != 0])
     worst, cases = 0.0, 0
     with _uncounted(dia_spmv):
         for k, a, b, lo in Ad._rings:
-            Xk = X if k == 0 else _ring_shift(X, k)
-            for d in range(D):
+            Xk = X if k == 0 else recv[k]
+            for d in range(X.shape[0]):
                 y = dia_spmv(Ad.data[d, a:b], Xk[d], lo, nb, nb)
                 e = rel_err(y, dia_spmv_reference(Ad.data[d, a:b], Xk[d], lo, nb, nb))
                 worst, cases = max(worst, e), cases + 1
@@ -4015,21 +4018,19 @@ def _dist_dia_checks(Ad, x):
 
 def _dist_pruned_checks(A, x, X):
     """#10 (#12 with symmetric storage, its y and mirror spill) on every
-    shard's halo-extended buffer [left | x_d | right] and #11 (#13) on its
-    (block + 2 Hw, k) columns, against their plain versions; #10 also on
-    the transposed plans.  Returns the worst relative errors."""
+    shard's (a rank's: its own) halo-extended buffer [left | x_d | right]
+    and, given X, #11 (#13) on its (block + 2 Hw, k) columns, against
+    their plain versions; #10 also on the transposed plans.  Returns the
+    worst relative errors."""
     from sigma_tpu_torch.ops import (
         pruned_matvec_reference, pruned_spmm, pruned_spmm_reference, pruned_spmv,
         pruned_sym_matvec_reference, pruned_sym_spmm, pruned_sym_spmm_reference,
         pruned_sym_spmv,
     )
-    from sigma_tpu_torch.parallel.dist import _shards
-    from sigma_tpu_torch.parallel.pruned import _exchange_halos
-
-    D, Hw, blk = A.n_shards, A.halo_words, A.block
+    Hw, blk = A.halo_words, A.block
     m = blk + 2 * Hw
-    ext = _exchange_halos(x, D, Hw, forward_only=A.symmetric)
-    Ext = _exchange_halos(X, D, Hw, forward_only=A.symmetric)
+    ext = A._extended(x)
+    Ext = None if X is None else A._extended(X)
     tol = _kernel_tol(x.dtype)
     worst = {}
 
@@ -4044,7 +4045,8 @@ def _dist_pruned_checks(A, x, X):
         for d, s in enumerate(A.shards):
             kw = dict(group=s.group, tile_end=s.tile_end)
             args = (s.data, ext[d], s.offsets, s.tile_ptr, blk, m)
-            cargs = (s.data, Ext[d], s.offsets, s.tile_ptr, blk, m, "cols")
+            cargs = None if Ext is None else (s.data, Ext[d], s.offsets, s.tile_ptr, blk, m,
+                                              "cols")
             if A.symmetric:
                 sk = dict(halo=s.halo, sym_shift=Hw, with_spill=True)
                 y, sp = pruned_sym_spmv(*args, **sk, **kw)
@@ -4052,17 +4054,19 @@ def _dist_pruned_checks(A, x, X):
                 scale = float(yr.double().abs().max())
                 check("pruned_sym_spmv", y, yr)
                 check("pruned_sym_spmv_spill", sp, spr, scale)
-                Y, SP = pruned_sym_spmm(*cargs, **sk, **kw)
-                Yr, SPr = pruned_sym_spmm_reference(*cargs, **sk, group=s.group)
-                check("pruned_sym_spmm", Y, Yr)
-                check("pruned_sym_spmm_spill", SP, SPr, float(Yr.double().abs().max()))
+                if Ext is not None:
+                    Y, SP = pruned_sym_spmm(*cargs, **sk, **kw)
+                    Yr, SPr = pruned_sym_spmm_reference(*cargs, **sk, group=s.group)
+                    check("pruned_sym_spmm", Y, Yr)
+                    check("pruned_sym_spmm_spill", SP, SPr, float(Yr.double().abs().max()))
             else:
                 check("pruned_spmv", pruned_spmv(*args, **kw),
                       pruned_matvec_reference(*args, group=s.group))
-                check("pruned_spmm", pruned_spmm(*cargs, **kw),
-                      pruned_spmm_reference(*cargs, group=s.group))
+                if Ext is not None:
+                    check("pruned_spmm", pruned_spmm(*cargs, **kw),
+                          pruned_spmm_reference(*cargs, group=s.group))
                 if s.t is not None:
-                    t, xd = s.t, _shards(x, D)[d]
+                    t, xd = s.t, A.mesh.blocks(x)[d]
                     targs = (t.data, xd, t.offsets, t.tile_ptr, m, blk)
                     check("pruned_spmv_transposed", pruned_spmv(*targs, group=t.group,
                                                                 tile_end=t.tile_end),
@@ -4141,6 +4145,7 @@ def phase_dist_stencil(device, nx, kernels, shards=DIST_SHARDS):
     x1, i1 = cg_solve(A, b, M=M, **kw)
     xd, i_d = cg_solve(Ad, b, M=Md, **kw)
     err = _parity("dist_stencil f64", i_d, xd, i1, x1, DIST_PARITY_RTOL)
+    twins = {"f64": (x1.cpu(), i1.iterations, i_d.iterations)}
     rel = _true_rel_residual(A, b, xd)
     _check_solve("dist_stencil f64", i_d, rel, 1e-8)
     row = {"phase": "dist_stencil", "n": n, "shards": shards, "block": Ad.block,
@@ -4158,6 +4163,7 @@ def phase_dist_stencil(device, nx, kernels, shards=DIST_SHARDS):
     (xd, i_d), wd = _timed(lambda: cg_solve(Ad32, b32, M=Md32, **kw))
     rel = _true_rel_residual(A32, b32, xd)
     _check_solve("dist_stencil f32", i_d, rel, 1e-6)
+    twins["f32"] = (x1.cpu(), i1.iterations, i_d.iterations)
     rings = sorted({k for k, _ in Ad.terms if k != 0})
     x32 = xstar.float()
     row["f32"] = {
@@ -4177,7 +4183,7 @@ def phase_dist_stencil(device, nx, kernels, shards=DIST_SHARDS):
         "one_shard_launches_per_matvec": _per_matvec(A32, x32, kernels),
     }
     emit(row)
-    return row
+    return row, twins
 
 
 def phase_dist_mesh(device, U, kernels, shards=DIST_SHARDS):
@@ -4236,10 +4242,12 @@ def phase_dist_mesh(device, U, kernels, shards=DIST_SHARDS):
            "steps_per_shard": {"full": [s.n_steps for s in Af.shards],
                                "sym": [s.n_steps for s in As.shards]}}
     kw = dict(tol=0.0, rtol=1e-6, maxiter=300)
+    twins = {"b": b.cpu()}
     for tag, A, M, A1, M1 in (("full", Af, Mf, U["P"], U["Mf"]), ("sym", As, Ms, U["S"], U["Ms"])):
         (xd, i_d), wd = _timed(lambda: cg_solve(A, b, M=M, **kw))
         (x1, i1), w1 = _timed(lambda: cg_solve(A1, b, M=M1, **kw))
         _parity(f"dist_mesh {tag}", i_d, xd, i1, x1, DIST_F32_PARITY_RTOL)
+        twins[tag] = (x1.cpu(), i1.iterations, i_d.iterations)
         rel = _true_rel_residual(A1, b, xd)
         _check_solve(f"dist_mesh {tag}", i_d, rel, 1e-6)
         row[f"gmg_cg_{tag}"] = {
@@ -4267,7 +4275,7 @@ def phase_dist_mesh(device, U, kernels, shards=DIST_SHARDS):
     if not (torch.isfinite(xl).all() and drop < 1.0):
         raise AssertionError(f"dist_mesh CGLS: {il}")
     emit(row)
-    return row
+    return row, twins
 
 
 def phase_dist_ildu3d(device, A30, b, shards=DIST_SHARDS):
@@ -4317,6 +4325,228 @@ def phase_dist_ildu3d(device, A30, b, shards=DIST_SHARDS):
                          "levels_fwd_bwd": [Mb.lower.nlev, Mb.upper.nlev],
                          "apply_ms": median_ms(lambda: Mb.matvec(b), reps=5, warmup=1),
                          "s_per_iteration": wb / max(ib.iterations, 1)}
+    emit(row)
+    return row
+
+
+# phase 35e: gloo ranks sharing the one card (NCCL refuses two ranks on
+# one card; its group runs at the card count)
+RANK_COUNT = 4
+RANK_COO = "build/chip_smoke_io/mesh_coo.npz"  # phase 15's mesh for the ranks
+RANK_KERNELS = ("dia_spmv", "pruned_spmv", "pruned_sym_spmv")
+
+
+def _once(run):
+    """Run once; returns (the result, its seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rank_stencil(mesh, nx):
+    """Phase 35b's operator, hierarchy, b and x* on a rank mesh: each rank
+    builds the global ones and keeps its shard.  Returns (A_d, M_d, b_d,
+    x*_d, set-up seconds)."""
+    import torch
+
+    from sigma_tpu_torch import laplacian_3d_dia, structured_pair_amg
+    from sigma_tpu_torch.ops import dia_spmv_reference
+    from sigma_tpu_torch.parallel import distribute_matrix_dia, distribute_structured_amg
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = mesh.device
+    A = laplacian_3d_dia(nx, torch.float64, dev, diag=6.0)
+    n = A.shape[0]
+    M = structured_pair_amg(A, (nx,) * 3, freeze_axes=(0,))
+    Ad, Md = distribute_matrix_dia(A, mesh), distribute_structured_amg(M, mesh)
+    g = torch.Generator(device=dev).manual_seed(35)
+    xstar = torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+    b = dia_spmv_reference(A.data, xstar, A.offsets_dev, n, n)
+    out = Ad, Md, Ad.shard_vector(b), Ad.shard_vector(xstar)
+    del A, M, b, xstar
+    torch.cuda.synchronize()
+    return out + (time.perf_counter() - t0,)
+
+
+def _rank_solve(A, b, M, kw):
+    """CG on the rank mesh, run once (cold): iterations, seconds, the true
+    relative residual and the rank's block of the iterate (on the host)."""
+    import torch
+
+    from sigma_tpu_torch import cg_solve
+
+    (x, info), wall = _once(lambda: cg_solve(A, b, M=M, **kw))
+
+    def norm(v):
+        return float(torch.linalg.vector_norm(v).full_tensor())
+
+    return {"iterations": info.iterations, "converged": bool(info.converged), "wall_s": wall,
+            "s_per_iteration": wall / max(info.iterations, 1),
+            "relative_residual": norm(b - A.matvec(x)) / norm(b), "x": x.to_local().cpu()}
+
+
+def _rank_phase(mesh, nx, coo_path, b_mesh):
+    """Phase 35e on one gloo rank: #1, #10 and #12 held against their plain
+    versions on the rank's own operands, then (counted) phase 35b's f64
+    and f32 CG + structured GMG and phase 35c's pruned multigrid CG in
+    full and symmetric storage."""
+    import torch
+
+    from sigma_tpu_torch.ops import dia_spmv, pruned_spmv, pruned_sym_spmv
+    from sigma_tpu_torch.parallel import distribute_pruned, distributed_pruned_pair_amg
+
+    kernels = {"dia_spmv": dia_spmv, "pruned_spmv": pruned_spmv,
+               "pruned_sym_spmv": pruned_sym_spmv}
+    row = {"rank": mesh.rank, "transport": mesh.transport}
+    Ad, Md, bd, xs, row["stencil_setup_s"] = _rank_stencil(mesh, nx)
+    row["block"], row["terms"] = Ad.block, len(Ad.terms)
+    checks = {"dia_spmv_f64": _dist_dia_checks(Ad, xs),
+              "dia_spmv_f32": _dist_dia_checks(Ad.astype(torch.float32), xs.float())}
+    import numpy as np
+
+    with np.load(coo_path) as f:
+        n, pr, pc, vals = int(f["n"]), f["pr"], f["pc"], f["vals"]
+
+    def mesh_setup():
+        Af = distribute_pruned(n, pr, pc, vals, mesh, tile_rows=16384, group=8,
+                               assume_unique=True)
+        As = distribute_pruned(n, pr, pc, vals, mesh, tile_rows=16384, group=12,
+                               assume_unique=True, symmetric=True, validate=False)
+        kw = dict(coarse_size=4096, smoother="chebyshev")
+        return (Af, As, distributed_pruned_pair_amg(n, pr, pc, vals, mesh, group=8, fine_A=Af, **kw),
+                distributed_pruned_pair_amg(n, pr, pc, vals, mesh, group=12, fine_A=As,
+                                            symmetric=True, **kw))
+
+    (Af, As, Mf, Ms), row["mesh_setup_s"] = _once(mesh_setup)
+    row["halo_words"], row["halo_E"], row["mesh_block"] = Af.halo_words, As.halo_E, Af.block
+    g = torch.Generator(device=mesh.device).manual_seed(36)
+    xm = Af.shard_vector(torch.randn(n, generator=g, device=mesh.device))
+    for tag, A in (("full", Af), ("sym", As)):
+        checks[tag] = {"f32": _dist_pruned_checks(A, xm, None),
+                       "f64": _dist_pruned_checks(A.astype(torch.float64), xm.double(), None)}
+    row["kernel_checks"] = checks
+    # the main path: the launches from here on are counted
+    for fn in kernels.values():
+        fn.launches = 0
+    t_path = time.perf_counter()
+    row["f64"] = _rank_solve(Ad, bd, Md, dict(tol=0.0, rtol=1e-8, maxiter=300))
+    Ad, Md, bd = Ad.astype(torch.float32), _cast_levels(Md, torch.float32), bd.float()
+    row["f32"] = _rank_solve(Ad, bd, Md, dict(tol=0.0, rtol=1e-6, maxiter=300))
+    bm = Af.shard_vector(b_mesh)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=300)
+    row["mesh_full"] = _rank_solve(Af, bm, Mf, kw)
+    row["mesh_sym"] = _rank_solve(As, bm, Ms, kw)
+    row["path_s"] = time.perf_counter() - t_path
+    row["launches"] = {k: fn.launches for k, fn in kernels.items()}
+    return row
+
+
+def _rank_nccl(mesh, nx):
+    """Phase 35e's NCCL group: phase 35b's f64 CG + GMG, a rank a card."""
+    from sigma_tpu_torch.ops import dia_spmv
+
+    Ad, Md, bd, _, setup = _rank_stencil(mesh, nx)
+    dia_spmv.launches = 0
+    row = _rank_solve(Ad, bd, Md, dict(tol=0.0, rtol=1e-8, maxiter=300))
+    row.update(rank=mesh.rank, transport=mesh.transport, device=str(mesh.device),
+               setup_s=setup, launches={"dia_spmv": dia_spmv.launches})
+    return row
+
+
+def phase_dist_ranks(device, nx, U, kernels, stencil, mesh):
+    """Phase 35e: the rank form of the distributed layer (a process a
+    rank, ``sigma_tpu_torch.parallel.ranks``).  RANK_COUNT gloo ranks share
+    the card, exchanging their halos through pinned host memory: each
+    holds #1, #10 and #12 against their plain versions on its own
+    operands, then runs phase 35b's f64 and f32 CG + structured GMG and
+    phase 35c's pruned multigrid CG in both storages.  Every count must
+    equal the shard mesh's (phases 35b, 35c) and the one-shard solve's,
+    with iterates within DIST_PARITY_RTOL (f64) or DIST_F32_PARITY_RTOL
+    (f32) of the one-shard ones; the ranks' launches go into the
+    distributed path's counts.  Then an NCCL group of one rank a card
+    (``torch.cuda.device_count()`` ranks) runs the f64 stencil solve to
+    the same count.  ``stencil`` and ``mesh`` are phases 35b and 35c's
+    (row, one-shard twins)."""
+    import torch
+
+    from sigma_tpu_torch.parallel.ranks import launch
+
+    import os
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.dirname(RANK_COO), exist_ok=True)
+    np.savez(RANK_COO, n=U["n"], pr=U["pr"], pc=U["pc"], vals=U["vals"])
+    cores = len(os.sched_getaffinity(0))  # the torch and BLAS threads a rank: a share of these
+    out, t_gloo = _once(lambda: launch(_rank_phase, RANK_COUNT, "gloo", device,
+                                       args=(nx, RANK_COO, mesh[1]["b"].numpy()),
+                                       threads=max(1, cores // RANK_COUNT)))
+    os.remove(RANK_COO)
+    for r in out:
+        for k, c in r["launches"].items():
+            kernels[k].launches += c
+            if c <= 0:
+                raise AssertionError(f"rank {r['rank']} launched no {k} on the rank path")
+    r0 = out[0]
+    row = {"phase": "dist_ranks", "ranks": RANK_COUNT, "backend": "gloo", "transport": r0["transport"],
+           "spawn_and_run_s": t_gloo, "stencil_setup_s": max(r["stencil_setup_s"] for r in out),
+           "mesh_setup_s": max(r["mesh_setup_s"] for r in out),
+           "path_s": max(r["path_s"] for r in out),
+           "kernel_checks": {r["rank"]: r["kernel_checks"] for r in out},
+           "launches_by_rank": {r["rank"]: r["launches"] for r in out}}
+    runs = (("f64", stencil, "f64", DIST_PARITY_RTOL, 1e-8),
+            ("f32", stencil, "f32", DIST_F32_PARITY_RTOL, 1e-6),
+            ("mesh_full", mesh, "full", DIST_F32_PARITY_RTOL, 1e-6),
+            ("mesh_sym", mesh, "sym", DIST_F32_PARITY_RTOL, 1e-6))
+    for key, (prow, twins), tag, rtol, target in runs:
+        x1, one_count, shard_count = twins[tag]
+        runs_r = [r[key] for r in out]
+        x = torch.cat([r.pop("x") for r in runs_r])
+        res = runs_r[0]
+        counts = {r["iterations"] for r in runs_r}
+        err = rel_err(x, x1)
+        if not (counts == {one_count} == {shard_count} and err <= rtol):
+            raise AssertionError(f"dist_ranks {key}: ranks {counts}, shard mesh {shard_count}, "
+                                 f"one shard {one_count}, iterates {err:.3e} apart "
+                                 f"(limit {rtol:.0e})")
+        if not (res["converged"] and res["relative_residual"] <= 2.0 * target):
+            raise AssertionError(f"dist_ranks {key}: {res}")
+        src = prow.get(key.replace("mesh_", "gmg_cg_"), prow.get(key, {}))
+        row[key] = {**res, "shard_mesh_iterations": shard_count,
+                    "one_shard_iterations": one_count, "iterate_rel_err": err,
+                    "shard_mesh_s_per_iteration": src.get("s_per_iteration"),
+                    "one_shard_s_per_iteration": src.get("one_shard_s_per_iteration")}
+    rings = 2  # the stencil's ring offsets 1 and D - 1 (block-long terms)
+    row["halo_bytes_per_matvec"] = {
+        "stencil_f64": rings * RANK_COUNT * r0["block"] * 8,
+        "stencil_f32": rings * RANK_COUNT * r0["block"] * 4,
+        "mesh_full": 2 * (RANK_COUNT - 1) * r0["halo_words"] * 4,
+        "mesh_sym": (RANK_COUNT - 1) * (r0["halo_words"] + r0["halo_E"] * 128) * 4}
+    # the NCCL group: one rank a card
+    cards = torch.cuda.device_count()
+    nres, t_nccl = _once(lambda: launch(_rank_nccl, cards, "nccl", None, args=(nx,),
+                                         threads=max(1, cores // cards)))
+    x1, one_count, _ = stencil[1]["f64"]
+    x = torch.cat([r.pop("x") for r in nres])
+    err = rel_err(x, x1)
+    if not ({r["iterations"] for r in nres} == {one_count} and err <= DIST_PARITY_RTOL):
+        raise AssertionError(f"dist_ranks nccl: {[r['iterations'] for r in nres]} iterations, "
+                             f"one shard {one_count}, iterates {err:.3e} apart")
+    for r in nres:
+        kernels["dia_spmv"].launches += r["launches"]["dia_spmv"]
+    row["nccl"] = {"ranks": cards, "transport": nres[0]["transport"],
+                   "devices": [r["device"] for r in nres], "spawn_and_run_s": t_nccl,
+                   "setup_s": max(r["setup_s"] for r in nres), "iterations": nres[0]["iterations"],
+                   "one_shard_iterations": one_count, "iterate_rel_err": err,
+                   "wall_s": nres[0]["wall_s"], "s_per_iteration": nres[0]["s_per_iteration"],
+                   "relative_residual": nres[0]["relative_residual"]}
+    row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     return row
 
@@ -4720,9 +4950,11 @@ def main():
     zero_counts()
     t_path = time.perf_counter()
     phase_dist_dryrun(device)                               # phase 35a
-    phase_dist_stencil(device, args.nx, kernels)            # phase 35b
-    phase_dist_mesh(device, U15, kernels)                   # phase 35c
+    stencil35 = phase_dist_stencil(device, args.nx, kernels)  # phase 35b
+    mesh35 = phase_dist_mesh(device, U15, kernels)          # phase 35c
     phase_dist_ildu3d(device, A30, b30)                     # phase 35d
+    phase_dist_ranks(device, args.nx, U15, kernels, stencil35, mesh35)  # phase 35e
+    del stencil35, mesh35
     paths.append(read_counts("distributed", ("dia_spmv", "pruned_spmv", "pruned_spmm",
                                              "pruned_sym_spmv", "pruned_sym_spmm")))
     emit({"phase": "distributed_path", "seconds": time.perf_counter() - t_path})

@@ -337,19 +337,33 @@ def ildu_from_arrays(lower: Mapping, dinv, upper: Mapping, device=None) -> ILDUP
     )
 
 
+def _carrier_mesh(n_shards, axis, device, mesh):
+    """The mesh a distributed carrier lands on: the caller's (a rank mesh
+    keeps the rank's slice of the JAX arrays), else a shard mesh of
+    ``n_shards`` shards on ``device``."""
+    from sigma_tpu_torch.parallel.dist import make_mesh
+
+    if mesh is None:
+        return make_mesh(n_shards, axis, device=device)
+    if mesh.n_shards != int(n_shards):
+        raise ValueError(f"the arrays hold {n_shards} shards, the mesh {mesh.n_shards}")
+    return mesh
+
+
 def distributed_matrix_from_arrays(nodes: Sequence, vals: Sequence, offsets, n, m, block,
-                                   block_cols, n_shards, device=None, axis="rows"):
+                                   block_cols, n_shards, device=None, axis="rows", mesh=None):
     """DistributedMatrix from the JAX package's per-offset (n_pad, width)
     ``nodes`` and ``vals`` and its static fields, on a mesh of
-    ``n_shards`` shards on ``device``."""
-    from sigma_tpu_torch.parallel.dist import DistributedMatrix, make_mesh
+    ``n_shards`` shards on ``device``, or on ``mesh`` (a rank mesh: the
+    rank keeps its shard)."""
+    from sigma_tpu_torch.parallel.dist import DistributedMatrix
 
-    mesh = make_mesh(n_shards, axis, device=device)
+    mesh = _carrier_mesh(n_shards, axis, device, mesh)
     D = int(n_shards)
 
     def shard(a, dtype=None):
-        a = np.array(a)  # a writable copy of the JAX package's read-only array
-        t = torch.from_numpy(a.reshape(D, -1, a.shape[1]))
+        a = mesh.local_shards(np.asarray(a).reshape(D, -1, np.shape(a)[1]))
+        t = torch.from_numpy(np.array(a))  # a writable copy of the read-only array
         return t.to(mesh.device) if dtype is None else t.to(device=mesh.device, dtype=dtype)
 
     return DistributedMatrix(
@@ -360,14 +374,16 @@ def distributed_matrix_from_arrays(nodes: Sequence, vals: Sequence, offsets, n, 
 
 
 def distributed_dia_from_arrays(vals: Sequence, terms, n, block, n_shards, device=None,
-                                axis="rows"):
+                                axis="rows", mesh=None):
     """DistributedDIAMatrix from the JAX package's per-term (n_pad,)
-    diagonals ``vals``, its ``terms`` and static fields."""
-    from sigma_tpu_torch.parallel.dist import DistributedDIAMatrix, make_mesh
+    diagonals ``vals``, its ``terms`` and static fields (on ``mesh``, a
+    rank mesh, the rank's shard)."""
+    from sigma_tpu_torch.parallel.dist import DistributedDIAMatrix
 
-    mesh = make_mesh(n_shards, axis, device=device)
+    mesh = _carrier_mesh(n_shards, axis, device, mesh)
     D, T = int(n_shards), len(terms)
     data = np.stack([np.asarray(v) for v in vals]).reshape(T, D, int(block)).transpose(1, 0, 2)
+    data = mesh.local_shards(data)
     return DistributedDIAMatrix(
         data=torch.from_numpy(np.ascontiguousarray(data)).to(mesh.device),
         terms=tuple((int(k), int(lo)) for k, lo in terms), mesh=mesh, axis=axis, n=int(n),
@@ -375,15 +391,15 @@ def distributed_dia_from_arrays(vals: Sequence, terms, n, block, n_shards, devic
     )
 
 
-def _pruned_shards(plan: Mapping, n_shards, n, m, halo, device):
-    """The shards' plans of the JAX package's padded global plan arrays
-    (``data`` (D * L, C, T, 128), ``tile``, ``first`` (D * L,),
+def _pruned_shards(plan: Mapping, n_shards, n, m, halo, device, shard_ids):
+    """The plans of shards ``shard_ids`` of the JAX package's padded global
+    plan arrays (``data`` (D * L, C, T, 128), ``tile``, ``first`` (D * L,),
     ``rowoff``, ``laneoff`` (D * L * C,))."""
     D = int(n_shards)
     data = np.asarray(plan["data"])
     L, C = data.shape[0] // D, data.shape[1]
     out = []
-    for d in range(D):
+    for d in shard_ids:
         step, slot = slice(d * L, (d + 1) * L), slice(d * L * C, (d + 1) * L * C)
         sd = data[step]
         out.append(pruned_from_arrays(
@@ -395,21 +411,23 @@ def _pruned_shards(plan: Mapping, n_shards, n, m, halo, device):
 
 def distributed_pruned_from_arrays(plan: Mapping, n, block, halo_words, halo_E, nnz, n_shards,
                                    symmetric=False, transpose: Mapping | None = None,
-                                   t_halo_E=0, device=None, axis="rows"):
+                                   t_halo_E=0, device=None, axis="rows", mesh=None):
     """DistributedPrunedMatrix from the JAX package's plan arrays (a dict
     with ``data``, ``tile``, ``first``, ``rowoff`` and ``laneoff``), its
     static fields and, for ``rmatvec``, the transposed plan's arrays in
-    ``transpose`` with its halo ``t_halo_E``."""
+    ``transpose`` with its halo ``t_halo_E`` (on ``mesh``, a rank mesh,
+    the rank's plan)."""
     import dataclasses
 
-    from sigma_tpu_torch.parallel.dist import make_mesh
     from sigma_tpu_torch.parallel.pruned import DistributedPrunedMatrix
 
-    mesh = make_mesh(n_shards, axis, device=device)
+    mesh = _carrier_mesh(n_shards, axis, device, mesh)
     blk, Hw = int(block), int(halo_words)
-    shards = _pruned_shards(plan, n_shards, blk, blk + 2 * Hw, halo_E, mesh.device)
+    ids = mesh.shard_ids
+    shards = _pruned_shards(plan, n_shards, blk, blk + 2 * Hw, halo_E, mesh.device, ids)
     if transpose is not None:
-        tshards = _pruned_shards(transpose, n_shards, blk + 2 * Hw, blk, t_halo_E, mesh.device)
+        tshards = _pruned_shards(transpose, n_shards, blk + 2 * Hw, blk, t_halo_E, mesh.device,
+                                 ids)
         shards = [dataclasses.replace(s, t=t) for s, t in zip(shards, tshards)]
     return DistributedPrunedMatrix(
         shards=tuple(shards), mesh=mesh, axis=axis, n=int(n), block=blk, halo_words=Hw,

@@ -33,6 +33,7 @@ import torch
 
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
 from sigma_tpu_torch.utils.device import resolve_device
+from sigma_tpu_torch.utils.sharded import as_like, dot, gathered, reduced, rows_like
 
 __all__ = [
     "LanczosResult",
@@ -135,19 +136,19 @@ def lanczos(
     k, v_start = _setup(A, (A,), k, v0, generator)
     dtype, device = v_start.dtype, v_start.device
     restart = torch.Generator(device=device).manual_seed(17)
-    Vb = torch.zeros((k + 1, n), dtype=dtype, device=device)
+    Vb = rows_like(v_start, k + 1)
     Vb[0] = v_start / torch.linalg.vector_norm(v_start)
     alpha, beta = [], []
     for j in range(k):
         Vf = Vb[: j + 1]  # the filled rows
         v = Vb[j]
         w = A.matvec(v)
-        a = torch.dot(v, w)
+        a = dot(v, w)
         w = w - a * v
         for _ in range(reorth_passes):
-            w = w - Vf.T @ (Vf @ w)
+            w = w - Vf.T @ reduced(Vf @ w)
         b = torch.linalg.vector_norm(w)
-        a, b = torch.stack([a, b]).tolist()  # the step's one sync
+        a, b = torch.stack([gathered(a), gathered(b)]).tolist()  # the step's one sync
         beta_prev = beta[j - 1] if j else 0.0
         if b > _tol_b(dtype, a, beta_prev, n):
             Vb[j + 1] = _safe_normalize(w, b)
@@ -155,10 +156,12 @@ def lanczos(
             # breakdown (invariant subspace): beta = 0, and the basis
             # restarts with a fresh orthogonalized random direction; zero
             # rows would surface as spurious eigenvalue-0 Ritz pairs
-            fresh = torch.randn(n, generator=restart, dtype=dtype, device=device)
+            fresh = as_like(torch.randn(Vb.shape[1], generator=restart, dtype=dtype,
+                                        device=device), w)
             for _ in range(reorth_passes):
-                fresh = fresh - Vf.T @ (Vf @ fresh)
-            Vb[j + 1] = fresh / max(float(torch.linalg.vector_norm(fresh)), _BREAKDOWN)
+                fresh = fresh - Vf.T @ reduced(Vf @ fresh)
+            Vb[j + 1] = fresh / max(float(gathered(torch.linalg.vector_norm(fresh))),
+                                    _BREAKDOWN)
             b = 0.0
         alpha.append(a)
         beta.append(b)
@@ -188,32 +191,33 @@ def generalized_lanczos(
     restart = torch.Generator(device=device).manual_seed(23)
 
     def b_norm(w):
-        return torch.sqrt(torch.clamp(torch.dot(w, B.matvec(w)), min=0.0))
+        return torch.sqrt(torch.clamp(dot(w, B.matvec(w)), min=0.0))
 
-    Vb = torch.zeros((k + 1, n), dtype=dtype, device=device)
-    Vb[0] = _safe_normalize(v_start, float(torch.sqrt(torch.dot(v_start, B.matvec(v_start)))))
+    Vb = rows_like(v_start, k + 1)
+    Vb[0] = _safe_normalize(v_start, float(torch.sqrt(dot(v_start, B.matvec(v_start)))))
     alpha, beta = [], []
     for j in range(k):
         Vf = Vb[: j + 1]
         v = Vb[j]
         u = A.matvec(v)
-        a = torch.dot(u, v)  # <B^-1 A v, v>_B = v^T A v
+        a = dot(u, v)  # <B^-1 A v, v>_B = v^T A v
         w = B.solve(u)
         w = w - a * v
         # full B-reorthogonalization: w -= V (V^T B w)
         for _ in range(reorth_passes):
-            w = w - Vf.T @ (Vf @ B.matvec(w))
+            w = w - Vf.T @ reduced(Vf @ B.matvec(w))
         b = b_norm(w)
-        a, b = torch.stack([a, b]).tolist()
+        a, b = torch.stack([gathered(a), gathered(b)]).tolist()
         beta_prev = beta[j - 1] if j else 0.0
         if b > _tol_b(dtype, a, beta_prev, n):
             Vb[j + 1] = _safe_normalize(w, b)
         else:
             # the restart costs reorth_passes + 1 more B products, paid
             # only on a breakdown
-            fresh = torch.randn(n, generator=restart, dtype=dtype, device=device)
+            fresh = as_like(torch.randn(Vb.shape[1], generator=restart, dtype=dtype,
+                                        device=device), w)
             for _ in range(reorth_passes):
-                fresh = fresh - Vf.T @ (Vf @ B.matvec(fresh))
+                fresh = fresh - Vf.T @ reduced(Vf @ B.matvec(fresh))
             Vb[j + 1] = _safe_normalize(fresh, float(b_norm(fresh)))
             b = 0.0
         alpha.append(a)

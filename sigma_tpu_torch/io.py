@@ -84,9 +84,10 @@ def write_matrix(A, path) -> None:
         _write_triples(f, rows, cols, vals)
 
 
-def read_matrix(path, frmt: Union[str, int] = "csr", dtype=None, device=None):
-    """A :func:`write_matrix` file as a matrix of format ``frmt``."""
-    with open(path) as f:
+def read_matrix(A_or_path, frmt: Union[str, int] = "csr", dtype=None, device=None):
+    """A :func:`write_matrix` file (the path ``A_or_path``, the JAX
+    package's parameter name) as a matrix of format ``frmt``."""
+    with open(A_or_path) as f:
         n, m, ne = map(int, f.readline().split())
         data = np.loadtxt(f, ndmin=2) if ne else np.empty((0, 3))
     if data.shape[0] != ne:

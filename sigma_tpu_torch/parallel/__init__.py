@@ -1,6 +1,10 @@
 """The distributed layer: row-partitioned operators and preconditioners on
 a mesh of shards (port of :mod:`sigma_tpu.parallel`; design in
-:mod:`sigma_tpu_torch.parallel.dist`)."""
+:mod:`sigma_tpu_torch.parallel.dist`).  The same names run on a mesh of D
+shards in one process, or on the rank mesh of
+:mod:`sigma_tpu_torch.parallel.ranks` (``make_mesh(ranks=True)``: a
+``torch.distributed`` process a rank, DTensor vectors); ``ranks`` also
+holds ``rank_mesh`` and the ``launch`` of ranks on one host."""
 
 from sigma_tpu_torch.parallel.precond import DistributedBlockILDU, distributed_block_ildu
 from sigma_tpu_torch.parallel.amg import (

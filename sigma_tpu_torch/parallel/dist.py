@@ -22,8 +22,19 @@ controller over D shards (:class:`Mesh`):
 
 The D shards share one device: on one card they are the counterpart of
 the JAX package's virtual CPU devices, and run the real layout, the halo
-copies and the per-shard kernels.  The form for several cards (a
-``torch.distributed`` rank per card) is not built.
+copies and the per-shard kernels.
+
+The form for several cards is the rank mesh
+(:mod:`sigma_tpu_torch.parallel.ranks`): one ``torch.distributed`` rank a
+card, chosen by the mesh the caller builds (``make_mesh(...,
+ranks=True)``).  Each rank keeps only its shard of every layout (leading
+axis 1), a vector is a DTensor sharded by rows, and the copies above
+become point-to-point sends.  The layouts below are written once for
+both meshes: a product takes the mesh's local blocks (``mesh.blocks``),
+posts its exchanges (``ring_shift``, ``ship``, ``neighbours``), runs the
+per-shard kernels of the shards it holds and joins the result
+(``mesh.join``), so every rank repeats the shard mesh's per-shard
+arithmetic.
 
 :class:`DistributedMatrix` keeps ELL blocks, one per ring offset, and
 computes its gather-reduce in plain PyTorch, as the JAX package computes
@@ -47,6 +58,7 @@ from sigma_tpu_torch.ops.spmv_dia import dia_spmv
 from sigma_tpu_torch.utils import ordered_sum
 from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import to_numpy, torch_dtype
+from sigma_tpu_torch.utils.sharded import gathered
 
 __all__ = [
     "DistributedMatrix",
@@ -63,7 +75,10 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A 1-D mesh of ``n_shards`` shards on one ``device``; ``shape`` maps
-    the axis name to the shard count, as a JAX mesh's does."""
+    the axis name to the shard count, as a JAX mesh's does.  This process
+    holds every shard, and an exchange is a copy between shard buffers;
+    :class:`~sigma_tpu_torch.parallel.ranks.RankMesh` has the same methods
+    with a rank a process."""
 
     n_shards: int
     axis: str
@@ -73,14 +88,81 @@ class Mesh:
     def shape(self):
         return {self.axis: self.n_shards}
 
+    @property
+    def shard_ids(self) -> tuple:
+        """The shards this process holds: all of them."""
+        return tuple(range(self.n_shards))
 
-def make_mesh(n_devices: Optional[int] = None, axis: str = "rows", *, device=None) -> Mesh:
+    def local_shards(self, arr):
+        """This process's part of a (D, ...) array of every shard's parts."""
+        return arr
+
+    def blocks(self, x) -> torch.Tensor:
+        """(D, block, ...) view of a distributed vector."""
+        return _shards(x, self.n_shards)
+
+    def join(self, Y) -> torch.Tensor:
+        """The distributed vector of the shards' blocks ((D, block, ...) or
+        a list of D blocks)."""
+        if isinstance(Y, (list, tuple)):
+            return torch.cat(Y)
+        return Y.reshape((-1,) + tuple(Y.shape[2:]))
+
+    def distribute(self, full: torch.Tensor, n_pad: int) -> torch.Tensor:
+        """``full`` zero-padded to ``n_pad`` rows on the mesh's device."""
+        out = torch.zeros((n_pad,) + tuple(full.shape[1:]), dtype=full.dtype, device=self.device)
+        out[: full.shape[0]] = full
+        return out
+
+    def ring_shift(self, X, ks):
+        """k -> every shard's receive buffer for ring offset k."""
+        return {k: _ring_shift(X, k) for k in ks}
+
+    def ship(self, parts: dict):
+        """k -> ``parts[k]`` shipped back on the reversed ring."""
+        return {k: _ship(p, k) for k, p in parts.items()}
+
+    def neighbours(self, to_prev, to_next):
+        """``(from_next, from_prev)``: shard d receives what shard d + 1
+        sends back and what shard d - 1 sends forward (None past the
+        edges, or when nothing goes that way)."""
+        D = self.n_shards
+        from_next = [to_prev[d + 1] if to_prev is not None and d + 1 < D else None
+                     for d in range(D)]
+        from_prev = [to_next[d - 1] if to_next is not None and d > 0 else None
+                     for d in range(D)]
+        return from_next, from_prev
+
+    def halos(self, X, Hw: int, forward_only: bool = False) -> torch.Tensor:
+        """(D, block + 2 Hw, ...) buffers ``[left | x_d | right]``."""
+        return _halo_buffers(X, Hw, forward_only)
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's ``t`` summed: this one's."""
+        return t
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = "rows", *, device=None,
+              ranks: bool = False):
     """A 1-D mesh of ``n_devices`` shards on ``device`` (None: CUDA).
 
     Unlike the JAX package's ``make_mesh``, which takes the first
     ``n_devices`` visible devices, the shards share one device: asking for
     4 shards on a host with one card gives 4 shards, not 1.  ``n_devices``
-    None gives one shard per visible card (one on the CPU)."""
+    None gives one shard per visible card (one on the CPU).
+
+    ``ranks=True`` asks for the rank mesh instead
+    (:func:`~sigma_tpu_torch.parallel.ranks.rank_mesh`): this process is
+    one rank of the initialised process group (or of the one ``torchrun``
+    describes), holding its own shard; ``n_devices``, if given, must be
+    the group's size."""
+    if ranks:
+        from sigma_tpu_torch.parallel.ranks import rank_mesh
+
+        mesh = rank_mesh(axis, device=device)
+        if n_devices is not None and int(n_devices) != mesh.n_shards:
+            raise ValueError(f"asked for {n_devices} shards on a group of {mesh.n_shards} ranks")
+        return mesh
     device = resolve_device(device)
     if n_devices is None:
         n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -107,6 +189,23 @@ def _shards(x, D: int):
     return x.reshape((D, x.shape[0] // D) + tuple(x.shape[1:]))
 
 
+def _halo_buffers(X, Hw: int, forward_only: bool = False):
+    """(D, block + 2 * Hw, ...) buffers ``[left | x_d | right]`` of the
+    shards' blocks X: shard d's own block and copies of the previous
+    shard's last and the next shard's first ``Hw`` rows (zeros past the
+    edge shards; with ``forward_only``, symmetric storage whose upper
+    slots never read backwards, no left halo at all)."""
+    D, blk = X.shape[0], X.shape[1]
+    ext = X.new_empty((D, blk + 2 * Hw) + tuple(X.shape[2:]))
+    ext[:, Hw : Hw + blk] = X
+    ext[:, :Hw] = 0
+    if not forward_only:
+        ext[1:, :Hw] = X[:-1, blk - Hw :]
+    ext[:, Hw + blk :] = 0
+    ext[:-1, Hw + blk :] = X[1:, :Hw]
+    return ext
+
+
 def _local_first(offsets):
     """Iteration order with the local (offset-0) block first."""
     return sorted(range(len(offsets)), key=lambda i: offsets[i] != 0)
@@ -127,6 +226,11 @@ class _Distributed(LinearOperator):
     @property
     def device(self) -> torch.device:
         return self.mesh.device
+
+    @property
+    def n_local(self) -> int:
+        """The shards this process holds (D on the shard mesh, 1 a rank)."""
+        return len(self.mesh.shard_ids)
 
     def shard_vector(self, x) -> torch.Tensor:
         """Range-side vector (length n): rmatvec input / matvec output."""
@@ -174,37 +278,38 @@ class DistributedMatrix(_Distributed):
 
     @property
     def nnz(self) -> int:
-        return sum(int(torch.count_nonzero(v)) for v in self.vals)
+        local = sum(int(torch.count_nonzero(v)) for v in self.vals)
+        return int(self.mesh.all_sum(torch.tensor(local, device=self.device)))
 
     def _shifted(self, X):
-        """Every nonzero ring offset's receive buffers, copied up front."""
-        return {k: _ring_shift(X, k) for k in dict.fromkeys(self.offsets) if k != 0}
+        """Every nonzero ring offset's receive buffers, posted up front."""
+        return self.mesh.ring_shift(X, [k for k in dict.fromkeys(self.offsets) if k != 0])
 
     def matvec(self, x):
-        D = self.n_shards
-        X = _shards(x, D)
-        y = x.new_zeros((D, self.block))
+        X = self.mesh.blocks(x)
+        L = X.shape[0]
+        y = X.new_zeros((L, self.block))
         shifted = self._shifted(X)
         for i in _local_first(self.offsets):
-            xk = shifted.get(self.offsets[i], X)
+            xk = X if self.offsets[i] == 0 else shifted[self.offsets[i]]
             node = self.nodes[i]
-            g = torch.gather(xk, 1, node.reshape(D, -1)).reshape(node.shape)
+            g = torch.gather(xk, 1, node.reshape(L, -1)).reshape(node.shape)
             y = y + (self.vals[i].to(x.dtype) * g).sum(-1)
-        return y.reshape(-1)
+        return self.mesh.join(y)
 
     def matmat(self, X):
         """Multi-vector product: the same ring, whole (block, k) panels
         gathered."""
-        D = self.n_shards
-        Xs = _shards(X, D)
-        Y = X.new_zeros((D, self.block, X.shape[1]))
+        Xs = self.mesh.blocks(X)
+        L = Xs.shape[0]
+        Y = Xs.new_zeros((L, self.block, X.shape[1]))
         shifted = self._shifted(Xs)
-        shard = torch.arange(D, device=X.device)[:, None, None]
+        shard = torch.arange(L, device=Xs.device)[:, None, None]
         for i in _local_first(self.offsets):
-            Xk = shifted.get(self.offsets[i], Xs)
+            Xk = Xs if self.offsets[i] == 0 else shifted[self.offsets[i]]
             Y = Y + torch.einsum("dnw,dnwk->dnk", self.vals[i].to(X.dtype),
                                  Xk[shard, self.nodes[i]])
-        return Y.reshape(-1, X.shape[1])
+        return self.mesh.join(Y)
 
     def _scatter(self, i):
         """(slots, targets, plan) of offset block i's transpose scatter,
@@ -216,9 +321,9 @@ class DistributedMatrix(_Distributed):
         node, val = self.nodes[i], self.vals[i]
 
         def build():
-            D, bc = self.n_shards, self.bcols
+            L, bc = node.shape[0], self.bcols
             slots = torch.nonzero(val.reshape(-1)).squeeze(1)
-            idx = (node + bc * torch.arange(D, device=node.device)[:, None, None]).reshape(-1)
+            idx = (node + bc * torch.arange(L, device=node.device)[:, None, None]).reshape(-1)
             idx = idx[slots]
             plan = ordered_sum.sum_plan(idx, node.device) if ordered_sum.fixed_order(
                 node.device) else None
@@ -227,30 +332,34 @@ class DistributedMatrix(_Distributed):
         return ordered_sum.cached((node, val), ("dist_rmatvec",), build)
 
     def _rapply(self, src_of, extra):
-        D, bc = self.n_shards, self.bcols
-        Y = None
-        for i, k in enumerate(self.offsets):
+        L, bc = self.n_local, self.bcols
+        parts = []
+        for i in range(len(self.offsets)):
             slots, idx, plan = self._scatter(i)
             src = src_of(i).reshape((-1,) + extra)[slots]
-            contrib = ordered_sum.scatter_sum(src, idx, D * bc, plan).reshape((D, bc) + extra)
-            if k != 0 and D > 1:
-                contrib = _ship(contrib, k)
+            parts.append(ordered_sum.scatter_sum(src, idx, L * bc, plan).reshape((L, bc) + extra))
+        ring = self.n_shards > 1
+        shipped = self.mesh.ship({k: parts[i] for i, k in enumerate(self.offsets)
+                                  if k != 0 and ring})
+        Y = None
+        for i, k in enumerate(self.offsets):
+            contrib = shipped[k] if k != 0 and ring else parts[i]
             Y = contrib if Y is None else Y + contrib
-        return Y.reshape((-1,) + extra)
+        return self.mesh.join(Y)
 
     def rmatvec(self, x):
         """Transpose product: each shard scatter-adds its products into the
         owner blocks' columns, shipped back on the reversed ring (a
         fixed-order sum off the CPU)."""
+        X = self.mesh.blocks(x)
         if not self.nodes:
-            return x.new_zeros(self.m_pad)
-        X = _shards(x, self.n_shards)
+            return self.mesh.join(X.new_zeros((X.shape[0], self.bcols)))
         return self._rapply(lambda i: self.vals[i].to(x.dtype) * X[:, :, None], ())
 
     def rmatmat(self, X):
+        Xs = self.mesh.blocks(X)
         if not self.nodes:
-            return X.new_zeros((self.m_pad, X.shape[1]))
-        Xs = _shards(X, self.n_shards)
+            return self.mesh.join(Xs.new_zeros((Xs.shape[0], self.bcols, X.shape[1])))
         return self._rapply(lambda i: self.vals[i].to(X.dtype)[..., None] * Xs[:, :, None, :],
                             (X.shape[1],))
 
@@ -260,11 +369,12 @@ class DistributedMatrix(_Distributed):
         if self.block_cols is not None and self.block_cols != self.block:
             raise ValueError("diagonal() requires a square block structure")
         if 0 not in self.offsets:
-            return torch.zeros(self.n_pad, dtype=self.dtype, device=self.device)
+            return self.mesh.join(torch.zeros((self.n_local, self.block), dtype=self.dtype,
+                                              device=self.device))
         i = self.offsets.index(0)
         node, val = self.nodes[i], self.vals[i]
         rows = torch.arange(self.block, device=node.device)
-        return (val * (node == rows[:, None])).sum(-1).reshape(-1)
+        return self.mesh.join((val * (node == rows[:, None])).sum(-1))
 
     def shard_domain_vector(self, x) -> torch.Tensor:
         """Domain-side vector (length m): matvec input / rmatvec output."""
@@ -274,14 +384,17 @@ class DistributedMatrix(_Distributed):
         return undistribute_vector(x, self.m)
 
     def to_dense(self) -> np.ndarray:
+        """The dense matrix (on a rank mesh, every rank's rows summed onto
+        every rank: a collective)."""
         d = np.zeros((self.n_pad, self.m_pad))
         D, nb, nc = self.n_shards, self.block, self.bcols
         for i, k in enumerate(self.offsets):
             node, val = to_numpy(self.nodes[i]), to_numpy(self.vals[i])
-            for s in range(D):
+            for j, s in enumerate(self.mesh.shard_ids):
                 rows = np.repeat(np.arange(s * nb, (s + 1) * nb), node.shape[2])
-                cols = (node[s] + ((s + k) % D) * nc).ravel()
-                np.add.at(d, (rows, cols), val[s].ravel())
+                cols = (node[j] + ((s + k) % D) * nc).ravel()
+                np.add.at(d, (rows, cols), val[j].ravel())
+        d = to_numpy(self.mesh.all_sum(torch.from_numpy(d)))
         return d[: self.n, : self.m]
 
     def __repr__(self) -> str:
@@ -293,16 +406,18 @@ class DistributedMatrix(_Distributed):
 
 def distribute_vector(x, mesh: Mesh, axis: str, n_pad: int) -> torch.Tensor:
     """``x`` (a host array or a tensor, one or two dimensions) zero-padded
-    to ``n_pad`` rows on the mesh's device."""
+    to ``n_pad`` rows on the mesh's device.  On a rank mesh every rank
+    passes the whole ``x`` and keeps its block: the result is a DTensor
+    sharded by rows, the counterpart of the JAX package's
+    ``NamedSharding``."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
-    out = torch.zeros((n_pad,) + tuple(t.shape[1:]), dtype=t.dtype, device=mesh.device)
-    out[: t.shape[0]] = t
-    return out
+    return mesh.distribute(t, n_pad)
 
 
 def undistribute_vector(x, n: int) -> np.ndarray:
-    """The first n rows of a distributed vector, as host numpy."""
-    return to_numpy(x)[:n]
+    """The first n rows of a distributed vector, as host numpy (a sharded
+    one gathered from every rank: a collective)."""
+    return to_numpy(gathered(x))[:n]
 
 
 def distribute_matrix(A, mesh: Mesh, axis: str = "rows") -> DistributedMatrix:
@@ -343,8 +458,10 @@ def distribute_matrix(A, mesh: Mesh, axis: str = "rows") -> DistributedMatrix:
         slot = np.arange(r.size) - np.concatenate([[0], np.cumsum(cnt)[:-1]])[r]
         node[r, slot] = c_local
         val[r, slot] = v
-        nodes.append(torch.from_numpy(node.reshape(D, nb, w)).to(mesh.device))
-        vblocks.append(torch.from_numpy(val.reshape(D, nb, w)).to(device=mesh.device, dtype=dt))
+        node, val = (mesh.local_shards(a.reshape(D, nb, w)) for a in (node, val))
+        nodes.append(torch.from_numpy(np.ascontiguousarray(node)).to(mesh.device))
+        vblocks.append(torch.from_numpy(np.ascontiguousarray(val)).to(device=mesh.device,
+                                                                       dtype=dt))
 
     return DistributedMatrix(
         nodes=tuple(nodes), vals=tuple(vblocks), offsets=offsets, mesh=mesh, axis=axis,
@@ -363,7 +480,8 @@ class DistributedDIAMatrix(_Distributed):
     ``terms`` is the sorted tuple of (k, lo); ``data`` is (D, len(terms),
     block): shard d's values of term i are ``data[d, i]`` (0 where the
     column falls outside the owner block), so one ring's terms are
-    contiguous rows of a shard's block.
+    contiguous rows of a shard's block.  On a rank mesh ``data`` holds the
+    rank's shard only, (1, len(terms), block).
 
     ``matvec`` copies every nonzero ring's x blocks into the receiving
     shards' buffers first, then launches, per shard, the DIA SpMV once for
@@ -405,12 +523,13 @@ class DistributedDIAMatrix(_Distributed):
 
     @property
     def vals(self) -> Tuple[torch.Tensor, ...]:
-        """The JAX package's per-term (n_pad,) diagonals."""
+        """The JAX package's per-term (n_pad,) diagonals (a rank's block of
+        them on a rank mesh)."""
         return tuple(self.data[:, i].reshape(-1) for i in range(len(self.terms)))
 
     @property
     def nnz(self) -> int:
-        return int(torch.count_nonzero(self.data))
+        return int(self.mesh.all_sum(torch.count_nonzero(self.data)))
 
     def astype(self, dtype) -> "DistributedDIAMatrix":
         """Cast the values only (iterate vectors keep the caller's dtype:
@@ -418,26 +537,26 @@ class DistributedDIAMatrix(_Distributed):
         return dataclasses.replace(self, data=self.data.to(torch_dtype(dtype)))
 
     def matvec(self, x):
-        D, nb = self.n_shards, self.block
-        X = _shards(x, D)
-        # halo copies first, local products after
-        recv = {k: _ring_shift(X, k) for k, *_ in self._rings if k != 0}
-        ys = []
-        for d in range(D):
-            y = None
-            for k, a, b, lo in self._rings:
-                t = dia_spmv(self.data[d, a:b], X[d] if k == 0 else recv[k][d], lo, nb, nb)
-                y = t if y is None else y + t
-            ys.append(x.new_zeros(nb) if y is None else y)
-        return torch.cat(ys)
+        nb = self.block
+        X = self.mesh.blocks(x)
+        # the ring sends posted first, the local (ring-0) products meanwhile
+        recv = self.mesh.ring_shift(X, [k for k, *_ in self._rings if k != 0])
+        ys = [None] * X.shape[0]
+        for k, a, b, lo in self._rings:
+            Xk = X if k == 0 else recv[k]
+            for d, y in enumerate(ys):
+                t = dia_spmv(self.data[d, a:b], Xk[d], lo, nb, nb)
+                ys[d] = t if y is None else y + t
+        return self.mesh.join([X.new_zeros(nb) if y is None else y for y in ys])
 
     def rmatvec(self, x):
         """Transpose product: per term, the local product shifted by -lo
-        into the owner block's frame and shipped on the reversed ring, in
-        plain PyTorch (the JAX package runs it in no Pallas kernel)."""
-        D, nb = self.n_shards, self.block
-        X = _shards(x, D)
-        y = x.new_zeros((D, nb))
+        into the owner block's frame and shipped on the reversed ring (one
+        ring's terms together), in plain PyTorch (the JAX package runs it
+        in no Pallas kernel)."""
+        nb = self.block
+        X = self.mesh.blocks(x)
+        ws = []
         for i, (k, lo) in enumerate(self.terms):
             z = self.data[:, i].to(x.dtype) * X
             w = torch.zeros_like(z)  # w[:, j] = z[:, j - lo], 0 outside the block
@@ -445,16 +564,22 @@ class DistributedDIAMatrix(_Distributed):
                 w[:, lo:] = z[:, : nb - lo]
             elif -nb < lo < 0:
                 w[:, : nb + lo] = z[:, -lo:]
-            if k != 0 and D > 1:
-                w = _ship(w, k)
-            y = y + w
-        return y.reshape(-1)
+            ws.append(w)
+        ring = self.n_shards > 1
+        shipped = self.mesh.ship({k: torch.stack(ws[a:b], 1) for k, a, b, _ in self._rings
+                                  if k != 0 and ring})
+        y = X.new_zeros(X.shape)
+        for k, a, b, _ in sorted(self._rings, key=lambda r: r[1]):  # term order
+            for i in range(a, b):
+                y = y + (shipped[k][:, i - a] if k != 0 and ring else ws[i])
+        return self.mesh.join(y)
 
     def diagonal(self):
         for i, t in enumerate(self.terms):
             if t == (0, 0):
-                return self.data[:, i].reshape(-1)
-        return torch.zeros(self.n_pad, dtype=self.dtype, device=self.device)
+                return self.mesh.join(self.data[:, i])
+        return self.mesh.join(torch.zeros((self.n_local, self.block), dtype=self.dtype,
+                                          device=self.device))
 
     def __repr__(self) -> str:
         return f"DistributedDIAMatrix(n={self.n}, shards={self.n_shards}, terms={self.terms})"
@@ -508,7 +633,8 @@ def distribute_matrix_dia(A, mesh: Mesh, axis: str = "rows") -> DistributedDIAMa
     """Partition a square matrix by rows with DIA (gather-free) local
     storage.  A DIAMatrix is split on its own device, diagonal by
     diagonal; any other matrix through its host entries, as the JAX
-    package does."""
+    package does.  On a rank mesh every rank splits the same global A and
+    keeps its shard."""
     if A.shape[0] != A.shape[1]:
         raise ValueError("distribute_matrix_dia expects a square matrix")
     D = mesh.shape[axis]
@@ -517,8 +643,8 @@ def distribute_matrix_dia(A, mesh: Mesh, axis: str = "rows") -> DistributedDIAMa
     n_pad = nb * D
     split = _dia_terms if isinstance(A, DIAMatrix) else _coo_terms
     terms, buf = split(A, D, nb, n_pad)
-    data = buf.to(device=mesh.device, dtype=torch_dtype(A.dtype))
-    data = data.reshape(len(terms), D, nb).transpose(0, 1).contiguous()
+    data = mesh.local_shards(buf.reshape(len(terms), D, nb).transpose(0, 1))
+    data = data.to(device=mesh.device, dtype=torch_dtype(A.dtype)).contiguous()
     return DistributedDIAMatrix(data=data, terms=tuple(terms), mesh=mesh, axis=axis, n=n,
                                 block=nb)
 

@@ -14,6 +14,7 @@ port packs the shards' factors as one block-diagonal system
 (:class:`~sigma_tpu_torch.solvers.ildu.TriangularLevels`): no entry
 couples two shards, so its dependency levels are the shards' own, and
 level l of every shard runs in the same launches, as in the JAX program.
+On a rank mesh each rank factorizes and sweeps its own block alone.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ __all__ = ["DistributedBlockILDU", "distributed_block_ildu"]
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class DistributedBlockILDU(LinearOperator):
     """z = blockdiag(L_s D_s U_s)^{-1} r over the shards' row blocks: the
-    block-diagonal strict factors as packed level systems, and ``dinv``
-    (n_pad,), 0 on padded rows (which so come out 0, as the JAX package's
-    sweeps leave them)."""
+    block-diagonal strict factors of the shards this process holds as
+    packed level systems, and their ``dinv``, 0 on padded rows (which so
+    come out 0, as the JAX package's sweeps leave them)."""
 
     lower: TriangularLevels
     dinv: torch.Tensor
@@ -54,10 +55,12 @@ class DistributedBlockILDU(LinearOperator):
 
     @property
     def n_pad(self) -> int:
-        return self.dinv.shape[0]
+        return self.block * self.mesh.n_shards
 
     def matvec(self, r):
-        return self.upper.solve(self.dinv * self.lower.solve(r))
+        R = self.mesh.blocks(r)
+        z = self.upper.solve(self.dinv * self.lower.solve(R.reshape(-1)))
+        return self.mesh.join(z.reshape(R.shape))
 
     rmatvec = matvec  # the JAX package's: applied as a symmetric preconditioner
 
@@ -70,9 +73,9 @@ def _block_diagonal(parts, starts, n_pad):
     for (p, _, _), lo in zip(parts, starts):
         counts[lo : lo + p.size - 1] = np.diff(p)
     indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    indices = np.concatenate([i + lo for (_, i, _), lo in zip(parts, starts)]).astype(np.int64)
-    data = np.concatenate([x for _, _, x in parts]).astype(np.float64)
-    return indptr, indices, data
+    indices = np.concatenate([np.zeros(0)] + [i + lo for (_, i, _), lo in zip(parts, starts)])
+    data = np.concatenate([np.zeros(0)] + [x for _, _, x in parts]).astype(np.float64)
+    return indptr, indices.astype(np.int64), data
 
 
 def distributed_block_ildu(A, mesh: Mesh, axis: str = "rows",
@@ -81,18 +84,20 @@ def distributed_block_ildu(A, mesh: Mesh, axis: str = "rows",
     :func:`~sigma_tpu_torch.parallel.dist.distribute_matrix` (blocks of
     ``ceil(n / D)`` rows), on the mesh's device in A's dtype.  ``level``
     is the fill level: 0 for ILDU(0), k > 0 for level-of-fill ILU(k) of
-    each block (stronger blocks, the same communication-free apply)."""
+    each block (stronger blocks, the same communication-free apply).  On
+    a rank mesh each rank factorizes its own block only."""
     if A.shape[0] != A.shape[1]:
         raise ValueError("block ILDU expects a square matrix")
     D = mesh.shape[axis]
     n = A.shape[0]
     nb = -(-n // D)
-    n_pad = nb * D
 
     rows, cols, vals = A.entries()
     lowers, uppers, starts = [], [], []
-    dinv = np.zeros(n_pad, dtype=np.float64)
-    for s in range(D):
+    ids = mesh.shard_ids
+    base, n_here = ids[0] * nb, len(ids) * nb  # the rows this process holds
+    dinv = np.zeros(n_here, dtype=np.float64)
+    for s in ids:
         # trailing shards of a small n on a wide mesh start past n: they
         # hold padded rows only
         lo, hi = min(s * nb, n), min((s + 1) * nb, n)
@@ -102,16 +107,16 @@ def distributed_block_ildu(A, mesh: Mesh, axis: str = "rows",
         blk = CSRMatrix.from_coo(hi - lo, hi - lo, rows[sel] - lo, cols[sel] - lo, vals[sel],
                                  dtype=torch.float64, device="cpu")
         L, d, U = iluk_factorize(blk, level)
-        dinv[lo:hi] = 1.0 / d
+        dinv[lo - base : hi - base] = 1.0 / d
         lowers.append(L)
         uppers.append(U)
-        starts.append(lo)
+        starts.append(lo - base)
     dtype = torch_dtype(A.dtype)
     return DistributedBlockILDU(
-        lower=TriangularLevels.from_csr(*_block_diagonal(lowers, starts, n_pad), n_pad, False,
+        lower=TriangularLevels.from_csr(*_block_diagonal(lowers, starts, n_here), n_here, False,
                                         dtype, mesh.device),
         dinv=torch.from_numpy(dinv).to(device=mesh.device, dtype=dtype),
-        upper=TriangularLevels.from_csr(*_block_diagonal(uppers, starts, n_pad), n_pad, True,
+        upper=TriangularLevels.from_csr(*_block_diagonal(uppers, starts, n_here), n_here, True,
                                         dtype, mesh.device),
         mesh=mesh, axis=axis, n=n, block=nb,
     )

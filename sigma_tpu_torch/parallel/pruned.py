@@ -15,7 +15,7 @@ reach ``reach + Hw``).
 
 A product copies, before any local work, each shard's x block and its
 neighbours' edge rows into the shard's ``[left | x | right]`` buffer
-(:func:`_exchange_halos`: the JAX package's two ``ppermute`` halo
+(the mesh's ``halos``: the JAX package's two ``ppermute`` halo
 exchanges), then launches each shard's kernel on its buffer:
 
 * ``matvec``: the pruned SpMV (``pruned_spmv``, which replaces
@@ -32,6 +32,11 @@ exchanges), then launches each shard's kernel on its buffer:
 * ``rmatvec``: the pruned SpMV of each shard's transposed plan, whose
   ``Hw`` head and tail rows are added to the previous and the next
   shard's edge rows (the reversed halo exchange).
+
+On a rank mesh (:mod:`sigma_tpu_torch.parallel.ranks`) each rank builds
+and keeps its own shard's plan, the halo and reversed exchanges are sends
+to the neighbour ranks and the spill a send to the next rank; each rank
+runs its kernel on its own ``[left | x | right]`` buffer.
 
 The edge shards' outer halos are zeros where the JAX package's ring wrap
 delivers finite values; both only ever meet zero slots.  Each halo or
@@ -64,7 +69,7 @@ from sigma_tpu_torch.ops.spmv_pruned import (
     pruned_sym_spmm,
     pruned_sym_spmv,
 )
-from sigma_tpu_torch.parallel.dist import Mesh, _Distributed, _shards, distribute_vector
+from sigma_tpu_torch.parallel.dist import Mesh, _Distributed, distribute_vector
 from sigma_tpu_torch.solvers.gmg import (
     StructuredAMGPreconditioner,
     _coo_dinv_lmax,
@@ -82,24 +87,6 @@ __all__ = [
 _LANES = 128
 
 
-def _exchange_halos(x, D: int, Hw: int, *, forward_only: bool = False):
-    """(D, block + 2 * Hw, ...) buffers ``[left | x_d | right]`` of a
-    distributed vector or block of vectors: shard d's own block and copies
-    of the previous shard's last and the next shard's first ``Hw`` rows
-    (zeros past the edge shards; with ``forward_only``, symmetric storage
-    whose upper slots never read backwards, no left halo at all)."""
-    X = _shards(x, D)
-    blk = X.shape[1]
-    ext = x.new_empty((D, blk + 2 * Hw) + tuple(X.shape[2:]))
-    ext[:, Hw : Hw + blk] = X
-    ext[:, :Hw] = 0
-    if not forward_only:
-        ext[1:, :Hw] = X[:-1, blk - Hw :]
-    ext[:, Hw + blk :] = 0
-    ext[:-1, Hw + blk :] = X[1:, :Hw]
-    return ext
-
-
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class DistributedPrunedMatrix(_Distributed):
     """Row-sharded pruned block-DIA (module docstring).
@@ -109,7 +96,7 @@ class DistributedPrunedMatrix(_Distributed):
     d * block + halo_words``, carrying with ``with_transpose`` its
     transposed plan (``(block + 2 * halo_words, block)``) in ``t``.  With
     ``symmetric`` the plans hold the upper triangle (global ``c >= r``)
-    only."""
+    only.  On a rank mesh ``shards`` is the rank's own plan alone."""
 
     shards: Tuple[PrunedDIAMatrix, ...]
     mesh: Mesh
@@ -139,20 +126,23 @@ class DistributedPrunedMatrix(_Distributed):
         return dataclasses.replace(self, shards=tuple(s.astype(dtype) for s in self.shards))
 
     def _extended(self, x):
-        return _exchange_halos(x, self.n_shards, self.halo_words, forward_only=self.symmetric)
+        return self.mesh.halos(self.mesh.blocks(x), self.halo_words,
+                               forward_only=self.symmetric)
 
     def _add_spills(self, ys, spills):
         """Mirror spill of shard d onto shard d + 1's first rows (the last
         shard's spill holds no entries: no column lies past n)."""
-        for d in range(1, len(ys)):
-            ys[d][: spills[d - 1].shape[0]] += spills[d - 1]
-        return torch.cat(ys)
+        _, from_prev = self.mesh.neighbours(None, spills)
+        for y, sp in zip(ys, from_prev):
+            if sp is not None:
+                y[: sp.shape[0]] += sp
+        return self.mesh.join(ys)
 
     def matvec(self, x):
         Hw, blk = self.halo_words, self.block
         ext = self._extended(x)
         if not self.symmetric:
-            return torch.cat([
+            return self.mesh.join([
                 pruned_spmv(s.data, ext[d], s.offsets, s.tile_ptr, blk, blk + 2 * Hw,
                             group=s.group, tile_end=s.tile_end)
                 for d, s in enumerate(self.shards)
@@ -189,7 +179,7 @@ class DistributedPrunedMatrix(_Distributed):
             ys.append(torch.cat(parts, dim=1))
             if self.symmetric:
                 spills.append(torch.cat(sparts, dim=1))
-        return self._add_spills(ys, spills) if self.symmetric else torch.cat(ys)
+        return self._add_spills(ys, spills) if self.symmetric else self.mesh.join(ys)
 
     def rmatvec(self, x):
         """Transpose product: each shard applies its transposed plan to its
@@ -206,18 +196,20 @@ class DistributedPrunedMatrix(_Distributed):
                 "distributed rmatvec needs the transpose plan: build the matrix with "
                 "distribute_pruned(..., with_transpose=True)"
             )
-        D, Hw, blk = self.n_shards, self.halo_words, self.block
-        X = _shards(x, D)
+        Hw, blk = self.halo_words, self.block
+        X = self.mesh.blocks(x)
         z = [pruned_spmv(s.t.data, X[d], s.t.offsets, s.t.tile_ptr, blk + 2 * Hw, blk,
                          group=s.t.group, tile_end=s.t.tile_end)
              for d, s in enumerate(self.shards)]
         ys = [zd[Hw : Hw + blk].clone() for zd in z]
-        for d in range(D):
-            if d + 1 < D:
-                ys[d][blk - Hw :] += z[d + 1][:Hw]
-            if d > 0:
-                ys[d][:Hw] += z[d - 1][Hw + blk :]
-        return torch.cat(ys)
+        from_next, from_prev = self.mesh.neighbours([zd[:Hw] for zd in z],
+                                                    [zd[Hw + blk :] for zd in z])
+        for y, head, tail in zip(ys, from_next, from_prev):
+            if head is not None:
+                y[blk - Hw :] += head
+            if tail is not None:
+                y[:Hw] += tail
+        return self.mesh.join(ys)
 
     def diagonal(self):
         raise NotImplementedError("extract the diagonal from the COO triples at set-up")
@@ -300,7 +292,7 @@ def distribute_pruned(
     bounds = np.searchsorted(rows // block, np.arange(D + 1))
     plan_kw = dict(tile_rows=tr, group=group, dtype=plan_dt, min_reach=reach + Hw)
     shards = []
-    for s in range(D):
+    for s in mesh.shard_ids:
         sl = slice(bounds[s], bounds[s + 1])
         r_loc, c_loc = rows[sl] - s * block, cols[sl] - s * block + Hw
         plan = build_pruned_plan(block, block + 2 * Hw, r_loc, c_loc, vals[sl], **plan_kw)

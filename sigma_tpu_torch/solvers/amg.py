@@ -39,6 +39,7 @@ from sigma_tpu_torch.matrix.formats import CSRMatrix
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
 from sigma_tpu_torch.solvers.krylov import SolveInfo
 from sigma_tpu_torch.utils.dtypes import to_numpy
+from sigma_tpu_torch.utils.sharded import dense_apply
 
 __all__ = [
     "AMGPreconditioner",
@@ -174,7 +175,7 @@ class AMGPreconditioner(LinearOperator):
 
     def _cycle(self, i: int, r):
         if i == len(self.levels):
-            return (self.coarse_inv @ r.to(self.coarse_inv.dtype)).to(r.dtype)
+            return dense_apply(self.coarse_inv, r)
         lvl = self.levels[i]
         x = self._smooth(lvl, torch.zeros_like(r), r, from_zero=True)  # pre-smooth
         rc = lvl.P.rmatvec(r - lvl.A.matvec(x))  # restrict

@@ -46,6 +46,7 @@ from sigma_tpu_torch.matrix.symmetric import SymmetricDIAMatrix
 from sigma_tpu_torch.operators.linear_operator import LinearOperator
 from sigma_tpu_torch.utils.device import resolve_device
 from sigma_tpu_torch.utils.dtypes import round_up, to_numpy, torch_dtype
+from sigma_tpu_torch.utils.sharded import dense_apply
 
 __all__ = [
     "StructuredAMGFactory",
@@ -303,7 +304,7 @@ class StructuredAMGPreconditioner(LinearOperator):
 
     def _cycle(self, i: int, r):
         if i == len(self.levels):
-            return (self.coarse_inv @ r.to(self.coarse_inv.dtype)).to(r.dtype)
+            return dense_apply(self.coarse_inv, r)
         lvl = self.levels[i]
         x = self._smooth(lvl, torch.zeros_like(r), r, from_zero=True)
         rc, stages = self._restrict(lvl, r - lvl.A.matvec(x))

@@ -6,7 +6,10 @@ and block CG.  The JAX solve is one on-device ``lax.while_loop``; here the
 loop runs on the host and reads the stopping quantity back once per
 iteration (one device synchronisation each) to apply the same stopping
 rule, so iteration counts match the JAX package.  All vectors stay on the
-device of ``b``; dot products are ``torch.dot``.
+device of ``b``; dot products are ``torch.dot``.  ``b`` may be a vector
+sharded over ranks (a DTensor, :mod:`sigma_tpu_torch.parallel.ranks`):
+the work arrays are then made like it (:mod:`sigma_tpu_torch.utils.sharded`)
+and each dot is the ranks' local dots all-reduced at once (``dot``).
 
 All take ``A`` and optional ``M`` as LinearOperators (``M`` applies the
 *inverse* preconditioner, z = M^{-1} r).
@@ -20,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from sigma_tpu_torch.utils.sharded import dot, gathered, like, reduced, rows_like
 
 __all__ = [
     "SolveInfo",
@@ -64,7 +68,7 @@ def _history(history, maxiter, b):
     """The (maxiter,) residual-norm history, NaN until written, when
     ``history`` is set; else None."""
     return (
-        torch.full((maxiter,), float("nan"), dtype=b.dtype, device=b.device)
+        like(torch.full((maxiter,), float("nan"), dtype=b.dtype, device=b.device), b)
         if history
         else None
     )
@@ -95,24 +99,24 @@ def cg_solve(
     r = b - matvec(x)
     z = apply_M(r)
     p = z
-    rho = torch.dot(r, z)
-    res2 = torch.dot(r, r)
+    rho = dot(r, z)
+    res2 = dot(r, r)
     hist = _history(history, maxiter, b)
     k = 0
     while k < maxiter and bool(torch.sqrt(res2) > tol_eff):
         q = matvec(p)
-        alpha = rho / torch.dot(p, q)
+        alpha = rho / dot(p, q)
         x = x + alpha * p
         r_new = r - alpha * q
         z = apply_M(r_new)
-        rho_new = torch.dot(r_new, z)
+        rho_new = dot(r_new, z)
         if flexible:
-            beta = torch.dot(z, r_new - r) / rho
+            beta = dot(z, r_new - r) / rho
         else:
             beta = rho_new / rho
         p = z + beta * p
         r, rho = r_new, rho_new
-        res2 = torch.dot(r, r)
+        res2 = dot(r, r)
         if hist is not None:
             hist[k] = torch.sqrt(res2)
         k += 1
@@ -143,9 +147,9 @@ def cg_fused_solve(
     r = b - matvec(x)
     z = apply_M(r)
     w = matvec(z)
-    gamma = torch.dot(r, z)
-    delta = torch.dot(w, z)
-    res2 = torch.dot(r, r)
+    gamma = dot(r, z)
+    delta = dot(w, z)
+    res2 = dot(r, r)
     alpha = gamma / delta
     p, s = z, w
     hist = _history(history, maxiter, b)
@@ -155,9 +159,9 @@ def cg_fused_solve(
         r = r - alpha * s
         z = apply_M(r)
         w = matvec(z)
-        gamma_new = torch.dot(r, z)
-        delta = torch.dot(w, z)
-        res2 = torch.dot(r, r)
+        gamma_new = dot(r, z)
+        delta = dot(w, z)
+        res2 = dot(r, r)
         beta = gamma_new / gamma
         alpha = gamma_new / (delta - beta * gamma_new / alpha)
         gamma = gamma_new
@@ -196,16 +200,16 @@ def bicgstab_solve(
     hist = _history(history, maxiter, b)
     k = 0
     while k < maxiter and bool(resn > tol_eff):
-        rho_new = torch.dot(rhat, r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = apply_M(p)
         v = matvec(phat)
-        alpha = rho_new / torch.dot(rhat, v)
+        alpha = rho_new / dot(rhat, v)
         s = r - alpha * v
         shat = apply_M(s)
         t = matvec(shat)
-        omega = torch.dot(t, s) / torch.dot(t, t)
+        omega = dot(t, s) / dot(t, t)
         omega = torch.where(torch.isfinite(omega), omega, torch.zeros_like(omega))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
@@ -242,7 +246,7 @@ def minres_solve(
 
     r1 = b - matvec(x)
     y = apply_M(r1)
-    beta = phibar = torch.sqrt(torch.abs(torch.dot(r1, y)))
+    beta = phibar = torch.sqrt(torch.abs(dot(r1, y)))
     r2 = r1
     w = w2 = torch.zeros_like(b)
     oldb = dbar = epsln = sn = zero
@@ -255,11 +259,11 @@ def minres_solve(
         # the beta/oldb correction applies from the second step on
         if k > 0:
             y = y - (beta / torch.where(oldb > tiny, oldb, one)) * r1
-        alfa = torch.dot(v, y)
+        alfa = dot(v, y)
         y = y - (alfa / torch.where(beta > tiny, beta, one)) * r2
         r1, r2 = r2, y
         y = apply_M(r2)
-        oldb, beta = beta, torch.sqrt(torch.abs(torch.dot(r2, y)))
+        oldb, beta = beta, torch.sqrt(torch.abs(dot(r2, y)))
         # the previous rotation applied to the new tridiagonal column, then
         # the new Givens rotation annihilating beta
         oldeps = epsln
@@ -299,16 +303,17 @@ def _cgs2_column(V, w, j, eps_break):
     synchronisation.  A breakdown (``||w|| <= 10 eps``) gives a zero
     column and a zero basis row.  Shared by GMRES and FGMRES."""
     Vj = V[: j + 1]
-    h1 = Vj @ w
+    h1 = reduced(Vj @ w)
     w = w - Vj.T @ h1
-    h2 = Vj @ w
+    h2 = reduced(Vj @ w)
     w = w - Vj.T @ h2
     wn = torch.linalg.vector_norm(w)
-    h = torch.cat([h1 + h2, wn[None]]).to("cpu", _HOST_TORCH[_host_dtype(V.dtype)]).numpy()
+    h = torch.cat([gathered(h1 + h2), gathered(wn)[None]])
+    h = h.to("cpu", _HOST_TORCH[_host_dtype(V.dtype)]).numpy()
     if h[j + 1] > eps_break * 10:
         V[j + 1] = w / wn
     else:
-        V[j + 1] = 0.0
+        V[j + 1] = torch.zeros_like(w)
         h[j + 1] = 0.0
     return h
 
@@ -362,12 +367,12 @@ def _arnoldi(A, b, x0, *, tol, rtol, restart, maxiter, precondition, flexible):
     tol_eff = float(_tol_eff(b, tol, rtol))
     hdt = _host_dtype(b.dtype)
     eps_break = hdt(torch.finfo(b.dtype).eps)
-    V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
-    Z = torch.empty((m, n), dtype=b.dtype, device=b.device) if flexible else None
+    V = rows_like(b, m + 1)
+    Z = rows_like(b, m) if flexible else None
 
     r = b - matvec(x)
     beta = torch.linalg.vector_norm(r)
-    beta_h = float(beta)
+    beta_h = float(gathered(beta))
     k = 0
     progress = True
     while beta_h > tol_eff and k < maxiter and progress:
@@ -387,7 +392,7 @@ def _arnoldi(A, b, x0, *, tol, rtol, restart, maxiter, precondition, flexible):
             _givens_update(h, R, cs, sn, g, j)
             j += 1
             est = abs(float(g[j]))
-        y = _solve_hessenberg(R, g, j, m).to(device=b.device, dtype=b.dtype)
+        y = like(_solve_hessenberg(R, g, j, m).to(device=b.device, dtype=b.dtype), b)
         if flexible:
             x = x + Z[:j].T @ y
         else:
@@ -396,7 +401,7 @@ def _arnoldi(A, b, x0, *, tol, rtol, restart, maxiter, precondition, flexible):
         k += j
         r = b - matvec(x)
         beta = torch.linalg.vector_norm(r)
-        beta_h = float(beta)
+        beta_h = float(gathered(beta))
     return x, SolveInfo(k, beta, beta_h <= tol_eff)
 
 
@@ -470,22 +475,22 @@ def cgls_solve(
     r = b - matvec(x)
     s = rmatvec(r)
     p = apply_M(s)
-    gamma = torch.dot(s, p)
+    gamma = dot(s, p)
     tol_eff = _tol_eff(Atb, tol, rtol)
-    snorm = torch.sqrt(torch.abs(torch.dot(s, s)))
+    snorm = torch.sqrt(torch.abs(dot(s, s)))
     hist = _history(history, maxiter, b)
     k = 0
     while k < maxiter and bool(snorm > tol_eff):
         q = matvec(p)
-        alpha = gamma / torch.dot(q, q)
+        alpha = gamma / dot(q, q)
         x = x + alpha * p
         r = r - alpha * q
         s = rmatvec(r)
         z = apply_M(s)
-        gamma_new = torch.dot(s, z)
+        gamma_new = dot(s, z)
         p = z + (gamma_new / gamma) * p
         gamma = gamma_new
-        snorm = torch.sqrt(torch.abs(torch.dot(s, s)))
+        snorm = torch.sqrt(torch.abs(dot(s, s)))
         if hist is not None:
             hist[k] = snorm
         k += 1
@@ -508,13 +513,14 @@ def stationary_solve(A, b, M, x0=None, *, steps: int):
 def _panel_algebra(n, s, interleaved):
     """(gram, comb, scale_cols, colnorms) for (n, s) column blocks or, with
     ``interleaved``, for their (s * ceil(n/128), 128) interleaved layout,
-    whose zero padding rows drop out of every product."""
+    whose zero padding rows drop out of every product.  The (s, s) and
+    (s,) results are plain tensors, sharded blocks' gathered."""
     if not interleaved:
         return (
-            lambda X, Y: X.T @ Y,
-            lambda X, C: X @ C.to(X.dtype),
-            lambda X, w: X * w[None, :],
-            lambda X: torch.linalg.vector_norm(X, dim=0),
+            lambda X, Y: gathered(X.T @ Y),
+            lambda X, C: X @ like(C.to(X.dtype), X),
+            lambda X, w: X * like(w, X)[None, :],
+            lambda X: gathered(torch.linalg.vector_norm(X, dim=0)),
         )
     sy = -(-n // 128)
 
@@ -629,7 +635,7 @@ def block_cg_solve(
     R = Bp - matmat(X)
     P = orth(apply_M(R))
     resn_t = torch.linalg.vector_norm(R)
-    resn = float(resn_t)
+    resn = float(gathered(resn_t))
     Xb, rb, rb_t = X, resn, resn_t
     big = 1e4
     k = 0
@@ -645,7 +651,7 @@ def block_cg_solve(
         X = X + comb(P, alpha)
         R = R - comb(Q, alpha)
         resn_t = torch.linalg.vector_norm(R)
-        resn = float(resn_t)  # the one host read of the iteration
+        resn = float(gathered(resn_t))  # the one host read of the iteration
         if math.isfinite(resn) and resn < rb:
             Xb, rb, rb_t = X, resn, resn_t
         Z = apply_M(R)

@@ -3,9 +3,13 @@
 one-shard twin.
 
     python -m sigma_tpu_torch.tools.dryrun_multichip [--shards 8] [--device cpu]
+    python -m sigma_tpu_torch.tools.dryrun_multichip --ranks 4 --backend gloo [--device cpu]
 
 Port of the JAX package's ``__graft_entry__.dryrun_multichip``.  It builds
-a mesh of ``n_devices`` shards on ``device`` (None: CUDA) and runs, in
+a mesh of ``n_devices`` shards on ``device`` (None: CUDA), or with
+``--ranks N`` spawns N ranks (:func:`~sigma_tpu_torch.parallel.ranks.launch`:
+``--backend nccl`` a card a rank, ``gloo`` on ``--device``, the card by
+default) that each run the same paths on their rank mesh, and runs, in
 float64, each distributed solve beside the same solve on the
 single-device operator: CG on the ELL and DIA layouts, CG + AMG, CG +
 block-Jacobi ILDU (which has no single-device twin: finiteness and use in
@@ -62,11 +66,13 @@ def _stencil_3d(dims):
     return ng, np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
 
 
-def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
+def dryrun_multichip(n_devices: int, device=None, verbose: bool = True, *, mesh=None) -> dict:
     """Run every distributed path on a mesh of ``n_devices`` shards on
     ``device`` (None: CUDA) beside its one-shard twin; returns ``{path:
     {"err": relative error, "iterations": (distributed, single), ...}}``
-    and raises AssertionError on a mismatch."""
+    and raises AssertionError on a mismatch.  Given a rank ``mesh``
+    (every rank calls this), the distributed paths run on it, each rank
+    beside its own one-shard twin, and rank 0 prints."""
     import sigma_tpu_torch as st
     from sigma_tpu_torch.eigen import lanczos
     from sigma_tpu_torch.parallel import (
@@ -93,18 +99,23 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
         structured_pair_amg,
     )
     from sigma_tpu_torch.utils.device import resolve_device
+    from sigma_tpu_torch.utils.sharded import gathered
 
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+        mesh = make_mesh(n_devices, device=dev)
+    else:
+        dev, n_devices = mesh.device, mesh.n_shards
     DT = torch.float64
-    mesh = make_mesh(n_devices, device=dev)
     out = {}
+    lead = getattr(mesh, "rank", 0) == 0
 
     def say(line):
-        if verbose:
+        if verbose and lead:
             print(line, flush=True)
 
     def host(x):
-        return x.detach().cpu().numpy()
+        return gathered(x).detach().cpu().numpy()
 
     def parity(name, n, x_d, it_d, x_ref, it_ref, tol=PTOL, **extra):
         xd, xr = host(x_d)[:n], host(x_ref)[:n]
@@ -149,7 +160,7 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
     # block-Jacobi ILDU(0): one factorization per shard, a different
     # operator at each shard count, so no single-device twin exists
     x, info = cg_solve(Ad, b, tol=1e-4, maxiter=3, M=distributed_block_ildu(A, mesh))
-    if not bool(torch.isfinite(x).all()):
+    if not np.isfinite(host(x)).all():
         raise AssertionError("block_ildu: non-finite iterate")
     out["block_ildu"] = dict(iterations=(int(info.iterations), None))
     say(f"dryrun_multichip[block_ildu] ok: iters={info.iterations} (partition-dependent "
@@ -164,14 +175,14 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
     parity("chebyshev", n, x, info.iterations, xr, ir.iterations)
 
     # block CG with 4 right-hand sides: one matmat an iteration
-    X, info = block_cg_solve(Ad, ones(Ad.n_pad, n, 4), tol=1e-4, maxiter=3)
+    X, info = block_cg_solve(Ad, Ad.shard_vector(np.ones((n, 4))), tol=1e-4, maxiter=3)
     Xr, ir = block_cg_solve(A, ones(n, n, 4), tol=1e-4, maxiter=3)
     parity("block_cg", n, X, info.iterations, Xr, ir.iterations, tol=BTOL)
 
     # Lanczos: the recurrence coefficients are the layout-invariant
     # observables (padded slots of v0 must be zero)
-    v0 = ones(Ad.n_pad, n)
-    res, res1 = lanczos(Ad, 4, v0=v0), lanczos(A, 4, v0=v0[:n])
+    res = lanczos(Ad, 4, v0=Ad.shard_vector(np.ones(n)))
+    res1 = lanczos(A, 4, v0=ones(n, n))
     errT = max(float((res.alpha - res1.alpha).abs().max()), float((res.beta - res1.beta).abs().max()))
     say(f"dryrun_multichip[lanczos] parity {'ok' if errT < PTOL else 'FAIL'}: k=4, "
         f"max |T_dist - T_single| = {errT:.2e}")
@@ -234,9 +245,9 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
     Apd = distribute_pruned(nw, prw, pcw, vwp, mesh, tile_rows=1024, group=4)
     P1 = st.PrunedDIAMatrix.from_coo(Apd.n_pad, Apd.n_pad, prw, pcw, vwp,
                                      tile_rows=min(1024, Apd.block), group=4, device=dev)
-    bp = Apd.shard_vector(np.ones(nw))
+    bp, bp1 = Apd.shard_vector(np.ones(nw)), ones(Apd.n_pad, nw)
     xp, infop = cg_solve(Apd, bp, tol=1e-4, maxiter=3)
-    xpr, ipr = cg_solve(P1, bp, tol=1e-4, maxiter=3)
+    xpr, ipr = cg_solve(P1, bp1, tol=1e-4, maxiter=3)
     parity("pruned", nw, xp, infop.iterations, xpr, ipr.iterations, block=Apd.block,
            halo=Apd.halo_words)
 
@@ -244,9 +255,8 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
                             assume_unique=True)
     P1m = st.PrunedDIAMatrix.from_coo(Apm.n_pad, Apm.n_pad, prw, pcw, vwp, tile_rows=1024,
                                       group=4, assume_unique=True, device=dev)
-    bpm = Apm.shard_vector(np.ones(nw))
-    xm, infom = cg_solve(Apm, bpm, tol=1e-4, maxiter=3)
-    xmr, imr = cg_solve(P1m, bpm, tol=1e-4, maxiter=3)
+    xm, infom = cg_solve(Apm, Apm.shard_vector(np.ones(nw)), tol=1e-4, maxiter=3)
+    xmr, imr = cg_solve(P1m, ones(Apm.n_pad, nw), tol=1e-4, maxiter=3)
     parity("pruned_multitile", nw, xm, infom.iterations, xmr, imr.iterations,
            tiles_per_shard=Apm.block // 1024)
 
@@ -255,13 +265,13 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
                                               tile_rows=min(1024, Aps.block), group=4,
                                               validate=False, device=dev)
     xs, infos = cg_solve(Aps, bp, tol=1e-4, maxiter=3)
-    xsr, isr = cg_solve(S1, bp, tol=1e-4, maxiter=3)
+    xsr, isr = cg_solve(S1, bp1, tol=1e-4, maxiter=3)
     parity("pruned_sym", nw, xs, infos.iterations, xsr, isr.iterations)
 
     # FGMRES with an inner CG(2) as its variable preconditioner
     xf, infof = fgmres_solve(Apd, bp, tol=1e-4, maxiter=4, restart=4,
                              M=lambda vv: cg_solve(Apd, vv, tol=0.0, maxiter=2)[0])
-    xfr, ifr = fgmres_solve(P1, bp, tol=1e-4, maxiter=4, restart=4,
+    xfr, ifr = fgmres_solve(P1, bp1, tol=1e-4, maxiter=4, restart=4,
                             M=lambda vv: cg_solve(P1, vv, tol=0.0, maxiter=2)[0])
     parity("fgmres", nw, xf, infof.iterations, xfr, ifr.iterations)
 
@@ -269,13 +279,14 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
     # rank) and CGLS through the transposed plans
     Apt = distribute_pruned(nw, prw, pcw, vwp, mesh, tile_rows=1024, group=4,
                             with_transpose=True, assume_unique=True)
+    B3 = np.random.default_rng(3).standard_normal((nw, 3))
     Bb = torch.zeros((Apt.n_pad, 3), dtype=DT, device=dev)
-    Bb[:nw] = torch.from_numpy(np.random.default_rng(3).standard_normal((nw, 3))).to(dev)
-    Xb, infob = block_cg_solve(Apt, Bb, tol=1e-4, maxiter=3)
+    Bb[:nw] = torch.from_numpy(B3).to(dev)
+    Xb, infob = block_cg_solve(Apt, Apt.shard_vector(B3), tol=1e-4, maxiter=3)
     Xbr, ibr = block_cg_solve(P1, Bb, tol=1e-4, maxiter=3)
     parity("pruned_block_cg", nw, Xb, infob.iterations, Xbr, ibr.iterations, tol=BTOL)
     xl, infol = cgls_solve(Apt, bp, tol=1e-4, maxiter=3)
-    xlr, ilr = cgls_solve(P1.with_transpose(), bp, tol=1e-4, maxiter=3)
+    xlr, ilr = cgls_solve(P1.with_transpose(), bp1, tol=1e-4, maxiter=3)
     parity("pruned_cgls", nw, xl, infol.iterations, xlr, ilr.iterations)
 
     # pruned pair multigrid: both builds stop at one pairing below the
@@ -286,7 +297,7 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
     Mp_1 = pruned_pair_amg(nw, prw, pcw, vwp, coarse_size=csz, tile_rows=min(1024, Apd.block),
                            group=4, pad_to=Apd.n_pad, fine_A=P1)
     xg, infog = cg_solve(Apd, bp, tol=1e-4, maxiter=3, M=Mp_d)
-    xgr, igr = cg_solve(P1, bp, tol=1e-4, maxiter=3, M=Mp_1)
+    xgr, igr = cg_solve(P1, bp1, tol=1e-4, maxiter=3, M=Mp_1)
     parity("pruned_gmg", nw, xg, infog.iterations, xgr, igr.iterations, levels=len(Mp_d.levels))
 
     # structured pair multigrid, slab-sharded along the frozen axis 0
@@ -303,12 +314,32 @@ def dryrun_multichip(n_devices: int, device=None, verbose: bool = True) -> dict:
     return out
 
 
+def _on_rank(mesh):
+    """The dry run on one rank of a spawned group; rank 0's rows return."""
+    out = dryrun_multichip(mesh.n_shards, mesh=mesh)
+    return out if mesh.rank == 0 else None
+
+
+def dryrun_ranks(n_ranks: int, backend: str = "gloo", device=None) -> dict:
+    """The dry run on ``n_ranks`` spawned ranks (a process each); returns
+    rank 0's rows and raises if any rank's path mismatched."""
+    from sigma_tpu_torch.parallel.ranks import launch
+
+    return launch(_on_rank, n_ranks, backend, device, threads=1)[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=8)
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="spawn this many ranks instead of sharing one device")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    dryrun_multichip(args.shards, args.device)
+    if args.ranks is None:
+        dryrun_multichip(args.shards, args.device)
+    else:
+        dryrun_ranks(args.ranks, args.backend, args.device)
 
 
 if __name__ == "__main__":

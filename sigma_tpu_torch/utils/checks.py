@@ -72,9 +72,18 @@ class _FiniteMode(TorchFunctionMode):
         return out
 
 
-def checked(fn):
+def checked(fn, errors=None):
     """``fn`` wrapped to run under the float checks: a NaN or Inf that any
-    torch op inside it produces raises ``FloatingPointError``."""
+    torch op inside it produces raises ``FloatingPointError``.
+
+    ``errors`` is the JAX package's ``checkify`` error set; None means the
+    float checks, the one set the port runs.  Any other set (index or
+    user checks) raises ``NotImplementedError``: torch has no counterpart
+    to check it with."""
+    if errors is not None:
+        raise NotImplementedError(
+            f"checked(errors={errors!r}): the port runs the float checks only (errors=None)"
+        )
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):

@@ -289,3 +289,109 @@ def test_native_names_cover_the_jax_packages():
     missing = set(sigma_tpu.native.__all__) - set(sigma_tpu_torch.native.__all__)
     assert missing == NATIVE_LEFT_OUT
     assert all(hasattr(sigma_tpu_torch.native, n) for n in sigma_tpu_torch.native.__all__)
+
+
+# deliberate differences of parameter names, (module, function) -> {JAX name:
+# port name, or None where the port has no such parameter}.  The JAX keys
+# are explicit torch generators in the port (docs/MIGRATING_TORCH.md); the
+# rest are TPU-only: Pallas's interpret mode, and the host packers' TPU
+# row-count and sublane arguments.
+RENAMED_PARAMETERS = {
+    ("eigen", "lanczos"): {"key": "generator"},
+    ("eigen", "generalized_lanczos"): {"key": "generator"},
+    ("eigen", "eigensolve"): {"key": "generator"},
+    ("eigen", "generalized_eigensolve"): {"key": "generator"},
+    ("eigen", "lobpcg"): {"key": "generator"},
+    ("solvers", "chebyshev"): {"key": "generator"},
+    ("solvers", "estimate_lmax"): {"key": "generator"},
+    ("ops", "bsr_grouped_spmv"): {"interpret": None},
+    ("native", "pack_levels"): {"max_rows": None},
+    ("native", "pack_pruned"): {"E": None},
+}
+
+
+def _modules_with_all():
+    """The JAX package and its submodules that declare ``__all__`` and
+    have a module of the same name in the port (listed from the package
+    directories, so every worker collects the same ids)."""
+    import importlib.util
+    import pkgutil
+
+    names = [""] + sorted(m.name for m in pkgutil.walk_packages(sigma_tpu.__path__, "")
+                          if not m.name.startswith("native.lib"))
+    return [n for n in names
+            if importlib.util.find_spec("sigma_tpu_torch" + ("." + n if n else "")) is not None]
+
+
+def _parameter_names(fn):
+    import inspect
+
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return None
+    return [p.name for p in sig.parameters.values()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _signature_gaps(module):
+    """(function, JAX names, port names) of every exported function of
+    ``module`` whose JAX parameters (after the deliberate renames) are not
+    parameters of the port's function in the same order."""
+    import importlib
+
+    jmod = importlib.import_module("sigma_tpu" + ("." + module if module else ""))
+    tmod = importlib.import_module("sigma_tpu_torch" + ("." + module if module else ""))
+    gaps = []
+    for name in getattr(jmod, "__all__", ()):
+        jf, tf = getattr(jmod, name, None), getattr(tmod, name, None)
+        if tf is None or isinstance(jf, type) or not callable(jf):
+            continue
+        pj, pt = _parameter_names(jf), _parameter_names(tf)
+        if pj is None or pt is None:
+            continue
+        renames = RENAMED_PARAMETERS.get((module, name), {})
+        want = [renames.get(p, p) for p in pj if renames.get(p, p) is not None]
+        if [p for p in pt if p in want] != want:
+            gaps.append((name, pj, pt))
+    return gaps
+
+
+@pytest.mark.parametrize("module", _modules_with_all())
+def test_exported_functions_take_the_jax_packages_parameter_names(module):
+    """Every exported function takes the JAX function's parameters by the
+    same names, in the same order (the port may add its own, such as
+    ``device``), apart from the deliberate differences above: a call
+    that names a parameter works in both packages."""
+    assert _signature_gaps(module) == []
+
+
+def test_every_recorded_rename_is_still_a_difference():
+    """Each deliberate difference names a JAX parameter the port's
+    function really lacks, so the list does not outlive its reason."""
+    import importlib
+
+    for (module, name), renames in RENAMED_PARAMETERS.items():
+        pj = _parameter_names(getattr(importlib.import_module(f"sigma_tpu.{module}"), name))
+        pt = _parameter_names(getattr(importlib.import_module(f"sigma_tpu_torch.{module}"), name))
+        for jax_name, port_name in renames.items():
+            assert jax_name in pj and jax_name not in pt, (module, name, jax_name)
+            assert port_name is None or port_name in pt, (module, name, port_name)
+
+
+def test_the_two_repaired_signatures(tmp_path):
+    """``read_matrix(A_or_path=...)`` and ``checked(fn, errors=None)`` work
+    as the JAX package's do; an error set torch cannot check raises."""
+    from sigma_tpu_torch import io
+    from sigma_tpu_torch.utils.checks import checked
+
+    A = st.CSRMatrix.from_dense(np.array([[2.0, -1.0], [0.0, 3.0]]), device="cpu")
+    io.write_matrix(A, tmp_path / "A.txt")
+    B = io.read_matrix(A_or_path=tmp_path / "A.txt", dtype=torch.float64, device="cpu")
+    np.testing.assert_array_equal(B.to_dense(), A.to_dense())
+    f = checked(lambda x: torch.log(x), errors=None)
+    assert float(f(torch.tensor(1.0))) == 0.0
+    with pytest.raises(FloatingPointError):
+        f(torch.tensor(-1.0))
+    with pytest.raises(NotImplementedError, match="float checks only"):
+        checked(lambda x: x, errors={"index"})
