@@ -5,7 +5,9 @@
 
 Runs the solves of ``chip_smoke.py``'s paths through the same entry
 points (CG and fused CG on Laplacian + I; plain CG and GMG-CG with the
-Jacobi and the Chebyshev smoother on pure Poisson; block CG with 8
+Jacobi and the Chebyshev smoother on pure Poisson; CG, fused CG and the
+two GMG-CG solves again as ``graphed`` solves, timed and traced from
+their cached graphs after the first call captured them; block CG with 8
 right-hand sides in the ``auto`` (interleaved) layout on Laplacian + I;
 f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson; on the 10M-row
 irregular mesh, CG and pruned-multigrid CG on full and on symmetric
@@ -51,7 +53,7 @@ def _stencil_solves(device, nx):
     import torch
 
     from sigma_tpu_torch import (
-        SymmetricDIAMatrix, block_cg_solve, cg_fused_solve, cg_solve,
+        SymmetricDIAMatrix, block_cg_solve, cg_fused_solve, cg_solve, graphed,
         laplacian_3d_dia, lobpcg, structured_pair_amg,
     )
 
@@ -73,12 +75,21 @@ def _stencil_solves(device, nx):
     X0 = torch.from_numpy(
         np.random.default_rng(0).standard_normal((P.shape[0], 4)).astype(np.float32)
     ).to(device)
+    # one graphed callable a solve, each keeping its own captured graph
+    g_cg, g_fused, g_jacobi, g_chebyshev = (
+        graphed(f) for f in (cg_solve, cg_fused_solve, cg_solve, cg_solve))
     return [
         ("cg_solve", lambda: cg_solve(A, b, tol=0.0, rtol=1e-6, maxiter=100)),
         ("cg_fused_solve", lambda: cg_fused_solve(A, b, tol=0.0, rtol=1e-6, maxiter=100)),
         ("plain_cg_poisson", lambda: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000)),
         ("gmg_jacobi", lambda: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=Mj)),
         ("gmg_chebyshev", lambda: cg_solve(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=Mc)),
+        ("graphed_cg_solve", lambda: g_cg(A, b, tol=0.0, rtol=1e-6, maxiter=100)),
+        ("graphed_cg_fused_solve", lambda: g_fused(A, b, tol=0.0, rtol=1e-6, maxiter=100)),
+        ("graphed_gmg_jacobi",
+         lambda: g_jacobi(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=Mj)),
+        ("graphed_gmg_chebyshev",
+         lambda: g_chebyshev(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=Mc)),
         ("block_cg_auto", lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=100)),
         ("lobpcg_f32_gmg", lambda: (None, lobpcg(P, X0, M=Mp, tol=1e-4, maxiter=120))),
     ]

@@ -30,10 +30,18 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives seventeen paths through the package's public entry points:
+drives eighteen paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
+- the graphed path (phase 10b): CG and fused CG on Laplacian + I and
+  GMG-CG with the Jacobi and the Chebyshev hierarchy again through
+  ``graphed`` (one CUDA graph of 32 iterations under device-side
+  if-nodes, ``csrc/graph_loop.cu``), the capturing and the cached call
+  each held to the eager solve: x bit for bit, the count, the residual
+  norm, ``converged``, the history and every kernel's launches; plus a
+  solve past one block, one stopped unconverged by ``maxiter`` and one
+  with b = 0;
 - the stencil multi-RHS path: block CG with 8 right-hand sides
   (interleaved and column panels), GMG-preconditioned block CG with 4, and
   LOBPCG + GMG for the lowest 4 eigenpairs of the Dirichlet Laplacian (f32
@@ -1096,7 +1104,8 @@ def _timed(run):
 
 
 def phase_cg(device, nx):
-    """CG and fused CG on Laplacian + I, as benchmarks/cg3d.py runs them."""
+    """CG and fused CG on Laplacian + I, as benchmarks/cg3d.py runs them;
+    returns the operator and the right-hand side (phase 10b's)."""
     import torch
 
     from sigma_tpu_torch import cg_fused_solve, cg_solve, laplacian_3d_dia
@@ -1114,12 +1123,15 @@ def phase_cg(device, nx):
               "wall_s_warm": warm, "s_per_iteration": warm / max(info.iterations, 1)})
         if not (info.converged and rel < 1e-5):
             raise AssertionError(f"{name} did not converge: {info}, true rel {rel:.3e}")
+    return A, b
 
 
 def phase_gmg(device, nx):
     """Plain CG against GMG-CG on pure Poisson, as benchmarks/gmg3d.py
     runs them (symmetric operator, bf16 levels, 2x2x2 aggregates); returns
-    the Chebyshev hierarchy (its levels are the staged path's operands)."""
+    the operator, the right-hand side and the hierarchies by smoother
+    (phase 10b's; the Chebyshev one's levels are the staged path's
+    operands)."""
     import numpy as np
     import torch
 
@@ -1132,7 +1144,7 @@ def phase_gmg(device, nx):
     ).to(device)
     b = S.matvec(xstar)
     rtol, maxiter = 2e-7, 3000
-    iters = {}
+    iters, hierarchies = {}, {}
     for label, kw in (
         ("plain", None),
         ("gmg_jacobi", dict(smoother="jacobi", n_smooth=1)),
@@ -1147,6 +1159,7 @@ def phase_gmg(device, nx):
             )
             torch.cuda.synchronize()
             setup = time.perf_counter() - t0
+            hierarchies[kw["smoother"]] = M
         (x, info), warm = _timed(
             lambda: cg_solve(S, b, tol=0.0, rtol=rtol, maxiter=maxiter, M=M)
         )
@@ -1162,7 +1175,122 @@ def phase_gmg(device, nx):
     for label in ("gmg_jacobi", "gmg_chebyshev"):
         if not iters[label] * 3 <= iters["plain"]:
             raise AssertionError(f"{label} took {iters[label]} iterations vs plain {iters['plain']}")
-    return M
+    return S, b, hierarchies
+
+
+# phase 10b's time on the card, seconds: the path fails beyond it
+GRAPHED_BUDGET_S = 40.0
+
+
+def _graphed_case(label, solve, A, b, kw, timed=False):
+    """One solve eagerly and through ``graphed(solve)`` twice (the first
+    call captures, the second replays from the cache), held equal: x bit
+    for bit, the count, the residual norm, ``converged``, the history and
+    every kernel's launches.  ``timed`` repeats both three times, in
+    turns, for the median seconds.  Returns the row."""
+    import torch
+
+    from sigma_tpu_torch import graphed
+    from sigma_tpu_torch.ops import launch_counts, launch_difference
+
+    def run(fn):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = fn(A, b, **kw)
+        torch.cuda.synchronize()
+        return x, info, time.perf_counter() - t0, launch_difference(launch_counts(), before)
+
+    x, info, eager_s, launches = run(solve)
+    G = graphed(solve)
+
+    def check(call):
+        y, gi, secs, glaunches = run(G)
+        differ = [name for name, same in (
+            ("x", torch.equal(y, x)),
+            ("iterations", gi.iterations == info.iterations),
+            ("residual_norm", torch.equal(gi.residual_norm, info.residual_norm)),
+            ("converged", gi.converged == info.converged),
+            ("history", (gi.history is None and info.history is None)
+             or torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))),
+            ("launches", glaunches == launches),
+            ("captured", G.captured == (call == "capture")),
+        ) if not same]
+        if differ:
+            raise AssertionError(f"graphed {label} ({call} call): {differ} differ from the eager "
+                                 f"solve ({info.iterations} iterations, graphed {gi.iterations})")
+        return secs
+
+    first_s = check("capture")
+    capture_s = G.capture_seconds
+    cached_s = check("cached")
+    eager_runs, cached_runs = [eager_s], [cached_s]
+    if timed:
+        for _ in range(3):
+            eager_runs.append(run(solve)[2])
+            cached_runs.append(check("cached"))
+    its = max(info.iterations, 1)
+    eager_s, cached_s = statistics.median(eager_runs), statistics.median(cached_runs)
+    row = {"phase": "graphed", "solve": label, "iterations": info.iterations,
+           "converged": info.converged, "maxiter": kw.get("maxiter"),
+           "history": bool(kw.get("history")), "x_bitwise_equal": True,
+           "eager_s": eager_s, "first_call_s": first_s, "capture_s": capture_s,
+           "cached_s": cached_s, "eager_s_per_iteration": eager_s / its,
+           "graphed_s_per_iteration": cached_s / its,
+           # eager: a read of the stopping rule an iteration and one more,
+           # and one of converged; graphed: one of the status a block
+           "host_reads_eager": info.iterations + 2, "host_reads_graphed": G.host_reads,
+           "launches": {k: n for k, (n, _) in launches.items() if n}}
+    emit(row)
+    return row
+
+
+def phase_graphed(device, A9, b9, S10, b10, hierarchies):
+    """Phase 10b: phase 9's CG and fused CG on Laplacian + I and phase
+    10's GMG-CG with each hierarchy on Poisson, eagerly and as graphed
+    solves, everything held equal (:func:`_graphed_case`); with and
+    without a history, and three edge cases: a count past one block with
+    ``maxiter`` not a multiple of the block, a solve stopped unconverged by
+    ``maxiter``, and one that meets its tolerance at iteration 0.  Fails
+    beyond ``GRAPHED_BUDGET_S``."""
+    import torch
+
+    from sigma_tpu_torch import cg_fused_solve, cg_solve
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    t0 = time.perf_counter()
+    cg_kw = dict(tol=0.0, rtol=1e-6, maxiter=100)
+    gmg_kw = dict(tol=0.0, rtol=2e-7, maxiter=3000)
+    solves = (
+        ("cg_solve", cg_solve, A9, b9, cg_kw),
+        ("cg_fused_solve", cg_fused_solve, A9, b9, cg_kw),
+        ("gmg_jacobi", cg_solve, S10, b10, dict(gmg_kw, M=hierarchies["jacobi"])),
+        ("gmg_chebyshev", cg_solve, S10, b10, dict(gmg_kw, M=hierarchies["chebyshev"])),
+    )
+    for label, solve, A, b, kw in solves:
+        _graphed_case(label, solve, A, b, kw, timed=True)
+        _graphed_case(label, solve, A, b, dict(kw, history=True))
+    edges = (
+        ("plain_cg_past_one_block", cg_solve, S10, b10, dict(tol=0.0, rtol=1e-4, maxiter=1000)),
+        ("fused_cg_stopped_by_maxiter", cg_fused_solve, S10, b10,
+         dict(tol=0.0, rtol=2e-7, maxiter=BLOCK + 13)),
+        ("gmg_jacobi_zero_rhs", cg_solve, S10, torch.zeros_like(b10),
+         dict(gmg_kw, M=hierarchies["jacobi"])),
+    )
+    rows = {label: _graphed_case(label, solve, A, b, kw) for label, solve, A, b, kw in edges}
+    if not (rows["plain_cg_past_one_block"]["iterations"] > BLOCK
+            and rows["plain_cg_past_one_block"]["converged"]
+            and rows["plain_cg_past_one_block"]["maxiter"] % BLOCK):
+        raise AssertionError(f"plain CG did not run past one block: {rows}")
+    if rows["fused_cg_stopped_by_maxiter"]["converged"]:
+        raise AssertionError("fused CG met its tolerance within maxiter")
+    if rows["gmg_jacobi_zero_rhs"]["iterations"] != 0:
+        raise AssertionError("the zero right-hand side took iterations")
+    secs = time.perf_counter() - t0
+    emit({"phase": "graphed_path", "seconds": secs, "block": BLOCK,
+          "budget_s": GRAPHED_BUDGET_S})
+    if secs > GRAPHED_BUDGET_S:
+        raise AssertionError(f"phase 10b took {secs:.1f} s, over its {GRAPHED_BUDGET_S} s")
 
 
 def _col_rel_residuals(A, B, X):
@@ -4833,9 +4961,15 @@ def main():
     paths = []
     # the stencil single-RHS path: counts zeroed just before, read just after
     zero_counts()
-    phase_cg(device, args.nx)                               # phase 9
-    Mst = phase_gmg(device, args.nx)                        # phase 10
+    A9, b9 = phase_cg(device, args.nx)                      # phase 9
+    S10, b10, hierarchies = phase_gmg(device, args.nx)      # phase 10
     paths.append(read_counts("single_rhs", ("dia_spmv", "dia_sym_spmv")))
+    # the same solves as graphed solves, held to the eager loop
+    zero_counts()
+    phase_graphed(device, A9, b9, S10, b10, hierarchies)    # phase 10b
+    paths.append(read_counts("graphed", ("dia_spmv", "dia_sym_spmv")))
+    Mst = hierarchies["chebyshev"]
+    del A9, b9, S10, b10, hierarchies
     # the stencil multi-RHS path
     zero_counts()
     phase_block_cg(device, args.nx)                         # phase 11

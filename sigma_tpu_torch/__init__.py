@@ -5,7 +5,9 @@ holds the stencil main path: DIA storage (full and symmetric), the
 hand-written DIA SpMV and SpMM kernels for Hopper that every matvec and
 multi-RHS product runs on a CUDA device, the operator algebra, the Krylov
 solvers (CG, fused CG, BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS, the
-stationary iteration, block CG), the solver objects and factories
+stationary iteration, block CG; CG and fused CG also as ``graphed``
+solves, one CUDA graph a block of iterations under device-side if-nodes,
+the counterpart of ``jax.jit``), the solver objects and factories
 (``cg()``, ``bicgstab()``, ``gmres()``, ``cgls()``, ``jacobi()``,
 ``structured_amg()``) with ``attach_solver`` and the ``solve`` facade,
 iterative refinement, the structured pair-aggregation multigrid
@@ -160,6 +162,7 @@ from sigma_tpu_torch.solvers import (
     fgmres_solve,
     gmres,
     gmres_solve,
+    graphed,
     ildu0_factorize,
     incomplete_cholesky,
     jacobi,

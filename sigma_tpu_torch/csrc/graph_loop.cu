@@ -1,0 +1,123 @@
+// A solve loop's block of iterations as one CUDA graph whose iterations
+// each sit under a conditional if-node.
+//
+// Replaces no TPU kernel: it is the port's counterpart of the compiled
+// ``lax.while_loop`` of ``sigma_tpu/solvers/krylov.py`` (``cg_solve``,
+// ``cg_fused_solve``), whose ``cond`` XLA evaluates on the device.  The
+// Python side (``sigma_tpu_torch/solvers/graphed.py``) captures with
+// ``torch.cuda.graph`` a head (the predicate from the starting state), the
+// loop's body twice (the even and the odd iteration, which ping-pong
+// between two buffer sets) and a tail (the status the host reads); each
+// capture is a graph in PyTorch's memory pool for the loop.  This file
+// links them: head -> block x (set-predicate kernel -> if-node holding the
+// even or odd body as a child graph) -> tail, and instantiates the result.
+//
+// Each if-node's handle is set by a one-thread kernel from the predicate
+// in device memory, which the previous iteration's body wrote; a false
+// predicate skips every later body of the block, so the iteration count
+// is exact.  The host reads the status once a block.
+//
+// Bound: launch latency.  The set-predicate kernel reads one byte; a
+// skipped if-node costs its kernel and the node's own scheduling.
+//
+// Every entry returns a cudaError_t (0 on success) and synchronises
+// nothing.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__global__ void set_predicate_kernel(cudaGraphConditionalHandle handle, const bool* pred) {
+  cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+cudaError_t add_conditional(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep,
+                            cudaGraphNodeParams* params) {
+#if CUDART_VERSION >= 13000
+  return cudaGraphAddNode(node, graph, dep, nullptr, 1, params);
+#else
+  return cudaGraphAddNode(node, graph, dep, 1, params);
+#endif
+}
+
+// Append `child` (cloned) to `graph` after `*last` (none when null); the
+// new node becomes `*last`.
+cudaError_t append_child(cudaGraph_t graph, cudaGraphNode_t* last, cudaGraph_t child) {
+  cudaGraphNode_t node;
+  cudaError_t err =
+      cudaGraphAddChildGraphNode(&node, graph, *last ? last : nullptr, *last ? 1 : 0, child);
+  if (err == cudaSuccess) *last = node;
+  return err;
+}
+
+cudaError_t link(cudaGraph_t graph, cudaGraph_t head, cudaGraph_t even, cudaGraph_t odd,
+                 cudaGraph_t tail, const bool* pred, int64_t block) {
+  cudaGraphNode_t last = nullptr;
+  cudaError_t err = append_child(graph, &last, head);
+  for (int64_t j = 0; j < block && err == cudaSuccess; ++j) {
+    cudaGraphConditionalHandle handle;
+    err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+    if (err != cudaSuccess) break;
+    cudaKernelNodeParams kp = {};
+    void* args[] = {&handle, &pred};
+    kp.func = reinterpret_cast<void*>(set_predicate_kernel);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = args;
+    cudaGraphNode_t setter;
+    err = cudaGraphAddKernelNode(&setter, graph, &last, 1, &kp);
+    if (err != cudaSuccess) break;
+    cudaGraphNodeParams cp = {};
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = handle;
+    cp.conditional.type = cudaGraphCondTypeIf;
+    cp.conditional.size = 1;
+    err = add_conditional(&last, graph, &setter, &cp);
+    if (err != cudaSuccess) break;
+    cudaGraphNode_t inner = nullptr;
+    err = append_child(cp.conditional.phGraph_out[0], &inner, j % 2 ? odd : even);
+  }
+  if (err == cudaSuccess) err = append_child(graph, &last, tail);
+  return err;
+}
+
+}  // namespace
+
+// Link the four captured graphs into a block of `block` guarded
+// iterations on `device` and instantiate it; `*exec` receives the
+// executable graph (null on failure).
+extern "C" int sigma_loop_graph(int device, const void* head, const void* even, const void* odd,
+                                const void* tail, const void* pred, int64_t block,
+                                void** exec) {
+  *exec = nullptr;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaGraph_t graph;
+  err = cudaGraphCreate(&graph, 0);
+  if (err != cudaSuccess) return err;
+  err = link(graph, (cudaGraph_t)head, (cudaGraph_t)even, (cudaGraph_t)odd, (cudaGraph_t)tail,
+             static_cast<const bool*>(pred), block);
+  cudaGraphExec_t out = nullptr;
+  if (err == cudaSuccess) err = cudaGraphInstantiate(&out, graph, 0);
+  cudaGraphDestroy(graph);  // the executable graph keeps its own copy
+  if (err == cudaSuccess) *exec = out;
+  return err;
+}
+
+// Launch the block on `stream`.
+extern "C" int sigma_loop_launch(void* exec, void* stream) {
+  return cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec), static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sigma_loop_destroy(void* exec) {
+  return cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
+}
+
+// The CUDA runtime's name for an error code.
+extern "C" const char* sigma_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

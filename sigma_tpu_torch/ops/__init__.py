@@ -77,6 +77,39 @@ from sigma_tpu_torch.ops.spmv_dia import (
 )
 
 
+# every wrapper that counts its kernel launches in ``launches`` (the SpMMs
+# also per panel layout, in ``launches_by_layout``)
+COUNTED = (
+    "dia_spmv", "dia_sym_spmv", "dia_spmv_resident", "dia_spmv_window", "dia_spmm",
+    "dia_sym_spmm", "dia_spmm_grouped", "pruned_spmv", "pruned_sym_spmv", "pruned_spmm",
+    "pruned_sym_spmm", "bsr_grouped_spmv",
+)
+
+
+def launch_counts() -> dict:
+    """Every counted wrapper's launches: ``{name: (launches, {layout:
+    launches})}``, the layouts empty for a wrapper that keeps none."""
+    g = globals()
+    return {k: (g[k].launches, dict(getattr(g[k], "launches_by_layout", {}))) for k in COUNTED}
+
+
+def launch_difference(after: dict, before: dict) -> dict:
+    """The launches between two :func:`launch_counts` snapshots."""
+    return {k: (n - before[k][0], {lay: c - before[k][1][lay] for lay, c in by.items()})
+            for k, (n, by) in after.items()}
+
+
+def add_launch_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`launch_difference`) to the
+    wrappers' counts: how a replayed CUDA graph, which runs no Python,
+    keeps them equal to the launches its kernels made."""
+    g = globals()
+    for k, (n, by) in delta.items():
+        g[k].launches += n * times
+        for lay, c in by.items():
+            g[k].launches_by_layout[lay] += c * times
+
+
 def cuda_available() -> bool:
     """True when a CUDA device is present: the counterpart of the JAX
     package's ``pallas_supported``.  A gate for callers such as tests and
@@ -87,6 +120,7 @@ def cuda_available() -> bool:
 
 __all__ = [
     "BSR_KERNEL_DTYPES",
+    "COUNTED",
     "GROUPED_LAYOUTS",
     "GroupedBSR",
     "KERNEL_DTYPES",
@@ -95,6 +129,7 @@ __all__ = [
     "PRUNED_LAYOUTS",
     "PrunedPlan",
     "STAGED_SMEM_BYTES",
+    "add_launch_counts",
     "bsr_group_pointer",
     "bsr_grouped_form",
     "bsr_grouped_spmv",
@@ -117,6 +152,8 @@ __all__ = [
     "dia_sym_spmv",
     "dia_sym_spmv_reference",
     "interleave_panels",
+    "launch_counts",
+    "launch_difference",
     "pruned_matvec_reference",
     "pruned_spmm",
     "pruned_spmm_reference",

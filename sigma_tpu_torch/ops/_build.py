@@ -164,4 +164,14 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
     ]
     lib.sigma_bsr_grouped_spmv.restype = i32
+    # the graphed solve loop: (device, head, even, odd, tail, pred, block,
+    # exec out), then launch (exec, stream) and destroy (exec)
+    lib.sigma_loop_graph.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, ctypes.POINTER(ptr)]
+    lib.sigma_loop_graph.restype = i32
+    lib.sigma_loop_launch.argtypes = [ptr, ptr]
+    lib.sigma_loop_launch.restype = i32
+    lib.sigma_loop_destroy.argtypes = [ptr]
+    lib.sigma_loop_destroy.restype = i32
+    lib.sigma_error_string.argtypes = [i32]
+    lib.sigma_error_string.restype = ctypes.c_char_p
     return lib

@@ -28,7 +28,9 @@ Routing is by the device of the tensors, and nothing else: a CPU tensor
 goes to the plain version (``*_reference``), a CUDA tensor to the kernel,
 and anything the kernel does not take raises.  There is no size
 threshold and no fallback.  Each wrapper counts its kernel launches in
-its ``launches`` attribute.
+its ``launches`` attribute, in Python where it launches; a replayed CUDA
+graph runs no Python, so a graphed solve adds its replays' launches
+(:func:`sigma_tpu_torch.ops.add_launch_counts`).
 """
 
 from __future__ import annotations

@@ -5,8 +5,13 @@ BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS, the stationary iteration
 and block CG.  The JAX solve is one on-device ``lax.while_loop``; here the
 loop runs on the host and reads the stopping quantity back once per
 iteration (one device synchronisation each) to apply the same stopping
-rule, so iteration counts match the JAX package.  All vectors stay on the
-device of ``b``; dot products are ``torch.dot``.  ``b`` may be a vector
+rule, so iteration counts match the JAX package.  CG and fused CG are
+written as that loop's init / cond / body (:func:`cg_loop`,
+:func:`cg_fused_loop`, with a device iteration counter), which
+:func:`~sigma_tpu_torch.solvers.graphed.graphed` captures into one CUDA
+graph whose iterations sit under device-side if-nodes, one host read a
+block of iterations: the counterpart of ``jax.jit`` of the solve.  All
+vectors stay on the device of ``b``; dot products are ``torch.dot``.  ``b`` may be a vector
 sharded over ranks (a DTensor, :mod:`sigma_tpu_torch.parallel.ranks`):
 the work arrays are then made like it (:mod:`sigma_tpu_torch.utils.sharded`)
 and each dot is the ranks' local dots all-reduced at once (``dot``).
@@ -18,12 +23,14 @@ All take ``A`` and optional ``M`` as LinearOperators (``M`` applies the
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from sigma_tpu_torch.utils.sharded import dot, gathered, like, reduced, rows_like
+from sigma_tpu_torch.utils.sharded import (
+    dot, gathered, is_sharded, like, local, reduced, rows_like,
+)
 
 __all__ = [
     "SolveInfo",
@@ -64,6 +71,11 @@ def _tol_eff(b, tol, rtol):
     )
 
 
+def _counter(b):
+    """The iteration counter a loop carries: 0-d int64 on b's device."""
+    return torch.zeros((), dtype=torch.int64, device=b.device)
+
+
 def _history(history, maxiter, b):
     """The (maxiter,) residual-norm history, NaN until written, when
     ``history`` is set; else None."""
@@ -72,6 +84,129 @@ def _history(history, maxiter, b):
         if history
         else None
     )
+
+
+class Loop(NamedTuple):
+    """A solve split as the JAX package splits it for ``lax.while_loop``:
+    the carried ``state`` after set-up, ``cond(state)``, a 0-d bool tensor
+    on b's device, and ``body(state, out=None)``, the next state.  With
+    ``out`` (a state of buffers, as :mod:`~sigma_tpu_torch.solvers.graphed`
+    keeps them) the body writes each new vector and scalar into ``out``'s
+    tensors instead of fresh ones, with the same arithmetic.  The history
+    is written in place at the device index ``k`` (a captured loop shares
+    one counter and one history between its buffer sets).  ``tol_eff`` is
+    the stopping threshold ``cond`` compares with and ``maxiter`` the most
+    iterations it allows."""
+
+    state: NamedTuple
+    cond: Callable
+    body: Callable
+    tol_eff: torch.Tensor
+    maxiter: int
+
+
+class CGState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rho: torch.Tensor  # r.z
+    res2: torch.Tensor  # r.r
+    k: torch.Tensor  # 0-d int64: iterations taken
+    hist: Optional[torch.Tensor]
+
+
+class FusedCGState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    s: torch.Tensor  # A p, carried by its recurrence
+    gamma: torch.Tensor  # r.z
+    alpha: torch.Tensor  # the next step length
+    res2: torch.Tensor
+    k: torch.Tensor
+    hist: Optional[torch.Tensor]
+
+
+# the ``out`` of an eager body: every result a fresh tensor
+_NO_OUT_CG = CGState(*[None] * len(CGState._fields))
+_NO_OUT_FUSED = FusedCGState(*[None] * len(FusedCGState._fields))
+
+
+def _put(value, out):
+    """``value`` itself, or written into the buffer ``out`` (a 0-d copy)."""
+    return value if out is None else out.copy_(value)
+
+
+def _record(hist, k, value):
+    """``hist[k] = value`` at the device index ``k`` (an index tensor, no
+    host read): the write a captured loop replays.  A history of a sharded
+    solve is the same on every rank, and each rank writes its own copy.
+    An assignment, not ``index_copy_``, whose result (the whole history,
+    NaN beyond ``k``) the float checks of ``utils.checks`` would test."""
+    if is_sharded(hist):
+        hist, value = hist.to_local(), value.to_local()
+    hist[k.reshape(1)] = value.reshape(1)
+
+
+def _stopper(tol_eff, maxiter):
+    """The loop condition ``(sqrt(res2) > tol_eff) & (k < maxiter)`` of a
+    state with ``res2`` and ``k``, computed on the device (a sharded solve's
+    on each rank's copy of the replicated comparison)."""
+
+    def cond(s):
+        return local(torch.sqrt(s.res2) > tol_eff) & (s.k < maxiter)
+
+    return cond
+
+
+def run_loop(loop: Loop):
+    """The eager solve: ``while bool(cond(state)): state = body(state)``,
+    one host read of the stopping rule an iteration; returns ``(x, info)``."""
+    s, k = loop.state, 0
+    while bool(loop.cond(s)):
+        s = loop.body(s)
+        k += 1
+    resn = torch.sqrt(s.res2)
+    return s.x, SolveInfo(k, resn, bool(resn <= loop.tol_eff), s.hist)
+
+
+def cg_loop(
+    A, b, x0=None, *, tol=1e-15, rtol=0.0, maxiter=None, M=None, history=False,
+    flexible=False,
+) -> Loop:
+    """:func:`cg_solve` as init / cond / body (``sigma_tpu/solvers/krylov.py``
+    ``cg_solve``'s ``while_loop``); the set-up runs here."""
+    n = A.shape[0]
+    x = torch.zeros_like(b) if x0 is None else x0
+    maxiter = 10 * n if maxiter is None else int(maxiter)
+    apply_M = _apply(M)
+    matvec = A.matvec
+    tol_eff = _tol_eff(b, tol, rtol)
+
+    r = b - matvec(x)
+    z = apply_M(r)
+    state = CGState(x, r, z, dot(r, z), dot(r, r), _counter(b), _history(history, maxiter, b))
+
+    def body(s, out=None):
+        o = out or _NO_OUT_CG
+        q = matvec(s.p)
+        alpha = s.rho / dot(s.p, q)
+        x = torch.add(s.x, alpha * s.p, out=o.x)
+        r = torch.sub(s.r, alpha * q, out=o.r)
+        z = apply_M(r)
+        rho = dot(r, z)
+        if flexible:
+            beta = dot(z, r - s.r) / s.rho
+        else:
+            beta = rho / s.rho
+        p = torch.add(z, beta * s.p, out=o.p)
+        res2 = dot(r, r)
+        if s.hist is not None:
+            _record(s.hist, s.k, torch.sqrt(res2))
+        return CGState(x, r, p, _put(rho, o.rho), _put(res2, o.res2),
+                       torch.add(s.k, 1, out=o.k), s.hist)
+
+    return Loop(state, _stopper(tol_eff, maxiter), body, tol_eff, maxiter)
 
 
 def cg_solve(
@@ -89,6 +224,15 @@ def cg_solve(
     ``z_{k+1}^T (r_{k+1} - r_k) / z_k^T r_k`` (flexible CG), required when
     M is a variable preconditioner.
     """
+    return run_loop(cg_loop(A, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, M=M,
+                            history=history, flexible=flexible))
+
+
+def cg_fused_loop(
+    A, b, x0=None, *, tol=1e-15, rtol=0.0, maxiter=None, M=None, history=False
+) -> Loop:
+    """:func:`cg_fused_solve` as init / cond / body (the JAX package's
+    ``cg_fused_solve`` ``while_loop``); the set-up runs here."""
     n = A.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
     maxiter = 10 * n if maxiter is None else int(maxiter)
@@ -98,30 +242,33 @@ def cg_solve(
 
     r = b - matvec(x)
     z = apply_M(r)
-    p = z
-    rho = dot(r, z)
+    w = matvec(z)
+    gamma = dot(r, z)
+    delta = dot(w, z)
     res2 = dot(r, r)
-    hist = _history(history, maxiter, b)
-    k = 0
-    while k < maxiter and bool(torch.sqrt(res2) > tol_eff):
-        q = matvec(p)
-        alpha = rho / dot(p, q)
-        x = x + alpha * p
-        r_new = r - alpha * q
-        z = apply_M(r_new)
-        rho_new = dot(r_new, z)
-        if flexible:
-            beta = dot(z, r_new - r) / rho
-        else:
-            beta = rho_new / rho
-        p = z + beta * p
-        r, rho = r_new, rho_new
+    # the first step is steepest descent: alpha = gamma/delta, beta = 0
+    state = FusedCGState(x, r, z, w, gamma, gamma / delta, res2, _counter(b),
+                         _history(history, maxiter, b))
+
+    def body(s, out=None):
+        o = out or _NO_OUT_FUSED
+        x = torch.add(s.x, s.alpha * s.p, out=o.x)
+        r = torch.sub(s.r, s.alpha * s.s, out=o.r)
+        z = apply_M(r)
+        w = matvec(z)
+        gamma = dot(r, z)
+        delta = dot(w, z)
         res2 = dot(r, r)
-        if hist is not None:
-            hist[k] = torch.sqrt(res2)
-        k += 1
-    resn = torch.sqrt(res2)
-    return x, SolveInfo(k, resn, bool(resn <= tol_eff), hist)
+        beta = gamma / s.gamma
+        alpha = gamma / (delta - beta * gamma / s.alpha)
+        p = torch.add(z, beta * s.p, out=o.p)
+        sv = torch.add(w, beta * s.s, out=o.s)
+        if s.hist is not None:
+            _record(s.hist, s.k, torch.sqrt(res2))
+        return FusedCGState(x, r, p, sv, _put(gamma, o.gamma), _put(alpha, o.alpha),
+                            _put(res2, o.res2), torch.add(s.k, 1, out=o.k), s.hist)
+
+    return Loop(state, _stopper(tol_eff, maxiter), body, tol_eff, maxiter)
 
 
 def cg_fused_solve(
@@ -137,41 +284,8 @@ def cg_fused_solve(
     beta = 0); later steps use ``alpha = gamma / (delta - beta gamma /
     alpha_prev)``.
     """
-    n = A.shape[0]
-    x = torch.zeros_like(b) if x0 is None else x0
-    maxiter = 10 * n if maxiter is None else int(maxiter)
-    apply_M = _apply(M)
-    matvec = A.matvec
-    tol_eff = _tol_eff(b, tol, rtol)
-
-    r = b - matvec(x)
-    z = apply_M(r)
-    w = matvec(z)
-    gamma = dot(r, z)
-    delta = dot(w, z)
-    res2 = dot(r, r)
-    alpha = gamma / delta
-    p, s = z, w
-    hist = _history(history, maxiter, b)
-    k = 0
-    while k < maxiter and bool(torch.sqrt(res2) > tol_eff):
-        x = x + alpha * p
-        r = r - alpha * s
-        z = apply_M(r)
-        w = matvec(z)
-        gamma_new = dot(r, z)
-        delta = dot(w, z)
-        res2 = dot(r, r)
-        beta = gamma_new / gamma
-        alpha = gamma_new / (delta - beta * gamma_new / alpha)
-        gamma = gamma_new
-        p = z + beta * p
-        s = w + beta * s
-        if hist is not None:
-            hist[k] = torch.sqrt(res2)
-        k += 1
-    resn = torch.sqrt(res2)
-    return x, SolveInfo(k, resn, bool(resn <= tol_eff), hist)
+    return run_loop(cg_fused_loop(A, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, M=M,
+                                  history=history))
 
 
 def bicgstab_solve(

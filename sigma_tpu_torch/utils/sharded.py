@@ -21,8 +21,8 @@ import sys
 
 import torch
 
-__all__ = ["as_like", "dense_apply", "dot", "gathered", "is_sharded", "like", "reduced",
-           "rows_like"]
+__all__ = ["as_like", "dense_apply", "dot", "gathered", "is_sharded", "like", "local",
+           "reduced", "rows_like"]
 
 
 def _dtensor_module():
@@ -54,6 +54,15 @@ def dot(a, b):
     """``torch.dot(a, b)``, summed over the ranks for sharded vectors
     (:func:`reduced`)."""
     return reduced(torch.dot(a, b))
+
+
+def local(t):
+    """A small result reduced over the ranks (:func:`reduced`) as the plain
+    tensor every rank holds the same of: no communication once it is
+    replicated, and the ops that follow run without DTensor's dispatch."""
+    if not is_sharded(t):
+        return t
+    return reduced(t).to_local()
 
 
 def gathered(t):

@@ -1046,3 +1046,33 @@ def test_minres_and_refinement_on_card_match_cpu(cuda):
     x_gpu, i_gpu = _twice_on_card(lambda: st.refined_solve(Ag, bg, A_lo=Ag, M_lo=Mg, **kw))
     assert i_gpu.converged and i_gpu.iterations == i_cpu.iterations
     assert rel(x_gpu, x_cpu) <= 1e-9
+
+
+@pytest.mark.parametrize("solver", ["cg_solve", "cg_fused_solve"])
+def test_graphed_solve_on_card_equals_eager(cuda, solver):
+    """``graphed(solver)`` with GMG on the Poisson stencil and plain past
+    one block: the capturing and the cached call bit for bit equal to the
+    eager solve on the card, with the same counts and kernel launches."""
+    from sigma_tpu_torch.ops import launch_counts, launch_difference
+
+    nx = 24
+    A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, torch.float32, diag=6.0,
+                                                           device=cuda))
+    M = st.structured_pair_amg(A, (nx, nx, nx), pairs_per_level=3, level_dtype=torch.bfloat16)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(A.shape[0])).float().to(cuda)
+    fn = getattr(st, solver)
+    for kw in (dict(M=M, rtol=1e-6, history=True), dict(rtol=1e-6, maxiter=45)):
+        before = launch_counts()
+        x, info = fn(A, b, tol=0.0, **kw)
+        launches = launch_difference(launch_counts(), before)
+        G = st.graphed(fn)
+        for captured in (True, False):
+            before = launch_counts()
+            y, gi = G(A, b, tol=0.0, **kw)
+            assert G.captured == captured
+            assert launch_difference(launch_counts(), before) == launches
+            assert torch.equal(y, x) and gi.iterations == info.iterations
+            assert torch.equal(gi.residual_norm, info.residual_norm)
+            assert gi.converged == info.converged
+            if info.history is not None:
+                assert torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))
