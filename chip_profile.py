@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's solves goes, on one GPU.
 
-    python3 chip_profile.py [--nx 216] [--paths stencil,unstructured] [--out FILE]
+    python3 chip_profile.py [--nx 216] [--paths stencil,unstructured,nonsym] [--out FILE]
 
 Runs the solves of ``chip_smoke.py``'s paths through the same entry
 points (CG and fused CG on Laplacian + I; plain CG and GMG-CG with the
@@ -11,9 +11,12 @@ their cached graphs after the first call captured them; block CG with 8
 right-hand sides in the ``auto`` (interleaved) layout on Laplacian + I;
 f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson; on the 10M-row
 irregular mesh, CG and pruned-multigrid CG on full and on symmetric
-pruned storage), each five times warm and untraced and once under
+pruned storage; on the nonsymmetric stencil of ``benchmarks/adv3d.py``,
+BiCG-stab + Jacobi, BiCG-stab + GMG and GMRES(32), eagerly and as
+``graphed`` solves), each five times warm and untraced and once under
 ``torch.profiler``, and prints one JSON line per solve (``--paths``
-picks the stencil solves, the unstructured ones or both):
+picks the stencil solves, the unstructured ones, the nonsymmetric ones,
+or any of them; the default is the first two):
 
 - ``device_busy_ms``: the union of the kernel and copy intervals in the
   trace;
@@ -22,7 +25,7 @@ picks the stencil solves, the unstructured ones or both):
 - ``idle_share``: 1 - device_busy_ms / wall_ms;
 - ``device_ops``: the number of kernels and copies the solve ran;
 - ``port_kernels_ms``: the device time of the port's DIA and pruned
-  SpMV and SpMM kernels;
+  SpMV and SpMM kernels and GMRES's Givens kernel;
 - ``top``: the kernels that take the most device time, as
   [name, ms, launches].
 
@@ -43,7 +46,9 @@ import statistics
 import sys
 import time
 
-from chip_smoke import _manufactured, emit, median_ms, phase_device, unstructured_setup
+from chip_smoke import (
+    NONSYM_RTOL, _manufactured, emit, median_ms, phase_device, unstructured_setup,
+)
 
 
 def _stencil_solves(device, nx):
@@ -92,6 +97,36 @@ def _stencil_solves(device, nx):
          lambda: g_chebyshev(S, bs, tol=0.0, rtol=2e-7, maxiter=3000, M=Mc)),
         ("block_cg_auto", lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=100)),
         ("lobpcg_f32_gmg", lambda: (None, lobpcg(P, X0, M=Mp, tol=1e-4, maxiter=120))),
+    ]
+
+
+def _nonsym_solves(device, nx):
+    """(label, solve) pairs: ``chip_smoke.py`` phase 23's three solves on
+    the upwinded advection-diffusion stencil (beta 10, f32, b from the
+    manufactured solution), eagerly and as graphed solves."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        advection_diffusion_dia, bicgstab_solve, gmres_solve, graphed, jacobi, structured_amg,
+    )
+    from sigma_tpu_torch.ops import dia_spmv_reference
+
+    A = advection_diffusion_dia(nx, 10.0, torch.float32, device)
+    n = A.shape[0]
+    xstar = torch.from_numpy(
+        np.random.default_rng(0).standard_normal(n).astype(np.float32)).to(device)
+    b = dia_spmv_reference(A.data, xstar, A.offsets_dev, n, n)
+    Mj, Mg = jacobi().setup(A), structured_amg((nx, nx, nx), pairs_per_level=3).setup(A)
+    kw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=2000)
+    g_jacobi, g_gmg, g_gmres = (graphed(f) for f in (bicgstab_solve, bicgstab_solve, gmres_solve))
+    return [
+        ("bicgstab_jacobi", lambda: bicgstab_solve(A, b, M=Mj, **kw)),
+        ("bicgstab_gmg", lambda: bicgstab_solve(A, b, M=Mg, **kw)),
+        ("gmres32", lambda: gmres_solve(A, b, restart=32, **kw)),
+        ("graphed_bicgstab_jacobi", lambda: g_jacobi(A, b, M=Mj, **kw)),
+        ("graphed_bicgstab_gmg", lambda: g_gmg(A, b, M=Mg, **kw)),
+        ("graphed_gmres32", lambda: g_gmres(A, b, restart=32, **kw)),
     ]
 
 
@@ -146,7 +181,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
     ap.add_argument("--paths", default="stencil,unstructured",
-                    help="comma-separated: stencil, unstructured")
+                    help="comma-separated: stencil, unstructured, nonsym")
     ap.add_argument("--out", default="chiprun_out/profile.txt",
                     help="file for every kernel's device time per solve")
     args = ap.parse_args()
@@ -159,12 +194,14 @@ def main():
     phase_device()
 
     paths = args.paths.split(",")
-    if not paths or set(paths) - {"stencil", "unstructured"}:
+    if not paths or set(paths) - {"stencil", "unstructured", "nonsym"}:
         sys.exit(f"chip_profile: unknown --paths {args.paths!r}")
 
     solves, U = [], None
     if "stencil" in paths:
         solves += _stencil_solves(device, args.nx)
+    if "nonsym" in paths:
+        solves += _nonsym_solves(device, args.nx)
     if "unstructured" in paths:
         U = unstructured_setup(device)
         solves += _unstructured_solves(U)
@@ -209,7 +246,8 @@ def main():
                 "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
                 "idle_share": 1.0 - busy_ms / (wall * 1e3),
                 "device_ops": len(events),
-                "port_kernels_ms": sum(v[0] for k, v in ranked if "dia_" in k or "pruned_" in k),
+                "port_kernels_ms": sum(v[0] for k, v in ranked
+                                      if "dia_" in k or "pruned_" in k or "givens_" in k),
                 "top": [[k[:70], v[0], v[1]] for k, v in ranked[:6]],
             })
             out.write(f"{label}: {info.iterations} iterations, device busy "

@@ -30,7 +30,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives eighteen paths through the package's public entry points:
+drives nineteen paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -88,6 +88,14 @@ drives eighteen paths through the package's public entry points:
   advection-diffusion operator at nx=216 (beta 10, f32), BiCG-stab with
   ``jacobi()`` and with ``structured_amg(...).setup(A)``, GMRES(32), and
   100 CGLS steps whose rmatvec runs the DIA SpMV on the transposed layout;
+- the graphed nonsymmetric path (phase 23b): phase 23's BiCG-stab + Jacobi,
+  BiCG-stab + GMG and GMRES(32) again through ``graphed`` (BiCG-stab 32
+  iterations a replay, GMRES one restart cycle: its m Arnoldi steps and
+  the cycle's end, each under an if-node, the Givens update a kernel of
+  its own, ``csrc/givens.cu``, held first to its plain version), the
+  capturing and the cached call each held to the eager solve as in phase
+  10b; plus BiCG-stab stopped by ``maxiter``, GMRES(8) over several
+  cycles, GMRES(32) stopped inside a cycle and a zero b for each;
 - the nonsymmetric mesh (phase 24): ``benchmarks/unstructured_nonsym.py``'s
   skew-perturbed shuffled mesh at 1,048,576 rows in pruned storage, its
   skew statistic and route, plain and pruned-multigrid BiCG-stab, and
@@ -1182,12 +1190,13 @@ def phase_gmg(device, nx):
 GRAPHED_BUDGET_S = 40.0
 
 
-def _graphed_case(label, solve, A, b, kw, timed=False):
+def _graphed_case(label, solve, A, b, kw, timed=False, phase="graphed"):
     """One solve eagerly and through ``graphed(solve)`` twice (the first
     call captures, the second replays from the cache), held equal: x bit
     for bit, the count, the residual norm, ``converged``, the history and
     every kernel's launches.  ``timed`` repeats both three times, in
-    turns, for the median seconds.  Returns the row."""
+    turns, for the median seconds.  Returns the row (``phase`` its
+    phase's name)."""
     import torch
 
     from sigma_tpu_torch import graphed
@@ -1231,15 +1240,19 @@ def _graphed_case(label, solve, A, b, kw, timed=False):
             cached_runs.append(check("cached"))
     its = max(info.iterations, 1)
     eager_s, cached_s = statistics.median(eager_runs), statistics.median(cached_runs)
-    row = {"phase": "graphed", "solve": label, "iterations": info.iterations,
+    # a graphed GMRES reads once a restart cycle; its eager loop once a
+    # step and once a cycle
+    cycles = G.host_reads if solve.__name__ == "gmres_solve" and info.iterations else 0
+    row = {"phase": phase, "solve": label, "iterations": info.iterations,
            "converged": info.converged, "maxiter": kw.get("maxiter"),
            "history": bool(kw.get("history")), "x_bitwise_equal": True,
            "eager_s": eager_s, "first_call_s": first_s, "capture_s": capture_s,
            "cached_s": cached_s, "eager_s_per_iteration": eager_s / its,
            "graphed_s_per_iteration": cached_s / its,
            # eager: a read of the stopping rule an iteration and one more,
-           # and one of converged; graphed: one of the status a block
-           "host_reads_eager": info.iterations + 2, "host_reads_graphed": G.host_reads,
+           # and one of converged; graphed: one of the status a replay
+           "host_reads_eager": info.iterations + cycles + 2, "host_reads_graphed": G.host_reads,
+           **({"restart": kw["restart"], "cycles": cycles} if "restart" in kw else {}),
            "launches": {k: n for k, (n, _) in launches.items() if n}}
     emit(row)
     return row
@@ -2923,7 +2936,7 @@ def phase_nonsym_stencil(device, nx, beta=10.0):
     BiCG-stab + jacobi(), BiCG-stab + structured_amg(pairs_per_level=3),
     GMRES(32); then 100 CGLS steps, whose rmatvec runs #1 on the transposed
     layout (CGLS squares the condition number: only the drop in ||A^T r||
-    is held)."""
+    is held).  Returns the operator, b and the two preconditioners."""
     import numpy as np
     import torch
 
@@ -2944,9 +2957,10 @@ def phase_nonsym_stencil(device, nx, beta=10.0):
     Mg = structured_amg((nx, nx, nx), pairs_per_level=3).setup(A)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    Mj = jacobi().setup(A)
     kw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=2000)
     for label, run, extra in (
-        ("bicgstab_jacobi", lambda: bicgstab_solve(A, b, M=jacobi().setup(A), **kw), {}),
+        ("bicgstab_jacobi", lambda: bicgstab_solve(A, b, M=Mj, **kw), {}),
         ("bicgstab_gmg", lambda: bicgstab_solve(A, b, M=Mg, **kw),
          {"setup_s": setup, "levels": len(Mg.levels) + 1}),
         ("gmres32", lambda: gmres_solve(A, b, restart=32, **kw), {"restart": 32}),
@@ -2970,6 +2984,135 @@ def phase_nonsym_stencil(device, nx, beta=10.0):
           "s_per_iteration": warm / max(info.iterations, 1)})
     if not drop < 1.0:
         raise AssertionError(f"CGLS did not lower ||A^T r||: {drop:.3e} of its start")
+    return A, b, Mj, Mg
+
+
+GRAPHED_NONSYM_BUDGET_S = 40.0
+
+
+def givens_checks(device, m=32):
+    """GMRES's Givens kernel (``csrc/givens.cu``) against its plain version
+    on the card: a whole cycle of m steps on random Hessenberg columns (one
+    with a zero subdiagonal entry, one all zero), every output bit for bit
+    in f64 and within 1e-6 relative in f32; then its single-launch time at
+    the last step beside the plain version's and the bound.  Outside the
+    counted paths.  Returns the kernel's summary row."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.ops import givens_update, givens_update_reference
+
+    def state(dt):
+        z = [torch.zeros(s, dtype=dt, device=device) for s in ((m, m), m, m, m + 1, ())]
+        z[3][0] = 2.5
+        return z + [torch.zeros((), dtype=torch.bool, device=device),
+                    torch.zeros((), dtype=torch.int64, device=device)]
+
+    k = torch.tensor(7, device=device)
+    row = {"phase": "givens_kernel", "m": m}
+    worst = 0.0
+    for dt in (torch.float64, torch.float32):
+        tol = torch.tensor(1e-30, dtype=dt, device=device)
+        kern, plain = state(dt), state(dt)
+        rng = np.random.default_rng(24)
+        bitwise, rel = True, 0.0
+        for j in range(m):
+            h = torch.from_numpy(rng.standard_normal(m + 1)).to(device, dt)
+            h[j + 2:] = 0
+            if j == 9:
+                h[j + 1] = 0
+            if j == 20:
+                h.zero_()
+            givens_update(h, *kern[:5], kern[5], kern[6], k, tol, j, 1000)
+            givens_update_reference(h, *plain[:5], plain[5], plain[6], k, tol, j, 1000)
+            for a, r in zip(kern, plain):
+                bitwise &= torch.equal(a, r)
+                if a.is_floating_point():
+                    worst = max(worst, float((a.double() - r.double()).abs().max()))
+                    rel = max(rel, rel_err(a, r))
+        row[str(dt).split(".")[1]] = {"bitwise_equal": bitwise, "max_rel_err": rel}
+        if not (bitwise if dt == torch.float64 else rel <= 1e-6):
+            raise AssertionError(f"the Givens kernel differs from its plain version: {row}")
+    # time the last step (the longest chain), f32
+    kern = state(torch.float32)
+    h = torch.from_numpy(np.random.default_rng(1).standard_normal(m + 1)).to(device,
+                                                                             torch.float32)
+    tol = torch.tensor(1e-30, device=device)
+    row["kernel_ms"] = median_ms(lambda: givens_update(h, *kern[:5], kern[5], kern[6], k, tol,
+                                                       m - 1, 1000))
+    row["plain_ms"] = median_ms(lambda: givens_update_reference(h, *kern[:5], kern[5], kern[6],
+                                                                k, tol, m - 1, 1000))
+    j = m - 1
+    # read h, cs, sn, g[j], k, tol; write R's column, cs[j], sn[j], g[j],
+    # g[j + 1], est, inner, jdev: 6 operations a rotation and ~14 more
+    nbytes = 4 * ((j + 2) + 2 * j + 1 + 1) + 8 + 4 * ((j + 1) + 4 + 1) + 1 + 8
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 6 * j + 14, torch.float32)
+    row["max_abs_err"], row["library_ms"] = worst, None
+    emit(row)
+    return row
+
+
+def phase_graphed_nonsym(device, A, b, Mj, Mg):
+    """Phase 23b: phase 23's BiCG-stab + Jacobi, BiCG-stab + GMG and
+    GMRES(32) eagerly and as graphed solves (BiCG-stab a block of
+    iterations a replay, GMRES a restart cycle), everything held equal
+    (:func:`_graphed_case`), BiCG-stab also with a history; then the edge
+    cases: BiCG-stab stopped unconverged by ``maxiter``, GMRES(8) over
+    several cycles with ``maxiter`` not a multiple of 8, GMRES(32) stopped
+    by ``maxiter`` inside its second cycle, and a zero right-hand side for
+    each solver.  A graphed BiCG-stab reads once a block, a graphed GMRES
+    once a cycle (the cycles counted from the eager solve's matvecs).
+    Fails beyond ``GRAPHED_NONSYM_BUDGET_S``."""
+    import torch
+
+    from sigma_tpu_torch import bicgstab_solve, gmres_solve
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    t0 = time.perf_counter()
+    kw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=2000)
+    run = partial(_graphed_case, phase="graphed_nonsym")
+    rows = {}
+    for label, solve, extra in (("bicgstab_jacobi", bicgstab_solve, dict(M=Mj)),
+                                ("bicgstab_gmg", bicgstab_solve, dict(M=Mg)),
+                                ("gmres32", gmres_solve, dict(restart=32))):
+        rows[label] = run(label, solve, A, b, dict(kw, **extra), timed=True)
+        if solve is bicgstab_solve:
+            run(label, solve, A, b, dict(kw, history=True, **extra))
+    z = torch.zeros_like(b)
+    for label, solve, bb, extra in (
+        ("bicgstab_stopped_by_maxiter", bicgstab_solve, b, dict(M=Mj, maxiter=BLOCK + 13)),
+        ("gmres8_cycles", gmres_solve, b, dict(restart=8, maxiter=1001)),
+        ("gmres32_stopped_mid_cycle", gmres_solve, b, dict(restart=32, maxiter=45)),
+        ("bicgstab_zero_rhs", bicgstab_solve, z, dict(M=Mg)),
+        ("gmres32_zero_rhs", gmres_solve, z, dict(restart=32)),
+    ):
+        rows[label] = run(label, solve, A, bb, dict(kw, **extra))
+    for label, row in rows.items():
+        its = row["iterations"]
+        if label.startswith("gmres"):
+            # no M: one matvec at set-up, one a step and one a cycle
+            cycles = row["launches"].get("dia_spmv", 0) - 1 - its
+            want = max(1, cycles)
+        else:
+            want = max(1, -(-its // BLOCK))
+        if row["host_reads_graphed"] != want:
+            raise AssertionError(f"graphed {label}: {row['host_reads_graphed']} host reads, "
+                                 f"want {want}")
+    stopped, cyc = rows["bicgstab_stopped_by_maxiter"], rows["gmres8_cycles"]
+    mid = rows["gmres32_stopped_mid_cycle"]
+    if stopped["converged"] or stopped["iterations"] != BLOCK + 13:
+        raise AssertionError(f"BiCG-stab was not stopped by maxiter: {stopped}")
+    if not (cyc["converged"] and cyc["cycles"] >= 3 and cyc["maxiter"] % 8):
+        raise AssertionError(f"GMRES(8) did not converge over several cycles: {cyc}")
+    if mid["converged"] or mid["iterations"] != 45 or mid["cycles"] != 2:
+        raise AssertionError(f"GMRES(32) was not stopped inside its second cycle: {mid}")
+    if rows["bicgstab_zero_rhs"]["iterations"] or rows["gmres32_zero_rhs"]["iterations"]:
+        raise AssertionError("a zero right-hand side took iterations")
+    secs = time.perf_counter() - t0
+    emit({"phase": "graphed_nonsym_path", "seconds": secs, "block": BLOCK,
+          "budget_s": GRAPHED_NONSYM_BUDGET_S})
+    if secs > GRAPHED_NONSYM_BUDGET_S:
+        raise AssertionError(f"phase 23b took {secs:.1f} s, over its {GRAPHED_NONSYM_BUDGET_S} s")
 
 
 def phase_nonsym_unstructured(device, height=16_384, width=64, seed=0, beta=0.3,
@@ -4918,8 +5061,8 @@ def main():
     # fails early without the package
     from sigma_tpu_torch.ops import (
         bsr_grouped_spmv, dia_spmm, dia_spmm_grouped, dia_spmv, dia_spmv_resident,
-        dia_spmv_window, dia_sym_spmm, dia_sym_spmv, pruned_spmm, pruned_spmv, pruned_sym_spmm,
-        pruned_sym_spmv,
+        dia_spmv_window, dia_sym_spmm, dia_sym_spmv, givens_update, pruned_spmm, pruned_spmv,
+        pruned_sym_spmm, pruned_sym_spmv,
     )
 
     smi = phase_device()                                    # phase 0
@@ -4939,7 +5082,8 @@ def main():
                "pruned_spmv": pruned_spmv, "pruned_sym_spmv": pruned_sym_spmv,
                "pruned_spmm": pruned_spmm, "pruned_sym_spmm": pruned_sym_spmm,
                "dia_spmm_grouped": dia_spmm_grouped, "dia_spmv_resident": dia_spmv_resident,
-               "dia_spmv_window": dia_spmv_window, "bsr_grouped_spmv": bsr_grouped_spmv}
+               "dia_spmv_window": dia_spmv_window, "bsr_grouped_spmv": bsr_grouped_spmv,
+               "givens_update": givens_update}
 
     def zero_counts():
         for fn in kernels.values():
@@ -5036,8 +5180,15 @@ def main():
     del S, variants
     # the nonsymmetric paths and the refinement ladder
     zero_counts()
-    phase_nonsym_stencil(device, args.nx)                   # phase 23
-    paths.append(read_counts("nonsym_stencil", ("dia_spmv",)))
+    A23, b23, Mj23, Mg23 = phase_nonsym_stencil(device, args.nx)  # phase 23
+    paths.append(read_counts("nonsym_stencil", ("dia_spmv", "givens_update")))
+    # the same solves as graphed solves, held to the eager loop (GMRES's
+    # Givens kernel held to its plain version first, outside the path)
+    rows["givens_update"] = givens_checks(device)
+    zero_counts()
+    phase_graphed_nonsym(device, A23, b23, Mj23, Mg23)      # phase 23b
+    paths.append(read_counts("graphed_nonsym", ("dia_spmv", "givens_update")))
+    del A23, b23, Mj23, Mg23
     zero_counts()
     phase_nonsym_unstructured(device)                       # phase 24
     paths.append(read_counts("nonsym_unstructured", ("pruned_spmv",)))
@@ -5127,6 +5278,8 @@ def main():
         "dia_spmv_resident": ("dia_spmv.cu", f"{pallas}:1246"),
         "dia_spmv_window": ("dia_spmv.cu", f"{pallas}:1277"),
         "bsr_grouped_spmv": ("bsr_grouped.cu", "sigma_tpu/ops/bsr_pallas.py:59"),
+        # no pallas_call: the device form of the JAX GMRES loop's Givens update
+        "givens_update": ("givens.cu", "sigma_tpu/solvers/krylov.py:357"),
     }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "spmm_summary_layouts": summary_layouts})

@@ -5,9 +5,10 @@ holds the stencil main path: DIA storage (full and symmetric), the
 hand-written DIA SpMV and SpMM kernels for Hopper that every matvec and
 multi-RHS product runs on a CUDA device, the operator algebra, the Krylov
 solvers (CG, fused CG, BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS, the
-stationary iteration, block CG; CG and fused CG also as ``graphed``
-solves, one CUDA graph a block of iterations under device-side if-nodes,
-the counterpart of ``jax.jit``), the solver objects and factories
+stationary iteration, block CG; CG, fused CG, BiCG-stab and GMRES also
+as ``graphed`` solves, one CUDA graph a block of iterations, or a GMRES
+restart cycle, under device-side if-nodes, the counterpart of
+``jax.jit``), the solver objects and factories
 (``cg()``, ``bicgstab()``, ``gmres()``, ``cgls()``, ``jacobi()``,
 ``structured_amg()``) with ``attach_solver`` and the ``solve`` facade,
 iterative refinement, the structured pair-aggregation multigrid

@@ -1,21 +1,25 @@
-// A solve loop's block of iterations as one CUDA graph whose iterations
-// each sit under a conditional if-node.
+// A solve loop's replay unit as one CUDA graph whose bodies each sit
+// under a conditional if-node.
 //
 // Replaces no TPU kernel: it is the port's counterpart of the compiled
-// ``lax.while_loop`` of ``sigma_tpu/solvers/krylov.py`` (``cg_solve``,
-// ``cg_fused_solve``), whose ``cond`` XLA evaluates on the device.  The
-// Python side (``sigma_tpu_torch/solvers/graphed.py``) captures with
-// ``torch.cuda.graph`` a head (the predicate from the starting state), the
-// loop's body twice (the even and the odd iteration, which ping-pong
-// between two buffer sets) and a tail (the status the host reads); each
-// capture is a graph in PyTorch's memory pool for the loop.  This file
-// links them: head -> block x (set-predicate kernel -> if-node holding the
-// even or odd body as a child graph) -> tail, and instantiates the result.
+// ``lax.while_loop``s of ``sigma_tpu/solvers/krylov.py`` (``cg_solve``,
+// ``cg_fused_solve``, ``bicgstab_solve``, ``gmres_solve``), whose ``cond``
+// XLA evaluates on the device.  The Python side
+// (``sigma_tpu_torch/solvers/graphed.py``) captures with
+// ``torch.cuda.graph`` a head, the bodies and a tail (the status the host
+// reads); each capture is a graph in PyTorch's memory pool for the loop.
+// This file links them: head -> one (set-predicate kernel -> if-node
+// holding a body as a child graph) a body -> tail, and instantiates the
+// result.  A block of CG or BiCG-stab iterations lists the even and the
+// odd iteration (which ping-pong between two buffer sets) in turn, all on
+// the loop's predicate; a GMRES restart cycle lists its m Arnoldi steps,
+// the first on the cycle's predicate and the others on the one the step
+// before wrote, then the cycle's end on the cycle's predicate.
 //
-// Each if-node's handle is set by a one-thread kernel from the predicate
-// in device memory, which the previous iteration's body wrote; a false
-// predicate skips every later body of the block, so the iteration count
-// is exact.  The host reads the status once a block.
+// Each if-node's handle is set by a one-thread kernel from its predicate
+// in device memory, which an earlier body (or the head) wrote; a false
+// predicate skips the body, and every later body on it, so the iteration
+// count is exact.  The host reads the status once a replay.
 //
 // Bound: launch latency.  The set-predicate kernel reads one byte; a
 // skipped if-node costs its kernel and the node's own scheduling.
@@ -52,11 +56,12 @@ cudaError_t append_child(cudaGraph_t graph, cudaGraphNode_t* last, cudaGraph_t c
   return err;
 }
 
-cudaError_t link(cudaGraph_t graph, cudaGraph_t head, cudaGraph_t even, cudaGraph_t odd,
-                 cudaGraph_t tail, const bool* pred, int64_t block) {
+cudaError_t link(cudaGraph_t graph, cudaGraph_t head, const cudaGraph_t* bodies,
+                 const bool* const* preds, int64_t nodes, cudaGraph_t tail) {
   cudaGraphNode_t last = nullptr;
   cudaError_t err = append_child(graph, &last, head);
-  for (int64_t j = 0; j < block && err == cudaSuccess; ++j) {
+  for (int64_t j = 0; j < nodes && err == cudaSuccess; ++j) {
+    const bool* pred = preds[j];
     cudaGraphConditionalHandle handle;
     err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
     if (err != cudaSuccess) break;
@@ -77,7 +82,7 @@ cudaError_t link(cudaGraph_t graph, cudaGraph_t head, cudaGraph_t even, cudaGrap
     err = add_conditional(&last, graph, &setter, &cp);
     if (err != cudaSuccess) break;
     cudaGraphNode_t inner = nullptr;
-    err = append_child(cp.conditional.phGraph_out[0], &inner, j % 2 ? odd : even);
+    err = append_child(cp.conditional.phGraph_out[0], &inner, bodies[j]);
   }
   if (err == cudaSuccess) err = append_child(graph, &last, tail);
   return err;
@@ -85,11 +90,12 @@ cudaError_t link(cudaGraph_t graph, cudaGraph_t head, cudaGraph_t even, cudaGrap
 
 }  // namespace
 
-// Link the four captured graphs into a block of `block` guarded
-// iterations on `device` and instantiate it; `*exec` receives the
+// Link the captured graphs on `device`: `head`, then `nodes` bodies, the
+// j-th `bodies[j]` under an if-node on the predicate `preds[j]` (a device
+// bool), then `tail`; instantiate the result.  `*exec` receives the
 // executable graph (null on failure).
-extern "C" int sigma_loop_graph(int device, const void* head, const void* even, const void* odd,
-                                const void* tail, const void* pred, int64_t block,
+extern "C" int sigma_loop_graph(int device, const void* head, const void* const* bodies,
+                                const void* const* preds, int64_t nodes, const void* tail,
                                 void** exec) {
   *exec = nullptr;
   int current = -1;
@@ -99,8 +105,8 @@ extern "C" int sigma_loop_graph(int device, const void* head, const void* even, 
   cudaGraph_t graph;
   err = cudaGraphCreate(&graph, 0);
   if (err != cudaSuccess) return err;
-  err = link(graph, (cudaGraph_t)head, (cudaGraph_t)even, (cudaGraph_t)odd, (cudaGraph_t)tail,
-             static_cast<const bool*>(pred), block);
+  err = link(graph, (cudaGraph_t)head, (const cudaGraph_t*)bodies, (const bool* const*)preds,
+             nodes, (cudaGraph_t)tail);
   cudaGraphExec_t out = nullptr;
   if (err == cudaSuccess) err = cudaGraphInstantiate(&out, graph, 0);
   cudaGraphDestroy(graph);  // the executable graph keeps its own copy
@@ -108,7 +114,7 @@ extern "C" int sigma_loop_graph(int device, const void* head, const void* even, 
   return err;
 }
 
-// Launch the block on `stream`.
+// Launch the linked graph on `stream`.
 extern "C" int sigma_loop_launch(void* exec, void* stream) {
   return cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec), static_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,10 @@
   :class:`~sigma_tpu_torch.ops.bsr_grouped.GroupedBSR` operator, which
   calls it for every product; the kernel path of
   :class:`~sigma_tpu_torch.matrix.formats.BSRMatrix` (``.grouped()``).
+* :mod:`sigma_tpu_torch.ops.givens` — GMRES's Givens update of one Arnoldi
+  step (no Pallas kernel: the device form of the JAX package's
+  ``_givens_update``) with its plain version; every GMRES and FGMRES step
+  calls it.
 """
 
 import torch
@@ -35,6 +39,7 @@ from sigma_tpu_torch.ops.bsr_grouped import (
     bsr_grouped_spmv,
     bsr_grouped_spmv_reference,
 )
+from sigma_tpu_torch.ops.givens import givens_update, givens_update_reference
 from sigma_tpu_torch.ops.spmm_dia import (
     GROUPED_LAYOUTS,
     LAYOUTS,
@@ -82,7 +87,7 @@ from sigma_tpu_torch.ops.spmv_dia import (
 COUNTED = (
     "dia_spmv", "dia_sym_spmv", "dia_spmv_resident", "dia_spmv_window", "dia_spmm",
     "dia_sym_spmm", "dia_spmm_grouped", "pruned_spmv", "pruned_sym_spmv", "pruned_spmm",
-    "pruned_sym_spmm", "bsr_grouped_spmv",
+    "pruned_sym_spmm", "bsr_grouped_spmv", "givens_update",
 )
 
 
@@ -151,6 +156,8 @@ __all__ = [
     "dia_sym_spmm_reference",
     "dia_sym_spmv",
     "dia_sym_spmv_reference",
+    "givens_update",
+    "givens_update_reference",
     "interleave_panels",
     "launch_counts",
     "launch_difference",

@@ -164,9 +164,14 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
     ]
     lib.sigma_bsr_grouped_spmv.restype = i32
-    # the graphed solve loop: (device, head, even, odd, tail, pred, block,
-    # exec out), then launch (exec, stream) and destroy (exec)
-    lib.sigma_loop_graph.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, ctypes.POINTER(ptr)]
+    # GMRES's Givens update: (device, dtype, h, R, cs, sn, g, est, inner,
+    # jdev, k, tol, j, m, maxiter, stream)
+    lib.sigma_givens_update.argtypes = [i32, i32, *[ptr] * 10, i64, i64, i64, ptr]
+    lib.sigma_givens_update.restype = i32
+    # the graphed solve loop: (device, head, bodies, predicates, nodes,
+    # tail, exec out), then launch (exec, stream) and destroy (exec)
+    lib.sigma_loop_graph.argtypes = [i32, ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr), i64,
+                                     ptr, ctypes.POINTER(ptr)]
     lib.sigma_loop_graph.restype = i32
     lib.sigma_loop_launch.argtypes = [ptr, ptr]
     lib.sigma_loop_launch.restype = i32

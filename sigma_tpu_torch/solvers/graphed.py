@@ -1,51 +1,63 @@
-"""Graphed solves: the port's counterpart of ``jax.jit`` of a CG solve.
+"""Graphed solves: the port's counterpart of ``jax.jit`` of a Krylov solve.
 
 The JAX package compiles a whole solve into one XLA program: the loop is
 a ``lax.while_loop`` whose ``cond`` runs on the device
 (``sigma_tpu/solvers/krylov.py``).  The eager solvers of
 :mod:`~sigma_tpu_torch.solvers.krylov` read the stopping rule back to the
-host once an iteration.  ``graphed(cg_solve)`` and
-``graphed(cg_fused_solve)`` return a callable with the solver's own
-signature and results which, for a CUDA ``b``,
+host once an iteration.  ``graphed(cg_solve)``, ``graphed(cg_fused_solve)``,
+``graphed(bicgstab_solve)`` and ``graphed(gmres_solve)`` return a callable
+with the solver's own signature and results which, for a CUDA ``b``,
 
 1. runs the solver's set-up eagerly (:func:`~sigma_tpu_torch.solvers.krylov.cg_loop`,
-   :func:`~sigma_tpu_torch.solvers.krylov.cg_fused_loop`);
+   :func:`~sigma_tpu_torch.solvers.krylov.cg_fused_loop`,
+   :func:`~sigma_tpu_torch.solvers.krylov.bicgstab_loop`,
+   :func:`~sigma_tpu_torch.solvers.krylov.gmres_loop`);
 2. on its first call for an operator, a preconditioner, b's shape, dtype
-   and device and the keywords, captures with ``torch.cuda.graph`` a head
-   (the predicate ``cond`` of the starting state), the loop's body twice
-   and a tail (the status the host reads), all in one memory pool.  The
-   iterations ping-pong between two buffer sets, so the state is carried
-   without a copy, as XLA aliases the loop carry; the counter and the
-   history are shared.  ``csrc/graph_loop.cu`` links the four into one
-   CUDA graph of ``min(BLOCK, maxiter)`` iterations, each under a
-   conditional if-node that runs it only while the predicate the previous
-   iteration wrote holds;
-3. replays that graph until the predicate reads false: one host read a
-   block, where the eager loop makes one an iteration.
+   and device and the keywords, captures with ``torch.cuda.graph`` a
+   head, the bodies and a tail (the status the host reads), all in one
+   memory pool, and ``csrc/graph_loop.cu`` links them into one CUDA graph
+   whose bodies each sit under a conditional if-node that runs it only
+   while the predicate it waits on holds:
+
+   - CG, fused CG and BiCG-stab (a :class:`~sigma_tpu_torch.solvers.krylov.Loop`):
+     the head writes the predicate ``cond`` of the starting state, and
+     ``min(BLOCK, maxiter)`` iterations follow, the loop's body captured
+     twice.  The iterations ping-pong between two buffer sets, so the
+     state is carried without a copy, as XLA aliases the loop carry; the
+     counter, the history and BiCG-stab's shadow residual are shared;
+   - GMRES(m) (a :class:`~sigma_tpu_torch.solvers.krylov.Cycles`): one
+     restart cycle.  The head writes the outer predicate and starts the
+     cycle; the m Arnoldi steps follow, each captured at its own index j
+     (the basis products' slices are fixed by j), the first on the outer
+     predicate and step j on the inner predicate that step j - 1's Givens
+     update wrote on the device; then the cycle's end (the Hessenberg
+     solve, the update of x, the new residual) on the outer predicate.
+     Every write is in place: the basis is one buffer;
+
+3. replays that graph until the status reads false: one host read a block
+   of iterations, or a restart cycle, where the eager loop makes one an
+   iteration (GMRES: an Arnoldi step).
 
 The count is exact and the results are the eager solver's bit for bit:
 the same operations in the same order on the same buffers' values.  A
 later call with a new ``b`` or ``x0`` copies the new initial state into
 the graph's buffers and replays without capturing again, as jit reuses
 its compiled program; the callable keeps the last graph only.  The
-set-up's own launches (one matvec, one preconditioner application, as
-the eager solve makes them) come before the capture and prepare every
-kernel the body launches.
+set-up's own launches come before the capture (CG's and BiCG-stab's make
+one matvec and one preconditioner application, as the eager solve does).
 
 PyTorch 2.11's ``CUDAGraph`` has no Python binding for capturing into an
 if-node (``begin_capture_to_if_node``, which later releases bind), so
 the if-nodes are added through the CUDA runtime.  The launch counters of
 the port's kernels are bumped in Python, where a replay runs none: the
-capture's launches are taken back out and each replay adds one body's
-launches times the iterations it ran, so the counts equal the eager
-solve's.
+capture's launches are taken back out and each replay adds the launches
+of each part it ran, so the counts equal the eager solve's.
 
-For a CPU ``b`` the same init / cond / body run eagerly, in the same
-block schedule, with the same buffers: the plain version.  There is no
-fallback: on CUDA a capture that fails raises.  Only ``cg_solve`` and
-``cg_fused_solve`` are graphed, and only for a plain tensor ``b``; the
-other solvers and the rank mesh run their eager loops (``ROADMAP.md``,
-staged item A.2).
+For a CPU ``b`` the same parts run eagerly, in the same schedule, with
+the same buffers: the plain version.  There is no fallback: on CUDA a
+capture that fails raises.  Only these four solvers are graphed, and
+only for a plain tensor ``b``; the other solvers and the rank mesh run
+their eager loops (``ROADMAP.md``, staged item A.2).
 """
 
 from __future__ import annotations
@@ -56,20 +68,25 @@ import functools
 import inspect
 import time
 import weakref
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from sigma_tpu_torch.ops import _build, add_launch_counts, launch_counts, launch_difference
 from sigma_tpu_torch.solvers.krylov import (
+    Cycles,
     Loop,
     SolveInfo,
+    bicgstab_loop,
+    bicgstab_solve,
     cg_fused_loop,
     cg_fused_solve,
     cg_loop,
     cg_solve,
+    gmres_loop,
+    gmres_solve,
 )
-from sigma_tpu_torch.utils.sharded import is_sharded
+from sigma_tpu_torch.utils.sharded import is_sharded, local
 
 __all__ = ["BLOCK", "GraphedSolve", "graphed"]
 
@@ -86,37 +103,99 @@ __all__ = ["BLOCK", "GraphedSolve", "graphed"]
 # began from.
 BLOCK = 32
 
-_LOOPS = {cg_solve: cg_loop, cg_fused_solve: cg_fused_loop}
+_LOOPS = {cg_solve: cg_loop, cg_fused_solve: cg_fused_loop, bicgstab_solve: bicgstab_loop,
+          gmres_solve: gmres_loop}
 
 
 def graphed(solve) -> "GraphedSolve":
-    """``solve`` run as one captured CUDA graph a block of iterations: the
-    counterpart of ``jax.jit(lambda A, b: solve(A, b, ...))``.  Takes
-    :func:`~sigma_tpu_torch.solvers.krylov.cg_solve` or
-    :func:`~sigma_tpu_torch.solvers.krylov.cg_fused_solve`; raises
+    """``solve`` run as one captured CUDA graph a block of iterations (a
+    restart cycle for GMRES): the counterpart of ``jax.jit(lambda A, b:
+    solve(A, b, ...))``.  Takes
+    :func:`~sigma_tpu_torch.solvers.krylov.cg_solve`,
+    :func:`~sigma_tpu_torch.solvers.krylov.cg_fused_solve`,
+    :func:`~sigma_tpu_torch.solvers.krylov.bicgstab_solve` or
+    :func:`~sigma_tpu_torch.solvers.krylov.gmres_solve`; raises
     ``TypeError`` for any other solver."""
     loop = _LOOPS.get(solve)
     if loop is None:
         name = getattr(solve, "__name__", repr(solve))
         raise TypeError(
-            f"graphed() takes cg_solve or cg_fused_solve, not {name}: the other "
-            "solvers run their eager loops (ROADMAP.md, staged item A.2)"
+            f"graphed() takes cg_solve, cg_fused_solve, bicgstab_solve or gmres_solve, not "
+            f"{name}: the other solvers run their eager loops (ROADMAP.md, staged item A.2)"
         )
     return GraphedSolve(solve, loop)
 
 
 @dataclasses.dataclass(eq=False)
+class _Plan:
+    """A loop laid out for replay: the parts a capture takes (the head,
+    the distinct bodies, the tail), the if-nodes in graph order, each a
+    part's index and the predicate it waits on, and the status the tail
+    writes."""
+
+    parts: list  # callables: parts[0] the head, parts[-1] the tail
+    nodes: list  # (part index, predicate) an if-node
+    status: torch.Tensor  # (more, k, converged) as int64, read once a replay
+    tol_eff: torch.Tensor  # the threshold the captured parts read
+    load: Callable  # (loop): a new set-up's state into the buffers
+    result: Callable  # (k, converged): (x, info) copied out of the buffers
+    ran: Callable  # (steps a replay took): the indices of the nodes that ran
+
+
+def _block_plan(loop: Loop) -> _Plan:
+    """CG, fused CG, BiCG-stab: ``min(BLOCK, maxiter)`` iterations, the
+    even and the odd body in turn, all on the loop's predicate."""
+    sets = _buffers(loop.state)
+    pred = torch.zeros((), dtype=torch.bool, device=loop.tol_eff.device)
+    status = torch.zeros(3, dtype=torch.int64, device=pred.device)
+    parts = [
+        lambda: pred.copy_(loop.cond(sets[0])),
+        lambda: _step(loop, sets[0], sets[1], pred),
+        lambda: _step(loop, sets[1], sets[0], pred),
+        lambda: _tail(loop, sets, pred, status),
+    ]
+    nodes = [(1 + j % 2, pred) for j in range(min(BLOCK, loop.maxiter))]
+    return _Plan(parts, nodes, status, loop.tol_eff,
+                 lambda new: _load(sets[0], new.state),
+                 lambda k, converged: _result(loop, sets, k, converged), range)
+
+
+def _cycle_plan(loop: Cycles) -> _Plan:
+    """GMRES: one restart cycle, its m steps and its end."""
+    s = loop.state._make(t.clone() for t in loop.state)
+    w = loop.work()
+    outer = torch.zeros((), dtype=torch.bool, device=loop.tol_eff.device)
+    status = torch.zeros(3, dtype=torch.int64, device=outer.device)
+    m = loop.m
+
+    def head():
+        # inner needs no reset: every cycle's last step leaves it false
+        outer.copy_(loop.cond(s))
+        loop.init(s, w)
+
+    def tail():
+        converged = local(s.beta) <= loop.tol_eff
+        torch.stack((loop.cond(s).to(s.k.dtype), s.k, converged.to(s.k.dtype)), out=status)
+
+    def result(k, converged):
+        return s.x.clone(), SolveInfo(k, s.beta.clone(), bool(converged))
+
+    parts = [head, *(functools.partial(loop.step, s, w, j) for j in range(m)),
+             lambda: loop.end(s, w), tail]
+    nodes = [(1 + j, outer if j == 0 else w.inner) for j in range(m)] + [(m + 1, outer)]
+    return _Plan(parts, nodes, status, loop.tol_eff, lambda new: _load(s, new.state), result,
+                 lambda steps: [*range(steps), m] if steps else [])
+
+
+@dataclasses.dataclass(eq=False)
 class _Graph:
-    """A captured block and the buffers it reads and writes."""
+    """A captured plan and the executable graph that links it."""
 
     refs: tuple  # weak references to A and M (None for no M)
     key: tuple  # b's shape, dtype and device and the bound keywords
-    graphs: list  # the four torch captures: they hold the memory pool
-    sets: tuple  # the two buffer sets the iterations ping-pong between
-    pred: torch.Tensor  # 0-d bool: the next iteration runs
-    status: torch.Tensor  # (pred, k, converged) as int64, read once a block
-    tol_eff: torch.Tensor  # the threshold the captured cond reads
-    per_iteration: dict  # one body's kernel launches (launch_difference)
+    graphs: list  # the torch captures, one a part: they hold the memory pool
+    plan: _Plan
+    launches: list  # each part's kernel launches (launch_difference)
     exec: int  # the executable CUDA graph's handle
 
     def matches(self, A, M, key) -> bool:
@@ -128,9 +207,9 @@ class GraphedSolve:
     """The callable :func:`graphed` returns, with the solver's signature.
 
     After each call, ``host_reads`` is the number of status reads the solve
-    made (one a block), ``captured`` whether the call captured a graph, and
-    ``capture_seconds`` the host time of the last capture, the linking and
-    instantiation of the graph included."""
+    made (one a replay), ``captured`` whether the call captured a graph,
+    and ``capture_seconds`` the host time of the last capture, the linking
+    and instantiation of the graph included."""
 
     def __init__(self, solve, loop):
         functools.update_wrapper(self, solve)
@@ -153,66 +232,55 @@ class GraphedSolve:
         loop = self._loop(A, b, x0, **kw)
         self.captured = False
         if b.device.type == "cpu":
-            return self._plain(loop)
+            return self._plain(_plan(loop))
         if b.device.type != "cuda":
             raise ValueError(f"graphed {self.__name__}: no graphed loop on {b.device}")
         M = kw.pop("M")
         key = (tuple(b.shape), b.dtype, b.device, tuple(sorted(kw.items())))
         g = self._graph
         if g is not None and g.matches(A, M, key):
-            _load(g.sets[0], loop.state)
-            g.tol_eff.copy_(loop.tol_eff)
+            g.plan.load(loop)
+            g.plan.tol_eff.copy_(loop.tol_eff)
         else:
             self._graph = None  # release the last graph before capturing
             g = self._graph = self._capture(loop, A, M, key, b.device)
-        return self._replay(g, b.device)
+        return self._replay(g)
 
     # -- the plain version ------------------------------------------------
-    def _plain(self, loop: Loop):
-        sets = _buffers(loop.state)
-        pred = torch.zeros((), dtype=torch.bool, device=loop.tol_eff.device)
-        status = torch.zeros(3, dtype=torch.int64, device=pred.device)
-        block = min(BLOCK, loop.maxiter)
+    def _plain(self, plan: _Plan):
         self.host_reads = 0
         while True:
-            _head(loop, sets, pred)
-            for j in range(block):
+            plan.parts[0]()
+            for i, pred in plan.nodes:
                 if bool(pred):  # the if-node
-                    _step(loop, sets[j % 2], sets[(j + 1) % 2], pred)
-            _tail(loop, sets, pred, status)
-            more, k, converged = status.tolist()
+                    plan.parts[i]()
+            plan.parts[-1]()
+            more, k, converged = plan.status.tolist()
             self.host_reads += 1
             if not more:
-                return _result(sets, k, converged)
+                return plan.result(k, converged)
 
     # -- the graph on the card --------------------------------------------
-    def _capture(self, loop: Loop, A, M, key, device) -> _Graph:
+    def _capture(self, loop, A, M, key, device) -> _Graph:
         t0 = time.perf_counter()
         lib = _build.library()
-        sets = _buffers(loop.state)
-        pred = torch.zeros((), dtype=torch.bool, device=device)
-        status = torch.zeros(3, dtype=torch.int64, device=device)
-        parts = (
-            lambda: _head(loop, sets, pred),
-            lambda: _step(loop, sets[0], sets[1], pred),
-            lambda: _step(loop, sets[1], sets[0], pred),
-            lambda: _tail(loop, sets, pred, status),
-        )
-        before = launch_counts()
+        plan = _plan(loop)
+        start = launch_counts()
         pool = torch.cuda.graph_pool_handle()
-        graphs = []
+        graphs, launches = [], []
         handle = ctypes.c_void_p()
         try:
-            for i, part in enumerate(parts):
+            for part in plan.parts:
                 graphs.append(torch.cuda.CUDAGraph(keep_graph=True))
+                before = launch_counts()
                 with torch.cuda.graph(graphs[-1], pool=pool):
                     part()
-                if i == 1:
-                    per_iteration = launch_difference(launch_counts(), before)
-            rc = lib.sigma_loop_graph(
-                device.index, *(g.raw_cuda_graph() for g in graphs), pred.data_ptr(),
-                min(BLOCK, loop.maxiter), ctypes.byref(handle),
-            )
+                launches.append(launch_difference(launch_counts(), before))
+            n = len(plan.nodes)
+            bodies = (ctypes.c_void_p * n)(*(graphs[i].raw_cuda_graph() for i, _ in plan.nodes))
+            preds = (ctypes.c_void_p * n)(*(p.data_ptr() for _, p in plan.nodes))
+            rc = lib.sigma_loop_graph(device.index, graphs[0].raw_cuda_graph(), bodies, preds, n,
+                                      graphs[-1].raw_cuda_graph(), ctypes.byref(handle))
             if rc != 0:
                 raise RuntimeError(f"linking the if-nodes: {lib.sigma_error_string(rc).decode()}")
         except Exception as e:
@@ -220,52 +288,60 @@ class GraphedSolve:
             raise RuntimeError(f"graphed {self.__name__} on {on}: capture failed: {e}") from e
         finally:
             # the captures ran no kernel
-            add_launch_counts(launch_difference(launch_counts(), before), -1)
-        g = _Graph((weakref.ref(A), None if M is None else weakref.ref(M)), key, graphs, sets,
-                   pred, status, loop.tol_eff, per_iteration, handle.value)
+            add_launch_counts(launch_difference(launch_counts(), start), -1)
+        g = _Graph((weakref.ref(A), None if M is None else weakref.ref(M)), key, graphs, plan,
+                   launches, handle.value)
         weakref.finalize(g, lib.sigma_loop_destroy, handle.value)
         torch.cuda.synchronize(device)
         self.captured = True
         self.capture_seconds = time.perf_counter() - t0
         return g
 
-    def _replay(self, g: _Graph, device):
+    def _replay(self, g: _Graph):
         lib = _build.library()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        self.host_reads = 0
+        stream = torch.cuda.current_stream(g.plan.status.device).cuda_stream
+        runs = [0] * len(g.plan.parts)
+        self.host_reads, k = 0, 0
         while True:
             rc = lib.sigma_loop_launch(g.exec, stream)
             if rc != 0:
                 raise RuntimeError(
                     f"graphed {self.__name__}: launch failed: {lib.sigma_error_string(rc).decode()}"
                 )
-            more, k, converged = g.status.tolist()
+            more, k_new, converged = g.plan.status.tolist()
             self.host_reads += 1
+            runs[0] += 1
+            runs[-1] += 1
+            for node in g.plan.ran(k_new - k):
+                runs[g.plan.nodes[node][0]] += 1
+            k = k_new
             if not more:
                 break
-        add_launch_counts(g.per_iteration, k)
-        return _result(g.sets, k, converged)
+        for delta, times in zip(g.launches, runs):
+            add_launch_counts(delta, times)
+        return g.plan.result(k, converged)
+
+
+def _plan(loop) -> _Plan:
+    return _cycle_plan(loop) if isinstance(loop, Cycles) else _block_plan(loop)
 
 
 def _buffers(state):
     """The two buffer sets of a loop: the first a copy of ``state`` (the
     set-up's tensors may alias one another: CG's first direction is its
     preconditioned residual, the residual itself without M), the second
-    alike; both share the counter and the history."""
+    alike; both share the state's ``SHARED`` fields (the counter, the
+    history, BiCG-stab's shadow residual)."""
     a = state._make(None if t is None else t.clone() for t in state)
     b = state._make(None if t is None else torch.zeros_like(t) for t in state)
-    return a, b._replace(k=a.k, hist=a.hist)
+    return a, b._replace(**{f: getattr(a, f) for f in state.SHARED})
 
 
 def _load(buffers, state):
-    """Copy a new set-up's state into the first buffer set."""
+    """Copy a new set-up's state into the buffers."""
     for dst, src in zip(buffers, state):
         if dst is not None:
             dst.copy_(src)
-
-
-def _head(loop: Loop, sets, pred):
-    pred.copy_(loop.cond(sets[0]))
 
 
 def _step(loop: Loop, src, dst, pred):
@@ -277,14 +353,15 @@ def _step(loop: Loop, src, dst, pred):
 def _tail(loop: Loop, sets, pred, status):
     """``status`` = (pred, k, converged) of the set the count names."""
     k = sets[0].k
-    res2 = torch.where(k % 2 == 0, sets[0].res2, sets[1].res2)
-    converged = torch.sqrt(res2) <= loop.tol_eff
+    res = torch.where(k % 2 == 0, getattr(sets[0], loop.residual),
+                      getattr(sets[1], loop.residual))
+    converged = loop.norm(res) <= loop.tol_eff
     torch.stack((pred.to(k.dtype), k, converged.to(k.dtype)), out=status)
 
 
-def _result(sets, k, converged):
+def _result(loop: Loop, sets, k, converged):
     """``(x, info)`` from the buffer set that ``k``'s parity names, copied
     out of the buffers a later call reuses."""
     s = sets[k % 2]
     hist = None if s.hist is None else s.hist.clone()
-    return s.x.clone(), SolveInfo(k, torch.sqrt(s.res2), bool(converged), hist)
+    return s.x.clone(), SolveInfo(k, loop.residual_norm(s).clone(), bool(converged), hist)

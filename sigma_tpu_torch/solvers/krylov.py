@@ -5,16 +5,21 @@ BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS, the stationary iteration
 and block CG.  The JAX solve is one on-device ``lax.while_loop``; here the
 loop runs on the host and reads the stopping quantity back once per
 iteration (one device synchronisation each) to apply the same stopping
-rule, so iteration counts match the JAX package.  CG and fused CG are
-written as that loop's init / cond / body (:func:`cg_loop`,
-:func:`cg_fused_loop`, with a device iteration counter), which
-:func:`~sigma_tpu_torch.solvers.graphed.graphed` captures into one CUDA
-graph whose iterations sit under device-side if-nodes, one host read a
-block of iterations: the counterpart of ``jax.jit`` of the solve.  All
-vectors stay on the device of ``b``; dot products are ``torch.dot``.  ``b`` may be a vector
-sharded over ranks (a DTensor, :mod:`sigma_tpu_torch.parallel.ranks`):
-the work arrays are then made like it (:mod:`sigma_tpu_torch.utils.sharded`)
-and each dot is the ranks' local dots all-reduced at once (``dot``).
+rule, so iteration counts match the JAX package.  CG, fused CG and
+BiCG-stab are written as that loop's init / cond / body (:func:`cg_loop`,
+:func:`cg_fused_loop`, :func:`bicgstab_loop`, with a device iteration
+counter), GMRES and FGMRES as the JAX package's two nested loops split at
+a restart cycle (:func:`arnoldi_loop`: a cycle's init, Arnoldi step j
+with its Givens update on the device, the cycle's end with the
+Hessenberg solve on the device).  :func:`~sigma_tpu_torch.solvers.graphed.graphed`
+captures CG, fused CG, BiCG-stab and GMRES into one CUDA graph whose
+bodies sit under device-side if-nodes, one host read a block of
+iterations or a restart cycle: the counterpart of ``jax.jit`` of the
+solve.  All vectors stay on the device of ``b``; dot products are
+``torch.dot``.  ``b`` may be a vector sharded over ranks (a DTensor,
+:mod:`sigma_tpu_torch.parallel.ranks`): the work arrays are then made like
+it (:mod:`sigma_tpu_torch.utils.sharded`) and each dot is the ranks' local
+dots all-reduced at once (``dot``).
 
 All take ``A`` and optional ``M`` as LinearOperators (``M`` applies the
 *inverse* preconditioner, z = M^{-1} r).
@@ -25,9 +30,9 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
+from sigma_tpu_torch.ops.givens import givens_update
 from sigma_tpu_torch.utils.sharded import (
     dot, gathered, is_sharded, like, local, reduced, rows_like,
 )
@@ -94,15 +99,22 @@ class Loop(NamedTuple):
     keeps them) the body writes each new vector and scalar into ``out``'s
     tensors instead of fresh ones, with the same arithmetic.  The history
     is written in place at the device index ``k`` (a captured loop shares
-    one counter and one history between its buffer sets).  ``tol_eff`` is
-    the stopping threshold ``cond`` compares with and ``maxiter`` the most
-    iterations it allows."""
+    one counter and one history between its buffer sets, and the state's
+    other ``SHARED`` fields, which the body passes on unchanged).
+    ``tol_eff`` is the stopping threshold ``cond`` compares with and
+    ``maxiter`` the most iterations it allows; the residual norm of a
+    state is ``norm`` of its field named ``residual``."""
 
     state: NamedTuple
     cond: Callable
     body: Callable
     tol_eff: torch.Tensor
     maxiter: int
+    residual: str = "res2"
+    norm: Callable = torch.sqrt
+
+    def residual_norm(self, s):
+        return self.norm(getattr(s, self.residual))
 
 
 class CGState(NamedTuple):
@@ -113,6 +125,7 @@ class CGState(NamedTuple):
     res2: torch.Tensor  # r.r
     k: torch.Tensor  # 0-d int64: iterations taken
     hist: Optional[torch.Tensor]
+    SHARED = ("k", "hist")
 
 
 class FusedCGState(NamedTuple):
@@ -125,11 +138,28 @@ class FusedCGState(NamedTuple):
     res2: torch.Tensor
     k: torch.Tensor
     hist: Optional[torch.Tensor]
+    SHARED = ("k", "hist")
+
+
+class BiCGStabState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    v: torch.Tensor  # A M^{-1} p
+    rho: torch.Tensor  # rhat.r
+    alpha: torch.Tensor
+    omega: torch.Tensor
+    resn: torch.Tensor  # ||r||
+    k: torch.Tensor
+    hist: Optional[torch.Tensor]
+    rhat: torch.Tensor  # the shadow residual, fixed after set-up
+    SHARED = ("k", "hist", "rhat")
 
 
 # the ``out`` of an eager body: every result a fresh tensor
 _NO_OUT_CG = CGState(*[None] * len(CGState._fields))
 _NO_OUT_FUSED = FusedCGState(*[None] * len(FusedCGState._fields))
+_NO_OUT_BICG = BiCGStabState(*[None] * len(BiCGStabState._fields))
 
 
 def _put(value, out):
@@ -144,7 +174,7 @@ def _record(hist, k, value):
     An assignment, not ``index_copy_``, whose result (the whole history,
     NaN beyond ``k``) the float checks of ``utils.checks`` would test."""
     if is_sharded(hist):
-        hist, value = hist.to_local(), value.to_local()
+        hist, value = hist.to_local(), local(value)
     hist[k.reshape(1)] = value.reshape(1)
 
 
@@ -166,7 +196,7 @@ def run_loop(loop: Loop):
     while bool(loop.cond(s)):
         s = loop.body(s)
         k += 1
-    resn = torch.sqrt(s.res2)
+    resn = loop.residual_norm(s)
     return s.x, SolveInfo(k, resn, bool(resn <= loop.tol_eff), s.hist)
 
 
@@ -288,6 +318,53 @@ def cg_fused_solve(
                                   history=history))
 
 
+def bicgstab_loop(
+    A, b, x0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, history=False
+) -> Loop:
+    """:func:`bicgstab_solve` as init / cond / body (the JAX package's
+    ``bicgstab_solve`` ``while_loop``); the set-up runs here.  The state
+    carries ``||r||``, which ``cond`` tests."""
+    n = A.shape[0]
+    x = torch.zeros_like(b) if x0 is None else x0
+    maxiter = 10 * n if maxiter is None else int(maxiter)
+    apply_M = _apply(M)
+    matvec = A.matvec
+    tol_eff = _tol_eff(b, tol, rtol)
+
+    r = b - matvec(x)
+    p = v = torch.zeros_like(b)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    state = BiCGStabState(x, r, p, v, one, one, one, torch.linalg.vector_norm(r), _counter(b),
+                          _history(history, maxiter, b), r)
+
+    def cond(s):
+        return local(s.resn > tol_eff) & (s.k < maxiter)
+
+    def body(s, out=None):
+        o = out or _NO_OUT_BICG
+        rho = dot(s.rhat, s.r)
+        beta = (rho / s.rho) * (s.alpha / s.omega)
+        p = torch.add(s.r, beta * (s.p - s.omega * s.v), out=o.p)
+        phat = apply_M(p)
+        v = _put(matvec(phat), o.v)
+        alpha = rho / dot(s.rhat, v)
+        sv = s.r - alpha * v
+        shat = apply_M(sv)
+        t = matvec(shat)
+        omega = dot(t, sv) / dot(t, t)
+        omega = torch.where(torch.isfinite(omega), omega, torch.zeros_like(omega))
+        x = torch.add(s.x + alpha * phat, omega * shat, out=o.x)
+        r = torch.sub(sv, omega * t, out=o.r)
+        resn = torch.linalg.vector_norm(r)
+        if s.hist is not None:
+            _record(s.hist, s.k, resn)
+        return BiCGStabState(x, r, p, v, _put(rho, o.rho), _put(alpha, o.alpha),
+                             _put(omega, o.omega), _put(resn, o.resn),
+                             torch.add(s.k, 1, out=o.k), s.hist, s.rhat)
+
+    return Loop(state, cond, body, tol_eff, maxiter, "resn", _identity_apply)
+
+
 def bicgstab_solve(
     A, b, x0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, history=False
 ):
@@ -299,40 +376,8 @@ def bicgstab_solve(
     the method's breakdown) becomes 0, as in the reference.
     ``history=True`` records the residual norm after every iteration.
     """
-    n = A.shape[0]
-    x = torch.zeros_like(b) if x0 is None else x0
-    maxiter = 10 * n if maxiter is None else int(maxiter)
-    apply_M = _apply(M)
-    matvec = A.matvec
-    tol_eff = _tol_eff(b, tol, rtol)
-
-    r = b - matvec(x)
-    rhat = r
-    p = v = torch.zeros_like(b)
-    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
-    resn = torch.linalg.vector_norm(r)
-    hist = _history(history, maxiter, b)
-    k = 0
-    while k < maxiter and bool(resn > tol_eff):
-        rho_new = dot(rhat, r)
-        beta = (rho_new / rho) * (alpha / omega)
-        p = r + beta * (p - omega * v)
-        phat = apply_M(p)
-        v = matvec(phat)
-        alpha = rho_new / dot(rhat, v)
-        s = r - alpha * v
-        shat = apply_M(s)
-        t = matvec(shat)
-        omega = dot(t, s) / dot(t, t)
-        omega = torch.where(torch.isfinite(omega), omega, torch.zeros_like(omega))
-        x = x + alpha * phat + omega * shat
-        r = s - omega * t
-        rho = rho_new
-        resn = torch.linalg.vector_norm(r)
-        if hist is not None:
-            hist[k] = resn
-        k += 1
-    return x, SolveInfo(k, resn, bool(resn <= tol_eff), hist)
+    return run_loop(bicgstab_loop(A, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, M=M,
+                                  history=history))
 
 
 def minres_solve(
@@ -399,124 +444,178 @@ def minres_solve(
     return x, SolveInfo(k, phibar, bool(phibar <= tol_eff), hist)
 
 
-def _host_dtype(dtype):
-    """numpy dtype of the host-side Hessenberg arithmetic: b's, with the
-    16-bit floats widened to float32 (numpy has no bfloat16)."""
-    return np.float64 if dtype == torch.float64 else np.float32
+def _small_dtype(dtype):
+    """The dtype of GMRES's small arrays (the Hessenberg column, the
+    rotations, the triangular factor): b's, with the 16-bit floats widened
+    to float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-_HOST_TORCH = {np.float64: torch.float64, np.float32: torch.float32}
-
-
-def _cgs2_column(V, w, j, eps_break):
+def _cgs2_column(V, w, j, eps10):
     """One CGS2 Arnoldi column: project ``w`` twice against the first
-    ``j + 1`` basis vectors (the rows past j are zero, so the JAX
-    package's masked (m + 1)-row products give the same h), append the
-    normalised vector as row j + 1 of ``V``, and return the Hessenberg
-    column h[0 .. j + 1] read back to the host: the step's one device
-    synchronisation.  A breakdown (``||w|| <= 10 eps``) gives a zero
-    column and a zero basis row.  Shared by GMRES and FGMRES."""
+    ``j + 1`` basis vectors (the rows past j are not read, so the JAX
+    package's masked (m + 1)-row products give the same h), write the
+    normalised vector as row j + 1 of ``V`` and return the Hessenberg
+    column h[0 .. j + 1] on the device, in ``eps10``'s dtype.  A breakdown
+    (``||w|| <= eps10``, ten times b's machine epsilon) gives a zero
+    column entry and a zero basis row.  Shared by GMRES and FGMRES."""
     Vj = V[: j + 1]
     h1 = reduced(Vj @ w)
     w = w - Vj.T @ h1
     h2 = reduced(Vj @ w)
     w = w - Vj.T @ h2
     wn = torch.linalg.vector_norm(w)
-    h = torch.cat([gathered(h1 + h2), gathered(wn)[None]])
-    h = h.to("cpu", _HOST_TORCH[_host_dtype(V.dtype)]).numpy()
-    if h[j + 1] > eps_break * 10:
-        V[j + 1] = w / wn
-    else:
-        V[j + 1] = torch.zeros_like(w)
-        h[j + 1] = 0.0
+    wn_h = gathered(wn)
+    h = torch.cat([gathered(h1 + h2), wn_h[None]]).to(eps10.dtype)
+    ok = h[j + 1] > eps10
+    # w / ||w||, or zeros (w / inf) on a breakdown, with no host read
+    V[j + 1] = w / like(torch.where(ok, wn_h, torch.full_like(wn_h, math.inf)), w)
+    h[j + 1] *= ok
     return h
 
 
-def _givens_update(h, R, cs, sn, g, j):
-    """Apply the j previous Givens rotations to the new Hessenberg column
-    ``h`` (host, length j + 2), generate the rotation annihilating
-    ``h[j + 1]``, and fold it into R, cs, sn and g in place.  ``|g[j+1]|``
-    is then the running residual estimate."""
-    for i in range(j):
-        c, s = cs[i], sn[i]
-        h[i], h[i + 1] = c * h[i] + s * h[i + 1], -s * h[i] + c * h[i + 1]
-    denom = np.sqrt(h[j] * h[j] + h[j + 1] * h[j + 1])
-    if denom > 0:
-        cs[j], sn[j] = h[j] / denom, h[j + 1] / denom
-    else:
-        cs[j], sn[j] = 1.0, 0.0
-    gj = g[j]
-    g[j], g[j + 1] = cs[j] * gj, -sn[j] * gj
-    R[:j, j] = h[:j]
-    R[j, j] = denom
+class ArnoldiState(NamedTuple):
+    """What a restarted Arnoldi loop carries from one cycle to the next."""
+
+    x: torch.Tensor
+    b: torch.Tensor
+    r: torch.Tensor  # b - A x
+    beta: torch.Tensor  # ||r||, in b's dtype
+    k: torch.Tensor  # 0-d int64: Arnoldi steps taken
+    progress: torch.Tensor  # 0-d bool: the last cycle took a step
 
 
-def _solve_hessenberg(R, g, j, m):
-    """Back-substitute on the first ``j`` triangularised columns; the
-    unused columns are padded with a unit diagonal and a zero right-hand
-    side, so their entries of y are exactly 0."""
-    used = np.arange(m) < j
-    Rp = np.where(used[None, :] & used[:, None], R, np.eye(m, dtype=R.dtype))
-    rhs = np.where(used, g[:m], 0.0).astype(R.dtype)
-    y = torch.linalg.solve_triangular(
-        torch.from_numpy(Rp), torch.from_numpy(rhs)[:, None], upper=True
-    )
-    return y[:j, 0]
+class ArnoldiWork(NamedTuple):
+    """A restart cycle's workspace, written before it is read in every
+    cycle; the small arrays are in :func:`_small_dtype`."""
+
+    V: torch.Tensor  # (m + 1, n) basis, b's dtype
+    Z: Optional[torch.Tensor]  # (m, n) preconditioned basis of FGMRES
+    R: torch.Tensor  # (m, m) triangularised Hessenberg
+    cs: torch.Tensor  # (m,) rotations
+    sn: torch.Tensor
+    g: torch.Tensor  # (m + 1,) rotated right-hand side
+    est: torch.Tensor  # |g[j]|: the running residual estimate
+    j: torch.Tensor  # 0-d int64: the cycle's steps
+    inner: torch.Tensor  # 0-d bool: the next step runs
+    eye: torch.Tensor  # (m, m) identity, the padding of R
+    steps: torch.Tensor  # arange(m)
 
 
-def _arnoldi(A, b, x0, *, tol, rtol, restart, maxiter, precondition, flexible):
+class Cycles(NamedTuple):
+    """A restarted Arnoldi solve split as the JAX package's two nested
+    ``lax.while_loop``s: the carried ``state`` after set-up, ``work()``
+    the cycle's workspace, ``cond(state)`` the outer predicate ``(beta >
+    tol_eff) & (k < maxiter) & progress``, ``init(state, work)`` a cycle's
+    start (V[0] = r / beta, R, cs, sn and g cleared, g[0] = beta),
+    ``step(state, work, j)`` Arnoldi step j (a Python int) writing the
+    inner predicate ``work.inner``, and ``end(state, work)`` the cycle's
+    end (the Hessenberg solve over all m columns, x, k, progress, the new
+    r and beta).  Every write is in place, at a place fixed by j, so a
+    step's capture can be replayed.  ``tol_eff`` is in the small
+    arrays' dtype."""
+
+    state: ArnoldiState
+    work: Callable
+    cond: Callable
+    init: Callable
+    step: Callable
+    end: Callable
+    tol_eff: torch.Tensor
+    maxiter: int
+    m: int
+
+
+def arnoldi_loop(A, b, x0=None, *, tol, rtol, restart, maxiter, precondition,
+                 flexible) -> Cycles:
     """The restarted Arnoldi loop of GMRES(m) and FGMRES(m), right
-    preconditioned by ``precondition``: GMRES updates x by M(V y), FGMRES by
-    Z y from the stored preconditioned basis Z.  A cycle's inner steps stop
-    on ``|g[j+1]| <= tol_eff`` or ``k_total + j >= maxiter``; the outer loop
+    preconditioned by ``precondition``: GMRES updates x by M(V y), FGMRES
+    by Z y from the stored preconditioned basis Z.  A cycle's steps stop
+    on ``|g[j+1]| <= tol_eff`` or ``k + j >= maxiter``; the outer loop
     stops on the recomputed residual norm, on maxiter, or on a cycle that
-    took no Arnoldi step."""
+    took no Arnoldi step (``sigma_tpu/solvers/krylov.py`` ``gmres_solve``,
+    with the Givens update and the triangular solve on the device)."""
     # b's length sizes the basis, as in the JAX package (a distributed
     # operator's shape is the unpadded n)
     n = b.shape[0]
-    x = torch.zeros_like(b) if x0 is None else x0
     m = min(restart, n)
     maxiter = 10 * n if maxiter is None else int(maxiter)
     matvec = A.matvec
-    tol_eff = float(_tol_eff(b, tol, rtol))
-    hdt = _host_dtype(b.dtype)
-    eps_break = hdt(torch.finfo(b.dtype).eps)
-    V = rows_like(b, m + 1)
-    Z = rows_like(b, m) if flexible else None
+    sdt = _small_dtype(b.dtype)
+    dev = b.device
+    tol_eff = local(_tol_eff(b, tol, rtol)).to(sdt)
+    eps10 = torch.tensor(torch.finfo(b.dtype).eps, dtype=sdt, device=dev) * 10
 
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - matvec(x)
-    beta = torch.linalg.vector_norm(r)
-    beta_h = float(gathered(beta))
-    k = 0
-    progress = True
-    while beta_h > tol_eff and k < maxiter and progress:
-        # rows of V and Z are written before they are read
-        V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))
-        R = np.zeros((m, m), dtype=hdt)  # the triangularised Hessenberg
-        cs = np.zeros(m, dtype=hdt)
-        sn = np.zeros(m, dtype=hdt)
-        g = np.zeros(m + 1, dtype=hdt)
-        g[0] = hdt(beta_h)
-        j, est = 0, beta_h
-        while est > tol_eff and j < m and k + j < maxiter:
-            z = precondition(V[j])
-            if flexible:
-                Z[j] = z
-            h = _cgs2_column(V, matvec(z), j, eps_break)
-            _givens_update(h, R, cs, sn, g, j)
-            j += 1
-            est = abs(float(g[j]))
-        y = like(_solve_hessenberg(R, g, j, m).to(device=b.device, dtype=b.dtype), b)
+    state = ArnoldiState(x, b, r, reduced(torch.linalg.vector_norm(r)), _counter(b),
+                         torch.ones((), dtype=torch.bool, device=dev))
+
+    def work():
+        def small(*shape):
+            return torch.zeros(shape, dtype=sdt, device=dev)
+
+        return ArnoldiWork(
+            rows_like(b, m + 1), rows_like(b, m) if flexible else None, small(m, m),
+            small(m), small(m), small(m + 1), small(), _counter(b),
+            torch.zeros((), dtype=torch.bool, device=dev),
+            torch.eye(m, dtype=sdt, device=dev), torch.arange(m, device=dev))
+
+    def cond(s):
+        return (local(s.beta) > tol_eff) & (s.k < maxiter) & s.progress
+
+    def init(s, w):
+        w.V[0] = s.r / torch.where(s.beta > 0, s.beta, torch.ones_like(s.beta))
+        for t in (w.R, w.cs, w.sn, w.g):
+            t.zero_()
+        w.g[0] = local(s.beta)
+
+    def step(s, w, j):
+        z = precondition(w.V[j])
         if flexible:
-            x = x + Z[:j].T @ y
-        else:
-            x = x + precondition(V[:j].T @ y)
-        progress = j > 0
-        k += j
-        r = b - matvec(x)
-        beta = torch.linalg.vector_norm(r)
-        beta_h = float(gathered(beta))
-    return x, SolveInfo(k, beta, beta_h <= tol_eff)
+            w.Z[j] = z
+        h = _cgs2_column(w.V, matvec(z), j, eps10)
+        givens_update(h, w.R, w.cs, w.sn, w.g, w.est, w.inner, w.j, s.k, tol_eff, j, maxiter)
+
+    def end(s, w):
+        # the padded triangular system: the unused columns keep a unit
+        # diagonal and a zero right-hand side, so their entries of y are
+        # exactly 0 and the update may run over every basis row
+        used = w.steps < w.j
+        Rp = torch.where(used[None, :] & used[:, None], w.R, w.eye)
+        rhs = torch.where(used, w.g[:m], torch.zeros_like(w.g[:m]))
+        y = like(torch.linalg.solve_triangular(Rp, rhs[:, None], upper=True)[:, 0]
+                 .to(b.dtype), b)
+        s.x.add_(w.Z.T @ y if flexible else precondition(w.V[:m].T @ y))
+        s.progress.copy_(w.j > 0)
+        s.k.add_(w.j)
+        s.r.copy_(s.b - matvec(s.x))
+        s.beta.copy_(reduced(torch.linalg.vector_norm(s.r)))
+
+    return Cycles(state, work, cond, init, step, end, tol_eff, maxiter, m)
+
+
+def run_cycles(loop: Cycles):
+    """The eager restarted solve: one host read of ``cond`` a cycle and one
+    of the inner predicate a step; returns ``(x, info)``."""
+    s, w, k = loop.state, loop.work(), 0
+    while bool(loop.cond(s)):
+        loop.init(s, w)
+        # the outer predicate implies the first step's
+        for j in range(loop.m):
+            loop.step(s, w, j)
+            k += 1
+            if not bool(w.inner):
+                break
+        loop.end(s, w)
+    return s.x, SolveInfo(k, s.beta, bool(local(s.beta) <= loop.tol_eff))
+
+
+def gmres_loop(A, b, x0=None, *, tol=1e-12, rtol=0.0, restart=32, maxiter=None,
+               M=None) -> Cycles:
+    """:func:`gmres_solve` as :class:`Cycles`; the set-up runs here."""
+    return arnoldi_loop(A, b, x0, tol=tol, rtol=rtol, restart=restart, maxiter=maxiter,
+                        precondition=_apply(M), flexible=False)
 
 
 def gmres_solve(
@@ -527,13 +626,14 @@ def gmres_solve(
     Arnoldi by CGS2 (classical Gram-Schmidt with one full
     reorthogonalisation pass: two products with the basis a pass), the
     Hessenberg column triangularised on the fly by Givens rotations on the
-    host, so each step has a running residual estimate and the inner loop
-    stops at convergence.  ``info.iterations`` is the true count of
-    Arnoldi steps, not cycles * m.  The basis is (m + 1, n) in b's dtype
-    on b's device (1.33 GB at m = 32 for 10.1M f32 rows).
+    device (:func:`~sigma_tpu_torch.ops.givens.givens_update`), so each
+    step has a running residual estimate and the inner loop stops at
+    convergence.  ``info.iterations`` is the true count of Arnoldi steps,
+    not cycles * m.  The basis is (m + 1, n) in b's dtype on b's device
+    (1.33 GB at m = 32 for 10.1M f32 rows).
     """
-    return _arnoldi(A, b, x0, tol=tol, rtol=rtol, restart=restart, maxiter=maxiter,
-                    precondition=_apply(M), flexible=False)
+    return run_cycles(gmres_loop(A, b, x0, tol=tol, rtol=rtol, restart=restart,
+                                 maxiter=maxiter, M=M))
 
 
 def fgmres_solve(
@@ -560,8 +660,8 @@ def fgmres_solve(
         precondition = M
     else:
         precondition = _apply(M)
-    return _arnoldi(A, b, x0, tol=tol, rtol=rtol, restart=restart, maxiter=maxiter,
-                    precondition=precondition, flexible=True)
+    return run_cycles(arnoldi_loop(A, b, x0, tol=tol, rtol=rtol, restart=restart,
+                                   maxiter=maxiter, precondition=precondition, flexible=True))
 
 
 def cgls_solve(

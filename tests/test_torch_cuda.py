@@ -1076,3 +1076,77 @@ def test_graphed_solve_on_card_equals_eager(cuda, solver):
             assert gi.converged == info.converged
             if info.history is not None:
                 assert torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_givens_kernel_equals_plain_version(cuda, dtype):
+    """GMRES's Givens kernel against its plain version on the card over a
+    whole cycle of m = 32 random Hessenberg columns (one with a zero
+    subdiagonal entry, one all zero): bit for bit in f64, within 1e-6
+    relative in f32, with the same predicate and step count."""
+    from sigma_tpu_torch.ops import givens_update, givens_update_reference
+
+    m = 32
+
+    def state():
+        z = [torch.zeros(s, dtype=dtype, device=cuda) for s in ((m, m), m, m, m + 1, ())]
+        z[3][0] = 2.5
+        return z + [torch.zeros((), dtype=torch.bool, device=cuda),
+                    torch.zeros((), dtype=torch.int64, device=cuda)]
+
+    kern, plain = state(), state()
+    k, tol = torch.tensor(7, device=cuda), torch.tensor(1e-3, dtype=dtype, device=cuda)
+    rng = np.random.default_rng(24)
+    before = givens_update.launches
+    for j in range(m):
+        h = torch.from_numpy(rng.standard_normal(m + 1)).to(cuda, dtype)
+        h[j + 2:] = 0
+        if j == 9:
+            h[j + 1] = 0
+        if j == 20:
+            h.zero_()
+        givens_update(h, *kern[:5], kern[5], kern[6], k, tol, j, 30)
+        givens_update_reference(h, *plain[:5], plain[5], plain[6], k, tol, j, 30)
+        for a, r in zip(kern, plain):
+            if dtype == torch.float64 or not a.is_floating_point():
+                assert torch.equal(a, r)
+            else:
+                assert rel(a, r) <= 1e-6
+    assert givens_update.launches - before == m
+
+
+@pytest.mark.parametrize("case", ["bicgstab_jacobi", "bicgstab_gmg", "gmres32", "gmres8_maxiter"])
+def test_graphed_nonsym_solve_on_card_equals_eager(cuda, case):
+    """``graphed(bicgstab_solve)`` and ``graphed(gmres_solve)`` on the
+    upwinded advection-diffusion stencil: the capturing and the cached
+    call bit for bit equal to the eager solve on the card, with the same
+    counts and kernel launches; GMRES reads once a restart cycle."""
+    from sigma_tpu_torch.ops import launch_counts, launch_difference
+
+    nx = 24
+    A = st.advection_diffusion_dia(nx, 10.0, torch.float32, device=cuda)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(A.shape[0])).float().to(cuda)
+    fn, kw = {
+        "bicgstab_jacobi": (st.bicgstab_solve, dict(M=st.jacobi().setup(A), history=True)),
+        "bicgstab_gmg": (st.bicgstab_solve,
+                         dict(M=st.structured_amg((nx,) * 3, pairs_per_level=3).setup(A))),
+        "gmres32": (st.gmres_solve, dict(restart=32)),
+        "gmres8_maxiter": (st.gmres_solve, dict(restart=8, maxiter=29)),
+    }[case]
+    kw = dict(tol=0.0, rtol=1e-6, **kw)
+    before = launch_counts()
+    x, info = fn(A, b, **kw)
+    launches = launch_difference(launch_counts(), before)
+    G = st.graphed(fn)
+    for captured in (True, False):
+        before = launch_counts()
+        y, gi = G(A, b, **kw)
+        assert G.captured == captured
+        assert launch_difference(launch_counts(), before) == launches
+        assert torch.equal(y, x) and gi.iterations == info.iterations
+        assert torch.equal(gi.residual_norm, info.residual_norm)
+        assert gi.converged == info.converged
+        if info.history is not None:
+            assert torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))
+        if "restart" in kw:
+            assert G.host_reads == launches["dia_spmv"][0] - 1 - info.iterations
