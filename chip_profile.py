@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's solves goes, on one GPU.
 
-    python3 chip_profile.py [--nx 216] [--paths stencil,unstructured,nonsym] [--out FILE]
+    python3 chip_profile.py [--nx 216] [--paths stencil,unstructured,nonsym,krylov] [--out FILE]
 
 Runs the solves of ``chip_smoke.py``'s paths through the same entry
 points (CG and fused CG on Laplacian + I; plain CG and GMG-CG with the
@@ -13,10 +13,13 @@ f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson; on the 10M-row
 irregular mesh, CG and pruned-multigrid CG on full and on symmetric
 pruned storage; on the nonsymmetric stencil of ``benchmarks/adv3d.py``,
 BiCG-stab + Jacobi, BiCG-stab + GMG and GMRES(32), eagerly and as
-``graphed`` solves), each five times warm and untraced and once under
+``graphed`` solves; ``chip_smoke.py`` phase 25b's block CG + GMG with 4
+right-hand sides on pure Poisson, f64 MINRES + GMG to rtol 1e-10 and
+FGMRES(32) + GMG on the nonsymmetric stencil, eagerly and as ``graphed``
+solves), each five times warm and untraced and once under
 ``torch.profiler``, and prints one JSON line per solve (``--paths``
 picks the stencil solves, the unstructured ones, the nonsymmetric ones,
-or any of them; the default is the first two):
+the Krylov ones, or any of them; the default is the first two):
 
 - ``device_busy_ms``: the union of the kernel and copy intervals in the
   trace;
@@ -130,6 +133,50 @@ def _nonsym_solves(device, nx):
     ]
 
 
+def _krylov_solves(device, nx):
+    """(label, solve) pairs: ``chip_smoke.py`` phase 25b's block CG + GMG
+    (4 right-hand sides, pure Poisson in symmetric storage, bf16 levels),
+    f64 MINRES + Chebyshev GMG (phase 25's operator and M) and FGMRES(32)
+    + GMG on the upwinded stencil (phase 23's), eagerly and as graphed
+    solves."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import (
+        SymmetricDIAMatrix, advection_diffusion_dia, block_cg_solve, fgmres_solve, graphed,
+        laplacian_3d_dia, minres_solve, structured_amg, structured_pair_amg,
+    )
+    from sigma_tpu_torch.ops import dia_spmv_reference, dia_sym_spmv_reference
+
+    dims = (nx, nx, nx)
+    S = SymmetricDIAMatrix.from_dia(laplacian_3d_dia(nx, torch.float32, device, diag=6.0))
+    n = S.shape[0]
+    g = torch.Generator(device=device).manual_seed(0)
+    B = S.matmat(torch.randn((n, 4), generator=g, device=device))
+    Mb = structured_pair_amg(S, dims, pairs_per_level=3, level_dtype=torch.bfloat16)
+    S64 = SymmetricDIAMatrix.from_dia(laplacian_3d_dia(nx, torch.float64, device, diag=6.0))
+    M64 = structured_pair_amg(S64, dims, pairs_per_level=3, smoother="chebyshev", n_smooth=4)
+    xstar = torch.from_numpy(np.random.default_rng(0).standard_normal(n)).to(device)
+    b64 = dia_sym_spmv_reference(S64.data, xstar, S64.offsets_dev, n)
+    A = advection_diffusion_dia(nx, 10.0, torch.float32, device)
+    b = dia_spmv_reference(A.data, xstar.float(), A.offsets_dev, n, n)
+    del xstar
+    Mg = structured_amg(dims, pairs_per_level=3).setup(A)
+    bkw = dict(tol=0.0, rtol=1e-6, maxiter=300, M=Mb)
+    mkw = dict(tol=0.0, rtol=1e-10, maxiter=3000, M=M64)
+    fkw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=2000, restart=32, M=Mg)
+    g_block, g_minres, g_fgmres = (graphed(f) for f in (block_cg_solve, minres_solve,
+                                                        fgmres_solve))
+    return [
+        ("block_cg_gmg", lambda: block_cg_solve(S, B, **bkw)),
+        ("minres_gmg_f64", lambda: minres_solve(S64, b64, **mkw)),
+        ("fgmres32_gmg", lambda: fgmres_solve(A, b, **fkw)),
+        ("graphed_block_cg_gmg", lambda: g_block(S, B, **bkw)),
+        ("graphed_minres_gmg_f64", lambda: g_minres(S64, b64, **mkw)),
+        ("graphed_fgmres32_gmg", lambda: g_fgmres(A, b, **fkw)),
+    ]
+
+
 def _unstructured_solves(U):
     """(label, solve) pairs of the 10M-row mesh, as ``_stencil_solves``."""
     from sigma_tpu_torch import cg_solve
@@ -181,7 +228,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=216, help="grid size (nx^3 rows)")
     ap.add_argument("--paths", default="stencil,unstructured",
-                    help="comma-separated: stencil, unstructured, nonsym")
+                    help="comma-separated: stencil, unstructured, nonsym, krylov")
     ap.add_argument("--out", default="chiprun_out/profile.txt",
                     help="file for every kernel's device time per solve")
     args = ap.parse_args()
@@ -194,7 +241,7 @@ def main():
     phase_device()
 
     paths = args.paths.split(",")
-    if not paths or set(paths) - {"stencil", "unstructured", "nonsym"}:
+    if not paths or set(paths) - {"stencil", "unstructured", "nonsym", "krylov"}:
         sys.exit(f"chip_profile: unknown --paths {args.paths!r}")
 
     solves, U = [], None
@@ -202,6 +249,8 @@ def main():
         solves += _stencil_solves(device, args.nx)
     if "nonsym" in paths:
         solves += _nonsym_solves(device, args.nx)
+    if "krylov" in paths:
+        solves += _krylov_solves(device, args.nx)
     if "unstructured" in paths:
         U = unstructured_setup(device)
         solves += _unstructured_solves(U)

@@ -30,7 +30,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives nineteen paths through the package's public entry points:
+drives twenty paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -105,6 +105,14 @@ drives nineteen paths through the package's public entry points:
   nx=216 to a relative residual of 1e-10, f64 CG + GMG against
   ``refined_solve`` with an f32 inner GMG-CG (f32, then bf16 operator
   values) and f64 MINRES with the same M;
+- the graphed Krylov path (phase 25b): the rest of the solvers through
+  ``graphed`` on the operators of phases 11, 23 and 25, each held to the
+  eager solve as in phase 10b: block CG in the interleaved and the column
+  layout and with GMG, f64 MINRES + GMG and MINRES with a history, CGLS,
+  FGMRES(32) + GMG and FGMRES(8) with a plain callable M over several
+  cycles, the stationary Jacobi iteration; block CG stopped by
+  ``maxiter``, MINRES with b = 0, the stationary iteration with no steps;
+  and FGMRES with an ``attach_solver`` M refused at capture;
 - the eigen path (phases 26-29): ``refine_eigenpairs`` on phase 12's f32
   LOBPCG block over the f64 stencil (``benchmarks/eigen3d.py
   --inverse-step``), inverse generalized Lanczos on the 27-point Q1 FEM
@@ -1190,27 +1198,49 @@ def phase_gmg(device, nx):
 GRAPHED_BUDGET_S = 40.0
 
 
-def _graphed_case(label, solve, A, b, kw, timed=False, phase="graphed"):
+class _MatvecCounter:
+    """``A`` with its matvecs counted on the host (every other attribute
+    A's own): a restarted solve makes one a step, one a cycle and one at
+    set-up, so the count gives the cycles."""
+
+    def __init__(self, A):
+        self._A, self.calls = A, 0
+
+    def __getattr__(self, name):
+        return getattr(self._A, name)
+
+    def matvec(self, x):
+        self.calls += 1
+        return self._A.matvec(x)
+
+
+def _graphed_case(label, solve, A, b, kw, timed=False, phase="graphed", extra=(),
+                  count_matvecs=False):
     """One solve eagerly and through ``graphed(solve)`` twice (the first
     call captures, the second replays from the cache), held equal: x bit
-    for bit, the count, the residual norm, ``converged``, the history and
-    every kernel's launches.  ``timed`` repeats both three times, in
-    turns, for the median seconds.  Returns the row (``phase`` its
-    phase's name)."""
+    for bit, the count, the residual norm, ``converged``, the history (for
+    a solve that keeps one) and every kernel's launches.  ``b`` is the
+    right-hand side (a block B for block CG); ``extra`` the positional
+    operands after it (the stationary iteration's M).  ``timed`` repeats
+    both three times, in turns, for the median seconds.
+    ``count_matvecs`` counts A's matvecs in the first eager solve (the
+    row's ``matvecs_eager``).  Returns the row (``phase`` its phase's
+    name)."""
     import torch
 
     from sigma_tpu_torch import graphed
     from sigma_tpu_torch.ops import launch_counts, launch_difference
 
-    def run(fn):
+    def run(fn, op=A):
         before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        x, info = fn(A, b, **kw)
+        x, info = fn(op, b, *extra, **kw)
         torch.cuda.synchronize()
         return x, info, time.perf_counter() - t0, launch_difference(launch_counts(), before)
 
-    x, info, eager_s, launches = run(solve)
+    counter = _MatvecCounter(A) if count_matvecs else A
+    x, info, eager_s, launches = run(solve, counter)
     G = graphed(solve)
 
     def check(call):
@@ -1240,11 +1270,12 @@ def _graphed_case(label, solve, A, b, kw, timed=False, phase="graphed"):
             cached_runs.append(check("cached"))
     its = max(info.iterations, 1)
     eager_s, cached_s = statistics.median(eager_runs), statistics.median(cached_runs)
-    # a graphed GMRES reads once a restart cycle; its eager loop once a
-    # step and once a cycle
-    cycles = G.host_reads if solve.__name__ == "gmres_solve" and info.iterations else 0
+    # a graphed GMRES or FGMRES reads once a restart cycle; its eager loop
+    # once a step and once a cycle
+    restarted = solve.__name__ in ("gmres_solve", "fgmres_solve")
+    cycles = G.host_reads if restarted and info.iterations else 0
     row = {"phase": phase, "solve": label, "iterations": info.iterations,
-           "converged": info.converged, "maxiter": kw.get("maxiter"),
+           "converged": info.converged, "maxiter": kw.get("maxiter", kw.get("steps")),
            "history": bool(kw.get("history")), "x_bitwise_equal": True,
            "eager_s": eager_s, "first_call_s": first_s, "capture_s": capture_s,
            "cached_s": cached_s, "eager_s_per_iteration": eager_s / its,
@@ -1253,6 +1284,7 @@ def _graphed_case(label, solve, A, b, kw, timed=False, phase="graphed"):
            # and one of converged; graphed: one of the status a replay
            "host_reads_eager": info.iterations + cycles + 2, "host_reads_graphed": G.host_reads,
            **({"restart": kw["restart"], "cycles": cycles} if "restart" in kw else {}),
+           **({"matvecs_eager": counter.calls} if count_matvecs else {}),
            "launches": {k: n for k, (n, _) in launches.items() if n}}
     emit(row)
     return row
@@ -1318,7 +1350,8 @@ def phase_block_cg(device, nx):
     """Block CG with 8 right-hand sides on Laplacian + I (cg3d.py's operator
     and SpMM width), rtol 1e-6, in the interleaved (``auto`` on the card)
     and the column layout; then GMG-preconditioned block CG with 4 on pure
-    Poisson (symmetric storage, bf16 levels, as phase_gmg)."""
+    Poisson (symmetric storage, bf16 levels, as phase_gmg).  Returns both
+    operators, their blocks and the hierarchy (phase 25b's)."""
     import torch
 
     from sigma_tpu_torch import (
@@ -1353,27 +1386,27 @@ def phase_block_cg(device, nx):
         raise AssertionError(f"block CG iterations differ by layout: {iters}")
     if interleaved["auto"] <= 0:
         raise AssertionError("block CG (auto) did not run the interleaved SpMM")
-    del A, B
 
     S = SymmetricDIAMatrix.from_dia(laplacian_3d_dia(nx, torch.float32, device, diag=6.0))
     s = 4
     g = torch.Generator(device=device).manual_seed(0)
-    B = S.matmat(torch.randn((n, s), generator=g, device=device))
+    B4 = S.matmat(torch.randn((n, s), generator=g, device=device))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     M = structured_pair_amg(S, (nx, nx, nx), pairs_per_level=3, level_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     (X, info), warm = _timed(
-        lambda: block_cg_solve(S, B, tol=0.0, rtol=1e-6, maxiter=300, M=M)
+        lambda: block_cg_solve(S, B4, tol=0.0, rtol=1e-6, maxiter=300, M=M)
     )
-    rels = _col_rel_residuals(S, B, X)
+    rels = _col_rel_residuals(S, B4, X)
     emit({"phase": "block_cg", "operator": "poisson_sym", "preconditioner": "gmg_jacobi_bf16",
           "n": n, "rhs": s, "setup_s": setup, "iterations": info.iterations,
           "converged": info.converged, "col_relative_residuals": rels,
           "wall_s_warm": warm, "s_per_iteration": warm / max(info.iterations, 1)})
     if not (info.converged and max(rels) < 1e-5):
         raise AssertionError(f"GMG block CG did not converge: {info}, {rels}")
+    return A, B, S, B4, M
 
 
 def analytic_lowest(nx, count):
@@ -3202,7 +3235,8 @@ def phase_refinement(device, nx):
     default_rng(0): (a) f64 CG + Chebyshev GMG in f64; (b) refined_solve
     with an f32 inner GMG-CG (f32 operator and levels); (c) as (b) with the
     inner operator's values in bf16 (exact for this stencil); (d) MINRES
-    in f64 with (a)'s M."""
+    in f64 with (a)'s M.  Returns the f64 operator, b and (a)'s M (phase
+    25b's)."""
     import numpy as np
     import torch
 
@@ -3269,6 +3303,160 @@ def phase_refinement(device, nx):
     if abs(iters["d_minres_f64"] - iters["a_cg_f64"]) > 3:
         raise AssertionError(f"MINRES and CG with the same M differ by more than 3: {iters}")
     emit({"phase": "refinement", "fastest": min(walls, key=walls.get), "wall_s_warm": walls})
+    return S, b, M64
+
+
+# phase 25b's time on the card, seconds: the path fails beyond it
+GRAPHED_KRYLOV_BUDGET_S = 40.0
+
+
+def _richardson_sweeps(A, Minv, sweeps=3):
+    """A preconditioner that is a plain callable with no host read:
+    ``sweeps`` Jacobi-preconditioned Richardson sweeps on A z = v from
+    z = 0."""
+
+    def apply(v):
+        z = Minv.matvec(v)
+        for _ in range(sweeps - 1):
+            z = z + Minv.matvec(v - A.matvec(z))
+        return z
+
+    return apply
+
+
+def graphed_copy_costs(device, n, s=8):
+    """The device time of what a captured loop moves that the eager one
+    does not (CUDA events, median of 30; f32 panels in the interleaved
+    layout of n rows and s columns, f64 vectors of n): block CG's best
+    iterate, a ``where`` over the panel in place (the eager loop makes it
+    into a fresh panel; the JAX package's ``jnp.where``), its new direction
+    block copied into the buffer set, and MINRES's preconditioned vector
+    copied into it (with an M; MINRES's swapped residuals and directions
+    are held crosswise and copy nothing).  Each beside its byte bound."""
+    import torch
+
+    rows = s * -(-n // 128)
+    X, Xb = (torch.rand((rows, 128), device=device) for _ in range(2))
+    y, yb = (torch.rand(n, dtype=torch.float64, device=device) for _ in range(2))
+    flag = torch.ones((), dtype=torch.bool, device=device)
+    panel = X.numel() * 4
+    row = {"phase": "graphed_copy_costs", "n": n, "rhs": s,
+           "best_iterate_where_ms": median_ms(lambda: torch.where(flag, X, Xb, out=Xb)),
+           "best_iterate_where_bound_ms": bound(3 * panel, 0, torch.float32)[0],
+           "direction_copy_ms": median_ms(lambda: Xb.copy_(X)),
+           "direction_copy_bound_ms": bound(2 * panel, 0, torch.float32)[0],
+           "minres_y_copy_f64_ms": median_ms(lambda: yb.copy_(y)),
+           "minres_y_copy_bound_ms": bound(2 * n * 8, 0, torch.float64)[0]}
+    emit(row)
+    return row
+
+
+def phase_graphed_krylov(device, blk, nonsym, refine):
+    """Phase 25b: the rest of the Krylov solvers as graphed solves, each
+    eagerly and through ``graphed`` (:func:`_graphed_case`), everything
+    held equal, on the operators of phases 11, 23 and 25 at nx=216: block
+    CG with 8 right-hand sides on Laplacian + I in the interleaved
+    (``auto``: #7) and the column layout (#4), GMG block CG with 4 on pure
+    Poisson (#3/#8 and the bf16 levels), f64 MINRES + GMG to rtol 1e-10
+    (#2 in f64), MINRES with no M and a history, 100 CGLS steps on the
+    advection-diffusion stencil (#1 and its transposed layout), FGMRES(32)
+    + GMG and FGMRES(8) whose M is a plain callable running 3
+    Jacobi-preconditioned Richardson sweeps, and 45 Jacobi sweeps of the
+    stationary iteration; then block CG stopped by ``maxiter``, MINRES
+    with a zero right-hand side and the stationary iteration with no
+    steps.  A graphed solve reads once a block of iterations, FGMRES once
+    a restart cycle (the cycles counted from the eager solve's matvecs).
+    FGMRES whose M is phase 24's ``attach_solver`` form must raise at
+    capture, naming M's type, and the eager solve run as before.  Fails
+    beyond ``GRAPHED_KRYLOV_BUDGET_S``."""
+    import torch
+
+    from sigma_tpu_torch import (
+        attach_solver, bicgstab, block_cg_solve, cgls_solve, fgmres_solve, graphed, jacobi,
+        minres_solve, stationary_solve,
+    )
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    t0 = time.perf_counter()
+    A11, B11, S11, B4, M11 = blk
+    A23, b23, Mj23, Mg23 = nonsym
+    S25, b25, M25 = refine
+    run = partial(_graphed_case, phase="graphed_krylov")
+    b11 = B11[:, 0].contiguous()
+    Mj11 = jacobi().setup(A11)
+    richardson = _richardson_sweeps(A23, Mj23)
+    bkw = dict(tol=0.0, rtol=1e-6, maxiter=100)
+    nkw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=2000)
+    mkw = dict(tol=0.0, rtol=REFINE_RTOL, maxiter=3000, M=M25)
+    rows = {}
+    for label, solve, A, b, kw, extra, timed in (
+        ("block_cg_auto", block_cg_solve, A11, B11, dict(bkw, panels="auto"), (), True),
+        ("block_cg_cols", block_cg_solve, A11, B11, dict(bkw, panels="cols"), (), True),
+        ("block_cg_gmg", block_cg_solve, S11, B4, dict(bkw, maxiter=300, M=M11), (), True),
+        ("minres_gmg_f64", minres_solve, S25, b25, mkw, (), True),
+        ("minres_history", minres_solve, A11, b11, dict(bkw, history=True), (), False),
+        ("cgls", cgls_solve, A23, b23, dict(nkw, maxiter=100), (), True),
+        ("fgmres32_gmg", fgmres_solve, A23, b23, dict(nkw, restart=32, M=Mg23), (), True),
+        ("fgmres8_richardson", fgmres_solve, A23, b23, dict(nkw, restart=8, M=richardson), (),
+         False),
+        ("stationary_jacobi", stationary_solve, A11, b11, dict(steps=BLOCK + 13), (Mj11,),
+         True),
+        ("block_cg_stopped_by_maxiter", block_cg_solve, S11, B4,
+         dict(bkw, maxiter=BLOCK + 5), (), False),
+        ("minres_zero_rhs", minres_solve, S25, torch.zeros_like(b25), mkw, (), False),
+        ("stationary_no_steps", stationary_solve, A11, b11, dict(steps=0), (Mj11,), False),
+    ):
+        rows[label] = run(label, solve, A, b, kw, timed=timed, extra=extra,
+                          count_matvecs=solve is fgmres_solve)
+    for label, row in rows.items():
+        its = row["iterations"]
+        if label.startswith("fgmres"):
+            cycles = row["matvecs_eager"] - 1 - its  # one at set-up and one a step
+            want = max(1, cycles)
+        else:
+            want = max(1, -(-its // BLOCK))
+        if row["host_reads_graphed"] != want:
+            raise AssertionError(f"graphed {label}: {row['host_reads_graphed']} host reads, "
+                                 f"want {want}")
+        # 100 CGLS steps lower ||A^T r|| without reaching rtol (phase 23)
+        if not (row["converged"] or label.endswith("by_maxiter") or label == "cgls"):
+            raise AssertionError(f"graphed {label} did not converge: {row}")
+    stopped = rows["block_cg_stopped_by_maxiter"]
+    if stopped["converged"] or stopped["iterations"] != BLOCK + 5:
+        raise AssertionError(f"block CG was not stopped by maxiter: {stopped}")
+    if rows["fgmres8_richardson"]["cycles"] < 3:
+        raise AssertionError(f"FGMRES(8) ran fewer than 3 cycles: {rows['fgmres8_richardson']}")
+    if rows["stationary_jacobi"]["iterations"] != BLOCK + 13:
+        raise AssertionError(f"the stationary iteration took another count: "
+                             f"{rows['stationary_jacobi']}")
+    if rows["minres_zero_rhs"]["iterations"] or rows["stationary_no_steps"]["iterations"]:
+        raise AssertionError("a zero right-hand side or zero steps took iterations")
+    if rows["block_cg_auto"]["iterations"] != rows["block_cg_cols"]["iterations"]:
+        raise AssertionError("graphed block CG took other counts by layout")
+    # an attached inner solve reads back: refused at capture, M named
+    Ma = attach_solver(A23, bicgstab(tolerance=0.0, maxiter=4))
+    akw = dict(tol=0.0, rtol=NONSYM_RTOL, restart=8, maxiter=16, M=Ma)
+    x, info = fgmres_solve(A23, b23, **akw)
+    try:
+        graphed(fgmres_solve)(A23, b23, **akw)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("graphed FGMRES with an attached solver did not raise at capture")
+    if "OperatorWithSolver" not in refused:
+        raise AssertionError(f"the refusal does not name M's type: {refused}")
+    y, again = fgmres_solve(A23, b23, **akw)
+    if not (torch.equal(y, x) and again.iterations == info.iterations > 0):
+        raise AssertionError(f"the eager FGMRES with an attached solver changed after the "
+                             f"refusal: {info}, then {again}")
+    costs = graphed_copy_costs(device, A11.shape[0])
+    secs = time.perf_counter() - t0
+    emit({"phase": "graphed_krylov_path", "seconds": secs, "block": BLOCK,
+          "budget_s": GRAPHED_KRYLOV_BUDGET_S, "attached_refusal": refused,
+          "linalg_library": str(torch.backends.cuda.preferred_linalg_library())})
+    if secs > GRAPHED_KRYLOV_BUDGET_S:
+        raise AssertionError(f"phase 25b took {secs:.1f} s, over its {GRAPHED_KRYLOV_BUDGET_S} s")
+    return costs
 
 
 # -- the eigen path ----------------------------------------------------------
@@ -5116,7 +5304,7 @@ def main():
     del A9, b9, S10, b10, hierarchies
     # the stencil multi-RHS path
     zero_counts()
-    phase_block_cg(device, args.nx)                         # phase 11
+    blk11 = phase_block_cg(device, args.nx)                 # phase 11
     V12, M12 = phase_lobpcg(device, args.nx)                # phase 12
     # (the GMG levels here are bf16 full storage: dia_spmv, not dia_sym_spmv)
     paths.append(read_counts("multi_rhs", ("dia_spmv", "dia_spmm", "dia_sym_spmm")))
@@ -5188,13 +5376,19 @@ def main():
     zero_counts()
     phase_graphed_nonsym(device, A23, b23, Mj23, Mg23)      # phase 23b
     paths.append(read_counts("graphed_nonsym", ("dia_spmv", "givens_update")))
-    del A23, b23, Mj23, Mg23
     zero_counts()
     phase_nonsym_unstructured(device)                       # phase 24
     paths.append(read_counts("nonsym_unstructured", ("pruned_spmv",)))
     zero_counts()
-    phase_refinement(device, args.nx)                       # phase 25
+    refine25 = phase_refinement(device, args.nx)            # phase 25
     paths.append(read_counts("refinement", ("dia_sym_spmv", "dia_spmv")))
+    # the rest of the Krylov solvers as graphed solves, held to the eager
+    # loop, on phases 11's, 23's and 25's operators
+    zero_counts()
+    phase_graphed_krylov(device, blk11, (A23, b23, Mj23, Mg23), refine25)  # phase 25b
+    paths.append(read_counts("graphed_krylov", ("dia_spmv", "dia_sym_spmv", "dia_spmm",
+                                                "dia_sym_spmm", "givens_update")))
+    del blk11, A23, b23, Mj23, Mg23, refine25
     # the eigen path: refinement of phase 12's block, the FEM pencil, and
     # inverse and shift-invert Lanczos on phase 15's mesh
     zero_counts()

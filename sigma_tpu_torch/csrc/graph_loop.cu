@@ -2,17 +2,18 @@
 // under a conditional if-node.
 //
 // Replaces no TPU kernel: it is the port's counterpart of the compiled
-// ``lax.while_loop``s of ``sigma_tpu/solvers/krylov.py`` (``cg_solve``,
-// ``cg_fused_solve``, ``bicgstab_solve``, ``gmres_solve``), whose ``cond``
-// XLA evaluates on the device.  The Python side
+// ``lax.while_loop``s (and the stationary iteration's ``fori_loop``) of
+// ``sigma_tpu/solvers/krylov.py``, whose ``cond`` XLA evaluates on the
+// device.  The Python side
 // (``sigma_tpu_torch/solvers/graphed.py``) captures with
 // ``torch.cuda.graph`` a head, the bodies and a tail (the status the host
 // reads); each capture is a graph in PyTorch's memory pool for the loop.
 // This file links them: head -> one (set-predicate kernel -> if-node
 // holding a body as a child graph) a body -> tail, and instantiates the
-// result.  A block of CG or BiCG-stab iterations lists the even and the
-// odd iteration (which ping-pong between two buffer sets) in turn, all on
-// the loop's predicate; a GMRES restart cycle lists its m Arnoldi steps,
+// result.  A block of iterations (CG, BiCG-stab, MINRES, CGLS, block CG,
+// ...) lists the even and the odd iteration (which ping-pong between two
+// buffer sets) in turn, all on the loop's predicate; a GMRES or FGMRES
+// restart cycle lists its m Arnoldi steps,
 // the first on the cycle's predicate and the others on the one the step
 // before wrote, then the cycle's end on the cycle's predicate.
 //

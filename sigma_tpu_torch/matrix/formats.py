@@ -238,7 +238,8 @@ class DIAMatrix(SparseMatrix):
         ``data[o]`` shifted by o (``dataT[-o, j] = data[o, j - o]``), so the
         transpose layout is pure data movement and runs through the same
         kernel.  Built on every call (there is no loop-invariant hoisting
-        in eager PyTorch; rmatvec is off the solvers' hot path)."""
+        in eager PyTorch), from tensors already on data's device, so a
+        CUDA graph can capture it (CGLS's rmatvec)."""
         n, m = self.shape
         offs = self.graph.offsets
         stride = self.data.shape[1]
@@ -252,9 +253,8 @@ class DIAMatrix(SparseMatrix):
             lo, hi = max(0, o), min(sT, stride + o)
             if hi > lo:
                 dataT[k, lo:hi] = self.data[d, lo - o : hi - o]
-        offsT = torch.tensor(
-            [-offs[d] for d in order], dtype=index_dtype, device=self.data.device
-        )
+        # -offsets in descending order of the offsets, without a host copy
+        offsT = -torch.sort(self.offsets_dev, descending=True, stable=True).values
         return dataT, offsT
 
     def rmatvec(self, x):

@@ -1,50 +1,59 @@
 """Graphed solves: the port's counterpart of ``jax.jit`` of a Krylov solve.
 
 The JAX package compiles a whole solve into one XLA program: the loop is
-a ``lax.while_loop`` whose ``cond`` runs on the device
-(``sigma_tpu/solvers/krylov.py``).  The eager solvers of
-:mod:`~sigma_tpu_torch.solvers.krylov` read the stopping rule back to the
-host once an iteration.  ``graphed(cg_solve)``, ``graphed(cg_fused_solve)``,
-``graphed(bicgstab_solve)`` and ``graphed(gmres_solve)`` return a callable
-with the solver's own signature and results which, for a CUDA ``b``,
+a ``lax.while_loop`` (the stationary iteration's a ``fori_loop``) whose
+``cond`` runs on the device (``sigma_tpu/solvers/krylov.py``).  The eager
+solvers of :mod:`~sigma_tpu_torch.solvers.krylov` read the stopping rule
+back to the host once an iteration.  ``graphed(solve)``, for any of the
+nine solvers of that module (``cg_solve``, ``cg_fused_solve``,
+``bicgstab_solve``, ``minres_solve``, ``gmres_solve``, ``fgmres_solve``,
+``cgls_solve``, ``stationary_solve``, ``block_cg_solve``), returns a
+callable with the solver's own signature and results which, for a CUDA
+right-hand side,
 
-1. runs the solver's set-up eagerly (:func:`~sigma_tpu_torch.solvers.krylov.cg_loop`,
-   :func:`~sigma_tpu_torch.solvers.krylov.cg_fused_loop`,
-   :func:`~sigma_tpu_torch.solvers.krylov.bicgstab_loop`,
-   :func:`~sigma_tpu_torch.solvers.krylov.gmres_loop`);
-2. on its first call for an operator, a preconditioner, b's shape, dtype
-   and device and the keywords, captures with ``torch.cuda.graph`` a
-   head, the bodies and a tail (the status the host reads), all in one
-   memory pool, and ``csrc/graph_loop.cu`` links them into one CUDA graph
-   whose bodies each sit under a conditional if-node that runs it only
-   while the predicate it waits on holds:
+1. runs the solver's set-up eagerly (the solver's ``*_loop`` in
+   :mod:`~sigma_tpu_torch.solvers.krylov`);
+2. on its first call for an operator, a preconditioner, the right-hand
+   side's shape, dtype and device and the keywords, captures with
+   ``torch.cuda.graph`` a head, the bodies and a tail (the status the host
+   reads), all in one memory pool, and ``csrc/graph_loop.cu`` links them
+   into one CUDA graph whose bodies each sit under a conditional if-node
+   that runs it only while the predicate it waits on holds:
 
-   - CG, fused CG and BiCG-stab (a :class:`~sigma_tpu_torch.solvers.krylov.Loop`):
-     the head writes the predicate ``cond`` of the starting state, and
+   - CG, fused CG, BiCG-stab, MINRES, CGLS, the stationary iteration and
+     block CG (a :class:`~sigma_tpu_torch.solvers.krylov.Loop`): the head
+     writes the predicate ``cond`` of the starting state, and
      ``min(BLOCK, maxiter)`` iterations follow, the loop's body captured
      twice.  The iterations ping-pong between two buffer sets, so the
      state is carried without a copy, as XLA aliases the loop carry; the
-     counter, the history and BiCG-stab's shadow residual are shared;
-   - GMRES(m) (a :class:`~sigma_tpu_torch.solvers.krylov.Cycles`): one
-     restart cycle.  The head writes the outer predicate and starts the
-     cycle; the m Arnoldi steps follow, each captured at its own index j
-     (the basis products' slices are fixed by j), the first on the outer
-     predicate and step j on the inner predicate that step j - 1's Givens
-     update wrote on the device; then the cycle's end (the Hessenberg
-     solve, the update of x, the new residual) on the outer predicate.
-     Every write is in place: the basis is one buffer;
+     counter, the history and the state's other shared fields (BiCG-stab's
+     shadow residual, the stationary iteration's b, block CG's best
+     iterate) are one buffer, and MINRES's swapped pairs are held
+     crosswise by the two sets;
+   - GMRES(m) and FGMRES(m) (a :class:`~sigma_tpu_torch.solvers.krylov.Cycles`):
+     one restart cycle.  The head writes the outer predicate and starts
+     the cycle; the m Arnoldi steps follow, each captured at its own
+     index j (the basis products' slices are fixed by j), the first on the
+     outer predicate and step j on the inner predicate that step j - 1's
+     Givens update wrote on the device; then the cycle's end (the
+     Hessenberg solve, the update of x, the new residual) on the outer
+     predicate.  Every write is in place: the basis, and FGMRES's basis Z
+     of preconditioned vectors, are one buffer each;
 
 3. replays that graph until the status reads false: one host read a block
    of iterations, or a restart cycle, where the eager loop makes one an
-   iteration (GMRES: an Arnoldi step).
+   iteration (GMRES and FGMRES: an Arnoldi step).  The loop's finishing
+   hook then gives x and the residual norm from the buffers (block CG's
+   best iterate, out of its panel layout).
 
 The count is exact and the results are the eager solver's bit for bit:
 the same operations in the same order on the same buffers' values.  A
-later call with a new ``b`` or ``x0`` copies the new initial state into
-the graph's buffers and replays without capturing again, as jit reuses
-its compiled program; the callable keeps the last graph only.  The
-set-up's own launches come before the capture (CG's and BiCG-stab's make
-one matvec and one preconditioner application, as the eager solve does).
+later call with new right-hand side or start copies the new initial
+state into the graph's buffers and replays without capturing again, as
+jit reuses its compiled program; the callable keeps the last graph only.
+The set-up's own launches come before the capture (CG's and BiCG-stab's
+make one matvec and one preconditioner application, as the eager solve
+does).
 
 PyTorch 2.11's ``CUDAGraph`` has no Python binding for capturing into an
 if-node (``begin_capture_to_if_node``, which later releases bind), so
@@ -53,11 +62,13 @@ the port's kernels are bumped in Python, where a replay runs none: the
 capture's launches are taken back out and each replay adds the launches
 of each part it ran, so the counts equal the eager solve's.
 
-For a CPU ``b`` the same parts run eagerly, in the same schedule, with
-the same buffers: the plain version.  There is no fallback: on CUDA a
-capture that fails raises.  Only these four solvers are graphed, and
-only for a plain tensor ``b``; the other solvers and the rank mesh run
-their eager loops (``ROADMAP.md``, staged item A.2).
+For a CPU right-hand side the same parts run eagerly, in the same
+schedule, with the same buffers: the plain version.  There is no
+fallback: on CUDA a capture that fails raises, and FGMRES with an
+``attach_solver`` preconditioner (whose inner solve reads its stopping
+rule back to the host) is refused at capture, naming M's type.  Only a
+plain tensor right-hand side is graphed; the rank mesh runs the eager
+loops (``ROADMAP.md``, staged item A.2).
 """
 
 from __future__ import annotations
@@ -77,14 +88,25 @@ from sigma_tpu_torch.solvers.krylov import (
     Cycles,
     Loop,
     SolveInfo,
+    attached,
     bicgstab_loop,
     bicgstab_solve,
+    block_cg_loop,
+    block_cg_solve,
     cg_fused_loop,
     cg_fused_solve,
     cg_loop,
     cg_solve,
+    cgls_loop,
+    cgls_solve,
+    fgmres_loop,
+    fgmres_solve,
     gmres_loop,
     gmres_solve,
+    minres_loop,
+    minres_solve,
+    stationary_loop,
+    stationary_solve,
 )
 from sigma_tpu_torch.utils.sharded import is_sharded, local
 
@@ -104,24 +126,27 @@ __all__ = ["BLOCK", "GraphedSolve", "graphed"]
 BLOCK = 32
 
 _LOOPS = {cg_solve: cg_loop, cg_fused_solve: cg_fused_loop, bicgstab_solve: bicgstab_loop,
-          gmres_solve: gmres_loop}
+          minres_solve: minres_loop, gmres_solve: gmres_loop, fgmres_solve: fgmres_loop,
+          cgls_solve: cgls_loop, stationary_solve: stationary_loop,
+          block_cg_solve: block_cg_loop}
 
 
 def graphed(solve) -> "GraphedSolve":
     """``solve`` run as one captured CUDA graph a block of iterations (a
-    restart cycle for GMRES): the counterpart of ``jax.jit(lambda A, b:
-    solve(A, b, ...))``.  Takes
-    :func:`~sigma_tpu_torch.solvers.krylov.cg_solve`,
-    :func:`~sigma_tpu_torch.solvers.krylov.cg_fused_solve`,
-    :func:`~sigma_tpu_torch.solvers.krylov.bicgstab_solve` or
-    :func:`~sigma_tpu_torch.solvers.krylov.gmres_solve`; raises
-    ``TypeError`` for any other solver."""
+    restart cycle for GMRES and FGMRES): the counterpart of
+    ``jax.jit(lambda A, b: solve(A, b, ...))``.  Takes any solver of
+    :mod:`~sigma_tpu_torch.solvers.krylov`: ``cg_solve``,
+    ``cg_fused_solve``, ``bicgstab_solve``, ``minres_solve``,
+    ``gmres_solve``, ``fgmres_solve``, ``cgls_solve``, ``stationary_solve``
+    or ``block_cg_solve``; raises ``TypeError`` for any other callable."""
     loop = _LOOPS.get(solve)
     if loop is None:
         name = getattr(solve, "__name__", repr(solve))
         raise TypeError(
-            f"graphed() takes cg_solve, cg_fused_solve, bicgstab_solve or gmres_solve, not "
-            f"{name}: the other solvers run their eager loops (ROADMAP.md, staged item A.2)"
+            f"graphed() takes the solvers of sigma_tpu_torch.solvers.krylov (cg_solve, "
+            f"cg_fused_solve, bicgstab_solve, minres_solve, gmres_solve, fgmres_solve, "
+            f"cgls_solve, stationary_solve, block_cg_solve), not {name}: the other solves run "
+            f"their eager loops (ROADMAP.md, staged item A.2)"
         )
     return GraphedSolve(solve, loop)
 
@@ -136,17 +161,18 @@ class _Plan:
     parts: list  # callables: parts[0] the head, parts[-1] the tail
     nodes: list  # (part index, predicate) an if-node
     status: torch.Tensor  # (more, k, converged) as int64, read once a replay
-    tol_eff: torch.Tensor  # the threshold the captured parts read
+    tol_eff: Optional[torch.Tensor]  # the threshold the captured parts read
     load: Callable  # (loop): a new set-up's state into the buffers
     result: Callable  # (k, converged): (x, info) copied out of the buffers
     ran: Callable  # (steps a replay took): the indices of the nodes that ran
 
 
 def _block_plan(loop: Loop) -> _Plan:
-    """CG, fused CG, BiCG-stab: ``min(BLOCK, maxiter)`` iterations, the
-    even and the odd body in turn, all on the loop's predicate."""
+    """CG, fused CG, BiCG-stab, MINRES, CGLS, the stationary iteration and
+    block CG: ``min(BLOCK, maxiter)`` iterations, the even and the odd body
+    in turn, all on the loop's predicate."""
     sets = _buffers(loop.state)
-    pred = torch.zeros((), dtype=torch.bool, device=loop.tol_eff.device)
+    pred = torch.zeros((), dtype=torch.bool, device=loop.state.k.device)
     status = torch.zeros(3, dtype=torch.int64, device=pred.device)
     parts = [
         lambda: pred.copy_(loop.cond(sets[0])),
@@ -220,27 +246,30 @@ class GraphedSolve:
         self.captured = False
         self.capture_seconds = 0.0
 
-    def __call__(self, A, b, x0=None, **kw):
+    def __call__(self, *args, **kw):
+        bound = self._signature.bind(*args, **kw)
+        bound.apply_defaults()
+        A, b = bound.args[:2]  # the operator and the right-hand side (b or B)
         if is_sharded(b):
             raise NotImplementedError(
-                f"graphed {self.__name__} takes a plain tensor b; a vector sharded over "
-                "ranks runs the eager loop (ROADMAP.md, staged item A.2)"
+                f"graphed {self.__name__} takes a plain tensor right-hand side; a vector sharded "
+                "over ranks runs the eager loop (ROADMAP.md, staged item A.2)"
             )
-        bound = self._signature.bind(A, b, x0, **kw)
-        bound.apply_defaults()
-        kw = {k: v for k, v in bound.arguments.items() if k not in ("A", "b", "x0")}
-        loop = self._loop(A, b, x0, **kw)
+        loop = self._loop(*bound.args, **bound.kwargs)
         self.captured = False
         if b.device.type == "cpu":
             return self._plain(_plan(loop))
         if b.device.type != "cuda":
             raise ValueError(f"graphed {self.__name__}: no graphed loop on {b.device}")
-        M = kw.pop("M")
-        key = (tuple(b.shape), b.dtype, b.device, tuple(sorted(kw.items())))
+        M = bound.arguments.get("M")
+        operands = (*list(self._signature.parameters)[:2], "x0", "X0", "M")
+        key = (tuple(b.shape), b.dtype, b.device,
+               tuple(sorted((k, v) for k, v in bound.arguments.items() if k not in operands)))
         g = self._graph
         if g is not None and g.matches(A, M, key):
             g.plan.load(loop)
-            g.plan.tol_eff.copy_(loop.tol_eff)
+            if g.plan.tol_eff is not None:
+                g.plan.tol_eff.copy_(loop.tol_eff)
         else:
             self._graph = None  # release the last graph before capturing
             g = self._graph = self._capture(loop, A, M, key, b.device)
@@ -262,6 +291,13 @@ class GraphedSolve:
 
     # -- the graph on the card --------------------------------------------
     def _capture(self, loop, A, M, key, device) -> _Graph:
+        on = type(A).__name__ + ("" if M is None else f" with M={type(M).__name__}")
+        if self.__wrapped__ is fgmres_solve and attached(M):
+            raise RuntimeError(
+                f"graphed {self.__name__} on {on}: capture refused: the attached solver's inner "
+                "solve reads its stopping rule back to the host, which a captured graph cannot "
+                "(an inner graphed solve is ROADMAP.md's later work); call fgmres_solve itself"
+            )
         t0 = time.perf_counter()
         lib = _build.library()
         plan = _plan(loop)
@@ -284,7 +320,6 @@ class GraphedSolve:
             if rc != 0:
                 raise RuntimeError(f"linking the if-nodes: {lib.sigma_error_string(rc).decode()}")
         except Exception as e:
-            on = type(A).__name__ + ("" if M is None else f" with M={type(M).__name__}")
             raise RuntimeError(f"graphed {self.__name__} on {on}: capture failed: {e}") from e
         finally:
             # the captures ran no kernel
@@ -331,10 +366,14 @@ def _buffers(state):
     set-up's tensors may alias one another: CG's first direction is its
     preconditioned residual, the residual itself without M), the second
     alike; both share the state's ``SHARED`` fields (the counter, the
-    history, BiCG-stab's shadow residual)."""
+    history, BiCG-stab's shadow residual, ...), and the second holds each
+    of its ``CROSSED`` pairs the other way round."""
     a = state._make(None if t is None else t.clone() for t in state)
     b = state._make(None if t is None else torch.zeros_like(t) for t in state)
-    return a, b._replace(**{f: getattr(a, f) for f in state.SHARED})
+    b = b._replace(**{f: getattr(a, f) for f in state.SHARED})
+    for f, g in getattr(state, "CROSSED", ()):
+        b = b._replace(**{f: getattr(a, g), g: getattr(a, f)})
+    return a, b
 
 
 def _load(buffers, state):
@@ -353,9 +392,7 @@ def _step(loop: Loop, src, dst, pred):
 def _tail(loop: Loop, sets, pred, status):
     """``status`` = (pred, k, converged) of the set the count names."""
     k = sets[0].k
-    res = torch.where(k % 2 == 0, getattr(sets[0], loop.residual),
-                      getattr(sets[1], loop.residual))
-    converged = loop.norm(res) <= loop.tol_eff
+    converged = torch.where(k % 2 == 0, loop.finish(sets[0])[1], loop.finish(sets[1])[1])
     torch.stack((pred.to(k.dtype), k, converged.to(k.dtype)), out=status)
 
 
@@ -363,5 +400,8 @@ def _result(loop: Loop, sets, k, converged):
     """``(x, info)`` from the buffer set that ``k``'s parity names, copied
     out of the buffers a later call reuses."""
     s = sets[k % 2]
+    x = loop.solution(s)
+    if any(x is t for t in s):
+        x = x.clone()
     hist = None if s.hist is None else s.hist.clone()
-    return s.x.clone(), SolveInfo(k, loop.residual_norm(s).clone(), bool(converged), hist)
+    return x, SolveInfo(k, loop.finish(s)[0].clone(), bool(converged), hist)

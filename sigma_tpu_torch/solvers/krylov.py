@@ -2,24 +2,27 @@
 
 Port of every solver of :mod:`sigma_tpu.solvers.krylov`: CG, fused CG,
 BiCG-stab, MINRES, GMRES, flexible GMRES, CGLS, the stationary iteration
-and block CG.  The JAX solve is one on-device ``lax.while_loop``; here the
-loop runs on the host and reads the stopping quantity back once per
-iteration (one device synchronisation each) to apply the same stopping
-rule, so iteration counts match the JAX package.  CG, fused CG and
-BiCG-stab are written as that loop's init / cond / body (:func:`cg_loop`,
-:func:`cg_fused_loop`, :func:`bicgstab_loop`, with a device iteration
-counter), GMRES and FGMRES as the JAX package's two nested loops split at
-a restart cycle (:func:`arnoldi_loop`: a cycle's init, Arnoldi step j
-with its Givens update on the device, the cycle's end with the
-Hessenberg solve on the device).  :func:`~sigma_tpu_torch.solvers.graphed.graphed`
-captures CG, fused CG, BiCG-stab and GMRES into one CUDA graph whose
-bodies sit under device-side if-nodes, one host read a block of
-iterations or a restart cycle: the counterpart of ``jax.jit`` of the
-solve.  All vectors stay on the device of ``b``; dot products are
-``torch.dot``.  ``b`` may be a vector sharded over ranks (a DTensor,
-:mod:`sigma_tpu_torch.parallel.ranks`): the work arrays are then made like
-it (:mod:`sigma_tpu_torch.utils.sharded`) and each dot is the ranks' local
-dots all-reduced at once (``dot``).
+and block CG.  The JAX solve is one on-device ``lax.while_loop`` (a
+``fori_loop`` for the stationary iteration); here the loop runs on the
+host and reads the stopping quantity back once per iteration (one device
+synchronisation each) to apply the same stopping rule, so iteration
+counts match the JAX package.  CG, fused CG, BiCG-stab, MINRES, CGLS, the
+stationary iteration and block CG are written as that loop's init / cond
+/ body (:func:`cg_loop`, :func:`cg_fused_loop`, :func:`bicgstab_loop`,
+:func:`minres_loop`, :func:`cgls_loop`, :func:`stationary_loop`,
+:func:`block_cg_loop`, each with a device iteration counter and its stopping
+rule computed on the device), GMRES and FGMRES as the JAX package's two
+nested loops split at a restart cycle (:func:`arnoldi_loop`: a cycle's
+init, Arnoldi step j with its Givens update on the device, the cycle's
+end with the Hessenberg solve on the device).
+:func:`~sigma_tpu_torch.solvers.graphed.graphed` captures any of the nine
+into one CUDA graph whose bodies sit under device-side if-nodes, one host
+read a block of iterations or a restart cycle: the counterpart of
+``jax.jit`` of the solve.  All vectors stay on the device of ``b``; dot
+products are ``torch.dot``.  ``b`` may be a vector sharded over ranks (a
+DTensor, :mod:`sigma_tpu_torch.parallel.ranks`): the work arrays are then
+made like it (:mod:`sigma_tpu_torch.utils.sharded`) and each dot is the
+ranks' local dots all-reduced at once (``dot``).
 
 All take ``A`` and optional ``M`` as LinearOperators (``M`` applies the
 *inverse* preconditioner, z = M^{-1} r).
@@ -91,6 +94,10 @@ def _history(history, maxiter, b):
     )
 
 
+def _solution_x(s):
+    return s.x
+
+
 class Loop(NamedTuple):
     """A solve split as the JAX package splits it for ``lax.while_loop``:
     the carried ``state`` after set-up, ``cond(state)``, a 0-d bool tensor
@@ -100,21 +107,33 @@ class Loop(NamedTuple):
     tensors instead of fresh ones, with the same arithmetic.  The history
     is written in place at the device index ``k`` (a captured loop shares
     one counter and one history between its buffer sets, and the state's
-    other ``SHARED`` fields, which the body passes on unchanged).
-    ``tol_eff`` is the stopping threshold ``cond`` compares with and
-    ``maxiter`` the most iterations it allows; the residual norm of a
-    state is ``norm`` of its field named ``residual``."""
+    other ``SHARED`` fields, which the body passes on unchanged or updates
+    in place).  A state's ``CROSSED`` pairs are fields whose roles swap
+    every iteration (MINRES's two last residuals and directions): the
+    second buffer set holds each pair's buffers the other way round, so
+    the swap needs no copy.  ``tol_eff`` is the stopping threshold
+    ``cond`` compares with (None for the stationary iteration, which has
+    none) and ``maxiter`` the most iterations it allows.
+
+    The finishing hook turns a final state into the solve's result, each
+    loop its own: ``finish(state)`` gives the residual norm ``info``
+    reports and whether the solve converged, 0-d tensors computed on the
+    device without a launch of the port's kernels (it is the status a
+    captured loop reads), and ``solution(state)`` the x returned (block
+    CG's best iterate, out of the panel layout)."""
 
     state: NamedTuple
     cond: Callable
     body: Callable
-    tol_eff: torch.Tensor
+    tol_eff: Optional[torch.Tensor]
     maxiter: int
-    residual: str = "res2"
-    norm: Callable = torch.sqrt
+    finish: Callable
+    solution: Callable = _solution_x
 
-    def residual_norm(self, s):
-        return self.norm(getattr(s, self.residual))
+    def result(self, s, k):
+        """``(x, info)`` of the final state ``s`` after ``k`` iterations."""
+        resn, converged = self.finish(s)
+        return self.solution(s), SolveInfo(k, resn, bool(converged), s.hist)
 
 
 class CGState(NamedTuple):
@@ -163,8 +182,9 @@ _NO_OUT_BICG = BiCGStabState(*[None] * len(BiCGStabState._fields))
 
 
 def _put(value, out):
-    """``value`` itself, or written into the buffer ``out`` (a 0-d copy)."""
-    return value if out is None else out.copy_(value)
+    """``value`` itself, or written into the buffer ``out`` (a copy; none
+    where ``out`` is ``value``, a crossed or shared buffer)."""
+    return value if out is None or out is value else out.copy_(value)
 
 
 def _record(hist, k, value):
@@ -178,15 +198,24 @@ def _record(hist, k, value):
     hist[k.reshape(1)] = value.reshape(1)
 
 
-def _stopper(tol_eff, maxiter):
-    """The loop condition ``(sqrt(res2) > tol_eff) & (k < maxiter)`` of a
-    state with ``res2`` and ``k``, computed on the device (a sharded solve's
-    on each rank's copy of the replicated comparison)."""
+def _until_tolerance(state, body, tol_eff, maxiter, field, norm=_identity_apply) -> Loop:
+    """The :class:`Loop` of a solve whose residual norm is ``norm`` of its
+    state's ``field``: it runs while that is above ``tol_eff`` and fewer
+    than ``maxiter`` iterations were taken, the comparison computed on the
+    device (a sharded solve's on each rank's copy of the replicated
+    value), and converged when that is at most ``tol_eff``."""
+
+    def resn(s):
+        return norm(getattr(s, field))
 
     def cond(s):
-        return local(torch.sqrt(s.res2) > tol_eff) & (s.k < maxiter)
+        return local(resn(s) > tol_eff) & (s.k < maxiter)
 
-    return cond
+    def finish(s):
+        r = resn(s)
+        return r, r <= tol_eff
+
+    return Loop(state, cond, body, tol_eff, maxiter, finish)
 
 
 def run_loop(loop: Loop):
@@ -196,8 +225,7 @@ def run_loop(loop: Loop):
     while bool(loop.cond(s)):
         s = loop.body(s)
         k += 1
-    resn = loop.residual_norm(s)
-    return s.x, SolveInfo(k, resn, bool(resn <= loop.tol_eff), s.hist)
+    return loop.result(s, k)
 
 
 def cg_loop(
@@ -236,7 +264,7 @@ def cg_loop(
         return CGState(x, r, p, _put(rho, o.rho), _put(res2, o.res2),
                        torch.add(s.k, 1, out=o.k), s.hist)
 
-    return Loop(state, _stopper(tol_eff, maxiter), body, tol_eff, maxiter)
+    return _until_tolerance(state, body, tol_eff, maxiter, "res2", torch.sqrt)
 
 
 def cg_solve(
@@ -298,7 +326,7 @@ def cg_fused_loop(
         return FusedCGState(x, r, p, sv, _put(gamma, o.gamma), _put(alpha, o.alpha),
                             _put(res2, o.res2), torch.add(s.k, 1, out=o.k), s.hist)
 
-    return Loop(state, _stopper(tol_eff, maxiter), body, tol_eff, maxiter)
+    return _until_tolerance(state, body, tol_eff, maxiter, "res2", torch.sqrt)
 
 
 def cg_fused_solve(
@@ -337,9 +365,6 @@ def bicgstab_loop(
     state = BiCGStabState(x, r, p, v, one, one, one, torch.linalg.vector_norm(r), _counter(b),
                           _history(history, maxiter, b), r)
 
-    def cond(s):
-        return local(s.resn > tol_eff) & (s.k < maxiter)
-
     def body(s, out=None):
         o = out or _NO_OUT_BICG
         rho = dot(s.rhat, s.r)
@@ -362,7 +387,7 @@ def bicgstab_loop(
                              _put(omega, o.omega), _put(resn, o.resn),
                              torch.add(s.k, 1, out=o.k), s.hist, s.rhat)
 
-    return Loop(state, cond, body, tol_eff, maxiter, "resn", _identity_apply)
+    return _until_tolerance(state, body, tol_eff, maxiter, "resn")
 
 
 def bicgstab_solve(
@@ -380,19 +405,39 @@ def bicgstab_solve(
                                   history=history))
 
 
-def minres_solve(
-    A, b, x0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, history=False
-):
-    """MINRES for symmetric (possibly indefinite) A, optional SPD M.
+class MinresState(NamedTuple):
+    x: torch.Tensor
+    y: Optional[torch.Tensor]  # M^{-1} r2; None without M (then y is r2)
+    r1: torch.Tensor  # the residual before r2
+    r2: torch.Tensor  # the newest Lanczos residual
+    w: torch.Tensor  # the newest update direction
+    w2: torch.Tensor  # the one before
+    oldb: torch.Tensor  # beta of the step before
+    beta: torch.Tensor
+    phibar: torch.Tensor  # |the preconditioned residual norm estimate|
+    dbar: torch.Tensor
+    epsln: torch.Tensor
+    cs: torch.Tensor  # the last Givens rotation
+    sn: torch.Tensor
+    k: torch.Tensor
+    hist: Optional[torch.Tensor]
+    SHARED = ("k", "hist")
+    # r1, r2 = r2, y and w2, w = w, w_new: each pair held crosswise by the
+    # second buffer set, so a step writes its new vector over the one it
+    # retires
+    CROSSED = (("r1", "r2"), ("w", "w2"))
 
-    A short-recurrence Lanczos process with an on-the-fly Givens QR of the
-    tridiagonal: one matvec, one M-apply and three vector updates a step,
-    no growing basis.  The running estimate ``phibar`` is the norm of the
-    preconditioned residual; the loop runs while ``phibar > max(tol, rtol
-    * ||b||)`` and fewer than ``maxiter`` (default 10 n) steps were taken,
-    reading ``phibar`` back once a step.  ``info.residual_norm`` is
-    ``phibar``; ``history=True`` records it after every step.
-    """
+
+_NO_OUT_MINRES = MinresState(*[None] * len(MinresState._fields))
+
+
+def minres_loop(
+    A, b, x0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, history=False
+) -> Loop:
+    """:func:`minres_solve` as init / cond / body (the JAX package's
+    ``minres_solve`` ``while_loop``); the set-up runs here.  The first
+    step's beta/oldb correction is selected on the device (a zero
+    coefficient at k = 0), as the JAX package selects it."""
     n = A.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
     maxiter = 10 * n if maxiter is None else int(maxiter)
@@ -405,43 +450,63 @@ def minres_solve(
 
     r1 = b - matvec(x)
     y = apply_M(r1)
-    beta = phibar = torch.sqrt(torch.abs(dot(r1, y)))
-    r2 = r1
-    w = w2 = torch.zeros_like(b)
-    oldb = dbar = epsln = sn = zero
-    cs = -one
-    hist = _history(history, maxiter, b)
-    k = 0
-    while k < maxiter and bool(phibar > tol_eff):
-        v = y / torch.where(beta > tiny, beta, one)
+    beta = torch.sqrt(torch.abs(dot(r1, y)))
+    w = torch.zeros_like(b)
+    state = MinresState(x, None if M is None else y, r1, r1, w, w, zero, beta, beta, zero, zero,
+                        -one, zero, _counter(b), _history(history, maxiter, b))
+
+    def body(s, out=None):
+        o = out or _NO_OUT_MINRES
+        y = s.r2 if s.y is None else s.y
+        v = y / torch.where(s.beta > tiny, s.beta, one)
         y = matvec(v)
         # the beta/oldb correction applies from the second step on
-        if k > 0:
-            y = y - (beta / torch.where(oldb > tiny, oldb, one)) * r1
+        y = y - torch.where(s.k > 0, s.beta / torch.where(s.oldb > tiny, s.oldb, one), zero) * s.r1
         alfa = dot(v, y)
-        y = y - (alfa / torch.where(beta > tiny, beta, one)) * r2
-        r1, r2 = r2, y
+        # r1, r2 = r2, y (r1's buffer is retired: s.r1 is read no more)
+        r2 = torch.sub(y, (alfa / torch.where(s.beta > tiny, s.beta, one)) * s.r2, out=o.r2)
         y = apply_M(r2)
-        oldb, beta = beta, torch.sqrt(torch.abs(dot(r2, y)))
+        beta = torch.sqrt(torch.abs(dot(r2, y)))
         # the previous rotation applied to the new tridiagonal column, then
         # the new Givens rotation annihilating beta
-        oldeps = epsln
-        delta = cs * dbar + sn * alfa
-        gbar = sn * dbar - cs * alfa
-        epsln = sn * beta
-        dbar = -cs * beta
+        delta = s.cs * s.dbar + s.sn * alfa
+        gbar = s.sn * s.dbar - s.cs * alfa
+        epsln = s.sn * beta
+        dbar = -s.cs * beta
         gamma = torch.maximum(torch.sqrt(gbar * gbar + beta * beta), tiny)
         cs = gbar / gamma
         sn = beta / gamma
-        phi = cs * phibar
-        phibar = torch.abs(sn * phibar)
-        w1, w2 = w2, w
-        w = (v - oldeps * w1 - delta * w2) / gamma
-        x = x + phi * w
-        if hist is not None:
-            hist[k] = phibar
-        k += 1
-    return x, SolveInfo(k, phibar, bool(phibar <= tol_eff), hist)
+        phi = cs * s.phibar
+        phibar = torch.abs(sn * s.phibar)
+        # w1, w2 = w2, w; w = (v - oldeps w1 - delta w2) / gamma, over w1
+        w = torch.div(v - s.epsln * s.w2 - delta * s.w, gamma, out=o.w)
+        x = torch.add(s.x, phi * w, out=o.x)
+        if s.hist is not None:
+            _record(s.hist, s.k, phibar)
+        return MinresState(
+            x, None if s.y is None else _put(y, o.y), _put(s.r2, o.r1), r2, w, _put(s.w, o.w2),
+            _put(s.beta, o.oldb), _put(beta, o.beta), _put(phibar, o.phibar), _put(dbar, o.dbar),
+            _put(epsln, o.epsln), _put(cs, o.cs), _put(sn, o.sn), torch.add(s.k, 1, out=o.k),
+            s.hist)
+
+    return _until_tolerance(state, body, tol_eff, maxiter, "phibar")
+
+
+def minres_solve(
+    A, b, x0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, history=False
+):
+    """MINRES for symmetric (possibly indefinite) A, optional SPD M.
+
+    A short-recurrence Lanczos process with an on-the-fly Givens QR of the
+    tridiagonal: one matvec, one M-apply and three vector updates a step,
+    no growing basis.  The running estimate ``phibar`` is the norm of the
+    preconditioned residual; the loop runs while ``phibar > max(tol, rtol
+    * ||b||)`` and fewer than ``maxiter`` (default 10 n) steps were taken,
+    reading the stopping rule back once a step.  ``info.residual_norm`` is
+    ``phibar``; ``history=True`` records it after every step.
+    """
+    return run_loop(minres_loop(A, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, M=M,
+                                history=history))
 
 
 def _small_dtype(dtype):
@@ -636,6 +701,34 @@ def gmres_solve(
                                  maxiter=maxiter, M=M))
 
 
+def attached(M) -> bool:
+    """True for an ``attach_solver`` operator
+    (:class:`~sigma_tpu_torch.operators.linear_operator.OperatorWithSolver`),
+    whose ``solve`` FGMRES runs as its preconditioner."""
+    return M is not None and hasattr(M, "solve") and hasattr(M, "solver")
+
+
+def _flexible_precondition(M):
+    """FGMRES's preconditioner application, dispatched in this order: an
+    ``OperatorWithSolver``'s ``solve`` (``attach_solver``: ``matvec``
+    would apply the bare inner operator), a plain callable ``z = M(v)``,
+    any LinearOperator's ``matvec``."""
+    if attached(M):
+        return M.solve
+    if callable(M) and not hasattr(M, "matvec"):
+        return M
+    return _apply(M)
+
+
+def fgmres_loop(A, b, x0=None, *, tol=1e-12, rtol=0.0, restart=32, maxiter=None,
+                M=None) -> Cycles:
+    """:func:`fgmres_solve` as :class:`Cycles` (the basis Z of the
+    preconditioned vectors in the cycle's workspace); the set-up runs
+    here."""
+    return arnoldi_loop(A, b, x0, tol=tol, rtol=rtol, restart=restart, maxiter=maxiter,
+                        precondition=_flexible_precondition(M), flexible=True)
+
+
 def fgmres_solve(
     A, b, x0=None, *, tol=1e-12, rtol=0.0, restart=32, maxiter=None, M=None
 ):
@@ -653,15 +746,64 @@ def fgmres_solve(
       operator);
     - a plain callable ``z = M(v)``;
     - any LinearOperator (its ``matvec``: a fixed linear M).
+
+    Under :func:`~sigma_tpu_torch.solvers.graphed.graphed` M must not read
+    back to the host: an attached inner solve does, and is refused there.
     """
-    if M is not None and hasattr(M, "solve") and hasattr(M, "solver"):
-        precondition = M.solve
-    elif callable(M) and not hasattr(M, "matvec"):
-        precondition = M
-    else:
-        precondition = _apply(M)
-    return run_cycles(arnoldi_loop(A, b, x0, tol=tol, rtol=rtol, restart=restart,
-                                   maxiter=maxiter, precondition=precondition, flexible=True))
+    return run_cycles(fgmres_loop(A, b, x0, tol=tol, rtol=rtol, restart=restart,
+                                  maxiter=maxiter, M=M))
+
+
+class CGLSState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor  # b - A x
+    p: torch.Tensor
+    gamma: torch.Tensor  # s.z with s = A^T r
+    snorm: torch.Tensor  # ||A^T r||
+    k: torch.Tensor
+    hist: Optional[torch.Tensor]
+    SHARED = ("k", "hist")
+
+
+_NO_OUT_CGLS = CGLSState(*[None] * len(CGLSState._fields))
+
+
+def cgls_loop(
+    A, b, x0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, history=False
+) -> Loop:
+    """:func:`cgls_solve` as init / cond / body (the JAX package's
+    ``cgls_solve`` ``while_loop``); the set-up runs here."""
+    maxiter = 10 * A.shape[1] if maxiter is None else int(maxiter)
+    apply_M = _apply(M)
+    matvec, rmatvec = A.matvec, A.rmatvec
+    # the domain vector's template comes from rmatvec(b), as in the JAX
+    # package (a distributed operator's domain vector is padded)
+    Atb = rmatvec(b)
+    x = torch.zeros_like(Atb) if x0 is None else x0
+    r = b - matvec(x)
+    s0 = rmatvec(r)
+    p = apply_M(s0)
+    tol_eff = _tol_eff(Atb, tol, rtol)
+    state = CGLSState(x, r, p, dot(s0, p), torch.sqrt(torch.abs(dot(s0, s0))), _counter(b),
+                      _history(history, maxiter, b))
+
+    def body(s, out=None):
+        o = out or _NO_OUT_CGLS
+        q = matvec(s.p)
+        alpha = s.gamma / dot(q, q)
+        x = torch.add(s.x, alpha * s.p, out=o.x)
+        r = torch.sub(s.r, alpha * q, out=o.r)
+        sv = rmatvec(r)
+        z = apply_M(sv)
+        gamma = dot(sv, z)
+        p = torch.add(z, (gamma / s.gamma) * s.p, out=o.p)
+        snorm = torch.sqrt(torch.abs(dot(sv, sv)))
+        if s.hist is not None:
+            _record(s.hist, s.k, snorm)
+        return CGLSState(x, r, p, _put(gamma, o.gamma), _put(snorm, o.snorm),
+                         torch.add(s.k, 1, out=o.k), s.hist)
+
+    return _until_tolerance(state, body, tol_eff, maxiter, "snorm")
 
 
 def cgls_solve(
@@ -679,36 +821,49 @@ def cgls_solve(
     ``maxiter`` (default 10 A.shape[1]) iterations; ``info.residual_norm``
     reports ``||A^T r||``.
     """
-    maxiter = 10 * A.shape[1] if maxiter is None else int(maxiter)
+    return run_loop(cgls_loop(A, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, M=M,
+                              history=history))
+
+
+class StationaryState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor  # b - A x
+    k: torch.Tensor
+    hist: None  # no history
+    b: torch.Tensor  # the right-hand side, fixed
+    SHARED = ("k", "hist", "b")
+
+
+_NO_OUT_STATIONARY = StationaryState(*[None] * len(StationaryState._fields))
+
+
+def _finite_residual(s):
+    resn = torch.linalg.vector_norm(s.r)
+    return resn, torch.isfinite(resn)
+
+
+def stationary_loop(A, b, M, x0=None, *, steps: int) -> Loop:
+    """:func:`stationary_solve` as init / cond / body (the JAX package's
+    ``fori_loop``: the condition ``k < steps`` reads no data).  The state
+    carries the residual ``b - A x`` of its x, so a step is x += M^{-1} r,
+    then r = b - A x: the same products in the same order as x += M^{-1}(b
+    - A x), the last one the final residual's."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    steps = int(steps)
     apply_M = _apply(M)
-    matvec, rmatvec = A.matvec, A.rmatvec
-    # the domain vector's template comes from rmatvec(b), as in the JAX
-    # package (a distributed operator's domain vector is padded)
-    Atb = rmatvec(b)
-    x = torch.zeros_like(Atb) if x0 is None else x0
-    r = b - matvec(x)
-    s = rmatvec(r)
-    p = apply_M(s)
-    gamma = dot(s, p)
-    tol_eff = _tol_eff(Atb, tol, rtol)
-    snorm = torch.sqrt(torch.abs(dot(s, s)))
-    hist = _history(history, maxiter, b)
-    k = 0
-    while k < maxiter and bool(snorm > tol_eff):
-        q = matvec(p)
-        alpha = gamma / dot(q, q)
-        x = x + alpha * p
-        r = r - alpha * q
-        s = rmatvec(r)
-        z = apply_M(s)
-        gamma_new = dot(s, z)
-        p = z + (gamma_new / gamma) * p
-        gamma = gamma_new
-        snorm = torch.sqrt(torch.abs(dot(s, s)))
-        if hist is not None:
-            hist[k] = snorm
-        k += 1
-    return x, SolveInfo(k, snorm, bool(snorm <= tol_eff), hist)
+    matvec = A.matvec
+    state = StationaryState(x, b - matvec(x), _counter(b), None, b)
+
+    def cond(s):
+        return s.k < steps
+
+    def body(s, out=None):
+        o = out or _NO_OUT_STATIONARY
+        x = torch.add(s.x, apply_M(s.r), out=o.x)
+        r = torch.sub(s.b, matvec(x), out=o.r)
+        return StationaryState(x, r, torch.add(s.k, 1, out=o.k), s.hist, s.b)
+
+    return Loop(state, cond, body, None, max(steps, 0), _finite_residual)
 
 
 def stationary_solve(A, b, M, x0=None, *, steps: int):
@@ -716,12 +871,7 @@ def stationary_solve(A, b, M, x0=None, *, steps: int):
     how the reference tests run Jacobi as a standalone solver.  There is no
     tolerance: ``info.iterations`` is ``steps`` and ``converged`` only says
     that the final residual is finite."""
-    x = torch.zeros_like(b) if x0 is None else x0
-    apply_M = _apply(M)
-    for _ in range(steps):
-        x = x + apply_M(b - A.matvec(x))
-    resn = torch.linalg.vector_norm(b - A.matvec(x))
-    return x, SolveInfo(int(steps), resn, bool(torch.isfinite(resn)))
+    return run_loop(stationary_loop(A, b, M, x0, steps=steps))
 
 
 def _panel_algebra(n, s, interleaved):
@@ -757,33 +907,32 @@ def _panel_algebra(n, s, interleaved):
     return gram, comb, scale_cols, colnorms
 
 
-def block_cg_solve(
+class BlockCGState(NamedTuple):
+    X: torch.Tensor  # the iterate, in the panel layout
+    R: torch.Tensor  # B - A X
+    P: torch.Tensor  # the column-orthonormal direction block
+    resn: torch.Tensor  # ||R||_F, in B's dtype
+    rb: torch.Tensor  # the best ||R||_F so far
+    k: torch.Tensor
+    Xb: torch.Tensor  # the best iterate so far
+    hist: None  # no history
+    # a captured loop keeps one best iterate, updated in place
+    SHARED = ("k", "hist", "Xb", "rb")
+
+
+_NO_OUT_BLOCK_CG = BlockCGState(*[None] * len(BlockCGState._fields))
+
+
+def block_cg_loop(
     A, B, X0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, panels="auto"
-):
-    """Block (multi-RHS) conjugate gradients: solve A X = B for an (n, s)
-    block of right-hand sides at once, one SpMM (``A.matmat``) per
-    iteration instead of s SpMVs, plus small (s, s) Gram solves.
-
-    ``panels`` selects the panel layout the loop keeps:
-
-    - ``"cols"``: column-major (n, s) blocks;
-    - ``"interleaved"``: the interleaved layout of
-      :func:`~sigma_tpu_torch.ops.interleave_panels`, applied through
-      ``A.matmat_interleaved``; the Gram and panel-combination algebra runs
-      on the layout, so the (n, s) conversions are paid once at entry and
-      exit;
-    - ``"auto"``: interleaved when ``A.interleaved_profitable(s)`` (A on a
-      CUDA device, s <= 16) and M, if any, applies in the layout.
-
-    Breakdown-free recurrences: the direction block P is kept
-    column-orthonormal by a column-normalised, shifted Cholesky-QR, so the
-    Gram matrix W = P^T A P keeps A's conditioning as columns converge.
-    Stops on the Frobenius norm of the block residual, on a non-finite
-    residual, or when it grows 1e4-fold past the best one seen; returns
-    the best iterate.  SPD A and M assumed.  The loop runs on the host and
-    reads the residual norm back once per iteration, as :func:`cg_solve`
-    does, so iteration counts match the JAX package.
-    """
+) -> Loop:
+    """:func:`block_cg_solve` as init / cond / body (the JAX package's
+    ``block_cg_solve`` ``while_loop``); the set-up, the layout's choice and
+    the conversion into it run here, the conversion out of it in
+    ``solution``.  The stopping rule, the best iterate and its residual are
+    kept on the device in B's dtype, as the JAX package keeps them (a
+    ``where`` over the panel an iteration); the small factorisations are
+    the ``_ex`` forms, which leave their status on the device."""
     n, s = B.shape
     X0 = torch.zeros_like(B) if X0 is None else X0
     maxiter = 10 * n if maxiter is None else int(maxiter)
@@ -823,11 +972,12 @@ def block_cg_solve(
     gram, comb, scale_cols, colnorms = _panel_algebra(n, s, use_int)
 
     fi = torch.finfo(B.dtype)
-    tol_eff = float(_tol_eff(B, tol, rtol))
+    tol_eff = local(_tol_eff(B, tol, rtol))
     eps = torch.tensor(fi.eps, dtype=B.dtype, device=B.device)
     tiny = torch.tensor(fi.tiny, dtype=B.dtype, device=B.device)
     shift = torch.sqrt(eps)  # shifted CholQR ridge
     eye = torch.eye(s, dtype=B.dtype, device=B.device)
+    big = torch.tensor(1e4, dtype=B.dtype, device=B.device)
 
     def orth(P):
         # unit columns first (a scale-disparate panel would otherwise lose
@@ -836,42 +986,85 @@ def block_cg_solve(
         # either layout
         cn = colnorms(P)
         P = scale_cols(P, 1.0 / torch.where(cn > tiny, cn, torch.ones_like(cn)))
-        L = torch.linalg.cholesky(gram(P, P) + shift * eye)
+        L = torch.linalg.cholesky_ex(gram(P, P) + shift * eye)[0]
         Linv = torch.linalg.solve_triangular(L, eye, upper=False)
         return comb(P, Linv.T)
 
     def solve_w(W, C):
         scale = torch.diagonal(W).abs().max() + tiny
-        return torch.linalg.solve(W + (eps * scale) * eye, C)
+        return torch.linalg.solve_ex(W + (eps * scale) * eye, C)[0]
 
-    Bp = to_layout(B)
+    def norm(R):
+        return gathered(torch.linalg.vector_norm(R))
+
     X = to_layout(X0)
-    R = Bp - matmat(X)
-    P = orth(apply_M(R))
-    resn_t = torch.linalg.vector_norm(R)
-    resn = float(gathered(resn_t))
-    Xb, rb, rb_t = X, resn, resn_t
-    big = 1e4
-    k = 0
-    # stop on convergence, breakdown (non-finite residual) or runaway
-    # divergence past any hope of recovery; the best iterate is returned
-    while (
-        math.isfinite(resn) and resn < big * (rb + tol_eff)
-        and resn > tol_eff and k < maxiter
-    ):
-        Q = matmat(P)
-        W = gram(P, Q)
-        alpha = solve_w(W, gram(P, R))
-        X = X + comb(P, alpha)
-        R = R - comb(Q, alpha)
-        resn_t = torch.linalg.vector_norm(R)
-        resn = float(gathered(resn_t))  # the one host read of the iteration
-        if math.isfinite(resn) and resn < rb:
-            Xb, rb, rb_t = X, resn, resn_t
+    R = to_layout(B) - matmat(X)
+    resn = norm(R)
+    state = BlockCGState(X, R, orth(apply_M(R)), resn, resn, _counter(B), X, None)
+
+    def cond(s):
+        # stop on convergence, breakdown (non-finite residual) or runaway
+        # divergence past any hope of recovery; the best iterate is returned
+        alive = torch.isfinite(s.resn) & (s.resn < big * (s.rb + tol_eff))
+        return alive & (s.resn > tol_eff) & (s.k < maxiter)
+
+    def body(s, out=None):
+        o = out or _NO_OUT_BLOCK_CG
+        Q = matmat(s.P)
+        W = gram(s.P, Q)
+        alpha = solve_w(W, gram(s.P, s.R))
+        X = torch.add(s.X, comb(s.P, alpha), out=o.X)
+        R = torch.sub(s.R, comb(Q, alpha), out=o.R)
+        resn = norm(R)
+        better = torch.isfinite(resn) & (resn < s.rb)
+        Xb = torch.where(like(better, X), X, s.Xb, out=o.Xb)
+        rb = torch.where(better, resn, s.rb)
         Z = apply_M(R)
         beta = solve_w(W, gram(Q, Z))
-        P = orth(Z - comb(P, beta))
-        k += 1
-    if not (math.isfinite(resn) and resn <= rb):
-        X, resn, resn_t = Xb, rb, rb_t
-    return from_layout(X), SolveInfo(k, resn_t, resn <= tol_eff)
+        P = orth(Z - comb(s.P, beta))
+        return BlockCGState(X, R, _put(P, o.P), _put(resn, o.resn), _put(rb, o.rb),
+                            torch.add(s.k, 1, out=o.k), Xb, s.hist)
+
+    def final(s):
+        return torch.isfinite(s.resn) & (s.resn <= s.rb)
+
+    def finish(s):
+        resn = torch.where(final(s), s.resn, s.rb)
+        return resn, resn <= tol_eff
+
+    def solution(s):
+        return from_layout(torch.where(like(final(s), s.X), s.X, s.Xb))
+
+    return Loop(state, cond, body, tol_eff, maxiter, finish, solution)
+
+
+def block_cg_solve(
+    A, B, X0=None, *, tol=1e-12, rtol=0.0, maxiter=None, M=None, panels="auto"
+):
+    """Block (multi-RHS) conjugate gradients: solve A X = B for an (n, s)
+    block of right-hand sides at once, one SpMM (``A.matmat``) per
+    iteration instead of s SpMVs, plus small (s, s) Gram solves.
+
+    ``panels`` selects the panel layout the loop keeps:
+
+    - ``"cols"``: column-major (n, s) blocks;
+    - ``"interleaved"``: the interleaved layout of
+      :func:`~sigma_tpu_torch.ops.interleave_panels`, applied through
+      ``A.matmat_interleaved``; the Gram and panel-combination algebra runs
+      on the layout, so the (n, s) conversions are paid once at entry and
+      exit;
+    - ``"auto"``: interleaved when ``A.interleaved_profitable(s)`` (A on a
+      CUDA device, s <= 16) and M, if any, applies in the layout.
+
+    Breakdown-free recurrences: the direction block P is kept
+    column-orthonormal by a column-normalised, shifted Cholesky-QR, so the
+    Gram matrix W = P^T A P keeps A's conditioning as columns converge.
+    Stops on the Frobenius norm of the block residual, on a non-finite
+    residual, or when it grows 1e4-fold past the best one seen; returns
+    the best iterate.  SPD A and M assumed.  The stopping rule is computed
+    on the device in B's dtype and read back once per iteration, as
+    :func:`cg_solve` reads its own, so iteration counts match the JAX
+    package.
+    """
+    return run_loop(block_cg_loop(A, B, X0, tol=tol, rtol=rtol, maxiter=maxiter, M=M,
+                                  panels=panels))

@@ -1150,3 +1150,80 @@ def test_graphed_nonsym_solve_on_card_equals_eager(cuda, case):
             assert torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))
         if "restart" in kw:
             assert G.host_reads == launches["dia_spmv"][0] - 1 - info.iterations
+
+
+def _krylov_case(case, cuda):
+    """(solver, positional arguments, keywords) of a graphed Krylov case on
+    the nx = 24 stencils."""
+    nx = 24
+    rng = np.random.default_rng(0)
+    if case in ("minres_gmg_f64", "block_cg_gmg", "stationary_jacobi"):
+        dt = torch.float64 if case == "minres_gmg_f64" else torch.float32
+        A = st.SymmetricDIAMatrix.from_dia(st.laplacian_3d_dia(nx, dt, diag=6.0, device=cuda))
+        n = A.shape[0]
+        if case == "stationary_jacobi":
+            b = torch.from_numpy(rng.standard_normal(n)).to(cuda, dt)
+            return st.stationary_solve, (A, b, st.jacobi().setup(A)), dict(steps=45)
+        M = st.structured_pair_amg(A, (nx, nx, nx), pairs_per_level=3,
+                                   level_dtype=dt if dt == torch.float64 else torch.bfloat16)
+        if case == "block_cg_gmg":
+            B = torch.from_numpy(rng.standard_normal((n, 4))).to(cuda, dt)
+            return st.block_cg_solve, (A, B), dict(tol=0.0, rtol=1e-6, maxiter=300, M=M)
+        b = torch.from_numpy(rng.standard_normal(n)).to(cuda, dt)
+        return st.minres_solve, (A, b), dict(tol=0.0, rtol=1e-10, maxiter=3000, M=M,
+                                             history=True)
+    if case.startswith("block_cg"):
+        A = st.laplacian_3d_dia(nx, torch.float32, device=cuda)
+        B = torch.from_numpy(rng.standard_normal((A.shape[0], 8))).float().to(cuda)
+        panels = case.split("_")[-1]
+        return st.block_cg_solve, (A, B), dict(tol=0.0, rtol=1e-6, maxiter=100, panels=panels)
+    A = st.advection_diffusion_dia(nx, 10.0, torch.float32, device=cuda)
+    b = torch.from_numpy(rng.standard_normal(A.shape[0])).float().to(cuda)
+    if case == "cgls":
+        return st.cgls_solve, (A, b), dict(tol=0.0, rtol=1e-6, maxiter=100, history=True)
+    M = st.structured_amg((nx,) * 3, pairs_per_level=3).setup(A)
+    return st.fgmres_solve, (A, b), dict(tol=0.0, rtol=1e-6, restart=8, M=M)
+
+
+@pytest.mark.parametrize("case", ["minres_gmg_f64", "cgls", "stationary_jacobi", "block_cg_auto",
+                                  "block_cg_cols", "block_cg_gmg", "fgmres_gmg"])
+def test_graphed_krylov_solve_on_card_equals_eager(cuda, case):
+    """``graphed(minres_solve)``, ``graphed(cgls_solve)``,
+    ``graphed(stationary_solve)``, ``graphed(block_cg_solve)`` (interleaved,
+    columns, GMG) and ``graphed(fgmres_solve)`` on the card: the capturing
+    and the cached call bit for bit equal to the eager solve, with the same
+    counts and kernel launches."""
+    from sigma_tpu_torch.ops import launch_counts, launch_difference
+
+    fn, args, kw = _krylov_case(case, cuda)
+    before = launch_counts()
+    x, info = fn(*args, **kw)
+    launches = launch_difference(launch_counts(), before)
+    G = st.graphed(fn)
+    for captured in (True, False):
+        before = launch_counts()
+        y, gi = G(*args, **kw)
+        assert G.captured == captured
+        assert launch_difference(launch_counts(), before) == launches
+        assert torch.equal(y, x) and gi.iterations == info.iterations
+        assert torch.equal(gi.residual_norm, info.residual_norm)
+        assert gi.converged == info.converged
+        if info.history is not None:
+            assert torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))
+    if case == "block_cg_auto":
+        assert launches["dia_spmm"][1]["interleaved"] > 0
+
+
+def test_graphed_fgmres_refuses_an_attached_solver_at_capture(cuda):
+    """FGMRES whose M is ``attach_solver``'s inner solve (which reads its
+    stopping rule back to the host) raises at capture, naming M's type;
+    the eager solve runs as before."""
+    A = st.advection_diffusion_dia(16, 10.0, torch.float32, device=cuda)
+    b = torch.ones(A.shape[0], device=cuda)
+    M = st.attach_solver(A, st.bicgstab(tolerance=0.0, maxiter=4))
+    x, info = st.fgmres_solve(A, b, tol=0.0, rtol=1e-6, restart=8, M=M)
+    G = st.graphed(st.fgmres_solve)
+    with pytest.raises(RuntimeError, match="OperatorWithSolver"):
+        G(A, b, tol=0.0, rtol=1e-6, restart=8, M=M)
+    y, again = st.fgmres_solve(A, b, tol=0.0, rtol=1e-6, restart=8, M=M)
+    assert again.iterations == info.iterations and torch.equal(y, x)

@@ -155,7 +155,7 @@ def test_graphed_keeps_the_solvers_signature(solver):
 
 
 @pytest.mark.parametrize(
-    "name", ["minres_solve", "fgmres_solve", "block_cg_solve", "cgls_solve", "stationary_solve"])
+    "name", ["refined_solve", "refined_solve_fixed", "lobpcg", "lanczos", "generalized_lanczos"])
 def test_graphed_refuses_other_solvers(name):
     with pytest.raises(TypeError, match="ROADMAP.md"):
         st.graphed(getattr(st, name))
