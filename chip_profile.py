@@ -11,8 +11,11 @@ their cached graphs after the first call captured them; block CG with 8
 right-hand sides in the ``auto`` (interleaved) layout on Laplacian + I;
 f32 LOBPCG + GMG for 4 eigenpairs of pure Poisson; on the 10M-row
 irregular mesh, CG and pruned-multigrid CG on full and on symmetric
-pruned storage; on the nonsymmetric stencil of ``benchmarks/adv3d.py``,
-BiCG-stab + Jacobi, BiCG-stab + GMG and GMRES(32), eagerly and as
+pruned storage, the latter and block CG + pruned multigrid (8 right-hand
+sides) eagerly and as ``graphed`` solves; on the 1M-row meshes BiCG-stab
++ pruned multigrid on the skewed one and a shift-invert inner CG, eagerly
+and as ``graphed`` solves; on the nonsymmetric stencil of
+``benchmarks/adv3d.py``, BiCG-stab + Jacobi, BiCG-stab + GMG and GMRES(32), eagerly and as
 ``graphed`` solves; ``chip_smoke.py`` phase 25b's block CG + GMG with 4
 right-hand sides on pure Poisson, f64 MINRES + GMG to rtol 1e-10 and
 FGMRES(32) + GMG on the nonsymmetric stencil, eagerly and as ``graphed``
@@ -50,7 +53,8 @@ import sys
 import time
 
 from chip_smoke import (
-    NONSYM_RTOL, _manufactured, emit, median_ms, phase_device, unstructured_setup,
+    MESH_SHIFT, NONSYM_RTOL, _manufactured, _manufactured_block, emit, median_ms,
+    nonsym_mesh_setup, phase_device, shifted_mesh, unstructured_setup,
 )
 
 
@@ -178,15 +182,56 @@ def _krylov_solves(device, nx):
 
 
 def _unstructured_solves(U):
-    """(label, solve) pairs of the 10M-row mesh, as ``_stencil_solves``."""
-    from sigma_tpu_torch import cg_solve
+    """(label, solve) pairs of the 10M-row mesh, as ``_stencil_solves``:
+    CG and pruned-multigrid CG on both storages, the latter also graphed,
+    and phase 13b's block CG + pruned multigrid (8 right-hand sides),
+    eager and graphed."""
+    from sigma_tpu_torch import block_cg_solve, cg_solve, graphed
 
-    b = _manufactured(U)[2]
+    P, b, B = U["P"], _manufactured(U)[2], _manufactured_block(U)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=300)
+    bkw = dict(kw, M=U["Mf"], panels="cols")
+    g_full, g_sym, g_block = graphed(cg_solve), graphed(cg_solve), graphed(block_cg_solve)
     return [
-        (label, lambda A=A, Mg=Mg: cg_solve(A, b, tol=0.0, rtol=1e-6, maxiter=300, M=Mg))
-        for label, A, Mg in (("pruned_cg_full", U["P"], None), ("pruned_cg_sym", U["S"], None),
-                             ("pruned_gmg_cg_full", U["P"], U["Mf"]),
-                             ("pruned_gmg_cg_sym", U["S"], U["Ms"]))
+        (label, lambda A=A, Mg=Mg, solve=solve: solve(A, b, M=Mg, **kw))
+        for label, solve, A, Mg in (
+            ("pruned_cg_full", cg_solve, P, None), ("pruned_cg_sym", cg_solve, U["S"], None),
+            ("pruned_gmg_cg_full", cg_solve, P, U["Mf"]),
+            ("pruned_gmg_cg_sym", cg_solve, U["S"], U["Ms"]),
+            ("graphed_pruned_gmg_cg_full", g_full, P, U["Mf"]),
+            ("graphed_pruned_gmg_cg_sym", g_sym, U["S"], U["Ms"]))
+    ] + [
+        ("pruned_gmg_block_cg_full", lambda: block_cg_solve(P, B, **bkw)),
+        ("graphed_pruned_gmg_block_cg_full", lambda: g_block(P, B, **bkw)),
+    ]
+
+
+def _mesh_1m_solves(device):
+    """(label, solve) pairs of the 1M-row meshes, as ``_stencil_solves``:
+    ``chip_smoke.py`` phase 24b's BiCG-stab + pruned multigrid on the
+    skewed mesh, and one of phase 29's shift-invert inner solves
+    (pruned-multigrid CG, rtol 1e-6, on the mesh shifted by sigma = 0.9 x
+    the shift 1e-3, the lowest eigenvalue phase 28 finds to within 1e-3,
+    from a unit random f32 right-hand side), eager and graphed."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch import bicgstab_solve, cg_solve, graphed
+
+    N = nonsym_mesh_setup(device)
+    U1 = unstructured_setup(device, height=16_384, width=64)
+    P_sig, Mg = shifted_mesh(device, U1, 0.9 * MESH_SHIFT), U1["Mf"]
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(U1["n"]).astype(np.float32))
+    r = (r / torch.linalg.vector_norm(r)).to(device)
+    nkw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=500, M=N["Mg"])
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=400, M=Mg)
+    g_nonsym, g_inner = graphed(bicgstab_solve), graphed(cg_solve)
+    P, b = N["P"], N["b"]
+    return [
+        ("nonsym_mesh_bicgstab_pruned_gmg", lambda: bicgstab_solve(P, b, **nkw)),
+        ("graphed_nonsym_mesh_bicgstab_pruned_gmg", lambda: g_nonsym(P, b, **nkw)),
+        ("shift_invert_inner_cg", lambda: cg_solve(P_sig, r, **skw)),
+        ("graphed_shift_invert_inner_cg", lambda: g_inner(P_sig, r, **skw)),
     ]
 
 
@@ -254,6 +299,7 @@ def main():
     if "unstructured" in paths:
         U = unstructured_setup(device)
         solves += _unstructured_solves(U)
+        solves += _mesh_1m_solves(device)
 
     # every solve's untraced wall first: a traced run can leave the
     # profiler's hooks behind, slowing the host side of later launches

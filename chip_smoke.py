@@ -30,7 +30,7 @@ cuSPARSE (``torch.sparse_csr``): the 7-point 3-D Laplacian at nx=216
 Laplacian of ``benchmarks/unstructured_pruned.py`` after RCM (157,696 x 64
 = 10,092,544 rows, 70.0M nonzeros, pruned storage), SpMM at k=8 (the
 symmetric DIA SpMM also at k=4).  Then it
-drives twenty paths through the package's public entry points:
+drives twenty-two paths through the package's public entry points:
 
 - the stencil single-RHS path: CG, fused CG and CG preconditioned by
   structured pair-aggregation multigrid;
@@ -48,6 +48,11 @@ drives twenty paths through the package's public entry points:
   and f64), checked against the analytic spectrum;
 - the unstructured single-RHS path: CG and pruned-pair-multigrid CG on
   full and symmetric pruned storage, against the manufactured solution;
+- the graphed pruned path (phase 13b): phase 13's pruned-multigrid CG on
+  full and symmetric storage and phase 14's block CG + pruned multigrid
+  through ``graphed``, each held to the eager solve as in phase 10b (#10,
+  #11 and #12 under a captured graph); plus CG stopped by ``maxiter`` and
+  one with b = 0;
 - the unstructured multi-RHS path: block CG with 8 right-hand sides and
   pruned multigrid at 10M rows, and LOBPCG + pruned multigrid at
   ``benchmarks/eigen_unstructured.py``'s settings (1M rows, 8 pairs) on
@@ -101,6 +106,9 @@ drives twenty paths through the package's public entry points:
   skew statistic and route, plain and pruned-multigrid BiCG-stab, and
   FGMRES(32) with a 4-step inner BiCG-stab given as a lambda and through
   ``attach_solver`` (equal counts);
+- the graphed nonsymmetric mesh (phase 24b): phase 24's BiCG-stab +
+  pruned multigrid through ``graphed``, held to the eager solve as in
+  phase 10b;
 - the refinement question (phase 25): on the Dirichlet Poisson stencil at
   nx=216 to a relative residual of 1e-10, f64 CG + GMG against
   ``refined_solve`` with an f32 inner GMG-CG (f32, then bf16 operator
@@ -120,7 +128,9 @@ drives twenty paths through the package's public entry points:
   quotients (``benchmarks/geneigen3d.py``), and on phase 15's 1M-row mesh
   inverse Lanczos with pruned-GMG-CG and shift-invert Lanczos with its f64
   recurrence on the card (``benchmarks/eigen_unstructured.py --refine``),
-  against the analytic spectra and the shift;
+  its inner pruned-GMG-CG through one ``graphed(cg_solve)`` (held first,
+  over 4 steps, bit for bit to the eager inner solve), against the
+  analytic spectra and the shift;
 - the preconditioners (phases 30-31): ``benchmarks/ildu3d.py`` at nx=100
   (1M rows of Laplacian + I, f32 PCG on the DIA operator to rtol 1e-6)
   with Jacobi, Chebyshev(4), structured GMG, ILDU(0), ILU(1) and ILDU(0)
@@ -1883,6 +1893,20 @@ def _manufactured(U):
                                               group=P.group)
 
 
+def _manufactured_block(U, k=8):
+    """B = A X for the column block X_ij = sin(0.001 (j + 1) i) of phase 14
+    (k columns), from the plain version as :func:`_manufactured`'s b."""
+    import torch
+
+    from sigma_tpu_torch.ops import pruned_spmm_reference
+
+    P, n = U["P"], U["n"]
+    i = torch.arange(n, dtype=torch.float32, device=P.device)
+    X = torch.stack([torch.sin(i * (0.001 * (j + 1))) for j in range(k)], dim=1)
+    del i
+    return pruned_spmm_reference(P.data, X, P.offsets, P.tile_ptr, n, n, "cols", group=P.group)
+
+
 # recomputed true relative residual that every unstructured CG solve at
 # rtol 1e-6, maxiter 300 must reach (f32; the recursive residual stops at
 # 1e-6, and plain CG needs about 290 iterations: the JAX package's count)
@@ -1927,6 +1951,69 @@ def phase_unstructured_cg(device, U):
             raise AssertionError(f"multigrid CG ({tag}) took {iters} iterations")
 
 
+# phase 13b's and phase 24b's times on the card, seconds: each fails beyond
+GRAPHED_PRUNED_BUDGET_S = 40.0
+GRAPHED_NONSYM_MESH_BUDGET_S = 20.0
+
+
+def _check_host_reads(label, rows):
+    """Each graphed row read its status once a block of iterations."""
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    for name, row in rows.items():
+        want = max(1, -(-row["iterations"] // BLOCK))
+        if row["host_reads_graphed"] != want:
+            raise AssertionError(f"{label} {name}: {row['host_reads_graphed']} host reads, "
+                                 f"want {want}")
+
+
+def phase_graphed_pruned(device, U):
+    """Phase 13b: phase 13's pruned-multigrid CG on full (``Mf``) and
+    symmetric (``Ms``) storage and phase 14's block CG (8 right-hand sides
+    in column panels, ``Mf``) eagerly and as graphed solves, everything held
+    equal (:func:`_graphed_case`), the CGs also with a history; then CG
+    stopped unconverged by ``maxiter`` = BLOCK + 13 and a zero right-hand
+    side.  One graphed callable a case, dropped after it (a graph holds its
+    own buffers at 10.1M rows).  Fails beyond ``GRAPHED_PRUNED_BUDGET_S``."""
+    import torch
+
+    from sigma_tpu_torch import block_cg_solve, cg_solve
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    t0 = time.perf_counter()
+    P, S, Mf, Ms = U["P"], U["S"], U["Mf"], U["Ms"]
+    b = _manufactured(U)[2]
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=300)
+    run = partial(_graphed_case, phase="graphed_pruned")
+    rows = {}
+    for label, A, M in (("gmg_cg_full", P, Mf), ("gmg_cg_sym", S, Ms)):
+        rows[label] = run(label, cg_solve, A, b, dict(kw, M=M), timed=True)
+        rows[f"{label}_history"] = run(label, cg_solve, A, b, dict(kw, M=M, history=True))
+    rows["gmg_block_cg_full"] = run("gmg_block_cg_full", block_cg_solve, P,
+                                    _manufactured_block(U), dict(kw, M=Mf, panels="cols"))
+    rows["gmg_cg_full_stopped_by_maxiter"] = run(
+        "gmg_cg_full_stopped_by_maxiter", cg_solve, P, b,
+        dict(kw, rtol=1e-12, maxiter=BLOCK + 13, M=Mf))
+    rows["gmg_cg_sym_zero_rhs"] = run("gmg_cg_sym_zero_rhs", cg_solve, S, torch.zeros_like(b),
+                                      dict(kw, M=Ms))
+    _check_host_reads("graphed", rows)
+    for label in ("gmg_cg_full", "gmg_cg_sym", "gmg_block_cg_full"):
+        if not (rows[label]["converged"] and rows[label]["iterations"] > 0):
+            raise AssertionError(f"graphed {label} did not converge: {rows[label]}")
+    stopped = rows["gmg_cg_full_stopped_by_maxiter"]
+    if stopped["converged"] or stopped["iterations"] != BLOCK + 13:
+        raise AssertionError(f"pruned multigrid CG was not stopped by maxiter: {stopped}")
+    if rows["gmg_cg_sym_zero_rhs"]["iterations"]:
+        raise AssertionError("the zero right-hand side took iterations")
+    if not rows["gmg_block_cg_full"]["launches"].get("pruned_spmm"):
+        raise AssertionError("graphed block CG ran no pruned SpMM")
+    secs = time.perf_counter() - t0
+    emit({"phase": "graphed_pruned_path", "seconds": secs, "block": BLOCK,
+          "budget_s": GRAPHED_PRUNED_BUDGET_S})
+    if secs > GRAPHED_PRUNED_BUDGET_S:
+        raise AssertionError(f"phase 13b took {secs:.1f} s, over its {GRAPHED_PRUNED_BUDGET_S} s")
+
+
 # block CG stops on the block's Frobenius norm, ||R||_F <= 1e-6 ||B||_F;
 # each column's recomputed true residual must be within twice that,
 # ||b_j - A x_j|| <= 2e-6 ||B||_F (f32).  Relative to its own ||b_j|| a
@@ -1958,15 +2045,11 @@ def phase_unstructured_block(device, U):
 
     from sigma_tpu_torch import block_cg_solve
 
-    from sigma_tpu_torch.ops import pruned_spmm, pruned_spmm_reference
+    from sigma_tpu_torch.ops import pruned_spmm
 
     A, M, n = U["P"], U["Mf"], U["n"]
-    i = torch.arange(n, dtype=torch.float32, device=device)
     # B from the plain version, so the solve is not held only to the kernel
-    B = pruned_spmm_reference(
-        A.data, torch.stack([torch.sin(i * (0.001 * (j + 1))) for j in range(8)], dim=1),
-        A.offsets, A.tile_ptr, n, n, "cols", group=A.group)
-    del i
+    B = _manufactured_block(U)
     before = pruned_spmm.launches_by_layout["cols"]
     (X, info), warm = _timed(lambda: block_cg_solve(A, B, tol=0.0, rtol=1e-6, maxiter=300, M=M))
     cols = pruned_spmm.launches_by_layout["cols"] - before
@@ -3148,21 +3231,18 @@ def phase_graphed_nonsym(device, A, b, Mj, Mg):
         raise AssertionError(f"phase 23b took {secs:.1f} s, over its {GRAPHED_NONSYM_BUDGET_S} s")
 
 
-def phase_nonsym_unstructured(device, height=16_384, width=64, seed=0, beta=0.3,
-                              shift=1e-3):
+def nonsym_mesh_setup(device, height=16_384, width=64, seed=0, beta=0.3, shift=1e-3):
     """benchmarks/unstructured_nonsym.py's defaults: the skew-perturbed,
-    shuffled 1,048,576-row mesh, RCM, full pruned storage (f32), xstar_i =
-    sin(0.001 i); the skew statistic and auto_pruned_preconditioner's
-    route, then (rtol 1e-6, maxiter 500) plain BiCG-stab, BiCG-stab +
-    pruned_pair_amg (Jacobi smoother, coarse 4096), and FGMRES(32) with a
-    4-step inner BiCG-stab as a lambda and through attach_solver, which
-    must take the lambda's count."""
+    shuffled 1,048,576-row mesh, RCM, full pruned storage (f32), its skew
+    statistic, auto_pruned_preconditioner's route and pruned_pair_amg
+    (Jacobi smoother, coarse 4096), and b = A xstar with xstar_i = sin(0.001
+    i).  Returns a dict of the objects and the set-up's seconds."""
     import numpy as np
     import torch
 
     from sigma_tpu_torch import (
-        PrunedDIAMatrix, attach_solver, auto_pruned_preconditioner, bicgstab, bicgstab_solve,
-        fgmres_solve, pruned_pair_amg, reorder_triples_rcm, skew_dominance, skewed_mesh_coo,
+        PrunedDIAMatrix, auto_pruned_preconditioner, pruned_pair_amg, reorder_triples_rcm,
+        skew_dominance, skewed_mesh_coo,
     )
     from sigma_tpu_torch.ops import pruned_matvec_reference
 
@@ -3187,16 +3267,31 @@ def phase_nonsym_unstructured(device, height=16_384, width=64, seed=0, beta=0.3,
     amg = dict(coarse_size=4096, smoother="jacobi", fine_A=P)
     _, route = step("route_s", lambda: auto_pruned_preconditioner(n, pr, pc, vals, **amg))
     Mg = step("gmg_s", lambda: pruned_pair_amg(n, pr, pc, vals, **amg))
-    emit({"phase": "nonsym_unstructured_setup", "n": n, "nnz": int(pr.size), "beta": beta,
-          "skew_dominance": s_dom, "route": route["route"], "levels": len(Mg.levels) + 1,
-          "stored_slots": P.stored_slots, "seconds": secs})
-    del pr, pc, vals
     xstar = np.sin(np.arange(n) * 0.001).astype(np.float32)
     xp = np.empty_like(xstar)
     xp[p] = xstar
     # b from the plain version, so a solve is not held only to the kernel
     b = pruned_matvec_reference(P.data, torch.from_numpy(xp).to(device), P.offsets,
                                 P.tile_ptr, P.n, P.m, group=P.group)
+    return {"n": n, "nnz": int(pr.size), "beta": beta, "P": P, "Mg": Mg, "b": b, "p": p,
+            "xstar": xstar, "skew_dominance": s_dom, "route": route["route"], "seconds": secs}
+
+
+def phase_nonsym_unstructured(device):
+    """Phase 24 on :func:`nonsym_mesh_setup`'s mesh: (rtol 1e-6, maxiter
+    500) plain BiCG-stab, BiCG-stab + pruned_pair_amg, and FGMRES(32) with a
+    4-step inner BiCG-stab as a lambda and through attach_solver, which
+    must take the lambda's count.  Returns (P, b, Mg) for phase 24b."""
+    import numpy as np
+
+    from sigma_tpu_torch import attach_solver, bicgstab, bicgstab_solve, fgmres_solve
+
+    N = nonsym_mesh_setup(device)
+    n, P, Mg, b, p, xstar = (N[k] for k in ("n", "P", "Mg", "b", "p", "xstar"))
+    emit({"phase": "nonsym_unstructured_setup", "n": n, "nnz": N["nnz"], "beta": N["beta"],
+          "skew_dominance": N["skew_dominance"], "route": N["route"],
+          "levels": len(Mg.levels) + 1, "stored_slots": P.stored_slots,
+          "seconds": N["seconds"]})
 
     def inner(v):
         return bicgstab_solve(P, v, tol=0.0, rtol=0.0, maxiter=4)[0]
@@ -3226,6 +3321,30 @@ def phase_nonsym_unstructured(device, height=16_384, width=64, seed=0, beta=0.3,
         del x
     if iters["fgmres_attached"] != iters["fgmres_lambda"]:
         raise AssertionError(f"attach_solver's FGMRES took another count: {iters}")
+    return P, b, Mg
+
+
+def phase_graphed_nonsym_mesh(device, P, b, Mg):
+    """Phase 24b: phase 24's BiCG-stab + pruned multigrid (rtol 1e-6,
+    maxiter 500) eagerly and as a graphed solve, held equal
+    (:func:`_graphed_case`, timed), one host read a block.  Fails beyond
+    ``GRAPHED_NONSYM_MESH_BUDGET_S``."""
+    from sigma_tpu_torch import bicgstab_solve
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    t0 = time.perf_counter()
+    kw = dict(tol=0.0, rtol=NONSYM_RTOL, maxiter=500, M=Mg)
+    row = _graphed_case("bicgstab_pruned_gmg", bicgstab_solve, P, b, kw, timed=True,
+                        phase="graphed_nonsym_mesh")
+    _check_host_reads("graphed", {"bicgstab_pruned_gmg": row})
+    if not (row["converged"] and row["iterations"] > BLOCK):
+        raise AssertionError(f"graphed BiCG-stab + pruned multigrid: {row}")
+    secs = time.perf_counter() - t0
+    emit({"phase": "graphed_nonsym_mesh_path", "seconds": secs, "block": BLOCK,
+          "budget_s": GRAPHED_NONSYM_MESH_BUDGET_S})
+    if secs > GRAPHED_NONSYM_MESH_BUDGET_S:
+        raise AssertionError(
+            f"phase 24b took {secs:.1f} s, over its {GRAPHED_NONSYM_MESH_BUDGET_S} s")
 
 
 def phase_refinement(device, nx):
@@ -3646,17 +3765,36 @@ def phase_inverse_lanczos_mesh(device, U, lobpcg_eigs, k=24):
     return float(mus[0])
 
 
-def phase_shift_invert_mesh(device, U, mu1, k=84):
+def shifted_mesh(device, U, sigma):
+    """``U``'s f32 operator shifted by ``-sigma I`` in full pruned storage
+    (tile 16384, group 8): the operator of shift-invert's inner solves."""
+    import numpy as np
+
+    from sigma_tpu_torch import PrunedDIAMatrix
+
+    n, pr, pc = U["n"], U["pr"], U["pc"]
+    vals_sig = U["vals"].astype(np.float64)
+    vals_sig[pr == pc] -= sigma
+    return PrunedDIAMatrix.from_coo(n, n, pr, pc, vals_sig.astype(np.float32), tile_rows=16384,
+                                    group=8, assume_unique=True, device=device)
+
+
+def phase_shift_invert_mesh(device, U, mu1, k=84, k_check=4):
     """eigen_unstructured.py --refine: shift-invert Lanczos at sigma =
     0.9 mu_1 (phase 28's lowest pencil value) on the 1M-row mesh, its f64
     recurrence, basis and CSR matvecs on the card, each resolvent applied
     by 3 ladder sweeps of f32 pruned-GMG-CG (rtol 1e-6, maxiter 400) over
-    the shifted f32 operator with phase 15's unshifted hierarchy; run once,
-    cold."""
+    the shifted f32 operator with phase 15's unshifted hierarchy, as the
+    JAX package's jitted inner solve: one ``graphed(cg_solve)`` for every
+    inner solve, which captures on its first call and replays after.
+    First ``k_check`` steps with the eager inner solve and with the graphed
+    one, which must agree bit for bit (eigenvalues, residuals, every inner
+    solve's count); then ``k`` steps through the graphed inner solve, run
+    once."""
     import numpy as np
     import torch
 
-    from sigma_tpu_torch import PrunedDIAMatrix, cg_solve
+    from sigma_tpu_torch import cg_solve, graphed
     from sigma_tpu_torch.eigen import shift_invert_lanczos
 
     n, pr, pc, Mg = U["n"], U["pr"], U["pc"], U["Mf"]
@@ -3664,41 +3802,72 @@ def phase_shift_invert_mesh(device, U, mu1, k=84):
     sigma = 0.9 * mu1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    vals_sig = vals64.copy()
-    vals_sig[pr == pc] -= sigma
-    P_sig = PrunedDIAMatrix.from_coo(n, n, pr, pc, vals_sig.astype(np.float32), tile_rows=16384,
-                                     group=8, assume_unique=True, device=device)
+    P_sig = shifted_mesh(device, U, sigma)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    runs, inner_s = [], []
+    G = graphed(cg_solve)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=400, M=Mg)
 
-    def inner(r32):
+    def lanczos(steps, solve):
+        """Shift-invert Lanczos of ``steps`` steps, each inner solve by
+        ``solve``: the result, its wall seconds, each inner solve's
+        (iterations, converged), the inner solves' seconds and host reads
+        (eager: a read an iteration and two more) and the captures."""
+        out = {"runs": [], "inner_s": 0.0, "host_reads": 0, "captures": 0}
+
+        def inner(r32):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            x, info = solve(P_sig, r32, **kw)
+            torch.cuda.synchronize()
+            out["inner_s"] += time.perf_counter() - t
+            out["runs"].append((info.iterations, info.converged))
+            graph = solve is G
+            out["host_reads"] += G.host_reads if graph else info.iterations + 2
+            out["captures"] += graph and G.captured
+            return x
+
         torch.cuda.synchronize()
         t = time.perf_counter()
-        x, info = cg_solve(P_sig, r32, tol=0.0, rtol=1e-6, maxiter=400, M=Mg)
+        out["res"] = shift_invert_lanczos(n, pr, pc, vals64, sigma=sigma, m=3, k=steps,
+                                          sweeps=3, inner_solve=inner, device=device)
         torch.cuda.synchronize()
-        inner_s.append(time.perf_counter() - t)
-        runs.append((info.iterations, info.converged))
-        return x
+        out["wall_s"] = time.perf_counter() - t
+        out["s_per_iteration"] = out["inner_s"] / max(sum(r[0] for r in out["runs"]), 1)
+        return out
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = shift_invert_lanczos(n, pr, pc, vals64, sigma=sigma, m=3, k=k, sweeps=3,
-                               inner_solve=inner, device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    eager, check = lanczos(k_check, cg_solve), lanczos(k_check, G)
+    a, b = check["res"], eager["res"]
+    same = {"eigenvalues": np.array_equal(a.eigenvalues, b.eigenvalues),
+            "residuals": np.array_equal(a.residuals, b.residuals),
+            "steps": a.steps == b.steps, "inner_counts": check["runs"] == eager["runs"]}
+    emit({"phase": "eigen", "solve": "shift_invert_mesh_graphed_check", "n": n, "sigma": sigma,
+          "lanczos_steps": a.steps, **_inner_totals(check["runs"]), "bitwise_equal": same,
+          "capture_s": G.capture_seconds,
+          **{label: {k: r[k] for k in ("wall_s", "inner_s", "s_per_iteration", "host_reads",
+                                       "captures")}
+             for label, r in (("eager", eager), ("graphed", check))}})
+    if not all(same.values()) or check["captures"] != 1:
+        raise AssertionError(f"shift-invert Lanczos, eager and graphed inner solves: {same}, "
+                             f"{check['captures']} captures")
+    run = lanczos(k, G)
+    res, wall, inner_s, captures = run["res"], run["wall_s"], run["inner_s"], run["captures"]
     lam, resid = res.eigenvalues, res.residuals
     lam1_err = abs(lam[0] - MESH_SHIFT) / MESH_SHIFT
     emit({"phase": "eigen", "solve": "shift_invert_mesh", "n": n, "sigma": sigma,
-          "lanczos_steps": res.steps, **_inner_totals(runs),
+          "inner": "graphed(cg_solve)", "lanczos_steps": res.steps, **_inner_totals(run["runs"]),
           "eigenvalues": lam.tolist(), "ritz_residuals": resid.tolist(),
           "lambda1_rel_err_vs_shift": lam1_err, "basis_f64_bytes": k * n * 8,
           "tolerances": {"residual": SHIFT_INVERT_RESIDUAL, "lambda1": SHIFT_INVERT_LAMBDA1_RTOL},
-          "setup_s": setup, "wall_s_cold": wall, "inner_solve_s": sum(inner_s),
-          "recurrence_s": wall - sum(inner_s)})
+          "setup_s": setup, "wall_s_cold": wall, "inner_solve_s": inner_s,
+          "recurrence_s": wall - inner_s, "host_reads": run["host_reads"], "captures": captures,
+          "inner_s_per_iteration": run["s_per_iteration"],
+          "eager_inner_s_per_iteration": eager["s_per_iteration"]})
     if not (np.isfinite(lam).all() and resid.max() <= SHIFT_INVERT_RESIDUAL
             and lam1_err <= SHIFT_INVERT_LAMBDA1_RTOL):
         raise AssertionError(f"shift-invert Lanczos: residuals {resid}, lambda_1 err {lam1_err:.3e}")
+    if captures:
+        raise AssertionError(f"the graphed inner solve captured {captures} times more")
 
 
 # -- the preconditioner comparison and the generic AMG ----------------------
@@ -5314,6 +5483,12 @@ def main():
     zero_counts()
     phase_unstructured_cg(device, U)                        # phase 13
     paths.append(read_counts("unstructured_single_rhs", ("pruned_spmv", "pruned_sym_spmv")))
+    # the same solves and phase 14's block CG as graphed solves, held to
+    # the eager loop
+    zero_counts()
+    phase_graphed_pruned(device, U)                         # phase 13b
+    paths.append(read_counts("graphed_pruned", ("pruned_spmv", "pruned_sym_spmv",
+                                                "pruned_spmm")))
     # the unstructured multi-RHS path
     zero_counts()
     phase_unstructured_block(device, U)                     # phase 14
@@ -5377,8 +5552,12 @@ def main():
     phase_graphed_nonsym(device, A23, b23, Mj23, Mg23)      # phase 23b
     paths.append(read_counts("graphed_nonsym", ("dia_spmv", "givens_update")))
     zero_counts()
-    phase_nonsym_unstructured(device)                       # phase 24
+    P24, b24, Mg24 = phase_nonsym_unstructured(device)      # phase 24
     paths.append(read_counts("nonsym_unstructured", ("pruned_spmv",)))
+    zero_counts()
+    phase_graphed_nonsym_mesh(device, P24, b24, Mg24)       # phase 24b
+    paths.append(read_counts("graphed_nonsym_mesh", ("pruned_spmv",)))
+    del P24, b24, Mg24
     zero_counts()
     refine25 = phase_refinement(device, args.nx)            # phase 25
     paths.append(read_counts("refinement", ("dia_sym_spmv", "dia_spmv")))

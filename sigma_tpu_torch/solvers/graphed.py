@@ -68,7 +68,7 @@ fallback: on CUDA a capture that fails raises, and FGMRES with an
 ``attach_solver`` preconditioner (whose inner solve reads its stopping
 rule back to the host) is refused at capture, naming M's type.  Only a
 plain tensor right-hand side is graphed; the rank mesh runs the eager
-loops (``ROADMAP.md``, staged item A.2).
+loops (``ROADMAP.md``, queue 1: nested and sharded graphed solves).
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ def graphed(solve) -> "GraphedSolve":
             f"graphed() takes the solvers of sigma_tpu_torch.solvers.krylov (cg_solve, "
             f"cg_fused_solve, bicgstab_solve, minres_solve, gmres_solve, fgmres_solve, "
             f"cgls_solve, stationary_solve, block_cg_solve), not {name}: the other solves run "
-            f"their eager loops (ROADMAP.md, staged item A.2)"
+            f"their eager loops (ROADMAP.md, queue 1: the compiled loops still to port)"
         )
     return GraphedSolve(solve, loop)
 
@@ -253,7 +253,8 @@ class GraphedSolve:
         if is_sharded(b):
             raise NotImplementedError(
                 f"graphed {self.__name__} takes a plain tensor right-hand side; a vector sharded "
-                "over ranks runs the eager loop (ROADMAP.md, staged item A.2)"
+                "over ranks runs the eager loop (ROADMAP.md, queue 1: nested and sharded graphed "
+                "solves)"
             )
         loop = self._loop(*bound.args, **bound.kwargs)
         self.captured = False

@@ -1227,3 +1227,108 @@ def test_graphed_fgmres_refuses_an_attached_solver_at_capture(cuda):
         G(A, b, tol=0.0, rtol=1e-6, restart=8, M=M)
     y, again = st.fgmres_solve(A, b, tol=0.0, rtol=1e-6, restart=8, M=M)
     assert again.iterations == info.iterations and torch.equal(y, x)
+
+
+def _pruned_gmg_case(case, cuda):
+    """(solver, positional arguments, keywords) of a graphed case with the
+    pruned pair multigrid as M on a 16,384-row shuffled mesh (f32): CG on
+    full and symmetric storage, block CG with 8 column panels, and
+    BiCG-stab on the skewed mesh with the Jacobi smoother; and CG on a
+    16,320-row mesh whose level of 255 rows pads its restriction with a
+    zero (an odd extent)."""
+    height = 255 if case == "cg_full_odd_levels" else 256
+    if case == "bicgstab_skewed":
+        n, r, c, v = st.skewed_mesh_coo(height, 64, seed=0, dtype=np.float32)
+    else:
+        n, r, c, v = st.irregular_mesh_laplacian_coo(height, 64, rng=np.random.default_rng(0),
+                                                     shift=1e-3, shuffle=True)
+    pr, pc, v, _ = st.reorder_triples_rcm(n, r, c, v)
+    v = v.astype(np.float32)
+    sym = case == "cg_sym"
+    cls = st.SymmetricPrunedDIAMatrix if sym else st.PrunedDIAMatrix
+    A = cls.from_coo(n, n, pr, pc, v, tile_rows=4096, assume_unique=True, device=cuda)
+    coarse = 128 if case == "cg_full_odd_levels" else 512
+    M = st.pruned_pair_amg(n, pr, pc, v, coarse_size=coarse, tile_rows=4096, fine_A=A,
+                           symmetric=sym, smoother="jacobi" if case == "bicgstab_skewed"
+                           else "chebyshev")
+    rng = np.random.default_rng(1)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=500, M=M)
+    if case == "block_cg_full":
+        B = torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32)).to(cuda)
+        return st.block_cg_solve, (A, B), dict(kw, panels="cols")
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    if case == "bicgstab_skewed":
+        return st.bicgstab_solve, (A, b), dict(kw, history=True)
+    return st.cg_solve, (A, b), dict(kw, history=case == "cg_full")
+
+
+@pytest.mark.parametrize("case", ["cg_full", "cg_sym", "block_cg_full", "bicgstab_skewed",
+                                  "cg_full_odd_levels"])
+def test_graphed_pruned_gmg_solve_on_card_equals_eager(cuda, case):
+    """``graphed(cg_solve)``, ``graphed(block_cg_solve)`` and
+    ``graphed(bicgstab_solve)`` with ``pruned_pair_amg`` as M: the
+    capturing and the cached call bit for bit equal to the eager solve on
+    the card, with the same counts, kernel launches (#10-#12 by layout)
+    and one host read a block."""
+    from sigma_tpu_torch.ops import launch_counts, launch_difference
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    fn, args, kw = _pruned_gmg_case(case, cuda)
+    before = launch_counts()
+    x, info = fn(*args, **kw)
+    launches = launch_difference(launch_counts(), before)
+    kernel = "pruned_sym_spmv" if case == "cg_sym" else "pruned_spmv"
+    assert launches[kernel][0] > 0 and info.converged
+    G = st.graphed(fn)
+    for captured in (True, False):
+        before = launch_counts()
+        y, gi = G(*args, **kw)
+        assert G.captured == captured
+        assert launch_difference(launch_counts(), before) == launches
+        assert torch.equal(y, x) and gi.iterations == info.iterations
+        assert torch.equal(gi.residual_norm, info.residual_norm)
+        assert gi.converged == info.converged
+        assert G.host_reads == max(1, -(-info.iterations // BLOCK))
+        if info.history is not None:
+            assert torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))
+    if case == "block_cg_full":
+        assert launches["pruned_spmm"][1]["cols"] > 0
+    if case == "cg_full_odd_levels":
+        assert any(lv.dims[0] % 2 for lv in kw["M"].levels)
+
+
+class _HostReadingCycle:
+    """A pruned multigrid V-cycle that reads a norm back to the host before
+    each application: a preconditioner a captured graph cannot hold."""
+
+    def __init__(self, M):
+        self.M, self.shape = M, M.shape
+
+    def matvec(self, r):
+        if not float(torch.linalg.vector_norm(r)) >= 0.0:
+            raise FloatingPointError("NaN residual")
+        return self.M.matvec(r)
+
+
+def test_graphed_pruned_gmg_capture_failure_raises(cuda):
+    """A capture that fails raises, naming A's and M's types, and never
+    reruns the solve eagerly: no result, no graph kept, the launch counts
+    as before the call; the eager solve runs as before."""
+    from sigma_tpu_torch.ops import launch_counts, launch_difference
+    from sigma_tpu_torch.solvers.krylov import cg_loop
+
+    fn, (A, b), kw = _pruned_gmg_case("cg_full", cuda)
+    M = _HostReadingCycle(kw.pop("M"))
+    x, info = fn(A, b, M=M, **kw)
+    before = launch_counts()
+    cg_loop(A, b, M=M, **kw)
+    set_up = launch_difference(launch_counts(), before)
+    G = st.graphed(fn)
+    before = launch_counts()
+    with pytest.raises(RuntimeError, match="PrunedDIAMatrix with M=_HostReadingCycle"):
+        G(A, b, M=M, **kw)
+    assert G._graph is None and not G.captured
+    # only the set-up ran eagerly; the capture's launches were taken back
+    assert launch_difference(launch_counts(), before) == set_up
+    y, again = fn(A, b, M=M, **kw)
+    assert again.iterations == info.iterations and torch.equal(y, x)
