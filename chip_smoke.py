@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--nx 216]
 
 Builds the DIA, grouped, staged, pruned and grouped-BSR SpMV and SpMM
-kernels from ``sigma_tpu_torch/csrc/`` with nvcc (and the host library with
-g++), checks each against its plain PyTorch version on the card (every
+kernels, GMRES's Givens update and ILDU's level sweep from
+``sigma_tpu_torch/csrc/`` with nvcc (and the host library with g++),
+checks each against its plain PyTorch version on the card (every
 dtype pair; the full-storage and symmetric SpMVs at each of their load
 forms: odd strides, values or x off a 16-byte boundary, n not a whole
 number of a thread's rows or below one block, offsets at and past +-n,
@@ -135,11 +136,17 @@ drives twenty-two paths through the package's public entry points:
   (1M rows of Laplacian + I, f32 PCG on the DIA operator to rtol 1e-6)
   with Jacobi, Chebyshev(4), structured GMG, ILDU(0), ILU(1) and ILDU(0)
   after a greedy colour ordering, each ILDU apply held against the same
-  operator on the CPU and repeated for equal bits, one traced apply each;
-  then smoothed-aggregation AMG, the VMB hierarchy on that operator and
-  the greedy one on ``benchmarks/amg_setup_probe.py``'s 262,144-row CSR
-  Laplacian + I (each also on pure Poisson, where CG + AMG must take a
-  quarter of plain CG's iterations), set-up split by step, CG + AMG and
+  operator on the CPU and repeated for equal bits, one traced apply each
+  (two launches of the level-sweep kernel, ``csrc/ildu_sweep.cu``, and the
+  scale); the level-sweep kernel held first to its plain version on each
+  factor in f32 and f64 and timed beside an empty sweep, its bound and
+  cuSPARSE's triangular solve; then (phase 30b) the ILDU(0), ILU(1) and
+  colour-ordered PCGs by CG and fused CG through ``graphed``, each held
+  to the eager solve as in phase 10b; then smoothed-aggregation AMG, the
+  VMB hierarchy on that operator and the greedy one on
+  ``benchmarks/amg_setup_probe.py``'s 262,144-row CSR Laplacian + I (each
+  also on pure Poisson, where CG + AMG must take a quarter of plain CG's
+  iterations), set-up split by step, CG + AMG and
   ``amg_solve``, and the algebra's device plans held to its host products;
 - the apps (phases 32-33, no ported kernel: ELL gathers): the multicolour
   Metropolis Ising model on torus(4096, 4096) (16,777,216 sites), a cold
@@ -160,8 +167,9 @@ drives twenty-two paths through the package's public entry points:
 - the distributed layer (phase 35): a mesh of 4 shards on the card, the
   dry run, the nx=216 stencil under structured multigrid, phase 15's mesh
   in pruned storage and phase 30's operator as ELL ring blocks, each
-  against its one-shard twin; then (phase 35e) its rank form, 4 gloo
-  ranks sharing the card and an NCCL group of one rank a card, on the
+  against its one-shard twin, and its CG + block ILDU(0) (the level-sweep
+  kernel on the block-diagonal factors) through ``graphed``; then (phase
+  35e) its rank form, 4 gloo ranks sharing the card and an NCCL group of one rank a card, on the
   stencil's and the mesh's multigrid CG at the shard mesh's counts, the
   ranks' launches counted with the path's;
 - the examples (phase 36): the 14 example mains of
@@ -3999,23 +4007,161 @@ def phase_ildu3d(device, nx=100):
                               rmv=lambda q, x: q[0].rmatvec(x[q[2]])[q[1]],
                               shape=A.shape), ptr.size - 1
 
-    (M, colours), s = _timed_setup(colored)
-    Mc = M.params[0]
+    (Mp, colours), s = _timed_setup(colored)
+    Mc = Mp.params[0]
     ildu["ildu0_colored"] = Mc
-    rows["ildu0_colored"] = _ildu_row("ildu0_colored", M, A, b, {
+    rows["ildu0_colored"] = _ildu_row("ildu0_colored", Mp, A, b, {
         "colours": colours, "levels_fwd_bwd": [Mc.lower.nlev, Mc.upper.nlev],
     }, s)
     if colours != 2 or [Mc.lower.nlev, Mc.upper.nlev] != [2, 2]:
         raise AssertionError(f"colour ordering: {colours} colours, levels "
                              f"{Mc.lower.nlev} + {Mc.upper.nlev}, want 2 and 2 + 2")
-    del M
+    if rows["ildu0"]["iterations"] != JAX_ILDU3D_COUNTS["ildu0"]:
+        raise AssertionError(f"PCG + ILDU(0) took {rows['ildu0']['iterations']} iterations, "
+                             f"the JAX package's {JAX_ILDU3D_COUNTS['ildu0']}")
     checks = {label: _ildu_checks(label, M) for label, M in ildu.items()}
     emit({"phase": "ildu3d_checks", "vs_cpu_rel_err_and_rmatvec_ms": checks,
           "tolerance": ILDU_CPU_RTOL, "bitwise_repeat": True})
     fastest = min(rows, key=lambda k: rows[k]["wall_s_warm"])
     emit({"phase": "ildu3d", "fastest": fastest,
           "wall_s_warm": {k: rw["wall_s_warm"] for k, rw in rows.items()}})
-    return A, b, ildu
+    # the preconditioners as PCG takes them: the colour-ordered one through
+    # its permutation
+    return A, b, ildu, {"ildu0": ildu["ildu0"], "ilu1": ildu["ilu1"], "ildu0_colored": Mp}
+
+
+# the level sweep against its plain version on the card (f32: the
+# ILDU_CPU_RTOL precedent; f64 rounding)
+SWEEP_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
+
+
+def _sweep_library(T, b):
+    """``torch.triangular_solve`` of (I + T) as sparse CSR on the card
+    (cuSPARSE's triangular solve), the library yardstick used nowhere in
+    the port: (a callable that repeats it, its x), or (None, the reason)
+    where PyTorch refuses that form."""
+    import torch
+
+    real = T.cols != T.rows[:, None]  # unused slots point at their own row
+    r = torch.cat([T.rows[:, None].expand_as(T.cols)[real], torch.arange(T.n, device=b.device)])
+    c = torch.cat([T.cols[real], torch.arange(T.n, device=b.device)])
+    v = torch.cat([T.vals[real].to(b.dtype), torch.ones(T.n, dtype=b.dtype, device=b.device)])
+    upper = bool((T.cols[real] > T.rows[:, None].expand_as(T.cols)[real]).any())
+    csr = csr_from_coo(r, c, v, T.n, T.n)
+    try:
+        out = torch.triangular_solve(b[:, None], csr, upper=upper).solution[:, 0]
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"no library call ({type(e).__name__}: {str(e).splitlines()[0][:120]})"
+    return (lambda: torch.triangular_solve(b[:, None], csr, upper=upper)), out
+
+
+def level_sweep_checks(device, factors, emit_as="level_sweep_kernel"):
+    """The level-sweep kernel (``csrc/ildu_sweep.cu``) against its plain
+    version on the card, on each of ``factors`` ({label: ILDU operator}):
+    both triangular factors, values and vector in f32 and in f64, three
+    launches (two on the sized grid, one on the co-resident grid) bit for
+    bit, within ``SWEEP_RTOL``.  Per factor and dtype the single-launch
+    time on the grid sized to the widest level and on the co-resident grid
+    (``max_rows = n``), the plain version's, an empty
+    sweep's on each grid (the same levels, each empty: the kernel's chain
+    of grid barriers alone, ``chain_ms``, a diagnostic of this design and
+    no part of the bound), the bound (bytes: rows, the real entries' cols
+    and vals, b, x read once and written once, over 3.35 TB/s; operations:
+    a multiply and an add a real entry and a subtraction a row) and
+    ``torch.triangular_solve`` on (I + T) in sparse CSR where cuSPARSE
+    takes it.  Launches are taken back out of the count.  Returns the rows
+    by (label, factor, dtype)."""
+    import numpy as np
+    import torch
+
+    from sigma_tpu_torch.ops import level_sweep, level_sweep_reference
+
+    out = {}
+    with _uncounted(level_sweep):
+        for label, M in factors.items():
+            for side, T in (("lower", M.lower), ("upper", M.upper)):
+                for dt in (torch.float32, torch.float64):
+                    vals = T.vals.to(dt)
+                    b = torch.from_numpy(np.random.default_rng(27).standard_normal(T.n)).to(
+                        device, dt)
+                    args = (T.rows, T.cols, vals, T._ptr, b)
+                    x = level_sweep(*args, T._max_rows)
+                    ref = level_sweep_reference(*args)
+                    err = rel_err(x, ref)
+                    # a second launch, and one on the co-resident grid
+                    bitwise = bool(torch.equal(x, level_sweep(*args, T._max_rows))
+                                   and torch.equal(x, level_sweep(*args, T.n)))
+                    real = int((T.cols != T.rows[:, None]).sum())
+                    xb, vb = b.element_size(), vals.element_size()
+                    # rows; the real entries' cols and vals; b; x read once
+                    # and written once
+                    nbytes = 8 * T.n + real * (8 + vb) + 3 * xb * T.n
+                    empty = torch.zeros_like(T._ptr)
+                    row = {"phase": emit_as, "factor": label, "side": side, "dtype": str(dt),
+                           "n": T.n, "nlev": T.nlev, "width": T.cols.shape[1],
+                           "max_rows": T._max_rows, "entries": real,
+                           "max_rel_err": err,
+                           "max_abs_err": float((x.double() - ref.double()).abs().max()),
+                           "bitwise_repeat": bitwise,
+                           "kernel_ms": median_ms(lambda: level_sweep(*args, T._max_rows)),
+                           "coresident_ms": median_ms(lambda: level_sweep(*args, T.n)),
+                           "chain_ms": median_ms(
+                               lambda: level_sweep(T.rows, T.cols, vals, empty, b, T._max_rows)),
+                           "coresident_chain_ms": median_ms(
+                               lambda: level_sweep(T.rows, T.cols, vals, empty, b, T.n)),
+                           "plain_ms": median_ms(lambda: level_sweep_reference(*args), reps=3,
+                                                 warmup=1)}
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * real + T.n, dt)
+                    call, lib = _sweep_library(T, b)
+                    if call is None:
+                        row["library_ms"], row["library_note"] = None, lib
+                    else:
+                        row["library_ms"] = median_ms(call, reps=10, warmup=2)
+                        row["library_rel_err"] = rel_err(lib, ref)
+                    emit(row)
+                    if not (bitwise and err <= SWEEP_RTOL[str(dt)]):
+                        raise AssertionError(f"level sweep {label} {side} {dt}: rel err "
+                                             f"{err:.3e}, bitwise repeat {bitwise}")
+                    out[(label, side, str(dt))] = row
+    return out
+
+
+# phase 30b's time on the card, seconds: the path fails beyond it
+GRAPHED_ILDU_BUDGET_S = 40.0
+
+
+def phase_graphed_ildu(device, A, b, ops):
+    """Phase 30b: phase 30's PCG (benchmarks/ildu3d.py, nx=100, f32, rtol
+    1e-6, maxiter 200) with ILDU(0), ILU(1) and the colour-ordered ILDU(0)
+    through its permutation, by ``cg_solve`` and ``cg_fused_solve``,
+    eagerly and as graphed solves, everything held equal
+    (:func:`_graphed_case`: x bit for bit, count, residual norm,
+    ``converged``, every kernel's launches), one host read a block; ILDU(0)
+    at the JAX package's 6 iterations.  Fails beyond
+    ``GRAPHED_ILDU_BUDGET_S``."""
+    from sigma_tpu_torch import cg_fused_solve, cg_solve
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    t0 = time.perf_counter()
+    kw = dict(tol=0.0, rtol=PRECOND_RTOL, maxiter=200)
+    rows = {}
+    for label, M in ops.items():
+        for solve in (cg_solve, cg_fused_solve):
+            name = f"{solve.__name__}_{label}"
+            rows[name] = _graphed_case(name, solve, A, b, dict(kw, M=M), timed=True,
+                                       phase="graphed_ildu")
+            if not (rows[name]["converged"] and rows[name]["launches"].get("level_sweep")):
+                raise AssertionError(f"graphed {name}: {rows[name]}")
+    _check_host_reads("graphed_ildu", rows)
+    for solve in ("cg_solve", "cg_fused_solve"):
+        if rows[f"{solve}_ildu0"]["iterations"] != JAX_ILDU3D_COUNTS["ildu0"]:
+            raise AssertionError(f"graphed {solve} + ILDU(0): {rows[f'{solve}_ildu0']}")
+    secs = time.perf_counter() - t0
+    emit({"phase": "graphed_ildu_path", "seconds": secs, "block": BLOCK,
+          "budget_s": GRAPHED_ILDU_BUDGET_S})
+    if secs > GRAPHED_ILDU_BUDGET_S:
+        raise AssertionError(f"phase 30b took {secs:.1f} s, over its {GRAPHED_ILDU_BUDGET_S} s")
+    return rows
 
 
 def _timed_call(split, key, fn):
@@ -4181,6 +4327,11 @@ def phase_amg(device, A, nx_greedy=64):
     _plan_check(device)
 
 
+# device ops an ILDU matvec may run: two level sweeps and the scale (a few
+# more allowed for the profiler's own copies)
+ILDU_TRACE_OPS = 8
+
+
 def phase_ildu_trace(b, ildu):
     """One matvec of each ILDU operator under torch.profiler: the kernels
     and copies it launches and their device time against its wall (after
@@ -4210,7 +4361,11 @@ def phase_ildu_trace(b, ildu):
                 end = e
         out[label] = {"levels": M.lower.nlev + M.upper.nlev, "device_ops": len(ev),
                       "device_busy_ms": busy / 1e3, "traced_wall_ms": wall * 1e3}
-    emit({"phase": "ildu_trace", "matvec": out})
+    emit({"phase": "ildu_trace", "matvec": out, "device_ops_limit": ILDU_TRACE_OPS})
+    # two sweep launches and the scale by dinv (no longer ~5 ops a level)
+    for label, row in out.items():
+        if row["device_ops"] > ILDU_TRACE_OPS:
+            raise AssertionError(f"{label}: an ILDU matvec ran {row['device_ops']} device ops")
 
 
 # the apps path (phases 32-33): limits from the physics, not tuning
@@ -4913,7 +5068,9 @@ def phase_dist_ildu3d(device, A30, b, shards=DIST_SHARDS):
     distribute_matrix (ELL ring blocks): CG + distributed_amg (VMB
     aggregation) against CG + the same hierarchy on the CSR operator on
     the single device, equal counts; CG + distributed block ILDU(0) (no
-    single-device twin: the shards' blocks)."""
+    single-device twin: the shards' blocks), eagerly and as a graphed solve
+    held equal (:func:`_graphed_case`), after the level-sweep kernel is
+    held to its plain version on the block factors."""
     import torch
 
     from sigma_tpu_torch import CSRMatrix, cg_solve, smoothed_aggregation_amg
@@ -4954,6 +5111,15 @@ def phase_dist_ildu3d(device, A30, b, shards=DIST_SHARDS):
                          "apply_ms": median_ms(lambda: Mb.matvec(b), reps=5, warmup=1),
                          "s_per_iteration": wb / max(ib.iterations, 1)}
     emit(row)
+    # the level-sweep kernel on the block-diagonal factors (uncounted),
+    # then CG + block ILDU(0) as a graphed solve, held to the eager one
+    level_sweep_checks(device, {"block_ildu0": Mb}, emit_as="dist_level_sweep_kernel")
+    graphed_row = _graphed_case("cg_solve_block_ildu0", cg_solve, Ad, b, dict(kw, M=Mb),
+                                phase="dist_ildu3d_graphed")
+    _check_host_reads("dist_ildu3d_graphed", {"block_ildu0": graphed_row})
+    if graphed_row["iterations"] != ib.iterations or not graphed_row["launches"].get(
+            "level_sweep"):
+        raise AssertionError(f"graphed CG + block ILDU: {graphed_row}")
     return row
 
 
@@ -5418,8 +5584,8 @@ def main():
     # fails early without the package
     from sigma_tpu_torch.ops import (
         bsr_grouped_spmv, dia_spmm, dia_spmm_grouped, dia_spmv, dia_spmv_resident,
-        dia_spmv_window, dia_sym_spmm, dia_sym_spmv, givens_update, pruned_spmm, pruned_spmv,
-        pruned_sym_spmm, pruned_sym_spmv,
+        dia_spmv_window, dia_sym_spmm, dia_sym_spmv, givens_update, level_sweep, pruned_spmm,
+        pruned_spmv, pruned_sym_spmm, pruned_sym_spmv,
     )
 
     smi = phase_device()                                    # phase 0
@@ -5440,7 +5606,7 @@ def main():
                "pruned_spmm": pruned_spmm, "pruned_sym_spmm": pruned_sym_spmm,
                "dia_spmm_grouped": dia_spmm_grouped, "dia_spmv_resident": dia_spmv_resident,
                "dia_spmv_window": dia_spmv_window, "bsr_grouped_spmv": bsr_grouped_spmv,
-               "givens_update": givens_update}
+               "givens_update": givens_update, "level_sweep": level_sweep}
 
     def zero_counts():
         for fn in kernels.values():
@@ -5581,10 +5747,16 @@ def main():
     # AMG (host algebra, V-cycles on #1 and CSR transfers)
     zero_counts()
     t_path = time.perf_counter()
-    A30, b30, ildu = phase_ildu3d(device)                   # phase 30
+    A30, b30, ildu, ops30 = phase_ildu3d(device)            # phase 30
+    # the level-sweep kernel held to its plain version on phase 30's
+    # factors (uncounted), then the same PCGs as graphed solves
+    sweeps = level_sweep_checks(device, {k: ildu[k] for k in ("ildu0", "ilu1", "ildu0_colored")})
+    rows["level_sweep"] = sweeps[("ildu0", "lower", "torch.float32")]
+    phase_graphed_ildu(device, A30, b30, ops30)             # phase 30b
+    del ops30
     phase_amg(device, A30)                                  # phase 31
     phase_ildu_trace(b30, ildu)
-    paths.append(read_counts("preconditioners", ("dia_spmv",)))
+    paths.append(read_counts("preconditioners", ("dia_spmv", "level_sweep")))
     emit({"phase": "preconditioners_path", "seconds": time.perf_counter() - t_path})
     del ildu
     # the apps: Ising and self-avoiding walks (ELL gathers, no ported kernel)
@@ -5614,7 +5786,8 @@ def main():
     phase_dist_ranks(device, args.nx, U15, kernels, stencil35, mesh35)  # phase 35e
     del stencil35, mesh35
     paths.append(read_counts("distributed", ("dia_spmv", "pruned_spmv", "pruned_spmm",
-                                             "pruned_sym_spmv", "pruned_sym_spmm")))
+                                             "pruned_sym_spmv", "pruned_sym_spmm",
+                                             "level_sweep")))
     emit({"phase": "distributed_path", "seconds": time.perf_counter() - t_path})
     del U15, A30, b30
     # the examples: each main and entry() on the card against its CPU run,
@@ -5653,6 +5826,9 @@ def main():
         "bsr_grouped_spmv": ("bsr_grouped.cu", "sigma_tpu/ops/bsr_pallas.py:59"),
         # no pallas_call: the device form of the JAX GMRES loop's Givens update
         "givens_update": ("givens.cu", "sigma_tpu/solvers/krylov.py:357"),
+        # no pallas_call: the device form of the JAX ILDU sweeps' fori_loop
+        "level_sweep": ("ildu_sweep.cu",
+                        "sigma_tpu/solvers/ildu.py:306 and sigma_tpu/parallel/precond.py:73"),
     }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "spmm_summary_layouts": summary_layouts})

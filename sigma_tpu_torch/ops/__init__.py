@@ -27,6 +27,11 @@
   step (no Pallas kernel: the device form of the JAX package's
   ``_givens_update``) with its plain version; every GMRES and FGMRES step
   calls it.
+* :mod:`sigma_tpu_torch.ops.ildu_sweep` — ILDU's level-scheduled
+  triangular sweep, one cooperative launch a sweep (no Pallas kernel: the
+  device form of the JAX package's ``fori_loop`` over the levels in
+  ``TriangularLevels.solve`` and the block ILDU's ``shard_map`` sweep) with
+  its plain version; every ILDU, ILU(k) and block-ILDU apply calls it.
 """
 
 import torch
@@ -40,6 +45,7 @@ from sigma_tpu_torch.ops.bsr_grouped import (
     bsr_grouped_spmv_reference,
 )
 from sigma_tpu_torch.ops.givens import givens_update, givens_update_reference
+from sigma_tpu_torch.ops.ildu_sweep import level_sweep, level_sweep_reference
 from sigma_tpu_torch.ops.spmm_dia import (
     GROUPED_LAYOUTS,
     LAYOUTS,
@@ -87,7 +93,7 @@ from sigma_tpu_torch.ops.spmv_dia import (
 COUNTED = (
     "dia_spmv", "dia_sym_spmv", "dia_spmv_resident", "dia_spmv_window", "dia_spmm",
     "dia_sym_spmm", "dia_spmm_grouped", "pruned_spmv", "pruned_sym_spmv", "pruned_spmm",
-    "pruned_sym_spmm", "bsr_grouped_spmv", "givens_update",
+    "pruned_sym_spmm", "bsr_grouped_spmv", "givens_update", "level_sweep",
 )
 
 
@@ -161,6 +167,8 @@ __all__ = [
     "interleave_panels",
     "launch_counts",
     "launch_difference",
+    "level_sweep",
+    "level_sweep_reference",
     "pruned_matvec_reference",
     "pruned_spmm",
     "pruned_spmm_reference",

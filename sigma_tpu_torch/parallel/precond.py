@@ -13,8 +13,12 @@ because one ``shard_map`` program sweeps all shards side by side.  The
 port packs the shards' factors as one block-diagonal system
 (:class:`~sigma_tpu_torch.solvers.ildu.TriangularLevels`): no entry
 couples two shards, so its dependency levels are the shards' own, and
-level l of every shard runs in the same launches, as in the JAX program.
-On a rank mesh each rank factorizes and sweeps its own block alone.
+level l of every shard runs in the same step, as in the JAX program: on
+the card each sweep is one launch of the level-sweep kernel
+(:func:`~sigma_tpu_torch.ops.ildu_sweep.level_sweep`, the counterpart of
+the ``fori_loop`` inside the JAX package's ``shard_map``), which reads
+nothing back, so the apply runs under a captured graph.  On a rank mesh
+each rank factorizes and sweeps its own block alone.
 """
 
 from __future__ import annotations

@@ -46,6 +46,11 @@ right-hand side,
    hook then gives x and the residual norm from the buffers (block CG's
    best iterate, out of its panel layout).
 
+Any preconditioner whose apply reads nothing back is captured with the
+loop: the GMG and pruned multigrid V-cycles, Jacobi, Chebyshev, and ILDU,
+ILU(k), the colour-ordered ILDU and the shard mesh's block ILDU (one
+launch of the level-sweep kernel a triangular sweep).
+
 The count is exact and the results are the eager solver's bit for bit:
 the same operations in the same order on the same buffers' values.  A
 later call with new right-hand side or start copies the new initial

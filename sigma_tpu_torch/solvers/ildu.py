@@ -23,11 +23,20 @@ with level-of-fill ILU(k), and for SPD A zero fill is incomplete Cholesky.
   scatter XLA drops; torch has no dropping scatter, so the port packs the
   levels without sentinels (no discard slot, and no work on pad rows).
 
-The level loop is a Python loop over the levels with no host read: the
-7-point 3-D Laplacian at nx=100 has 298 levels a sweep in natural order,
-so each apply is thousands of small launches.  A colour ordering
+On the card ``solve`` is one launch of the level-sweep kernel
+(:func:`~sigma_tpu_torch.ops.ildu_sweep.level_sweep`,
+``csrc/ildu_sweep.cu``), the counterpart of the JAX package's
+``fori_loop`` over the levels: a persistent grid walks the levels with a
+grid-wide barrier between two, reading nothing back, so an ILDU apply is
+two launches and the scale by ``dinv``, and it runs under a captured
+graph (:func:`~sigma_tpu_torch.solvers.graphed.graphed`).  On the CPU it
+runs the kernel's plain version, the loop of one batched update a level.
+The 7-point 3-D Laplacian at nx=100 has 298 levels a sweep in natural
+order, each a grid barrier on the card; a colour ordering
 (:func:`~sigma_tpu_torch.graph.permutations.greedy_color_ordering`)
 collapses the levels to at most the colours (2 + 2 on that stencil).
+``solve_t`` (the rmatvec's scatter sweep) is still a Python loop of
+launches a level.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 from sigma_tpu_torch import native
 from sigma_tpu_torch.graph.graph import host_csr
 from sigma_tpu_torch.operators.linear_operator import LinearOperator, MatvecOperator
+from sigma_tpu_torch.ops.ildu_sweep import level_sweep
 from sigma_tpu_torch.solvers.base import LinearSolver
 from sigma_tpu_torch.solvers.krylov import SolveInfo
 from sigma_tpu_torch.utils import ordered_sum
@@ -242,6 +252,10 @@ class TriangularLevels:
     # solve_t's fixed-order sum plan of each level's scatter targets, built
     # once off the CPU (None on the CPU, which adds with index_add_)
     _plans: Optional[tuple] = dataclasses.field(init=False, repr=False)
+    # level_ptr on the device, for the sweep kernel
+    _ptr: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # the rows of the widest level, which size the sweep kernel's grid
+    _max_rows: int = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         plans = None
@@ -249,6 +263,10 @@ class TriangularLevels:
             plans = tuple(ordered_sum.sum_plan(self.cols[lo:hi].reshape(-1), self.cols.device)
                           for lo, hi in self._bounds())
         object.__setattr__(self, "_plans", plans)
+        object.__setattr__(self, "_ptr", torch.tensor(self.level_ptr, dtype=torch.int64,
+                                                      device=self.cols.device))
+        object.__setattr__(self, "_max_rows", max((hi - lo for lo, hi in self._bounds()),
+                                                  default=0))
 
     @classmethod
     def from_csr(cls, indptr, indices, data, n, reverse: bool, dtype, device=None):
@@ -278,13 +296,9 @@ class TriangularLevels:
         return zip(self.level_ptr[:-1], self.level_ptr[1:])
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """x solving (I + T) x = b, one batched update a level."""
-        x = torch.zeros_like(b)
-        bl = b[self.rows]  # b in level order
-        for lo, hi in self._bounds():
-            acc = (self.vals[lo:hi] * x[self.cols[lo:hi]]).sum(-1)
-            x[self.rows[lo:hi]] = (bl[lo:hi] - acc).to(x.dtype)
-        return x
+        """x solving (I + T) x = b: one launch of the level-sweep kernel on
+        the card, one batched update a level on the CPU."""
+        return level_sweep(self.rows, self.cols, self.vals, self._ptr, b, self._max_rows)
 
     def solve_t(self, b: torch.Tensor) -> torch.Tensor:
         """x solving (I + T)^T x = b on the same packed levels, walked in
@@ -305,7 +319,8 @@ class TriangularLevels:
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class ILDUPreconditioner(LinearOperator):
     """Applies z = (L D U)^{-1} r: the forward sweep, D^{-1}, the backward
-    sweep (the reference's ``ldu_solve``)."""
+    sweep (the reference's ``ldu_solve``); on the card two launches of the
+    level-sweep kernel and the scale."""
 
     lower: TriangularLevels
     dinv: torch.Tensor

@@ -1332,3 +1332,152 @@ def test_graphed_pruned_gmg_capture_failure_raises(cuda):
     assert launch_difference(launch_counts(), before) == set_up
     y, again = fn(A, b, M=M, **kw)
     assert again.iterations == info.iterations and torch.equal(y, x)
+
+
+def _sweep_factors(kind, nx=12):
+    """ILDU's packed triangular systems on the CPU (f64) for the level-sweep
+    checks: the lower and upper factors of the 7-point Laplacian + I at
+    nx^3 in natural order (ILDU(0) or ILU(1)), after a colour ordering, or
+    of its block ILDU over 4 shards."""
+    A = st.laplacian_3d_dia(nx, torch.float64, device="cpu")
+    r, c, v = A.entries()
+    keep = v != 0
+    r, c, v, n = r[keep], c[keep], v[keep], nx ** 3
+    if kind == "colored":
+        C = st.CSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
+        p, _ = st.greedy_color_ordering(C.graph)
+        r, c = p[r], p[c]
+    C = st.CSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float64, device="cpu")
+    if kind == "block":
+        from sigma_tpu_torch.parallel import distributed_block_ildu, make_mesh
+
+        M = distributed_block_ildu(C, make_mesh(4, device="cpu"))
+    else:
+        M = st.ldu(level=1 if kind == "ilu1" else 0).setup(C)
+    return M.lower, M.upper
+
+
+def _on(T, device, vdtype):
+    return (T.rows.to(device), T.cols.to(device), T.vals.to(device, vdtype),
+            T._ptr.to(device))
+
+
+SWEEP_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
+               (torch.float32, torch.float64)]
+
+
+@pytest.mark.parametrize("pair", SWEEP_PAIRS, ids=str)
+@pytest.mark.parametrize("kind", ["ildu0", "ilu1", "colored", "block"])
+def test_level_sweep_kernel(cuda, pair, kind):
+    """The level-sweep kernel against its plain version on the card, on
+    both factors: within 1e-12 relative with an f64 vector, 1e-5 with an
+    f32 one; two launches give the same bits; one launch a sweep."""
+    from sigma_tpu_torch.ops import level_sweep, level_sweep_reference
+
+    vdt, xdt = pair
+    rng = np.random.default_rng(27)
+    for T in _sweep_factors(kind):
+        rows, cols, vals, ptr = _on(T, cuda, vdt)
+        b = torch.from_numpy(rng.standard_normal(T.n)).to(cuda, xdt)
+        before = level_sweep.launches
+        x = level_sweep(rows, cols, vals, ptr, b, T._max_rows)
+        again = level_sweep(rows, cols, vals, ptr, b, T.n)  # the co-resident grid
+        assert level_sweep.launches - before == 2
+        assert x.dtype == xdt and torch.equal(x, again)
+        assert rel(x, level_sweep_reference(rows, cols, vals, ptr, b)) <= _tol(xdt)
+
+
+@pytest.mark.parametrize("pair", SWEEP_PAIRS, ids=str)
+def test_level_sweep_kernel_edge_cases(cuda, pair):
+    """Empty levels (first, inside, last) leave the sweep unchanged, and
+    n = 0 gives an empty x."""
+    from sigma_tpu_torch.ops import level_sweep, level_sweep_reference
+
+    vdt, xdt = pair
+    T = _sweep_factors("ildu0", nx=5)[0]
+    rows, cols, vals, ptr = _on(T, cuda, vdt)
+    p = list(T.level_ptr)
+    padded = torch.tensor([0] + p[:3] + [p[3]] * 3 + p[3:] + [p[-1]], device=cuda)
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(T.n)).to(cuda, xdt)
+    x = level_sweep(rows, cols, vals, ptr, b, T._max_rows)
+    y = level_sweep(rows, cols, vals, padded, b, T._max_rows)
+    assert torch.equal(x, y)
+    assert rel(y, level_sweep_reference(rows, cols, vals, padded, b)) <= _tol(xdt)
+    e = torch.empty(0, dtype=torch.int64, device=cuda)
+    z = level_sweep(e, e.view(0, 1), torch.empty(0, 1, dtype=vdt, device=cuda),
+                    torch.zeros(2, dtype=torch.int64, device=cuda),
+                    torch.empty(0, dtype=xdt, device=cuda), 0)
+    assert z.shape == (0,) and z.dtype == xdt
+
+
+def test_level_sweep_rejects_what_it_does_not_take(cuda):
+    """A CUDA pair the kernel lacks raises naming it, with no launch and
+    no fallback to the plain version; so do operands on two devices."""
+    from sigma_tpu_torch.ops import level_sweep
+
+    T = _sweep_factors("ildu0", nx=5)[0]
+    before = level_sweep.launches
+    for vdt, xdt in ((torch.float64, torch.float32), (torch.bfloat16, torch.float32),
+                     (torch.float16, torch.float16)):
+        rows, cols, vals, ptr = _on(T, cuda, vdt)
+        b = torch.ones(T.n, dtype=xdt, device=cuda)
+        with pytest.raises(TypeError, match=str(vdt)):
+            level_sweep(rows, cols, vals, ptr, b, T._max_rows)
+    rows, cols, vals, ptr = _on(T, cuda, torch.float32)
+    with pytest.raises(ValueError, match="different devices"):
+        level_sweep(rows, cols, vals, ptr.cpu(), torch.ones(T.n, device=cuda), T._max_rows)
+    assert level_sweep.launches == before
+
+
+@pytest.mark.parametrize("solver", ["cg_solve", "cg_fused_solve"])
+@pytest.mark.parametrize("kind", ["ildu0", "ilu1", "colored", "block"])
+def test_graphed_ildu_solve_on_card_equals_eager(cuda, kind, solver):
+    """``graphed(cg_solve)`` and ``graphed(cg_fused_solve)`` with ILDU(0),
+    ILU(1), colour-ordered ILDU(0) (through the permutation) and the block
+    ILDU of a 4-shard mesh (on its ELL operator) as M, f32 on the 7-point
+    Laplacian + I: the capturing and the cached call bit for bit equal to
+    the eager solve, with the same counts and kernel launches (two sweeps
+    an apply) and one host read a block."""
+    from sigma_tpu_torch.ops import launch_counts, launch_difference
+    from sigma_tpu_torch.solvers.graphed import BLOCK
+
+    nx = 16
+    n = nx ** 3
+    A = st.laplacian_3d_dia(nx, torch.float32, device=cuda)
+    r, c, v = A.entries()
+    keep = v != 0
+    r, c, v = r[keep], c[keep], v[keep]
+    C = st.CSRMatrix.from_coo(n, n, r, c, v, dtype=torch.float32, device=cuda)
+    if kind == "colored":
+        p, _ = st.greedy_color_ordering(C.graph)
+        pt = torch.from_numpy(p).to(cuda)
+        Mc = st.ldu().setup(st.CSRMatrix.from_coo(n, n, p[r], p[c], v, dtype=torch.float32,
+                                                  device=cuda))
+        M = st.MatvecOperator(params=(Mc, pt, torch.argsort(pt)),
+                              mv=lambda q, x: q[0].matvec(x[q[2]])[q[1]], rmv=None,
+                              shape=A.shape)
+    elif kind == "block":
+        from sigma_tpu_torch.parallel import distribute_matrix, distributed_block_ildu, make_mesh
+
+        mesh = make_mesh(4, device=cuda)
+        M = distributed_block_ildu(C, mesh)
+        A = distribute_matrix(C, mesh)
+    else:
+        M = st.ldu(level=1 if kind == "ilu1" else 0).setup(C)
+    b = torch.sin(torch.arange(n, dtype=torch.float32, device=cuda) * 0.37)
+    fn = getattr(st, solver)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=200, M=M)
+    before = launch_counts()
+    x, info = fn(A, b, **kw)
+    launches = launch_difference(launch_counts(), before)
+    assert info.converged and launches["level_sweep"][0] == 2 * (info.iterations + 1)
+    G = st.graphed(fn)
+    for captured in (True, False):
+        before = launch_counts()
+        y, gi = G(A, b, **kw)
+        assert G.captured == captured
+        assert launch_difference(launch_counts(), before) == launches
+        assert torch.equal(y, x) and gi.iterations == info.iterations
+        assert torch.equal(gi.residual_norm, info.residual_norm)
+        assert gi.converged == info.converged
+        assert G.host_reads == max(1, -(-info.iterations // BLOCK))
