@@ -4035,6 +4035,10 @@ def phase_ildu3d(device, nx=100):
 SWEEP_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
 
 
+# a widest level this wide gives the level sweep its co-resident grid
+ALL_ROWS = 1 << 40
+
+
 def _sweep_library(T, b):
     """``torch.triangular_solve`` of (I + T) as sparse CSR on the card
     (cuSPARSE's triangular solve), the library yardstick used nowhere in
@@ -4055,60 +4059,91 @@ def _sweep_library(T, b):
     return (lambda: torch.triangular_solve(b[:, None], csr, upper=upper)), out
 
 
+def _chain_levels(nlev, device):
+    """A pure chain packed as a level sweep: ``nlev`` one-row levels, row
+    i depending on row i - 1 alone (value 0.5; row 0's slot unused), so a
+    sweep of it is the dependency latency alone at that depth."""
+    import types
+
+    import torch
+
+    rows = torch.arange(nlev, device=device)
+    vals = torch.full((nlev, 1), 0.5, dtype=torch.float32, device=device)
+    vals[0] = 0.0
+    return types.SimpleNamespace(rows=rows, cols=(rows - 1).clamp_min(0)[:, None], vals=vals,
+                                 _ptr=torch.arange(nlev + 1, device=device), _max_rows=1,
+                                 n=nlev, nlev=nlev)
+
+
 def level_sweep_checks(device, factors, emit_as="level_sweep_kernel"):
     """The level-sweep kernel (``csrc/ildu_sweep.cu``) against its plain
-    version on the card, on each of ``factors`` ({label: ILDU operator}):
-    both triangular factors, values and vector in f32 and in f64, three
-    launches (two on the sized grid, one on the co-resident grid) bit for
-    bit, within ``SWEEP_RTOL``.  Per factor and dtype the single-launch
-    time on the grid sized to the widest level and on the co-resident grid
-    (``max_rows = n``), the plain version's, an empty
-    sweep's on each grid (the same levels, each empty: the kernel's chain
-    of grid barriers alone, ``chain_ms``, a diagnostic of this design and
-    no part of the bound), the bound (bytes: rows, the real entries' cols
-    and vals, b, x read once and written once, over 3.35 TB/s; operations:
-    a multiply and an add a real entry and a subtraction a row) and
-    ``torch.triangular_solve`` on (I + T) in sparse CSR where cuSPARSE
-    takes it.  Launches are taken back out of the count.  Returns the rows
-    by (label, factor, dtype)."""
+    version on the card, on each of ``factors`` ({label: ILDU operator,
+    both triangular factors taken, or a packed system such as
+    :func:`_chain_levels`'s}): values and vector in f32 and in f64, three
+    launches (two on the grid sized from the widest level, one on the
+    co-resident grid) bit for bit, within ``SWEEP_RTOL``, and bit for bit
+    the kernel's arithmetic done in torch on the card, a level at a time
+    (``level_sweep_slot_order``: ``slot_order_bitwise``).  Per factor and
+    dtype the single-launch time on the sized grid and on the co-resident
+    grid (``max_rows = n``), each grid's blocks, the plain version's
+    time, ``chain_ms`` and ``coresident_chain_ms`` (a pure chain of
+    ``nlev`` one-row levels, each depending on the one before, on each
+    grid: the dependency latency alone at the factor's depth, a
+    diagnostic of the design and no part of the bound), the bound (bytes:
+    rows, the real entries' cols and vals, b, x read once and written
+    once, over 3.35 TB/s; operations: a multiply and an add a real entry
+    and a subtraction a row) and ``torch.triangular_solve`` on (I + T) in
+    sparse CSR where cuSPARSE takes it.  Launches are taken back out of
+    the count.  Returns the rows by (label, side, dtype)."""
     import numpy as np
     import torch
 
-    from sigma_tpu_torch.ops import level_sweep, level_sweep_reference
+    from sigma_tpu_torch.ops import (
+        level_sweep, level_sweep_blocks, level_sweep_reference, level_sweep_slot_order,
+    )
 
-    out = {}
+    out, chains = {}, {}
     with _uncounted(level_sweep):
         for label, M in factors.items():
-            for side, T in (("lower", M.lower), ("upper", M.upper)):
+            sides = (("lower", M.lower), ("upper", M.upper)) if hasattr(M, "lower") else (
+                ("chain", M),)
+            for side, T in sides:
+                if T.nlev not in chains:
+                    chains[T.nlev] = _chain_levels(T.nlev, device)
+                C = chains[T.nlev]
                 for dt in (torch.float32, torch.float64):
                     vals = T.vals.to(dt)
                     b = torch.from_numpy(np.random.default_rng(27).standard_normal(T.n)).to(
                         device, dt)
                     args = (T.rows, T.cols, vals, T._ptr, b)
+                    chain = (C.rows, C.cols, C.vals.to(dt), C._ptr, b[:C.n])
                     x = level_sweep(*args, T._max_rows)
                     ref = level_sweep_reference(*args)
                     err = rel_err(x, ref)
                     # a second launch, and one on the co-resident grid
                     bitwise = bool(torch.equal(x, level_sweep(*args, T._max_rows))
-                                   and torch.equal(x, level_sweep(*args, T.n)))
+                                   and torch.equal(x, level_sweep(*args, ALL_ROWS)))
+                    slot_order = bool(torch.equal(x, level_sweep_slot_order(*args)))
                     real = int((T.cols != T.rows[:, None]).sum())
                     xb, vb = b.element_size(), vals.element_size()
                     # rows; the real entries' cols and vals; b; x read once
                     # and written once
                     nbytes = 8 * T.n + real * (8 + vb) + 3 * xb * T.n
-                    empty = torch.zeros_like(T._ptr)
+                    width = T.cols.shape[1]
                     row = {"phase": emit_as, "factor": label, "side": side, "dtype": str(dt),
-                           "n": T.n, "nlev": T.nlev, "width": T.cols.shape[1],
+                           "n": T.n, "nlev": T.nlev, "width": width,
                            "max_rows": T._max_rows, "entries": real,
+                           "blocks": level_sweep_blocks(dt, dt, width, T._max_rows, device),
+                           "coresident_blocks": level_sweep_blocks(dt, dt, width, ALL_ROWS,
+                                                                   device),
                            "max_rel_err": err,
                            "max_abs_err": float((x.double() - ref.double()).abs().max()),
-                           "bitwise_repeat": bitwise,
+                           "bitwise_repeat": bitwise, "slot_order_bitwise": slot_order,
                            "kernel_ms": median_ms(lambda: level_sweep(*args, T._max_rows)),
-                           "coresident_ms": median_ms(lambda: level_sweep(*args, T.n)),
-                           "chain_ms": median_ms(
-                               lambda: level_sweep(T.rows, T.cols, vals, empty, b, T._max_rows)),
+                           "coresident_ms": median_ms(lambda: level_sweep(*args, ALL_ROWS)),
+                           "chain_ms": median_ms(lambda: level_sweep(*chain, T._max_rows)),
                            "coresident_chain_ms": median_ms(
-                               lambda: level_sweep(T.rows, T.cols, vals, empty, b, T.n)),
+                               lambda: level_sweep(*chain, ALL_ROWS)),
                            "plain_ms": median_ms(lambda: level_sweep_reference(*args), reps=3,
                                                  warmup=1)}
                     row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * real + T.n, dt)
@@ -4119,9 +4154,10 @@ def level_sweep_checks(device, factors, emit_as="level_sweep_kernel"):
                         row["library_ms"] = median_ms(call, reps=10, warmup=2)
                         row["library_rel_err"] = rel_err(lib, ref)
                     emit(row)
-                    if not (bitwise and err <= SWEEP_RTOL[str(dt)]):
+                    if not (bitwise and slot_order and err <= SWEEP_RTOL[str(dt)]):
                         raise AssertionError(f"level sweep {label} {side} {dt}: rel err "
-                                             f"{err:.3e}, bitwise repeat {bitwise}")
+                                             f"{err:.3e}, bitwise repeat {bitwise}, slot "
+                                             f"order bitwise {slot_order}")
                     out[(label, side, str(dt))] = row
     return out
 
@@ -5750,7 +5786,8 @@ def main():
     A30, b30, ildu, ops30 = phase_ildu3d(device)            # phase 30
     # the level-sweep kernel held to its plain version on phase 30's
     # factors (uncounted), then the same PCGs as graphed solves
-    sweeps = level_sweep_checks(device, {k: ildu[k] for k in ("ildu0", "ilu1", "ildu0_colored")})
+    sweeps = level_sweep_checks(device, {k: ildu[k] for k in ("ildu0", "ilu1", "ildu0_colored")}
+                                | {"chain4096": _chain_levels(4096, device)})
     rows["level_sweep"] = sweeps[("ildu0", "lower", "torch.float32")]
     phase_graphed_ildu(device, A30, b30, ops30)             # phase 30b
     del ops30

@@ -45,7 +45,12 @@ from sigma_tpu_torch.ops.bsr_grouped import (
     bsr_grouped_spmv_reference,
 )
 from sigma_tpu_torch.ops.givens import givens_update, givens_update_reference
-from sigma_tpu_torch.ops.ildu_sweep import level_sweep, level_sweep_reference
+from sigma_tpu_torch.ops.ildu_sweep import (
+    level_sweep,
+    level_sweep_blocks,
+    level_sweep_reference,
+    level_sweep_slot_order,
+)
 from sigma_tpu_torch.ops.spmm_dia import (
     GROUPED_LAYOUTS,
     LAYOUTS,
@@ -168,7 +173,9 @@ __all__ = [
     "launch_counts",
     "launch_difference",
     "level_sweep",
+    "level_sweep_blocks",
     "level_sweep_reference",
+    "level_sweep_slot_order",
     "pruned_matvec_reference",
     "pruned_spmm",
     "pruned_spmm_reference",

@@ -169,9 +169,12 @@ def library() -> ctypes.CDLL:
     lib.sigma_givens_update.argtypes = [i32, i32, *[ptr] * 10, i64, i64, i64, ptr]
     lib.sigma_givens_update.restype = i32
     # ILDU's level sweep: (device, vtype, xtype, rows, cols, vals,
-    # level_ptr, b, x, nlev, width, max_rows, stream)
-    lib.sigma_level_sweep.argtypes = [i32, i32, i32, *[ptr] * 6, i64, i64, i64, ptr]
+    # level_ptr, b, x, flag, nlev, width, max_rows, stream); its grid:
+    # (device, vtype, xtype, width, max_rows, blocks out)
+    lib.sigma_level_sweep.argtypes = [i32, i32, i32, *[ptr] * 7, i64, i64, i64, ptr]
     lib.sigma_level_sweep.restype = i32
+    lib.sigma_level_sweep_blocks.argtypes = [i32, i32, i32, i64, i64, ptr]
+    lib.sigma_level_sweep_blocks.restype = i32
     # the graphed solve loop: (device, head, bodies, predicates, nodes,
     # tail, exec out), then launch (exec, stream) and destroy (exec)
     lib.sigma_loop_graph.argtypes = [i32, ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr), i64,

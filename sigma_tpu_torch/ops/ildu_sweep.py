@@ -11,20 +11,26 @@ nx = 100 has 298 levels a sweep in natural order, so one ILDU(0) apply was
 ~3,000 launches, the device idle most of it.
 
 The CUDA kernel lives in ``sigma_tpu_torch/csrc/ildu_sweep.cu``: one
-cooperative launch a sweep, a persistent grid of co-resident blocks that
-walks the levels with a grid-wide barrier between two, x's gathers
-bypassing L1.  What bounds it: the bytes (rows, the real entries' cols
-and vals, b, x read once and written once), and in practice the chain of
-``nlev - 1`` grid barriers on a deep sweep; the design pays one launch a
-sweep and sizes the grid to the widest level, so a barrier joins no idle
-block (``chip_smoke.py``'s ``level_sweep_checks`` times it against the
+cooperative launch a sweep, a persistent grid that walks the packed slots
+in order with no barrier between levels.  Each row waits on its own
+dependencies' ready flags, with its indices, values and b already loaded;
+a flag, once set, is the complement of its row's x bits, so the poll that
+sees it set brings the value.  The wrapper allocates the flags, zeros of
+x's width beside x, on each call (one memset), so the sweep keeps no
+state and replays from a CUDA graph.  What bounds it: the bytes (rows,
+the real entries' cols and vals, b, x read once and written once), and
+in practice the chain of dependent levels on a deep sweep, a store and a
+poll through L2 each; the grid is sized from the widest level
+(``chip_smoke.py``'s ``level_sweep_checks`` times it against the
 co-resident grid).
 
 A CPU ``b`` goes to :func:`level_sweep_reference`, a CUDA one to the
 kernel, and anything the kernel does not take raises.  The kernel adds a
 row's terms in slot order with correctly rounded operations and skips the
 unused slots; the plain version's row sum may add in another order, so
-the two agree to rounding (two launches give the same bits).
+the two agree to rounding (two launches give the same bits), and
+:func:`level_sweep_slot_order` repeats the kernel's own order in torch
+ops, for checks that want its bits.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import torch
 
 from sigma_tpu_torch.ops import _build
 
-__all__ = ["level_sweep", "level_sweep_reference"]
+__all__ = [
+    "level_sweep", "level_sweep_blocks", "level_sweep_reference", "level_sweep_slot_order",
+]
 
 # (values, vector) dtype pairs the kernel takes -> its dtype codes
 _DTYPES = {
@@ -41,6 +49,8 @@ _DTYPES = {
     (torch.float64, torch.float64): (1, 1),
     (torch.float32, torch.float64): (0, 1),
 }
+# the ready flags' dtype: a word of x's width
+_FLAG = {torch.float32: torch.int32, torch.float64: torch.int64}
 
 
 def level_sweep_reference(rows, cols, vals, level_ptr, b):
@@ -52,6 +62,26 @@ def level_sweep_reference(rows, cols, vals, level_ptr, b):
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         acc = (vals[lo:hi] * x[cols[lo:hi]]).sum(-1)
         x[rows[lo:hi]] = (bl[lo:hi] - acc).to(x.dtype)
+    return x
+
+
+def level_sweep_slot_order(rows, cols, vals, level_ptr, b):
+    """:func:`level_sweep` in the kernel's own arithmetic, with torch ops
+    on any device: a level at a time, a row's real slots added in slot
+    order (a separate multiply and add each, in b's dtype; ``torch.where``
+    skips the unused slots, which point at their own row), then
+    subtracted from b.  On the card it gives the kernel's bits."""
+    x = torch.zeros_like(b)
+    bl = b[rows]  # b in level order
+    bounds = level_ptr.tolist()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        r, c = rows[lo:hi], cols[lo:hi]
+        terms = vals[lo:hi].to(b.dtype) * x[c]
+        real = c != r[:, None]
+        acc = torch.zeros_like(bl[lo:hi])
+        for j in range(c.shape[1]):
+            acc = torch.where(real[:, j], acc + terms[:, j], acc)
+        x[r] = bl[lo:hi] - acc
     return x
 
 
@@ -80,8 +110,8 @@ def level_sweep(rows, cols, vals, level_ptr, b, max_rows: int):
     pointing at the row itself with value 0; ``level_ptr`` is an int64
     tensor on b's device.  ``max_rows``, the rows of the widest level (a
     host int, so that the launch reads nothing back), sizes the kernel's
-    grid: at most the co-resident maximum, reached from ``max_rows = n``.
-    x is in b's dtype."""
+    grid (:func:`level_sweep_blocks`): at most the co-resident maximum,
+    reached from ``max_rows = n``.  x is in b's dtype."""
     _check(rows, cols, vals, level_ptr, b)
     if b.device.type == "cpu":
         return level_sweep_reference(rows, cols, vals, level_ptr, b)
@@ -98,10 +128,12 @@ def level_sweep(rows, cols, vals, level_ptr, b, max_rows: int):
     x = torch.empty_like(b)
     if n == 0:
         return x
+    # row r's ready flag: 0, then the complement of x[r]'s bits
+    flag = torch.zeros(n, dtype=_FLAG[b.dtype], device=b.device)
     dev = b.get_device()
     rc = _build.library().sigma_level_sweep(
         dev, *codes, rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), level_ptr.data_ptr(),
-        b.data_ptr(), x.data_ptr(), level_ptr.shape[0] - 1, cols.shape[1],
+        b.data_ptr(), x.data_ptr(), flag.data_ptr(), level_ptr.shape[0] - 1, cols.shape[1],
         max_rows, torch._C._cuda_getCurrentRawStream(dev),
     )
     if rc != 0:
@@ -112,4 +144,22 @@ def level_sweep(rows, cols, vals, level_ptr, b, max_rows: int):
 
 
 level_sweep.launches = 0
+
+
+def level_sweep_blocks(vdtype, xdtype, width: int, max_rows: int, device) -> int:
+    """The blocks of 256 threads that :func:`level_sweep` launches on the
+    CUDA ``device`` for values in ``vdtype``, a vector in ``xdtype``, rows
+    of ``width`` slots and a widest level of ``max_rows`` rows."""
+    import ctypes
+
+    codes = _DTYPES.get((vdtype, xdtype))
+    if codes is None:
+        raise TypeError(f"no level sweep kernel for values {vdtype} with vector {xdtype}")
+    blocks = ctypes.c_int64(0)
+    rc = _build.library().sigma_level_sweep_blocks(torch.device(device).index or 0, *codes,
+                                                   width, max_rows, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"sigma_level_sweep_blocks failed with CUDA error {rc}: "
+                           f"{_build.library().sigma_error_string(rc).decode()}")
+    return blocks.value
 

@@ -12,11 +12,12 @@ The JAX package pads every shard's level packs to the global maxima,
 because one ``shard_map`` program sweeps all shards side by side.  The
 port packs the shards' factors as one block-diagonal system
 (:class:`~sigma_tpu_torch.solvers.ildu.TriangularLevels`): no entry
-couples two shards, so its dependency levels are the shards' own, and
-level l of every shard runs in the same step, as in the JAX program: on
+couples two shards, so its dependency levels are the shards' own: on
 the card each sweep is one launch of the level-sweep kernel
 (:func:`~sigma_tpu_torch.ops.ildu_sweep.level_sweep`, the counterpart of
-the ``fori_loop`` inside the JAX package's ``shard_map``), which reads
+the ``fori_loop`` inside the JAX package's ``shard_map``), in which a
+row waits on its own dependencies' ready flags and no barrier joins the
+shards' levels, so each shard's chain runs at its own pace; it reads
 nothing back, so the apply runs under a captured graph.  On a rank mesh
 each rank factorizes and sweeps its own block alone.
 """

@@ -48,8 +48,9 @@ right-hand side,
 
 Any preconditioner whose apply reads nothing back is captured with the
 loop: the GMG and pruned multigrid V-cycles, Jacobi, Chebyshev, and ILDU,
-ILU(k), the colour-ordered ILDU and the shard mesh's block ILDU (one
-launch of the level-sweep kernel a triangular sweep).
+ILU(k), the colour-ordered ILDU and the shard mesh's block ILDU (a
+triangular sweep is one launch of the level-sweep kernel beside the
+memset of its ready flags, which the graph repeats on every replay).
 
 The count is exact and the results are the eager solver's bit for bit:
 the same operations in the same order on the same buffers' values.  A

@@ -26,13 +26,15 @@ with level-of-fill ILU(k), and for SPD A zero fill is incomplete Cholesky.
 On the card ``solve`` is one launch of the level-sweep kernel
 (:func:`~sigma_tpu_torch.ops.ildu_sweep.level_sweep`,
 ``csrc/ildu_sweep.cu``), the counterpart of the JAX package's
-``fori_loop`` over the levels: a persistent grid walks the levels with a
-grid-wide barrier between two, reading nothing back, so an ILDU apply is
-two launches and the scale by ``dinv``, and it runs under a captured
+``fori_loop`` over the levels: a persistent grid walks the packed slots
+with no barrier between levels, each row waiting on its own
+dependencies' ready flags with its indices and values already loaded,
+reading nothing back; so an ILDU apply is two launches, the memsets of
+their flags and the scale by ``dinv``, and it runs under a captured
 graph (:func:`~sigma_tpu_torch.solvers.graphed.graphed`).  On the CPU it
 runs the kernel's plain version, the loop of one batched update a level.
 The 7-point 3-D Laplacian at nx=100 has 298 levels a sweep in natural
-order, each a grid barrier on the card; a colour ordering
+order, a chain of 297 dependent steps on the card; a colour ordering
 (:func:`~sigma_tpu_torch.graph.permutations.greedy_color_ordering`)
 collapses the levels to at most the colours (2 + 2 on that stencil).
 ``solve_t`` (the rmatvec's scatter sweep) is still a Python loop of

@@ -1371,8 +1371,9 @@ SWEEP_PAIRS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
 def test_level_sweep_kernel(cuda, pair, kind):
     """The level-sweep kernel against its plain version on the card, on
     both factors: within 1e-12 relative with an f64 vector, 1e-5 with an
-    f32 one; two launches give the same bits; one launch a sweep."""
-    from sigma_tpu_torch.ops import level_sweep, level_sweep_reference
+    f32 one; two launches give the same bits, the slot-order evaluation's;
+    one launch a sweep."""
+    from sigma_tpu_torch.ops import level_sweep, level_sweep_reference, level_sweep_slot_order
 
     vdt, xdt = pair
     rng = np.random.default_rng(27)
@@ -1384,7 +1385,101 @@ def test_level_sweep_kernel(cuda, pair, kind):
         again = level_sweep(rows, cols, vals, ptr, b, T.n)  # the co-resident grid
         assert level_sweep.launches - before == 2
         assert x.dtype == xdt and torch.equal(x, again)
+        assert torch.equal(x, level_sweep_slot_order(rows, cols, vals, ptr, b))
         assert rel(x, level_sweep_reference(rows, cols, vals, ptr, b)) <= _tol(xdt)
+
+
+def _sweep_system(kind, rng):
+    """A strict lower system packed by level on the CPU (rows, cols, vals
+    f64, level_ptr): ``"chain"`` a bidiagonal chain of 4,096 one-row
+    levels; ``"straddle"`` levels of 5, 17, 33 and 1 rows eight times over,
+    so warps straddle level boundaries, each row after the first level
+    taking one row of the level before and up to two of any earlier level
+    (width 3), labels shuffled."""
+    if kind == "chain":
+        n = 4096
+        rows = np.arange(n)
+        cols = np.maximum(rows - 1, 0)[:, None]
+        vals = rng.uniform(-0.9, 0.9, (n, 1))
+        vals[0] = 0.0
+        return rows, cols, vals, np.arange(n + 1)
+    sizes = [5, 17, 33, 1] * 8
+    ptr = np.concatenate([[0], np.cumsum(sizes)])
+    n = int(ptr[-1])
+    rows = rng.permutation(n)
+    cols = np.repeat(rows[:, None], 3, axis=1)  # unused slots point at their row
+    vals = np.zeros((n, 3))
+    for lv in range(1, len(sizes)):
+        for i in range(ptr[lv], ptr[lv + 1]):
+            deps = {rows[rng.integers(ptr[lv - 1], ptr[lv])]}
+            deps |= set(rows[rng.integers(0, ptr[lv], rng.integers(0, 3))])
+            deps = rng.permutation(sorted(deps))[:3]
+            slots = rng.permutation(3)[:len(deps)]  # real slots anywhere in the row
+            cols[i, slots] = deps
+            vals[i, slots] = rng.uniform(-0.4, 0.4, len(deps))
+    return rows, cols, vals, ptr
+
+
+@pytest.mark.parametrize("pair", SWEEP_PAIRS, ids=str)
+@pytest.mark.parametrize("case", ["chain", "chain_coresident", "straddle", "one_block",
+                                  "coresident", "twice", "graph"])
+def test_level_sweep_kernel_waits_on_its_rows_dependencies(cuda, pair, case):
+    """The sweep without barriers: a chain of 4,096 one-row levels (on one
+    block and on the co-resident grid) and levels of 5, 17, 33 and 1 rows
+    (warps straddling their boundaries; on the grid sized from the widest
+    level, one block, the co-resident grid; two sweeps back to back; a
+    sweep captured in a CUDA graph and replayed three times with new b,
+    the flags zeroed on each replay), each bit for bit the slot-order
+    evaluation and within 1e-12 / 1e-5 of the plain version."""
+    from sigma_tpu_torch.ops import level_sweep, level_sweep_reference, level_sweep_slot_order
+
+    vdt, xdt = pair
+    rng = np.random.default_rng(28)
+    r, c, v, p = _sweep_system("chain" if case.startswith("chain") else "straddle", rng)
+    rows, cols, ptr = (torch.from_numpy(a).to(cuda) for a in (r, c, p))
+    vals = torch.from_numpy(v).to(cuda, vdt)
+    widest = int(np.diff(p).max())
+    max_rows = 1 << 40 if case.endswith("coresident") else 1 if case == "one_block" else widest
+
+    def new_b():
+        return torch.from_numpy(rng.standard_normal(len(r))).to(cuda, xdt)
+
+    def check(x, b):
+        assert x.dtype == xdt
+        assert torch.equal(x, level_sweep_slot_order(rows, cols, vals, ptr, b))
+        assert rel(x, level_sweep_reference(rows, cols, vals, ptr, b)) <= _tol(xdt)
+
+    before = level_sweep.launches
+    if case == "twice":
+        b1, b2 = new_b(), new_b()
+        x1 = level_sweep(rows, cols, vals, ptr, b1, max_rows)
+        x2 = level_sweep(rows, cols, vals, ptr, b2, max_rows)
+        assert level_sweep.launches - before == 2
+        check(x1, b1)
+        check(x2, b2)
+    elif case == "graph":
+        static_b = new_b()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            level_sweep(rows, cols, vals, ptr, static_b, max_rows)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = level_sweep(rows, cols, vals, ptr, static_b, max_rows)
+        assert level_sweep.launches - before == 2
+        for _ in range(3):
+            b = new_b()
+            static_b.copy_(b)
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, level_sweep(rows, cols, vals, ptr, b, max_rows))
+            check(out, b)
+    else:
+        b = new_b()
+        x = level_sweep(rows, cols, vals, ptr, b, max_rows)
+        assert level_sweep.launches - before == 1
+        check(x, b)
 
 
 @pytest.mark.parametrize("pair", SWEEP_PAIRS, ids=str)
