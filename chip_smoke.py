@@ -97,8 +97,10 @@ drives twenty-two paths through the package's public entry points:
 - the graphed nonsymmetric path (phase 23b): phase 23's BiCG-stab + Jacobi,
   BiCG-stab + GMG and GMRES(32) again through ``graphed`` (BiCG-stab 32
   iterations a replay, GMRES one restart cycle: its m Arnoldi steps and
-  the cycle's end, each under an if-node, the Givens update a kernel of
-  its own, ``csrc/givens.cu``, held first to its plain version), the
+  the cycle's end, each under an if-node, each step's scalar tail (the
+  CGS2 column and the Givens update) one one-warp launch of
+  ``csrc/givens.cu``, held first to its plain version in four dtypes at
+  m = 32 and 48 and timed by CUDA-graph replay beside an empty warp), the
   capturing and the cached call each held to the eager solve as in phase
   10b; plus BiCG-stab stopped by ``maxiter``, GMRES(8) over several
   cycles, GMRES(32) stopped inside a cycle and a zero b for each;
@@ -270,6 +272,30 @@ def device_ms(fn, launches=50, reps=5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
+
+
+def graph_ms(fn, launches=50, reps=5) -> float:
+    """Device time per launch with the host out of the way: ``launches``
+    calls captured in one CUDA graph and replayed, over ``launches``; the
+    median of ``reps`` replays after one warm replay."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times[1:])
 
 
 def copy_gbs(device) -> float:
@@ -3114,63 +3140,109 @@ def phase_nonsym_stencil(device, nx, beta=10.0):
 GRAPHED_NONSYM_BUDGET_S = 40.0
 
 
-def givens_checks(device, m=32):
-    """GMRES's Givens kernel (``csrc/givens.cu``) against its plain version
-    on the card: a whole cycle of m steps on random Hessenberg columns (one
-    with a zero subdiagonal entry, one all zero), every output bit for bit
-    in f64 and within 1e-6 relative in f32; then its single-launch time at
-    the last step beside the plain version's and the bound.  Outside the
-    counted paths.  Returns the kernel's summary row."""
+def _givens_step_inputs(j, bdtype, rng, device):
+    """Step j's (h1, h2, ||w||) of a checked cycle: random, with ||w|| zero
+    at j = 9, a breakdown (0 < ||w|| <= eps10) at j = 14, just above eps10
+    at j = 15 and an all-zero column at j = 20."""
+    import torch
+
+    eps10 = torch.finfo(bdtype).eps * 10
+    h1, h2 = (torch.from_numpy(a).to(device, bdtype) for a in rng.standard_normal((2, j + 1)))
+    wn = {9: 0.0, 14: eps10 / 2, 15: eps10 * 2}.get(j, abs(float(rng.standard_normal())))
+    if j == 20:
+        h1, h2, wn = h1 * 0, h2 * 0, 0.0
+    return h1, h2, torch.tensor(wn, device=device).to(bdtype)
+
+
+def _givens_state(m, bdtype, device):
+    """[eps10, h, d, R, cs, sn, g, est, inner, jdev] of a fresh cycle in
+    ``arnoldi_loop``'s dtypes, g[0] = 2.5."""
+    import torch
+
+    from sigma_tpu_torch.ops import givens_small_dtype
+
+    sdt = givens_small_dtype(bdtype)
+    z = [torch.zeros(s, dtype=sdt, device=device) for s in ((m + 1,), (m, m), m, m, m + 1, ())]
+    z[4][0] = 2.5
+    eps10 = torch.tensor(torch.finfo(bdtype).eps, dtype=sdt, device=device) * 10
+    return [eps10, z[0], torch.zeros((), dtype=bdtype, device=device), *z[1:],
+            torch.zeros((), dtype=torch.bool, device=device),
+            torch.zeros((), dtype=torch.int64, device=device)]
+
+
+def givens_checks(device, ms=(32, 48)):
+    """GMRES's scalar-tail kernel (``csrc/givens.cu``: one warp does the
+    CGS2 column's assembly and breakdown test, then the Givens update)
+    against its plain version on the card: whole cycles of m = 32 and 48
+    steps with b in f64, f32, bf16 and f16 on random projections (a zero
+    ||w||, a breakdown with 0 < ||w|| <= eps10, ||w|| just above eps10, an
+    all-zero column), every output bit for bit in f64 and within 1e-6
+    relative in the float32 small arrays, the column's h[j + 1], the
+    divisor, the predicate and the step count exact.  Then, f32 at the last
+    step of m = 32 (the longest chain): the kernel's device time from 50
+    launches replayed from one CUDA graph (``kernel_ms``), an empty
+    one-warp kernel's the same way (``floor_ms``), the bound, the plain
+    version's single call (``plain_ms``) and the wrapper's single call
+    (``call_ms``: the host's time, the device idle while Python checks and
+    launches).  Outside the counted paths.  Returns the kernel's summary
+    row."""
     import numpy as np
     import torch
 
-    from sigma_tpu_torch.ops import givens_update, givens_update_reference
-
-    def state(dt):
-        z = [torch.zeros(s, dtype=dt, device=device) for s in ((m, m), m, m, m + 1, ())]
-        z[3][0] = 2.5
-        return z + [torch.zeros((), dtype=torch.bool, device=device),
-                    torch.zeros((), dtype=torch.int64, device=device)]
+    from sigma_tpu_torch.ops import empty_warp, givens_update, givens_update_reference
 
     k = torch.tensor(7, device=device)
-    row = {"phase": "givens_kernel", "m": m}
+    row = {"phase": "givens_kernel", "m": list(ms)}
     worst = 0.0
-    for dt in (torch.float64, torch.float32):
-        tol = torch.tensor(1e-30, dtype=dt, device=device)
-        kern, plain = state(dt), state(dt)
-        rng = np.random.default_rng(24)
-        bitwise, rel = True, 0.0
-        for j in range(m):
-            h = torch.from_numpy(rng.standard_normal(m + 1)).to(device, dt)
-            h[j + 2:] = 0
-            if j == 9:
-                h[j + 1] = 0
-            if j == 20:
-                h.zero_()
-            givens_update(h, *kern[:5], kern[5], kern[6], k, tol, j, 1000)
-            givens_update_reference(h, *plain[:5], plain[5], plain[6], k, tol, j, 1000)
-            for a, r in zip(kern, plain):
-                bitwise &= torch.equal(a, r)
-                if a.is_floating_point():
-                    worst = max(worst, float((a.double() - r.double()).abs().max()))
-                    rel = max(rel, rel_err(a, r))
-        row[str(dt).split(".")[1]] = {"bitwise_equal": bitwise, "max_rel_err": rel}
-        if not (bitwise if dt == torch.float64 else rel <= 1e-6):
-            raise AssertionError(f"the Givens kernel differs from its plain version: {row}")
-    # time the last step (the longest chain), f32
-    kern = state(torch.float32)
-    h = torch.from_numpy(np.random.default_rng(1).standard_normal(m + 1)).to(device,
-                                                                             torch.float32)
+    for bdtype in (torch.float64, torch.float32, torch.bfloat16, torch.float16):
+        for m in ms:
+            kern, plain = _givens_state(m, bdtype, device), _givens_state(m, bdtype, device)
+            tol = torch.tensor(1e-30, dtype=kern[0].dtype, device=device)
+            rng = np.random.default_rng(24)
+            bitwise, exact, rel = True, True, 0.0
+            for j in range(m):
+                h1, h2, wn = _givens_step_inputs(j, bdtype, rng, device)
+                givens_update(h1, h2, wn, *kern, k, tol, j, 1000)
+                givens_update_reference(h1, h2, wn, *plain, k, tol, j, 1000)
+                exact &= torch.equal(kern[1][j + 1], plain[1][j + 1])
+                for a, r in zip(kern, plain):
+                    bitwise &= torch.equal(a, r)
+                    if a.is_floating_point() and a is not kern[2]:
+                        worst = max(worst, float((a.double() - r.double()).abs().max()))
+                        rel = max(rel, rel_err(a, r))
+                    else:
+                        exact &= torch.equal(a, r)
+                if j == 14:
+                    exact &= float(kern[2]) == math.inf and float(kern[1][j + 1]) == 0.0
+            name = f"{str(bdtype).split('.')[1]}_m{m}"
+            row[name] = {"bitwise_equal": bitwise, "max_rel_err": rel, "exact_scalars": exact}
+            if not exact or not (bitwise if bdtype == torch.float64 else rel <= 1e-6):
+                raise AssertionError(f"the Givens kernel differs from its plain version: {row}")
+    # time the last step of m = 32 (the longest chain of the main path), f32
+    m = 32
+    kern = _givens_state(m, torch.float32, device)
+    h1, h2, _ = _givens_step_inputs(m - 1, torch.float32, np.random.default_rng(1), device)
+    wn = torch.tensor(0.75, device=device)
     tol = torch.tensor(1e-30, device=device)
-    row["kernel_ms"] = median_ms(lambda: givens_update(h, *kern[:5], kern[5], kern[6], k, tol,
-                                                       m - 1, 1000))
-    row["plain_ms"] = median_ms(lambda: givens_update_reference(h, *kern[:5], kern[5], kern[6],
-                                                                k, tol, m - 1, 1000))
+
+    def step():
+        givens_update(h1, h2, wn, *kern, k, tol, m - 1, 1000)
+
+    row["timing"] = "f32, j = 31 of m = 32; kernel_ms, floor_ms: 50 launches replayed from " \
+                    "one CUDA graph, per launch; call_ms, plain_ms: one call between two events"
+    row["kernel_ms"] = graph_ms(step)
+    row["floor_ms"] = graph_ms(lambda: empty_warp(device))
+    row["call_ms"] = median_ms(step)
+    row["plain_ms"] = median_ms(lambda: givens_update_reference(h1, h2, wn, *kern, k, tol,
+                                                                m - 1, 1000))
     j = m - 1
-    # read h, cs, sn, g[j], k, tol; write R's column, cs[j], sn[j], g[j],
-    # g[j + 1], est, inner, jdev: 6 operations a rotation and ~14 more
-    nbytes = 4 * ((j + 2) + 2 * j + 1 + 1) + 8 + 4 * ((j + 1) + 4 + 1) + 1 + 8
-    row["bound_ms"], row["bound_by"] = bound(nbytes, 6 * j + 14, torch.float32)
+    # read h1, h2, wn (b), eps10, tol, cs, sn, g[j] (small), k; write h, R's
+    # column, cs[j], sn[j], g[j], g[j + 1], est (small), d (b), inner, jdev:
+    # j + 1 adds, 6 operations a rotation and ~16 more
+    b_, s_ = 4, 4
+    nbytes = b_ * (2 * (j + 1) + 2) + s_ * (2 + 2 * j + 1 + (j + 2) + (j + 1) + 5) + 8 + 1 + 8
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 7 * j + 16, torch.float32)
+    row["limited_by"] = "latency: one warp, one launch (kernel_ms against floor_ms)"
     row["max_abs_err"], row["library_ms"] = worst, None
     emit(row)
     return row
@@ -5861,8 +5933,9 @@ def main():
         "dia_spmv_resident": ("dia_spmv.cu", f"{pallas}:1246"),
         "dia_spmv_window": ("dia_spmv.cu", f"{pallas}:1277"),
         "bsr_grouped_spmv": ("bsr_grouped.cu", "sigma_tpu/ops/bsr_pallas.py:59"),
-        # no pallas_call: the device form of the JAX GMRES loop's Givens update
-        "givens_update": ("givens.cu", "sigma_tpu/solvers/krylov.py:357"),
+        # no pallas_call: the device form of the JAX GMRES loop's CGS2 tail and Givens update
+        "givens_update": ("givens.cu", "sigma_tpu/solvers/krylov.py:357 and "
+                                       "sigma_tpu/solvers/krylov.py:337"),
         # no pallas_call: the device form of the JAX ILDU sweeps' fori_loop
         "level_sweep": ("ildu_sweep.cu",
                         "sigma_tpu/solvers/ildu.py:306 and sigma_tpu/parallel/precond.py:73"),

@@ -23,10 +23,11 @@
   :class:`~sigma_tpu_torch.ops.bsr_grouped.GroupedBSR` operator, which
   calls it for every product; the kernel path of
   :class:`~sigma_tpu_torch.matrix.formats.BSRMatrix` (``.grouped()``).
-* :mod:`sigma_tpu_torch.ops.givens` — GMRES's Givens update of one Arnoldi
-  step (no Pallas kernel: the device form of the JAX package's
-  ``_givens_update``) with its plain version; every GMRES and FGMRES step
-  calls it.
+* :mod:`sigma_tpu_torch.ops.givens` — GMRES's scalar tail of one Arnoldi
+  step, the CGS2 column's assembly and breakdown test and the Givens
+  update, in one one-warp launch (no Pallas kernel: the device form of the
+  JAX package's ``_cgs2_column`` tail and ``_givens_update``) with its
+  plain version; every GMRES and FGMRES step calls it.
 * :mod:`sigma_tpu_torch.ops.ildu_sweep` — ILDU's level-scheduled
   triangular sweep, one cooperative launch a sweep (no Pallas kernel: the
   device form of the JAX package's ``fori_loop`` over the levels in
@@ -44,7 +45,12 @@ from sigma_tpu_torch.ops.bsr_grouped import (
     bsr_grouped_spmv,
     bsr_grouped_spmv_reference,
 )
-from sigma_tpu_torch.ops.givens import givens_update, givens_update_reference
+from sigma_tpu_torch.ops.givens import (
+    empty_warp,
+    givens_small_dtype,
+    givens_update,
+    givens_update_reference,
+)
 from sigma_tpu_torch.ops.ildu_sweep import (
     level_sweep,
     level_sweep_blocks,
@@ -167,6 +173,8 @@ __all__ = [
     "dia_sym_spmm_reference",
     "dia_sym_spmv",
     "dia_sym_spmv_reference",
+    "empty_warp",
+    "givens_small_dtype",
     "givens_update",
     "givens_update_reference",
     "interleave_panels",

@@ -164,10 +164,14 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
     ]
     lib.sigma_bsr_grouped_spmv.restype = i32
-    # GMRES's Givens update: (device, dtype, h, R, cs, sn, g, est, inner,
-    # jdev, k, tol, j, m, maxiter, stream)
-    lib.sigma_givens_update.argtypes = [i32, i32, *[ptr] * 10, i64, i64, i64, ptr]
+    # GMRES's scalar tail of an Arnoldi step: (device, b's dtype, h1, h2,
+    # wn, eps10, h, d, R, cs, sn, g, est, inner, jdev, k, tol, j, m,
+    # maxiter, stream); the empty one-warp kernel timed beside it (device,
+    # stream)
+    lib.sigma_givens_update.argtypes = [i32, i32, *[ptr] * 15, i64, i64, i64, ptr]
     lib.sigma_givens_update.restype = i32
+    lib.sigma_empty_warp.argtypes = [i32, ptr]
+    lib.sigma_empty_warp.restype = i32
     # ILDU's level sweep: (device, vtype, xtype, rows, cols, vals,
     # level_ptr, b, x, flag, nlev, width, max_rows, stream); its grid:
     # (device, vtype, xtype, width, max_rows, blocks out)

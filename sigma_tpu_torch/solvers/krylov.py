@@ -30,12 +30,11 @@ All take ``A`` and optional ``M`` as LinearOperators (``M`` applies the
 
 from __future__ import annotations
 
-import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from sigma_tpu_torch.ops.givens import givens_update
+from sigma_tpu_torch.ops.givens import givens_small_dtype, givens_update
 from sigma_tpu_torch.utils.sharded import (
     dot, gathered, is_sharded, like, local, reduced, rows_like,
 )
@@ -509,34 +508,21 @@ def minres_solve(
                                 history=history))
 
 
-def _small_dtype(dtype):
-    """The dtype of GMRES's small arrays (the Hessenberg column, the
-    rotations, the triangular factor): b's, with the 16-bit floats widened
-    to float32."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
-
-
-def _cgs2_column(V, w, j, eps10):
+def _cgs2_column(V, w, j):
     """One CGS2 Arnoldi column: project ``w`` twice against the first
     ``j + 1`` basis vectors (the rows past j are not read, so the JAX
-    package's masked (m + 1)-row products give the same h), write the
-    normalised vector as row j + 1 of ``V`` and return the Hessenberg
-    column h[0 .. j + 1] on the device, in ``eps10``'s dtype.  A breakdown
-    (``||w|| <= eps10``, ten times b's machine epsilon) gives a zero
-    column entry and a zero basis row.  Shared by GMRES and FGMRES."""
+    package's masked (m + 1)-row products give the same h).  Returns the
+    two projections and ``||w||`` as plain tensors in b's dtype (summed
+    over the ranks) and the projected ``w``; the column's assembly, its
+    breakdown test and the divisor of the next basis row are the Givens
+    kernel's (:func:`~sigma_tpu_torch.ops.givens.givens_update`).  Shared
+    by GMRES and FGMRES."""
     Vj = V[: j + 1]
     h1 = reduced(Vj @ w)
     w = w - Vj.T @ h1
     h2 = reduced(Vj @ w)
     w = w - Vj.T @ h2
-    wn = torch.linalg.vector_norm(w)
-    wn_h = gathered(wn)
-    h = torch.cat([gathered(h1 + h2), wn_h[None]]).to(eps10.dtype)
-    ok = h[j + 1] > eps10
-    # w / ||w||, or zeros (w / inf) on a breakdown, with no host read
-    V[j + 1] = w / like(torch.where(ok, wn_h, torch.full_like(wn_h, math.inf)), w)
-    h[j + 1] *= ok
-    return h
+    return gathered(h1), gathered(h2), gathered(torch.linalg.vector_norm(w)), w
 
 
 class ArnoldiState(NamedTuple):
@@ -552,7 +538,8 @@ class ArnoldiState(NamedTuple):
 
 class ArnoldiWork(NamedTuple):
     """A restart cycle's workspace, written before it is read in every
-    cycle; the small arrays are in :func:`_small_dtype`."""
+    cycle; the small arrays are in
+    :func:`~sigma_tpu_torch.ops.givens.givens_small_dtype`."""
 
     V: torch.Tensor  # (m + 1, n) basis, b's dtype
     Z: Optional[torch.Tensor]  # (m, n) preconditioned basis of FGMRES
@@ -565,6 +552,8 @@ class ArnoldiWork(NamedTuple):
     inner: torch.Tensor  # 0-d bool: the next step runs
     eye: torch.Tensor  # (m, m) identity, the padding of R
     steps: torch.Tensor  # arange(m)
+    h: torch.Tensor  # (m + 1,) the step's Hessenberg column, breakdown applied
+    d: torch.Tensor  # 0-d divisor of the next basis row, b's dtype: ||w|| or inf
 
 
 class Cycles(NamedTuple):
@@ -606,7 +595,7 @@ def arnoldi_loop(A, b, x0=None, *, tol, rtol, restart, maxiter, precondition,
     m = min(restart, n)
     maxiter = 10 * n if maxiter is None else int(maxiter)
     matvec = A.matvec
-    sdt = _small_dtype(b.dtype)
+    sdt = givens_small_dtype(b.dtype)
     dev = b.device
     tol_eff = local(_tol_eff(b, tol, rtol)).to(sdt)
     eps10 = torch.tensor(torch.finfo(b.dtype).eps, dtype=sdt, device=dev) * 10
@@ -624,7 +613,8 @@ def arnoldi_loop(A, b, x0=None, *, tol, rtol, restart, maxiter, precondition,
             rows_like(b, m + 1), rows_like(b, m) if flexible else None, small(m, m),
             small(m), small(m), small(m + 1), small(), _counter(b),
             torch.zeros((), dtype=torch.bool, device=dev),
-            torch.eye(m, dtype=sdt, device=dev), torch.arange(m, device=dev))
+            torch.eye(m, dtype=sdt, device=dev), torch.arange(m, device=dev), small(m + 1),
+            torch.zeros((), dtype=b.dtype, device=dev))
 
     def cond(s):
         return (local(s.beta) > tol_eff) & (s.k < maxiter) & s.progress
@@ -639,8 +629,14 @@ def arnoldi_loop(A, b, x0=None, *, tol, rtol, restart, maxiter, precondition,
         z = precondition(w.V[j])
         if flexible:
             w.Z[j] = z
-        h = _cgs2_column(w.V, matvec(z), j, eps10)
-        givens_update(h, w.R, w.cs, w.sn, w.g, w.est, w.inner, w.j, s.k, tol_eff, j, maxiter)
+        h1, h2, wn, v = _cgs2_column(w.V, matvec(z), j)
+        givens_update(h1, h2, wn, eps10, w.h, w.d, w.R, w.cs, w.sn, w.g, w.est, w.inner, w.j,
+                      s.k, tol_eff, j, maxiter)
+        # v / ||v||, or zeros (v / inf) on a breakdown, with no host read
+        if is_sharded(v):
+            w.V[j + 1] = v / like(w.d, v)
+        else:
+            torch.div(v, w.d, out=w.V[j + 1])
 
     def end(s, w):
         # the padded triangular system: the unused columns keep a unit

@@ -1078,41 +1078,141 @@ def test_graphed_solve_on_card_equals_eager(cuda, solver):
                 assert torch.equal(gi.history.nan_to_num(-1.0), info.history.nan_to_num(-1.0))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_givens_kernel_equals_plain_version(cuda, dtype):
-    """GMRES's Givens kernel against its plain version on the card over a
-    whole cycle of m = 32 random Hessenberg columns (one with a zero
-    subdiagonal entry, one all zero): bit for bit in f64, within 1e-6
-    relative in f32, with the same predicate and step count."""
+def _givens_state(m, bdtype, device):
+    """[eps10, h, d, R, cs, sn, g, est, inner, jdev] of a fresh cycle,
+    g[0] = 2.5."""
+    sdt = torch.float64 if bdtype == torch.float64 else torch.float32
+    z = [torch.zeros(s, dtype=sdt, device=device) for s in ((m + 1,), (m, m), m, m, m + 1, ())]
+    z[4][0] = 2.5
+    eps10 = torch.tensor(torch.finfo(bdtype).eps, dtype=sdt, device=device) * 10
+    return [eps10, z[0], torch.zeros((), dtype=bdtype, device=device), *z[1:],
+            torch.zeros((), dtype=torch.bool, device=device),
+            torch.zeros((), dtype=torch.int64, device=device)]
+
+
+def _givens_inputs(m, bdtype, device, seed=24):
+    """A cycle's (h1, h2, wn) a step: random, with ||w|| zero at j = 3, a
+    breakdown (0 < ||w|| <= eps10) at j = 5, just above eps10 at j = 6 and
+    an all-zero column at j = 7 (of 8 and more)."""
+    rng = np.random.default_rng(seed)
+    eps10 = torch.finfo(bdtype).eps * 10
+    out = []
+    for j in range(m):
+        h1, h2 = (torch.from_numpy(a).to(device, bdtype) for a in rng.standard_normal((2, j + 1)))
+        wn = abs(float(rng.standard_normal()))
+        wn = {3: 0.0, 5: eps10 / 2, 6: eps10 * 2}.get(j, wn)
+        if j == 7:
+            h1, h2, wn = h1 * 0, h2 * 0, 0.0
+        out.append((h1, h2, torch.tensor(wn, device=device).to(bdtype)))
+    return out
+
+
+def _givens_cycle(update, inputs, state, k, tol, maxiter):
+    for j, (h1, h2, wn) in enumerate(inputs):
+        update(h1, h2, wn, *state, k, tol, j, maxiter)
+
+
+@pytest.mark.parametrize("m", [8, 32, 48])
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.float64, torch.bfloat16, torch.float16],
+                         ids=str)
+def test_givens_kernel_equals_plain_version(cuda, bdtype, m):
+    """GMRES's scalar-tail kernel (one warp: the CGS2 column's assembly and
+    breakdown test, then the Givens update) against its plain version on
+    the card over a whole cycle of m steps (m = 48: past one warp's 32
+    entries) with zero, breakdown and all-zero columns: bit for bit in
+    f64, within 1e-6 relative for the float32 small arrays (b in f32, bf16
+    and f16), the same column's h[j + 1], divisor, predicate and step count
+    everywhere; one launch a step."""
     from sigma_tpu_torch.ops import givens_update, givens_update_reference
 
-    m = 32
-
-    def state():
-        z = [torch.zeros(s, dtype=dtype, device=cuda) for s in ((m, m), m, m, m + 1, ())]
-        z[3][0] = 2.5
-        return z + [torch.zeros((), dtype=torch.bool, device=cuda),
-                    torch.zeros((), dtype=torch.int64, device=cuda)]
-
-    kern, plain = state(), state()
-    k, tol = torch.tensor(7, device=cuda), torch.tensor(1e-3, dtype=dtype, device=cuda)
-    rng = np.random.default_rng(24)
+    kern, plain = _givens_state(m, bdtype, cuda), _givens_state(m, bdtype, cuda)
+    k = torch.tensor(7, device=cuda)
+    tol = torch.tensor(1e-3, dtype=kern[0].dtype, device=cuda)
+    inputs = _givens_inputs(m, bdtype, cuda)
     before = givens_update.launches
-    for j in range(m):
-        h = torch.from_numpy(rng.standard_normal(m + 1)).to(cuda, dtype)
-        h[j + 2:] = 0
-        if j == 9:
-            h[j + 1] = 0
-        if j == 20:
-            h.zero_()
-        givens_update(h, *kern[:5], kern[5], kern[6], k, tol, j, 30)
-        givens_update_reference(h, *plain[:5], plain[5], plain[6], k, tol, j, 30)
+    for j, (h1, h2, wn) in enumerate(inputs):
+        givens_update(h1, h2, wn, *kern, k, tol, j, 30)
+        givens_update_reference(h1, h2, wn, *plain, k, tol, j, 30)
         for a, r in zip(kern, plain):
-            if dtype == torch.float64 or not a.is_floating_point():
+            if bdtype == torch.float64 or not a.is_floating_point() or a is kern[2]:
                 assert torch.equal(a, r)
             else:
                 assert rel(a, r) <= 1e-6
+        assert torch.equal(kern[1][j + 1], plain[1][j + 1])
+        if j == 5:
+            assert float(kern[2]) == float("inf") and float(kern[1][j + 1]) == 0.0
     assert givens_update.launches - before == m
+
+
+def test_givens_kernel_two_launches_give_the_same_bits(cuda):
+    from sigma_tpu_torch.ops import givens_update
+
+    m, bdtype = 32, torch.float32
+    inputs = _givens_inputs(m, bdtype, cuda, seed=5)
+    states = [_givens_state(m, bdtype, cuda) for _ in range(2)]
+    k, tol = torch.tensor(0, device=cuda), torch.tensor(1e-30, device=cuda)
+    for st_ in states:
+        _givens_cycle(givens_update, inputs, st_, k, tol, 1000)
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.bfloat16], ids=str)
+def test_givens_kernel_cycle_replayed_from_a_cuda_graph(cuda, bdtype):
+    """A whole cycle of m = 32 launches captured in one CUDA graph and
+    replayed equals the eager cycle bit for bit, and the capture counts
+    its m launches once."""
+    from sigma_tpu_torch.ops import givens_update
+
+    m = 32
+    inputs = _givens_inputs(m, bdtype, cuda, seed=11)
+    eager, graphed_ = _givens_state(m, bdtype, cuda), _givens_state(m, bdtype, cuda)
+    k, tol = torch.tensor(3, device=cuda), torch.tensor(1e-30, device=cuda)
+    _givens_cycle(givens_update, inputs, eager, k, tol, 1000)
+    fresh = [t.clone() for t in graphed_]
+    torch.cuda.synchronize()
+    before = givens_update.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _givens_cycle(givens_update, inputs, graphed_, k, tol, 1000)
+    assert givens_update.launches - before == m
+    for _ in range(2):
+        for t, f in zip(graphed_, fresh):
+            t.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(graphed_, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bdtype", [torch.float64, torch.float32], ids=str)
+def test_givens_kernel_at_a_large_m(cuda, bdtype):
+    """m = 1600 (50 chunks of 32 rotations): the first steps and the last
+    one, j = 1599, on a state of random rotations, against the plain
+    version (bit for bit in f64, 1e-6 in f32); the empty one-warp kernel
+    timed beside it launches."""
+    from sigma_tpu_torch.ops import empty_warp, givens_update, givens_update_reference
+
+    m = 1600
+    rng = np.random.default_rng(3)
+    kern = _givens_state(m, bdtype, cuda)
+    theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, m)).to(cuda, kern[0].dtype)
+    kern[4].copy_(torch.cos(theta))
+    kern[5].copy_(torch.sin(theta))
+    plain = [t.clone() for t in kern]
+    k, tol = torch.tensor(0, device=cuda), torch.tensor(1e-30, dtype=kern[0].dtype, device=cuda)
+    for j in (0, 1, 2, 31, 32, 33, m - 1):
+        h1, h2 = (torch.from_numpy(a).to(cuda, bdtype) for a in rng.standard_normal((2, j + 1)))
+        wn = torch.tensor(0.5, device=cuda).to(bdtype)
+        givens_update(h1, h2, wn, *kern, k, tol, j, 10 ** 6)
+        givens_update_reference(h1, h2, wn, *plain, k, tol, j, 10 ** 6)
+        for a, r in zip(kern, plain):
+            if bdtype == torch.float64 or not a.is_floating_point():
+                assert torch.equal(a, r)
+            else:
+                assert rel(a, r) <= 1e-6
+    empty_warp(cuda)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("case", ["bicgstab_jacobi", "bicgstab_gmg", "gmres32", "gmres8_maxiter"])

@@ -169,30 +169,52 @@ def _host_givens(h, R, cs, sn, g, j):
     R[j, j] = denom
 
 
+def _state(m, dtype, bdtype=None):
+    """(h1, h2, wn, eps10, h, d, R, cs, sn, g, est, inner, jdev) of a fresh
+    cycle: the projections' placeholders empty, g[0] = 2.5."""
+    sdt = torch.float64 if dtype == torch.float64 else torch.float32
+    bdt = bdtype or dtype
+    z = functools.partial(torch.zeros, dtype=sdt)
+    eps10 = torch.tensor(torch.finfo(bdt).eps, dtype=sdt) * 10
+    g = z(m + 1)
+    g[0] = 2.5
+    return [None, None, None, eps10, z(m + 1), torch.zeros((), dtype=bdt), z(m, m), z(m), z(m),
+            g, z(()), torch.zeros((), dtype=torch.bool), torch.zeros((), dtype=torch.int64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_givens_update_plain_version_equals_the_host_arithmetic(dtype):
-    """A whole cycle of m = 8 steps on random Hessenberg columns (one with
-    a zero subdiagonal entry, one all zero): R, cs, sn, g bit for bit,
-    the estimate, the predicate and the step count."""
+    """A whole cycle of m = 8 steps on random projections (one step with a
+    zero ||w||, one all zero): the column h = [h1 + h2, ||w||] and the
+    divisor, R, cs, sn, g bit for bit, the estimate, the predicate and the
+    step count."""
     m, maxiter, k = 8, 100, 95
     rng = np.random.default_rng(3)
     npdt = np.float64 if dtype == torch.float64 else np.float32
+    eps10 = npdt(np.finfo(npdt).eps) * npdt(10)
     R, cs, sn, g = (np.zeros(s, npdt) for s in ((m, m), m, m, m + 1))
     g[0] = npdt(2.5)
     Rt, cst, snt, gt = (torch.from_numpy(a.copy()) for a in (R, cs, sn, g))
+    ht, dt = torch.zeros(m + 1, dtype=dtype), torch.zeros((), dtype=dtype)
     est, jdev = torch.zeros((), dtype=dtype), torch.zeros((), dtype=torch.int64)
     inner = torch.zeros((), dtype=torch.bool)
     kt, tol = torch.tensor(k), torch.tensor(1e-3, dtype=dtype)
     for j in range(m):
-        h = rng.standard_normal(m + 1).astype(npdt)
-        h[j + 2:] = 0
+        h1, h2 = rng.standard_normal((2, j + 1)).astype(npdt)
+        wn = npdt(abs(rng.standard_normal()))
         if j == 3:
-            h[j + 1] = 0
+            wn = npdt(0)
         if j == 5:
-            h[:] = 0
-        ht = torch.from_numpy(h.copy())
+            h1[:], h2[:], wn = 0, 0, npdt(0)
+        h = np.zeros(j + 2, npdt)
+        h[: j + 1] = h1 + h2
+        h[j + 1] = wn if wn > eps10 else 0
+        want_h, want_d = h.copy(), (wn if wn > eps10 else np.inf)
         _host_givens(h, R, cs, sn, g, j)
-        givens_update(ht, Rt, cst, snt, gt, est, inner, jdev, kt, tol, j, maxiter)
+        givens_update(torch.from_numpy(h1), torch.from_numpy(h2), torch.tensor(wn),
+                      torch.tensor(eps10), ht, dt, Rt, cst, snt, gt, est, inner, jdev, kt, tol, j,
+                      maxiter)
+        assert np.array_equal(ht[: j + 2].numpy(), want_h) and float(dt) == want_d
         for got, want in ((Rt, R), (cst, cs), (snt, sn), (gt, g)):
             assert np.array_equal(got.numpy(), want)
         assert float(est) == abs(float(g[j + 1]))
@@ -201,21 +223,110 @@ def test_givens_update_plain_version_equals_the_host_arithmetic(dtype):
     assert givens_update.launches == 0  # the CPU runs the plain version
 
 
+def _old_tail(h1, h2, wn, j, eps10):
+    """The CGS2 column's tail as the solver ran it before the kernel took
+    it: the column in the small dtype, breakdown applied, and the divisor."""
+    h = torch.cat([h1 + h2, wn[None]]).to(eps10.dtype)
+    ok = h[j + 1] > eps10
+    d = torch.where(ok, wn, torch.full_like(wn, math.inf))
+    h[j + 1] *= ok
+    return h, d
+
+
+def _old_update(h, R, cs, sn, g, est, inner, jdev, k, tol, j, maxiter):
+    """The Givens update's plain version before the kernel took the tail."""
+    m = R.shape[0]
+    cur = h[0]
+    for i in range(j):
+        c, s, nxt = cs[i], sn[i], h[i + 1]
+        R[i, j] = c * cur + s * nxt
+        cur = -s * cur + c * nxt
+    low = h[j + 1]
+    denom = torch.sqrt(cur * cur + low * low)
+    safe = denom > 0
+    one = torch.ones_like(denom)
+    c = torch.where(safe, cur / torch.where(safe, denom, one), one)
+    s = torch.where(safe, low / torch.where(safe, denom, one), torch.zeros_like(denom))
+    cs[j] = c
+    sn[j] = s
+    gj = g[j].clone()
+    g[j + 1] = -s * gj
+    g[j] = c * gj
+    R[j, j] = denom
+    est.copy_(g[j + 1].abs())
+    inner.copy_((est > tol) & (j + 1 < m) & (k + (j + 1) < maxiter))
+    jdev.fill_(j + 1)
+
+
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.float64, torch.bfloat16, torch.float16],
+                         ids=str)
+def test_givens_update_plain_version_equals_the_old_tail_and_update(bdtype):
+    """The plain version against the solver's old tail ops followed by the
+    old plain update, bit for bit, over a cycle of m = 12 steps in each of
+    b's dtypes: a zero ||w||, a breakdown (0 < ||w|| <= eps10: h[j + 1] = 0,
+    divisor inf), ||w|| just above eps10, an all-zero column; then the
+    basis row w / d the same."""
+    m, maxiter = 12, 50
+    rng = np.random.default_rng(29)
+    new = _state(m, bdtype)
+    old = _state(m, bdtype)
+    eps10 = new[3]
+    k, tol = torch.tensor(40), torch.tensor(1e-4, dtype=eps10.dtype)
+    for j in range(m):
+        h1, h2 = (torch.from_numpy(a).to(bdtype) for a in rng.standard_normal((2, j + 1)))
+        wn = torch.tensor(abs(rng.standard_normal())).to(bdtype)
+        if j == 2:
+            wn = torch.zeros((), dtype=bdtype)
+        if j == 4:
+            wn = (eps10 / 2).to(bdtype)  # a breakdown, though not zero
+        if j == 6:
+            wn = (eps10 * 2).to(bdtype)
+        if j == 8:
+            h1, h2, wn = h1 * 0, h2 * 0, wn * 0
+        givens_update(h1, h2, wn, *new[3:], k, tol, j, maxiter)
+        h, d = _old_tail(h1, h2, wn, j, eps10)
+        _old_update(h, *old[6:], k, tol, j, maxiter)
+        assert torch.equal(new[4][: j + 2], h) and torch.equal(new[5], d)
+        for a, b in zip(new[6:], old[6:]):
+            assert torch.equal(a, b)
+        if j == 4:
+            assert float(d) == math.inf and float(h[j + 1]) == 0.0
+        w = torch.from_numpy(rng.standard_normal(16)).to(bdtype)
+        assert torch.equal(torch.div(w, new[5], out=torch.empty_like(w)), w / d)
+    assert givens_update.launches == 0
+
+
 def test_givens_update_refuses_what_the_kernel_does_not_take():
     m = 4
     z = functools.partial(torch.zeros, dtype=torch.float32)
-    args = [z(m + 1), z(m, m), z(m), z(m), z(m + 1), z(()),
+    args = [z(1), z(1), z(()), z(()), z(m + 1), z(()), z(m, m), z(m), z(m), z(m + 1), z(()),
             torch.zeros((), dtype=torch.bool), torch.zeros((), dtype=torch.int64),
             torch.zeros((), dtype=torch.int64), z(())]
     with pytest.raises(ValueError):
         givens_update(*args, m, 10)  # j past the cycle
+    with pytest.raises(ValueError):
+        givens_update(*args, 1, 10)  # h1 and h2 of j entries, not j + 1
     bad = list(args)
-    bad[1] = torch.zeros(m, m, dtype=torch.float64)
+    bad[6] = torch.zeros(m, m, dtype=torch.float64)
     with pytest.raises(TypeError):
-        givens_update(*bad, 0, 10)
+        givens_update(*bad, 0, 10)  # R not in the small dtype
     bad = list(args)
-    bad[6] = torch.zeros((), dtype=torch.int64)
+    bad[11] = torch.zeros((), dtype=torch.int64)
     with pytest.raises(TypeError):
-        givens_update(*bad, 0, 10)
+        givens_update(*bad, 0, 10)  # inner not bool
+    bad = list(args)
+    bad[5] = torch.zeros((), dtype=torch.float64)
+    with pytest.raises(TypeError):
+        givens_update(*bad, 0, 10)  # d not in b's dtype
+    bad = list(args)
+    bad[0], bad[1], bad[2], bad[5] = (torch.zeros(s, dtype=torch.int32) for s in (1, 1, (), ()))
+    with pytest.raises(TypeError):
+        givens_update(*bad, 0, 10)  # b's dtype not one the kernel takes
+    bad = list(args)
+    bad[3] = torch.zeros((), dtype=torch.float64)
+    with pytest.raises(TypeError):
+        givens_update(*[t.to(torch.bfloat16) if i in (0, 1, 2, 5) else t
+                        for i, t in enumerate(bad)], 0, 10)  # bf16 b, eps10 not float32
     givens_update_reference(*args, 0, 10)  # all zero: the identity rotation
-    assert float(args[2][0]) == 1.0 and float(args[3][0]) == 0.0 and not math.isnan(args[5])
+    assert float(args[7][0]) == 1.0 and float(args[8][0]) == 0.0 and not math.isnan(args[10])
+    assert float(args[5]) == math.inf and float(args[4][1]) == 0.0  # a breakdown

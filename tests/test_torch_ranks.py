@@ -229,6 +229,9 @@ def _on_ranks(mesh, I, carried):
     A, b = I["nonsym"]
     An = tp.distribute_matrix(csr(A), mesh)
     solve("gmres", An, b, st.gmres_solve, 300, tol=1e-9, restart=16)
+    for restart in (8, 48):  # several cycles; m past one warp's 32 entries
+        solve(f"gmres{restart}", An, b, st.gmres_solve, 300, tol=1e-9, restart=restart)
+        solve(f"fgmres{restart}", An, b, st.fgmres_solve, 300, tol=1e-9, restart=restart)
     solve("bicgstab", An, b, st.bicgstab_solve, 300, tol=1e-13, maxiter=600)
     A, b = I["minres"]
     solve("minres", tp.distribute_matrix(csr(A), mesh), b, st.minres_solve, 300, tol=1e-9)
@@ -403,6 +406,20 @@ def krylov(jx, I, P, L):
 
 
 @reference
+def one_shard_gmres(jx, I, P, L):
+    """GMRES and FGMRES on the nonsymmetric operator on one device, the
+    ranks' twin."""
+    A, b = I["nonsym"]
+    C = st.CSRMatrix.from_dense(A, device="cpu")
+    out = {}
+    for restart in (8, 48):
+        for name, fn in (("gmres", st.gmres_solve), ("fgmres", st.fgmres_solve)):
+            x, info = fn(C, torch.from_numpy(b), tol=1e-9, restart=restart)
+            out[f"{name}{restart}"] = (int(info.iterations), x.numpy())
+    return out
+
+
+@reference
 def gmg(jx, I, P, L):
     sj, _, js, jnp = jx
     dims, _, b = I["gmg"]
@@ -573,6 +590,16 @@ def test_krylov_solves_take_the_jax_count(case, ranks):
     out, _, refs = ranks
     itj, xj, n = refs["krylov"][case]
     _solves_agree(out[case], itj, xj, n)
+
+
+@pytest.mark.parametrize("case", ["gmres8", "fgmres8", "gmres48", "fgmres48"])
+def test_rank_gmres_matches_one_shard(case, ranks):
+    """The rank form's GMRES and FGMRES (the step's projections gathered
+    over the ranks into the Givens update, the basis row divided as a
+    sharded vector) at the one-device solve's count, iterates within
+    STOL."""
+    out, _, refs = ranks
+    _solves_agree(out[case], *refs["one_shard_gmres"][case], 300)
 
 
 def test_cg_with_structured_multigrid(ranks):
